@@ -1,0 +1,27 @@
+"""Image quality metrics (port of ``nic.core.metrics``).
+
+``psnr`` defaults to the reference's ``max = 2^bits`` (256 for 8-bit);
+pass ``max_value=255.0`` for the standard convention, which reads
+``20·log10(256/255) ≈ 0.034 dB`` lower.
+"""
+
+from __future__ import annotations
+
+import torch
+
+__all__ = ["mse", "psnr"]
+
+
+def mse(a, b) -> torch.Tensor:
+    a, b = torch.as_tensor(a), torch.as_tensor(b)
+    return torch.mean((a - b) ** 2)
+
+
+def psnr(original, reconstructed, num_bits: int = 8,
+         max_value: float | None = None) -> torch.Tensor:
+    """PSNR in dB; ``max_value=None`` → the reference's 2^num_bits."""
+    if max_value is None:
+        max_value = float(2**num_bits)
+    m = mse(original, reconstructed)
+    db = 10.0 * torch.log10(max_value * max_value / torch.clamp(m, min=1e-30))
+    return torch.where(m == 0, torch.full_like(db, float("inf")), db)

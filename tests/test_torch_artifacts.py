@@ -1,0 +1,106 @@
+"""nic_torch.io against nic.io.artifacts: an artifact written by either
+package loads in the other to identical arrays, and the payload bit
+counts agree."""
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from nic.core.quant import quantize
+from nic.io import artifacts as jart
+from nic_torch.io import artifacts as tart
+from nic_torch.io.convert import params_from_jax, params_to_jax
+from test_torch_fastdecode import make_model
+
+META = {"save_name": "t", "config": {"image_size": 64, "pe_channels": 4}}
+
+
+def _quantized_model(bits, seed=61):
+    fp, mlp = make_model(seed)
+    fp = tuple(np.asarray(quantize(jnp.asarray(g), bits)) for g in fp)
+    return fp, mlp
+
+
+def _assert_same(jax_loaded, torch_loaded):
+    jmlp, jfp, jmeta = jax_loaded
+    tmlp, tfp, tmeta = torch_loaded
+    assert jmeta == tmeta
+    assert len(jfp) == len(tfp)
+    for jg, tg in zip(jfp, tfp):
+        np.testing.assert_array_equal(tg.numpy(), np.asarray(jg))
+    for k in ("w1", "b1", "w2", "b2", "w3", "b3"):
+        np.testing.assert_array_equal(tmlp[k].detach().numpy(),
+                                      np.asarray(jmlp[k]))
+
+
+@pytest.mark.parametrize("store", [32, 16])
+@pytest.mark.parametrize("bits", [2, 4, 8])
+def test_jax_artifact_loads_in_torch(tmp_path, bits, store):
+    fp, mlp = _quantized_model(bits)
+    path = str(tmp_path / "jax.npz")
+    jbits = jart.save_compressed(path, {k: jnp.asarray(v) for k, v in
+                                        mlp.items()},
+                                 tuple(jnp.asarray(g) for g in fp), bits,
+                                 META, mlp_store_bits=store)
+    assert tart.compressed_num_bits(path) == jart.compressed_num_bits(path)
+    assert tart.compressed_num_bits(path) == jbits
+    _assert_same(jart.load_compressed(path),
+                 tart.load_compressed(path, device="cpu"))
+
+
+@pytest.mark.parametrize("store", [32, 16])
+@pytest.mark.parametrize("bits", [2, 4, 8])
+def test_torch_artifact_loads_in_jax(tmp_path, bits, store):
+    fp, mlp = _quantized_model(bits)
+    tfp, tmlp = params_from_jax(fp, mlp, device="cpu")
+    path = str(tmp_path / "torch.npz")
+    tbits = tart.save_compressed(path, tmlp, tfp, bits, META,
+                                 mlp_store_bits=store)
+    assert jart.compressed_num_bits(path) == tbits
+    loaded = tart.load_compressed(path, device="cpu")
+    _assert_same(jart.load_compressed(path), loaded)
+    # the grid codes survive the round trip exactly
+    for g, want in zip(loaded[1], fp):
+        np.testing.assert_array_equal(g.numpy(), want)
+    # the same parameters written by JAX give the same bytes
+    jpath = str(tmp_path / "jax.npz")
+    jart.save_compressed(jpath, mlp, tuple(jnp.asarray(g) for g in fp), bits,
+                         META, mlp_store_bits=store)
+    with np.load(path) as zt, np.load(jpath) as zj:
+        assert sorted(zt.files) == sorted(zj.files)
+        for key in zt.files:
+            np.testing.assert_array_equal(zt[key], zj[key], err_msg=key)
+
+
+def test_params_round_trip():
+    fp, mlp = make_model(71)
+    tfp, tmlp = params_from_jax(fp, mlp, device="cpu")
+    assert tmlp.w1.shape == mlp["w1"].shape  # [in, out], not transposed
+    assert not any(p.requires_grad for p in tmlp.parameters())
+    back_fp, back_mlp = params_to_jax(tfp, tmlp)
+    for a, b in zip(back_fp, fp):
+        np.testing.assert_array_equal(a, b)
+    for k, v in mlp.items():
+        np.testing.assert_array_equal(back_mlp[k], v)
+    x = np.random.default_rng(0).normal(size=(5, mlp["w1"].shape[0]))
+    from nic.models.mlp import apply_mlp
+
+    want = np.asarray(apply_mlp({k: jnp.asarray(v) for k, v in mlp.items()},
+                                jnp.asarray(x, jnp.float32)))
+    got = tmlp(torch.from_numpy(x.astype(np.float32))).detach().numpy()
+    np.testing.assert_allclose(got, want, atol=2e-6, rtol=0)
+
+
+def test_entropy_coded_is_refused(tmp_path):
+    fp, mlp = _quantized_model(8)
+    tfp, tmlp = params_from_jax(fp, mlp, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 12"):
+        tart.save_compressed(str(tmp_path / "e.npz"), tmlp, tfp, 8, META,
+                             entropy_coded=True)
+    path = str(tmp_path / "jax_e.npz")
+    jart.save_compressed(path, mlp, tuple(jnp.asarray(g) for g in fp), 8,
+                         META, entropy_coded=True)
+    with pytest.raises(NotImplementedError, match="rANS"):
+        tart.load_compressed(path, device="cpu")
+    assert tart.compressed_num_bits(path) == jart.compressed_num_bits(path)

@@ -1,0 +1,90 @@
+"""The port's decoder-only runtime on the committed trained artifact
+(tests/fixtures, made by scripts/make_torch_port_fixture.py), held to the
+JAX fold's decode of the same artifact."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from nic_torch.cli import decode as tcli
+from nic_torch.core.metrics import psnr
+from nic_torch.data.assets import save_png
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FIXTURES = os.path.join(ROOT, "tests", "fixtures")
+ART = os.path.join(FIXTURES, "ntc_sancho512_fp8.npz")
+
+
+@pytest.fixture(scope="module")
+def ref():
+    with np.load(os.path.join(FIXTURES, "ntc_sancho512_fp8_ref.npz")) as z:
+        return dict(z)
+
+
+def _u8(rec):
+    return np.floor(rec * 255.0 + 0.5).astype(np.uint8)
+
+
+@pytest.mark.parametrize("mip", range(10))
+def test_decode_matches_jax_fold(ref, mip):
+    rec = tcli.run([ART, "--mip", str(mip), "--device", "cpu"])
+    u8 = _u8(rec)
+    want = ref[f"dec{mip}"]
+    assert u8.shape == want.shape == (512 >> mip, 512 >> mip, 3)
+    assert np.abs(u8.astype(int) - want.astype(int)).max() <= 1
+    got_psnr = float(psnr(torch.from_numpy(ref[f"orig{mip}"]).float(),
+                          torch.from_numpy(u8).float()))
+    assert abs(got_psnr - ref["psnr"][mip]) <= 0.01
+
+
+def test_png_written_reads_back(tmp_path, capsys):
+    from PIL import Image
+
+    out = str(tmp_path / "d.png")
+    rec = tcli.run([ART, "--mip", "2", "--device", "cpu", "--dtype", "bf16",
+                    "--out", out])
+    assert "applies to the cuda backend only" in capsys.readouterr().out
+    np.testing.assert_array_equal(np.asarray(Image.open(out)),
+                                  (rec * 255 + 0.5).astype(np.uint8))
+    rng = np.random.default_rng(0)
+    for shape in ((7, 5, 3), (1, 1, 3), (300, 2, 3)):
+        img = rng.integers(0, 256, shape, dtype=np.uint8)
+        save_png(img, str(tmp_path / "x.png"))
+        np.testing.assert_array_equal(
+            np.asarray(Image.open(str(tmp_path / "x.png"))), img)
+    with pytest.raises(ValueError):
+        save_png(img[:, :, 0], str(tmp_path / "y.png"))
+
+
+@pytest.mark.parametrize("argv", [
+    ["--device", "cpu", "--devices", "2"],
+    ["--device", "cpu", "--backend", "xla"],
+    ["--device", "cpu", "--backend", "cuda"],
+])
+def test_refusals(argv, capsys):
+    with pytest.raises(SystemExit) as e:
+        tcli.run([ART, *argv])
+    assert e.value.code != 0
+    assert "ROADMAP" in capsys.readouterr().err or "cuda" in str(argv)
+
+
+def test_cuda_device_without_cuda_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(SystemExit):
+        tcli.run([ART])  # --device defaults to cuda: no CPU fallback
+
+
+def test_port_imports_no_jax_and_no_nic():
+    code = ("import sys, nic_torch, nic_torch.cli.decode, "
+            "nic_torch.kernels.decode_fused_v2, nic_torch.io.convert\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'nic'))\n"
+            "print(','.join(bad)); sys.exit(1 if bad else 0)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, (proc.stdout, proc.stderr)
