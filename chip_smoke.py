@@ -8,8 +8,9 @@ Run from the repository root on a machine with one NVIDIA GPU:
 Phases (any failure exits non-zero):
 
 1. a CUDA device is present; print ``nvidia-smi`` name and power limit;
-2. build every CUDA kernel of the decode path from ``nic_torch/kernels/csrc``
-   with nvcc for sm_90a, and print the build time;
+2. build every CUDA kernel from ``nic_torch/kernels/csrc`` (the decode
+   kernel K1 and the kernel3 train step K11; one nvcc per source, all
+   started together) for sm_90a, and print the build time;
 3. each kernel against its plain PyTorch version on the card, on the
    committed trained artifact's column-stage outputs at mips 0-2, for every
    plane mode x GELU;
@@ -22,7 +23,24 @@ Phases (any failure exits non-zero):
 5. scale: a flagship-width 2048^2 artifact (C=12, H=64, FP_BITS 8, random
    weights from a seeded torch.Generator) saved and reloaded through the
    artifact format, decoded at mip 0 through the CLI, and the kernel timed
-   against its plain version with CUDA events.
+   against its plain version with CUDA events;
+6. K11 against its plain version on the card at the flagship shape class
+   (C=12, H=64, PE 6, 8 crops of 256², f=4) and at f=2 (128² crops) and
+   f=1 (64² crops), random pyramid and MLP from a seeded torch.Generator,
+   in fp32·erf and bf16·poly, each with QAT noise off and on: loss,
+   ``out``, every MLP and PE grad and both accumulated node planes; then
+   kernel vs plain timed at the flagship shape (bf16·poly noise on, the
+   path's mode, and fp32·erf);
+7. train: the training CLI (``nic_torch.cli.image_compression.run``) at
+   the flagship configuration for 200 epochs (the overrides that made the
+   committed fixture). The gate log must name kernel3 in both phases, K11
+   must launch exactly 200 times, every loss be finite and the last 20
+   lower than the first 20 on average, mip-0 PSNR within 1.0 dB of the
+   fixture's JAX run; then the decode CLI decodes the artifact at mips
+   0-9 with exactly 3 K1 launches;
+8. train-step time (CUDA events, median over steps 50-199) for
+   TRAIN_FORWARD=kernel3 and for gather (plain autograd) on the same
+   configuration.
 
 The last line of standard output is one JSON object
 ``{"ok": true, "device": {...}}``; the line before it the card's name and
@@ -46,6 +64,8 @@ ART = os.path.join(ROOT, "tests", "fixtures", "ntc_sancho512_fp8.npz")
 REF = os.path.join(ROOT, "tests", "fixtures", "ntc_sancho512_fp8_ref.npz")
 KERNEL_SOURCE = "nic_torch/kernels/csrc/decode_fused_v2.cu"
 REPLACES = "nic/kernels/decode_fused_v2.py:369"
+K11_SOURCE = "nic_torch/kernels/csrc/train_fused_ff.cu"
+K11_REPLACES = "nic/kernels/train_fused_ff.py:568"
 
 # kernel vs plain tolerances on the [0, 1] output. fp32 planes and dots:
 # only the summation order, FMA contraction and the libm of exp/tanh
@@ -58,6 +78,18 @@ TOL = {"fp32": 2e-5, "bf16": 2e-3, "i16": 2e-3, "surgical": 2e-3}
 ENVELOPE = {"bf16": ("exact", 8), "i16": ("tanherf", 3),
             "surgical": ("exact", 2)}
 LSB_FP32, PSNR_DB = 2, 0.05  # main path: u8 LSB at every mip, mip-0 PSNR
+# K11 vs plain, the JAX suite's tolerances for its fused train paths
+# (tests/test_train_kernel.py): fp32 dots loss rel 1e-5, out 1e-5 abs,
+# grads rel 1e-4; bf16 dot inputs loss rel 1e-4, out 1e-3 abs, grads rel
+# 1e-2 (a last-bit difference can flip a bf16 rounding of a dot input)
+K11_TOL = {"fp32": dict(loss=1e-5, out=1e-5, grad=1e-4),
+           "bf16": dict(loss=1e-4, out=1e-3, grad=1e-2)}
+K11_MODES = {"fp32·erf": ("fp32", "erf"), "bf16·poly": ("bf16", "poly")}
+# training: the overrides of scripts/make_torch_port_fixture.py, whose JAX
+# run the fixture's psnr[0] records; crop, noise and GELU streams differ
+# by design, so the band is statistical
+TRAIN_ARGS = ["NUM_EPOCHS=200", "SDC_GUARD_TRAIN=False"]
+TRAIN_PSNR_DB = 1.0
 
 
 def fail(msg: str) -> None:
@@ -289,6 +321,214 @@ def phase_scale(device, size: int = 2048) -> dict:
     return {size: timings, 512: timings512}
 
 
+def _rel(a, b) -> float:
+    return float((a.double() - b.double()).abs().max()
+                 / (b.double().abs().max() + 1e-12))
+
+
+def _k11_inputs(gen, device, n, f, crops=8, size=512):
+    """Random flagship-width pyramid and MLP (torch.Generator), folded,
+    with crops of n² on the LOD image of size·f/4."""
+    import torch
+
+    from nic_torch.grids.pyramid import create_pyramid
+    from nic_torch.kernels.train_fused_ff import fold_planes
+    from nic_torch.models.mlp import init_mlp
+
+    fp, _ = create_pyramid(gen, size // 4, 12, 8, device=device, no_mip=True)
+    mlp = init_mlp(gen, 12 * 5 + 2 * 6 + 1, 64, 3, device=device)
+    img = size * f // 4
+    origins = torch.randint(0, img - n + 1, (crops, 2), generator=gen)
+    tgt = torch.rand(crops * n * n, 3, generator=gen).to(device)
+    words = torch.randint(-2**31, 2**31, (2,), generator=gen)
+    seed = torch.cat([words, torch.zeros(2, dtype=torch.int64)]).to(
+        torch.int32)
+    planes = {cd: fold_planes(fp[0], fp[1], mlp["w1"],
+                              None if cd == "fp32" else torch.bfloat16)
+              for cd in ("fp32", "bf16")}
+    weights = [mlp[k].detach() for k in ("w1", "b1", "w2", "b2", "w3", "b3")]
+    return planes, weights, tgt, origins, seed
+
+
+def phase_k11(device) -> dict:
+    """K11 vs plain at f = 4, 2, 1 in 4 modes; timings at the flagship."""
+    import torch
+
+    from nic_torch.kernels import train_fused_ff as k
+
+    names = ("loss", "out", "dw2", "db2", "dw3", "db3", "dpe0", "dpe1",
+             "db1", "P_acc", "C1_acc", "dw1e")
+    gen = torch.Generator(device="cpu").manual_seed(11)
+    worst = {}
+    timings = {}
+    out_err = 0.0
+    with torch.no_grad():  # the plain version takes autograd inside
+        for n, f in ((256, 4), (128, 2), (64, 1)):
+            planes, weights, tgt, origins, seed = _k11_inputs(gen, device,
+                                                              n, f)
+            for label, (cd, gelu) in K11_MODES.items():
+                tol = K11_TOL[cd]
+                for nbits in (None, 8):
+                    args = (*planes[cd], *weights, tgt, origins, seed)
+                    kw = dict(n=n, f=f, npe=6, lodf=0.0, gelu=gelu,
+                              cd=None if cd == "fp32" else torch.bfloat16,
+                              nbits=nbits)
+                    got = k.fused_train_ff_kernel(*args, **kw)
+                    again = k.fused_train_ff_kernel(*args, **kw)
+                    torch.cuda.synchronize(device)
+                    if not all(torch.equal(a, b) for a, b in zip(got, again)
+                               if a is not None):
+                        fail(f"K11 f={f} {label}: two runs differ (the "
+                             "reductions must be in a fixed order)")
+                    want = k.fused_train_ff_plain(*args, **kw)
+                    cell = f"f={f} {label} noise={'on' if nbits else 'off'}"
+                    errs = {}
+                    for name, a, b in zip(names, got, want):
+                        if b is None:
+                            continue
+                        if a.shape != b.shape or not torch.isfinite(a).all():
+                            fail(f"K11 {cell}: {name} shape "
+                                 f"{tuple(a.shape)} (want {tuple(b.shape)})"
+                                 " or non-finite values")
+                        errs[name] = (float((a - b).abs().max())
+                                      if name == "out" else _rel(a, b))
+                    bad = [nm for nm, e in errs.items()
+                           if e > tol["loss" if nm == "loss" else
+                                      "out" if nm == "out" else "grad"]]
+                    worst_grad = max(e for nm, e in errs.items()
+                                     if nm not in ("loss", "out"))
+                    print(f"phase 6: K11 vs plain {cell}: loss rel "
+                          f"{errs['loss']:.2e}, out max|Δ| {errs['out']:.2e},"
+                          f" worst grad/plane rel {worst_grad:.2e} "
+                          f"(tol {tol['loss']:.0e}/{tol['out']:.0e}/"
+                          f"{tol['grad']:.0e})", flush=True)
+                    if bad:
+                        fail(f"K11 vs plain {cell}: "
+                             + ", ".join(f"{nm} {errs[nm]:.3e}" for nm in bad))
+                    worst[cell] = errs
+                    if n == 256 and cd == "bf16" and nbits:
+                        out_err = errs["out"]
+                    if n == 256 and ((cd, nbits) in (("bf16", 8),
+                                                     ("fp32", None))):
+                        ms = cuda_ms(lambda: k.fused_train_ff_kernel(*args,
+                                                                     **kw))
+                        plain = cuda_ms(lambda: k.fused_train_ff_plain(
+                            *args, **kw))
+                        timings[cell] = (ms, plain)
+                        print(f"phase 6: K11 {cell} at 8×256²: kernel "
+                              f"{ms:.4f} ms vs plain {plain:.4f} ms",
+                              flush=True)
+    return {"timings": timings, "out_err": out_err}
+
+
+def _csv_losses(root: str):
+    import csv
+    import glob
+
+    (path,) = glob.glob(os.path.join(root, "log", "*_scalars.csv"))
+    with open(path) as fh:
+        rows = [r for r in csv.DictReader(fh)
+                if r["tag"] == "Loss/train_epoch_label"]
+    return [float(r["value"]) for r in sorted(rows,
+                                              key=lambda r: int(r["step"]))]
+
+
+def phase_train(device) -> int:
+    """The training CLI at the flagship configuration; returns K11's
+    launches in that run."""
+    import glob
+
+    import numpy as np
+
+    from nic_torch.cli import decode as dcli
+    from nic_torch.cli import image_compression as tcli
+    from nic_torch.kernels.decode_fused_v2 import decode_kernel_2d
+    from nic_torch.kernels.train_fused_ff import fused_train_ff_kernel
+
+    ref = dict(np.load(REF))
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        fused_train_ff_kernel.launches = 0
+        t0 = time.perf_counter()
+        res = tcli.run(TRAIN_ARGS + [f"OUTPUT_ROOT={tmp}"])
+        wall = time.perf_counter() - t0
+        launches = fused_train_ff_kernel.launches
+        losses = _csv_losses(tmp)
+        (printlog,) = glob.glob(os.path.join(tmp, "printlog", "*.txt"))
+        with open(printlog) as fh:
+            gates = [ln.strip() for ln in fh if "train forward gate" in ln]
+        decode_kernel_2d.launches = 0
+        recs = [dcli.run([res["artifact"], "--mip", str(mip)])
+                for mip in range(10)]
+        k1 = decode_kernel_2d.launches
+    print(f"phase 7: training CLI, 200 epochs in {wall:.1f} s of wall time; "
+          f"gates: {gates}; K11 launches {launches}; loss first "
+          f"{losses[0]:.5f} last {losses[-1]:.5f}; mip-0 PSNR "
+          f"{res['psnr'][0]:.4f} dB (fixture's JAX run "
+          f"{float(ref['psnr'][0]):.4f}), bpp {res['bpp']:.4f}; decode CLI "
+          f"mips 0-9 shapes {[r.shape[0] for r in recs]}, K1 launches {k1}",
+          flush=True)
+    for frozen in (False, True):
+        if not any(f"frozen={frozen}): kernel3" in g for g in gates):
+            fail(f"the gate log does not name kernel3 for frozen={frozen}: "
+                 f"{gates}")
+    if launches != 200:
+        fail(f"K11 launched {launches} times in 200 epochs")
+    if len(losses) != 200 or not np.isfinite(losses).all():
+        fail(f"{len(losses)} losses, finite: {np.isfinite(losses).all()}")
+    if not np.mean(losses[-20:]) < np.mean(losses[:20]):
+        fail("the loss did not fall: mean of the last 20 "
+             f"{np.mean(losses[-20:]):.5f} vs first 20 "
+             f"{np.mean(losses[:20]):.5f}")
+    if abs(res["psnr"][0] - float(ref["psnr"][0])) > TRAIN_PSNR_DB:
+        fail(f"mip-0 PSNR {res['psnr'][0]:.4f} dB is not within "
+             f"{TRAIN_PSNR_DB} dB of {float(ref['psnr'][0]):.4f}")
+    for mip, rec in enumerate(recs):
+        if rec.shape != (512 >> mip, 512 >> mip, 3) or \
+                not np.isfinite(rec).all():
+            fail(f"decode of the trained artifact at mip {mip}: shape "
+                 f"{rec.shape} or non-finite")
+    if k1 != 3:
+        fail(f"the decode CLI launched K1 {k1} times over mips 0-9; "
+             "expected 3")
+    return launches
+
+
+def phase_step_time(device) -> dict:
+    """Median train-step ms (CUDA events, steps 50-199) per forward."""
+    import torch
+
+    from nic_torch.cli.image_compression import load_asset
+    from nic_torch.config import parse_overrides
+    from nic_torch.train.ntc import NTCTrainer
+
+    out = {}
+    for forward in ("kernel3", "gather"):
+        cfg = parse_overrides(TRAIN_ARGS + [f"TRAIN_FORWARD={forward}"])
+        tr = NTCTrainer(cfg, load_asset(cfg))
+        events = []
+        for i in range(200):
+            if i == 50:
+                torch.cuda.synchronize(device)
+                t0 = time.perf_counter()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            tr.train_step()
+            end.record()
+            events.append((start, end))
+        torch.cuda.synchronize(device)
+        wall = (time.perf_counter() - t0) / 150 * 1e3
+        if tr._forward_mode != forward:
+            fail(f"TRAIN_FORWARD={forward} ran {tr._forward_mode}")
+        ms = statistics.median(s.elapsed_time(e) for s, e in events[50:])
+        out[forward] = ms
+        print(f"phase 8: train step TRAIN_FORWARD={forward}: median "
+              f"{ms:.4f} ms by CUDA events over steps 50-199 "
+              f"({1e3 / ms:.1f} steps/s); host clock {wall:.4f} ms/step "
+              f"({1e3 / wall:.1f} steps/s)", flush=True)
+    return out
+
+
 def main() -> None:
     import torch
 
@@ -312,12 +552,22 @@ def main() -> None:
     launches = phase_serve("cuda")
     timings = phase_scale("cuda")
     ms, plain_ms = timings[2048][("fp32", "exact")]
+    k11 = phase_k11("cuda")
+    k11_launches = phase_train("cuda")
+    steps = phase_step_time("cuda")
+    k11_ms, k11_plain = k11["timings"]["f=4 bf16·poly noise=on"]
+    print(f"K11 share of the kernel3 step: {k11_ms / steps['kernel3']:.3f} "
+          f"({k11_ms:.4f} of {steps['kernel3']:.4f} ms)", flush=True)
     print(f"all phases passed in {time.perf_counter() - t0:.1f} s",
           flush=True)
     print(json.dumps({"kernels": [{
         "name": "decode_fused_v2", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": REPLACES, "launches": launches, "max_abs_err": main_err,
-        "ms": ms, "plain_ms": plain_ms}]}), flush=True)
+        "ms": ms, "plain_ms": plain_ms}, {
+        "name": "train_fused_ff", "route": "cuda", "source": K11_SOURCE,
+        "replaces": K11_REPLACES, "launches": k11_launches,
+        "max_abs_err": k11["out_err"], "ms": k11_ms,
+        "plain_ms": k11_plain}]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

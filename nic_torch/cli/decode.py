@@ -69,8 +69,8 @@ def run(argv=None) -> np.ndarray:
         p.error("--devices > 1: the multi-device decode is not ported yet "
                 "(ROADMAP.md, queue 1, item 13)")
     if args.backend == "xla":
-        p.error("--backend xla: the gather decode (decoder_input) is not "
-                "ported yet (ROADMAP.md, queue 1, item 6)")
+        p.error("--backend xla: the tiled gather decode is not ported yet "
+                "(ROADMAP.md, queue 1, item 15)")
     if args.device == "cuda" and not torch.cuda.is_available():
         p.error("--device cuda: no CUDA device is available (pass --device "
                 "cpu for the plain CPU decode)")

@@ -7,9 +7,10 @@ pass ``max_value=255.0`` for the standard convention, which reads
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-__all__ = ["mse", "psnr"]
+__all__ = ["mse", "psnr", "safe_statistics"]
 
 
 def mse(a, b) -> torch.Tensor:
@@ -25,3 +26,25 @@ def psnr(original, reconstructed, num_bits: int = 8,
     m = mse(original, reconstructed)
     db = 10.0 * torch.log10(max_value * max_value / torch.clamp(m, min=1e-30))
     return torch.where(m == 0, torch.full_like(db, float("inf")), db)
+
+
+def safe_statistics(x) -> dict:
+    """Max/min/mean/variance (ddof 1) over the finite values, with NaN/Inf
+    flags; computed in numpy on the host, as the JAX package does."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().numpy()
+    x = np.asarray(x)
+    finite = x[np.isfinite(x)]
+    stats: dict = {
+        "has_nan": bool(np.isnan(x).any()),
+        "has_inf": bool(np.isinf(x).any()),
+        "num_valid": int(finite.size),
+    }
+    if finite.size:
+        stats.update(
+            max=float(finite.max()),
+            min=float(finite.min()),
+            mean=float(finite.mean()),
+            var=float(finite.var(ddof=1)) if finite.size > 1 else 0.0,
+        )
+    return stats

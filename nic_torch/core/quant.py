@@ -19,6 +19,8 @@ __all__ = [
     "quantize",
     "quantize_to_bit",
     "quant_range",
+    "quantize_clamp",
+    "qat_noise",
     "pack_grid",
     "unpack_grid",
     "pack_bits",
@@ -45,6 +47,21 @@ def quantize_to_bit(x: torch.Tensor, bits: int = 8) -> torch.Tensor:
 def quant_range(bits: int) -> tuple[float, float]:
     """Zero-centred grid value range (q_min, q_max) = (−(2^b−1)/2^(b+1), ½)."""
     return -(2.0**bits - 1.0) / 2.0 ** (bits + 1), 0.5
+
+
+def quantize_clamp(x: torch.Tensor, bits: int) -> torch.Tensor:
+    """Clamp to the grid quantizer range [q_min, q_max]."""
+    q_min, q_max = quant_range(bits)
+    return torch.clamp(x, q_min, q_max)
+
+
+def qat_noise(generator: torch.Generator, shape, bits: int) -> torch.Tensor:
+    """Uniform QAT noise in [−1/2^(b+1), +1/2^(b+1)) on the generator's
+    device: ``(U − 0.5) / 2^b``, the JAX package's distribution from
+    another stream."""
+    u = torch.rand(shape, generator=generator, dtype=torch.float32,
+                   device=generator.device)
+    return (u - 0.5) / (2.0**bits)
 
 
 def pack_grid(x: torch.Tensor, bits: int) -> torch.Tensor:

@@ -13,8 +13,8 @@ multilinear sample of C1, separable row/column PE vectors and a constant.
 This is the plain decode of the port (the ``fast`` backend) and the
 reference its CUDA kernel is held to. ndim-generic; rectangular ``n``;
 the G1 step == 2 raw-sum quirk is kept. (The JAX package's tile origins
-and precomputed-plane arguments serve its tiled training decode and come
-with the training slice.)
+and precomputed-plane arguments serve its tiled decode and its folded
+train forward, ROADMAP.md queue 1, item 15.)
 """
 
 from __future__ import annotations

@@ -10,13 +10,14 @@ from __future__ import annotations
 
 import torch
 
-from nic_torch.core.quant import quant_range, quantize
+from nic_torch.core.quant import quant_range, quantize, quantize_clamp
 
 __all__ = [
     "log2_int",
     "pyramid_levels",
     "pyramid_mip_levels",
     "create_pyramid",
+    "pyramid_clamp",
     "pyramid_quantize_all",
 ]
 
@@ -65,6 +66,15 @@ def create_pyramid(generator: torch.Generator, base_size, channels: int,
                        device=generator.device)
         grids.append((q_min + (q_max - q_min) * u).to(device))
     return tuple(grids), levels
+
+
+def pyramid_clamp(fp: tuple, fl: int, num_bits: int) -> tuple:
+    """Clamp the active level's (G0, G1) pair to the quantizer range;
+    the other grids pass through unchanged."""
+    out = list(fp)
+    out[fl * 2] = quantize_clamp(fp[fl * 2], num_bits)
+    out[fl * 2 + 1] = quantize_clamp(fp[fl * 2 + 1], num_bits)
+    return tuple(out)
 
 
 def pyramid_quantize_all(fp: tuple, num_bits: int) -> tuple:

@@ -1,5 +1,10 @@
 """Compressed-artifact I/O (port of the artifact half of ``nic.io.artifacts``).
 
+Training checkpoints are ``.npz`` files of flat arrays under the JAX
+package's keys (``nic_torch.io.convert.trainer_state_to_arrays``) plus a
+``__meta__`` JSON blob with the step, so a run started by either package
+resumes in the other.
+
 One ``.npz`` holds the decoder MLP (keys ``mlp/w1`` … ``mlp/b3``, weights
 ``[in, out]``), the bit-packed pyramid (``grid{i}``, fixed-length b-bit
 codes) and a ``__meta__`` JSON blob. The format is the JAX package's, so
@@ -21,7 +26,8 @@ import torch
 from nic_torch.core.quant import pack_bits, pack_grid, unpack_bits, unpack_grid
 from nic_torch.models.mlp import PARAM_NAMES, MLPDecoder
 
-__all__ = ["save_compressed", "load_compressed", "compressed_num_bits"]
+__all__ = ["save_compressed", "load_compressed", "compressed_num_bits",
+           "save_checkpoint", "load_checkpoint", "CheckpointManager"]
 
 _NO_RANS = ("entropy-coded (rANS) artifacts are not supported by nic_torch "
             "yet: the rANS coder is ported with the hyperprior codec "
@@ -104,3 +110,53 @@ def compressed_num_bits(path: str) -> int:
             if key.startswith("mlp/"):
                 bits += z[key].size * z[key].dtype.itemsize * 8
     return bits
+
+
+def save_checkpoint(path: str, step: int, arrays: dict,
+                    extra: dict | None = None) -> None:
+    """Step-tagged training snapshot; atomic (temporary file + replace)."""
+    arrays = dict(arrays)
+    meta = {"step": step, **(extra or {})}
+    arrays["__meta__"] = np.frombuffer(json.dumps(meta).encode(), np.uint8)
+    _atomic_savez(path, **arrays)
+
+
+def load_checkpoint(path: str) -> tuple[int, dict, dict]:
+    """(step, {key: array}, meta) of a checkpoint from either package."""
+    with np.load(path) as z:
+        meta = json.loads(bytes(z["__meta__"]).decode())
+        arrays = {k: z[k] for k in z.files if k != "__meta__"}
+    return meta["step"], arrays, meta
+
+
+class CheckpointManager:
+    """Step-tagged checkpoints in one directory, keeping the newest
+    ``keep``; the writer saves to :meth:`path_for` and calls
+    :meth:`prune`."""
+
+    name = "ckpt"
+    keep = 2
+
+    def __init__(self, directory: str):
+        self.directory = directory
+        os.makedirs(directory, exist_ok=True)
+
+    def path_for(self, step: int) -> str:
+        return os.path.join(self.directory, f"{self.name}_{step:012d}.npz")
+
+    def steps(self) -> list[int]:
+        out = []
+        for f in os.listdir(self.directory):
+            if f.startswith(self.name + "_") and f.endswith(".npz"):
+                try:
+                    out.append(int(f[len(self.name) + 1:-4]))
+                except ValueError:
+                    pass
+        return sorted(out)
+
+    def prune(self) -> None:
+        for old in self.steps()[:-self.keep]:
+            os.remove(self.path_for(old))
+
+    def paths_newest_first(self) -> list[str]:
+        return [self.path_for(s) for s in reversed(self.steps())]

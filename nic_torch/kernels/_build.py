@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
 Every ``csrc/*.cu`` is compiled with ``nvcc`` for Hopper
-(``-gencode arch=compute_90a,code=sm_90a``) into one shared library with a
-plain C interface, loaded with ``ctypes``. The library lives under
+(``-gencode arch=compute_90a,code=sm_90a``), one ``nvcc`` per source, all
+started together, and the objects are linked into one shared library with
+a plain C interface, loaded with ``ctypes``. The library lives under
 ``build/nic_torch/<key>/`` at the repository root, where ``<key>`` hashes
 the sources and the flags: a changed source builds anew, an unchanged one
 loads the library already built. Nothing is built at import time; the
@@ -24,7 +25,7 @@ __all__ = ["load", "build_seconds"]
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "nic_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 LIB_NAME = "libnic_torch_kernels.so"
 
 _lib: ctypes.CDLL | None = None
@@ -61,6 +62,9 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     fn.argtypes = [p, p, p, p, p, p, p, ctypes.c_float, p,
                    i, i, i, i, i, i, i, p]
     fn.restype = i
+    fn = lib.nic_train_fused_ff
+    fn.argtypes = [p] * 20 + [i] * 19 + [p]
+    fn.restype = i
     lib.nic_cuda_error_string.argtypes = [i]
     lib.nic_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -76,17 +80,33 @@ def load() -> ctypes.CDLL:
     lib_path = out_dir / LIB_NAME
     if not lib_path.exists():
         out_dir.mkdir(parents=True, exist_ok=True)
-        tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+        tag = f"{os.getpid()}.tmp"
+        nvcc = _nvcc()
+        objs = [out_dir / f"{src.stem}.{tag}.o" for src in sources]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        jobs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.PIPE, text=True))
+                for cmd in ([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                             str(src)] for src, obj in zip(sources, objs))]
+        results = []
+        for cmd, proc in jobs:
+            out, err = proc.communicate()
+            results.append((cmd, proc.returncode, out, err))
+        tmp = out_dir / f"{LIB_NAME}.{tag}"
+        if all(rc == 0 for _, rc, _, _ in results):
+            cmd = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            results.append((cmd, proc.returncode, proc.stdout, proc.stderr))
         build_seconds = time.perf_counter() - t0
-        (out_dir / "nvcc.log").write_text(
-            " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}) building {lib_path}:\n"
-                + proc.stderr[-4000:])
+        (out_dir / "nvcc.log").write_text("".join(
+            " ".join(cmd) + "\n" + out + err for cmd, _, out, err in results))
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+        failed = [(cmd, rc, err) for cmd, rc, _, err in results if rc != 0]
+        if failed:
+            cmd, rc, err = failed[0]
+            raise RuntimeError(f"nvcc failed ({rc}) building {lib_path}: "
+                               f"{' '.join(cmd)}\n" + err[-4000:])
         os.replace(tmp, lib_path)  # atomic: a reader never sees half a file
     _lib = _declare(ctypes.CDLL(str(lib_path)))
     return _lib

@@ -1,0 +1,783 @@
+// The feature-free fused train step (kernel3) for Hopper (sm_90a).
+//
+// Replaces the Pallas TPU kernel nic/kernels/train_fused_ff.py `_kernel_ff`
+// (launched by `_impl_ff`, pallas_call at :568). The first-layer fold
+// (P = sum_k shift_k(G0) W1_k, C1 = G1 W1_g1) runs before it in PyTorch and
+// the unfold after it (nic_torch/kernels/train_fused_ff.py). For pixel
+// (r, c) of crop i at origin (o0, o1), absolute (y, x) = (o0 + r, o1 + c):
+//
+//   z1 = P[y/f, x/f] + bilinear(C1 at (y/f1, x/f1))
+//        + tri(y/f1) Wpe0 + tri(x/f1) Wpe1 + bvec   (+ eps W1 with noise)
+//   out = sigmoid(gelu(gelu(z1) W2 + b2) W3 + b3),  loss = mean((out-t)^2)
+//
+// and the full backward. One entry point, nic_train_fused_ff, runs five
+// kernels back to back on the caller's stream:
+//
+//   A ff_pixel   one thread per pixel, 128-pixel tiles, each block walking
+//                a fixed set of tiles: z1 build, MLP forward, loss, the
+//                backward down to dz1 (written to device memory, [N, H]),
+//                and the block's partial sums of loss, dW3, db3, dW2, db2;
+//   B ff_windows the node-resolution cotangents per crop window: P-cell
+//                sums of dz1 and C1 interpolation-weighted sums;
+//   C ff_rowcol  row and column sums of dz1 per crop, then ff_pe: the PE
+//                tables against them (dWpe0, dWpe1) and db1;
+//   D ff_epsgrad (noise only) eps^T dz1 per block, the eps stream
+//                regenerated from the counter hash.
+//
+// Every reduction is a fixed-order sum (no atomics): per-block partials
+// are summed afterwards in a fixed order, so two runs are bit-identical.
+//
+// Design (a simple first kernel): weights live in shared memory and every
+// thread of a block reads the same weight at the same time (broadcast).
+// The activations the weight gradients need (gelu(z1), gelu(z2), dz2, dz3)
+// are staged per tile in shared memory, transposed ([unit][pixel], row
+// stride 132 floats) so each thread writes and reads its own column
+// without bank conflicts and the reduction reads four pixels per 16-byte
+// load: dW2 = h1^T dz2 is a 64x64x128 product per tile, each thread
+// owning 32 of its outputs. In bf16-dot mode every dot input (h1, h2, the
+// weights, eps, and the cotangents dz3, dz2, dz1 on their way into a dot)
+// is rounded with __float2bfloat16_rn, as JAX's astype(bf16) does, and
+// all sums stay fp32. Instantiated for the flagship width H = 64, in both
+// dot modes and both GELUs; the noise switch is a runtime flag.
+//
+// What bounds it: per pixel the three 64x64 products (forward z2, backward
+// dh1, the dW2 reduction) are ~12.3 kFMA, plus ~4.7 kFMA for eps W1 with
+// noise and ~4.7 kFMA for eps^T dz1 in D: ~21 kFMA, i.e. ~22 GFLOP per
+// flagship step (524,288 pixels), against ~0.5 GB of device-memory
+// traffic (dz1 written once, read by B, C and D). The fp32 CUDA cores
+// bound it (~0.35 ms at the 67 TFLOP/s peak); the products belong on the
+// tensor cores (wgmma, bf16 inputs, fp32 accumulators) in a later version.
+// Not carried over from the TPU kernel: lane packing of two row blocks
+// with block-diagonal weights, the per-step parameter tiles, the per-crop
+// window staging and the scratch-ref expansions; this kernel indexes the
+// planes directly at the crop origin.
+//
+// The entry point does not synchronise, allocates nothing, and returns
+// cudaGetLastError().
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int TP = 128;   // pixels per tile = threads per block in A and D
+constexpr int LDP = 132;  // row stride of the [unit][pixel] staging tiles
+
+enum Gelu { kErf = 0, kPoly = 1 };
+
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+template <bool BF16>
+__device__ __forceinline__ float cd(float x) {
+  return BF16 ? bf16_round(x) : x;
+}
+
+// erf by Abramowitz & Stegun 7.1.26, as nic/kernels/decode_fused.py _erf
+__device__ __forceinline__ float erf_as(float x) {
+  const float ax = fabsf(x);
+  const float t = 1.0f / (1.0f + 0.3275911f * ax);
+  const float poly =
+      ((((1.061405429f * t + -1.453152027f) * t + 1.421413741f) * t +
+        -0.284496736f) * t + 0.254829592f) * t;
+  const float sign = x > 0.0f ? 1.0f : (x < 0.0f ? -1.0f : 0.0f);
+  return sign * (1.0f - poly * expf(-ax * ax));
+}
+
+__device__ __constant__ float kPolyC[9] = {
+    6.063213460406e-06f, 3.988279991626e-01f, -6.618728056429e-02f,
+    9.689185146121e-03f, -1.058572076001e-03f, 8.262109727744e-05f,
+    -4.286269517788e-06f, 1.303813961965e-07f, -1.739696971198e-09f};
+
+// k * kPolyC[k], the product taken in double and rounded once, as JAX
+// multiplies the Python constants
+__device__ __constant__ float kPolyD[9] = {
+    0.0f, 0.39882799983024597f, -0.13237455487251282f, 0.02906755544245243f,
+    -0.004234288353472948f, 0.0004131054738536477f, -2.5717617972986773e-05f,
+    9.126697477768175e-07f, -1.3917575536481763e-08f};
+
+// the train kernels' GELU pair (nic/kernels/train_fused.py _gelu_fwd/_bwd)
+template <int G>
+__device__ __forceinline__ float gelu_f(float z) {
+  if (G == kErf) {
+    const float cdf = 0.5f * (1.0f + erf_as(z * 0.7071067811865476f));
+    return z * cdf;
+  } else {
+    const float u = z * z;
+    float acc = kPolyC[8];
+#pragma unroll
+    for (int i = 7; i >= 0; --i) acc = acc * u + kPolyC[i];
+    const float h = 0.5f * z + acc;
+    return z > 4.0f ? z : (z < -4.0f ? 0.0f : h);
+  }
+}
+
+template <int G>
+__device__ __forceinline__ float gelu_d(float z) {
+  if (G == kErf) {
+    const float cdf = 0.5f * (1.0f + erf_as(z * 0.7071067811865476f));
+    return cdf + z * (0.3989422804014327f * expf(-0.5f * z * z));
+  } else {
+    const float u = z * z;
+    float acc = kPolyD[8];
+#pragma unroll
+    for (int k = 7; k >= 1; --k) acc = acc * u + kPolyD[k];
+    const float g = 0.5f + 2.0f * z * acc;
+    return z > 4.0f ? 1.0f : (z < -4.0f ? 0.0f : g);
+  }
+}
+
+// the counter hash of nic/kernels/train_fused_ff.py eps_uniform (int32
+// wrapping multiplies and logical shifts = uint32 arithmetic)
+__device__ __forceinline__ uint32_t mix32(uint32_t x) {
+  x ^= x >> 16;
+  x *= 0x21F0AAADu;
+  x ^= x >> 15;
+  x *= 0x735A2D97u;
+  x ^= x >> 15;
+  return x;
+}
+
+__device__ __forceinline__ float eps_uniform(uint32_t ctr, uint32_t s0,
+                                             uint32_t s1, float scale) {
+  const uint32_t x = mix32(mix32(ctr ^ s0) ^ s1);
+  return (__uint_as_float((x >> 9) | 0x3F800000u) - 1.5f) * scale;
+}
+
+// tri(t / 2^octave - offset) of PE row o (nic/kernels/train_fused_ff.py
+// _tri_slot_consts: the (octave 0, offset 0.5) slot and rows past the
+// last full octave are zero)
+__device__ __forceinline__ float tri_pe(float t, int o, int npe) {
+  const int j = npe - 1 - o;
+  if (j == 0 || j >= 2 * (npe / 2)) return 0.0f;
+  const float inv_div = 1.0f / static_cast<float>(1 << (j / 2));
+  const float off = (j % 2 == 0) ? 0.5f : 0.0f;
+  const float u = t * inv_div - off;
+  const float m = u - 2.0f * floorf(u * 0.5f);
+  return 2.0f * fabsf(m - 1.0f) - 1.0f;
+}
+
+struct Geo {
+  int crops, n, f, f1, p_rows, p_cols, c1_rows, c1_cols, npe, nfeat, fslot;
+  int npix;
+  float inv_f1, inv_total, eps_scale;
+  uint32_t s0, s1, pixel_base;
+};
+
+// ---- A: per-pixel forward + backward, block partials of the MLP grads ---
+//
+// partial row layout (floats): [loss, db3[3], dW3[H][3], db2[H], dW2[H][H]]
+template <int H, bool BF16, int G>
+__global__ void __launch_bounds__(TP, 2)
+ff_pixel(const float* __restrict__ pp, const float* __restrict__ c1p,
+         const float* __restrict__ w1, const float* __restrict__ bvec,
+         const float* __restrict__ wpe0, const float* __restrict__ wpe1,
+         const float* __restrict__ w2, const float* __restrict__ b2,
+         const float* __restrict__ w3, const float* __restrict__ b3,
+         const float* __restrict__ tgt, const int* __restrict__ org,
+         float* __restrict__ out, float* __restrict__ dz1,
+         float* __restrict__ part, Geo g) {
+  extern __shared__ float4 smem4[];
+  float* sA = reinterpret_cast<float*>(smem4);  // h1b [H][LDP]
+  float* sB = sA + H * LDP;                     // h2b, then dz2 [H][LDP]
+  float* sD = sB + H * LDP;                     // dz3b, dz3, loss [7][LDP]
+  float* sW2 = sD + 7 * LDP;                    // [H][H] (in, out)
+  float* sW3 = sW2 + H * H;                     // [H][3]
+  float* sb2 = sW3 + H * 3;
+  float* sbv = sb2 + H;
+  float* sb3 = sbv + H;                         // [4]
+  float* sPe0 = sb3 + 4;                        // [8][H]
+  float* sPe1 = sPe0 + 8 * H;                   // [8][H]
+  float* sW1 = sPe1 + 8 * H;                    // [nfeat][H] with noise
+
+  const int tid = threadIdx.x;
+  for (int i = tid; i < H * H; i += TP) sW2[i] = cd<BF16>(w2[i]);
+  for (int i = tid; i < H * 3; i += TP) sW3[i] = cd<BF16>(w3[i]);
+  for (int i = tid; i < H; i += TP) {
+    sb2[i] = b2[i];
+    sbv[i] = bvec[i];
+  }
+  if (tid < 3) sb3[tid] = b3[tid];
+  for (int i = tid; i < 8 * H; i += TP) {
+    const bool in = i < g.npe * H;
+    sPe0[i] = in ? wpe0[i] : 0.0f;
+    sPe1[i] = in ? wpe1[i] : 0.0f;
+  }
+  const bool noise = g.eps_scale != 0.0f;
+  if (noise)
+    for (int i = tid; i < g.nfeat * H; i += TP) sW1[i] = cd<BF16>(w1[i]);
+  __syncthreads();
+
+  constexpr int PART = 4 + 4 * H + H * H;
+  float* mypart = part + static_cast<size_t>(blockIdx.x) * PART;
+  const int nn = g.n * g.n;
+  const int tiles = (g.npix + TP - 1) / TP;
+  bool first = true;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, first = false) {
+    const int pix = tile * TP + tid;
+    const bool valid = pix < g.npix;
+    float z1[H], z2[H];
+    float dz3[3] = {0.0f, 0.0f, 0.0f}, dz3b[3] = {0.0f, 0.0f, 0.0f};
+    float lossv = 0.0f;
+    if (valid) {
+      const int crop = pix / nn, rem = pix % nn;
+      const int y = org[2 * crop] + rem / g.n;
+      const int x = org[2 * crop + 1] + rem % g.n;
+      // eps W1 first (it is added last, as in the JAX kernel)
+#pragma unroll
+      for (int h = 0; h < H; ++h) z1[h] = 0.0f;
+      if (noise) {
+        const uint32_t ctr0 =
+            (static_cast<uint32_t>(pix) + g.pixel_base) *
+            static_cast<uint32_t>(g.fslot);
+        for (int j = 0; j < g.nfeat; ++j) {
+          const float e = cd<BF16>(
+              eps_uniform(ctr0 + static_cast<uint32_t>(j), g.s0, g.s1,
+                          g.eps_scale));
+          const float4* wr = reinterpret_cast<const float4*>(sW1 + j * H);
+#pragma unroll
+          for (int h4 = 0; h4 < H / 4; ++h4) {
+            const float4 w = wr[h4];
+            z1[4 * h4] = fmaf(e, w.x, z1[4 * h4]);
+            z1[4 * h4 + 1] = fmaf(e, w.y, z1[4 * h4 + 1]);
+            z1[4 * h4 + 2] = fmaf(e, w.z, z1[4 * h4 + 2]);
+            z1[4 * h4 + 3] = fmaf(e, w.w, z1[4 * h4 + 3]);
+          }
+        }
+      }
+      const float ty = static_cast<float>(y) * g.inv_f1;
+      const float tx = static_cast<float>(x) * g.inv_f1;
+      float trow[8], tcol[8];
+#pragma unroll
+      for (int o = 0; o < 8; ++o) {
+        trow[o] = o < g.npe ? tri_pe(ty, o, g.npe) : 0.0f;
+        tcol[o] = o < g.npe ? tri_pe(tx, o, g.npe) : 0.0f;
+      }
+      const float fr = static_cast<float>(y % g.f1) * g.inv_f1;
+      const float fc = static_cast<float>(x % g.f1) * g.inv_f1;
+      const int r1 = y / g.f1, cc1 = x / g.f1;
+      const int r1b = min(r1 + 1, g.c1_rows - 1);
+      const int c1b = min(cc1 + 1, g.c1_cols - 1);
+      const float* prow =
+          pp + (static_cast<size_t>(y / g.f) * g.p_cols + x / g.f) * H;
+      const float* q00 = c1p + (static_cast<size_t>(r1) * g.c1_cols + cc1) * H;
+      const float* q01 = c1p + (static_cast<size_t>(r1) * g.c1_cols + c1b) * H;
+      const float* q10 = c1p + (static_cast<size_t>(r1b) * g.c1_cols + cc1) * H;
+      const float* q11 = c1p + (static_cast<size_t>(r1b) * g.c1_cols + c1b) * H;
+#pragma unroll
+      for (int h4 = 0; h4 < H / 4; ++h4) {
+        const float4 pv = reinterpret_cast<const float4*>(prow)[h4];
+        const float4 a0 = reinterpret_cast<const float4*>(q00)[h4];
+        const float4 a1 = reinterpret_cast<const float4*>(q01)[h4];
+        const float4 b0 = reinterpret_cast<const float4*>(q10)[h4];
+        const float4 b1 = reinterpret_cast<const float4*>(q11)[h4];
+        const float pa[4] = {pv.x, pv.y, pv.z, pv.w};
+        const float v00[4] = {a0.x, a0.y, a0.z, a0.w};
+        const float v01[4] = {a1.x, a1.y, a1.z, a1.w};
+        const float v10[4] = {b0.x, b0.y, b0.z, b0.w};
+        const float v11[4] = {b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int h = 4 * h4 + q;
+          const float ra = (1.0f - fc) * v00[q] + fc * v01[q];
+          const float rb = (1.0f - fc) * v10[q] + fc * v11[q];
+          const float c1t = (1.0f - fr) * ra + fr * rb;
+          float peu = 0.0f, pec = 0.0f;
+#pragma unroll
+          for (int o = 0; o < 8; ++o) {
+            peu = fmaf(trow[o], sPe0[o * H + h], peu);
+            pec = fmaf(tcol[o], sPe1[o * H + h], pec);
+          }
+          const float base = (((pa[q] + c1t) + peu) + pec) + sbv[h];
+          z1[h] = noise ? base + z1[h] : base;
+        }
+      }
+      // layer 2: z2 = h1b W2 + b2, h1b staged for dW2
+#pragma unroll
+      for (int j = 0; j < H; ++j) z2[j] = 0.0f;
+#pragma unroll
+      for (int k = 0; k < H; ++k) {
+        const float hk = cd<BF16>(gelu_f<G>(z1[k]));
+        sA[k * LDP + tid] = hk;
+        const float4* wr = reinterpret_cast<const float4*>(sW2 + k * H);
+#pragma unroll
+        for (int j4 = 0; j4 < H / 4; ++j4) {
+          const float4 w = wr[j4];
+          z2[4 * j4] = fmaf(hk, w.x, z2[4 * j4]);
+          z2[4 * j4 + 1] = fmaf(hk, w.y, z2[4 * j4 + 1]);
+          z2[4 * j4 + 2] = fmaf(hk, w.z, z2[4 * j4 + 2]);
+          z2[4 * j4 + 3] = fmaf(hk, w.w, z2[4 * j4 + 3]);
+        }
+      }
+      // layer 3, sigmoid, loss and dz3
+      float o3[3] = {0.0f, 0.0f, 0.0f};
+#pragma unroll
+      for (int j = 0; j < H; ++j) {
+        z2[j] += sb2[j];
+        const float h2 = cd<BF16>(gelu_f<G>(z2[j]));
+        sB[j * LDP + tid] = h2;
+        o3[0] = fmaf(h2, sW3[j * 3 + 0], o3[0]);
+        o3[1] = fmaf(h2, sW3[j * 3 + 1], o3[1]);
+        o3[2] = fmaf(h2, sW3[j * 3 + 2], o3[2]);
+      }
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        const float ov = 1.0f / (1.0f + expf(-(o3[c] + sb3[c])));
+        out[static_cast<size_t>(pix) * 3 + c] = ov;
+        const float diff = ov - tgt[static_cast<size_t>(pix) * 3 + c];
+        lossv = fmaf(diff, diff, lossv);
+        dz3[c] = (2.0f * g.inv_total) * diff * ov * (1.0f - ov);
+        dz3b[c] = cd<BF16>(dz3[c]);
+      }
+      // dz2 = (dz3b W3^T) * gelu'(z2), in place of z2
+#pragma unroll
+      for (int j = 0; j < H; ++j) {
+        const float dh2 = dz3b[0] * sW3[j * 3 + 0] + dz3b[1] * sW3[j * 3 + 1] +
+                          dz3b[2] * sW3[j * 3 + 2];
+        z2[j] = dh2 * gelu_d<G>(z2[j]);
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < H; ++k) {
+        sA[k * LDP + tid] = 0.0f;
+        sB[k * LDP + tid] = 0.0f;
+        z2[k] = 0.0f;
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      sD[c * LDP + tid] = dz3b[c];
+      sD[(3 + c) * LDP + tid] = dz3[c];
+    }
+    sD[6 * LDP + tid] = lossv;
+    __syncthreads();
+
+    // block sums of dW3 = h2b^T dz3b, db3, loss
+    if (tid < H) {
+      float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f;
+      for (int p = 0; p < TP; p += 4) {
+        const float4 hv = *reinterpret_cast<const float4*>(sB + tid * LDP + p);
+        const float4 d0 = *reinterpret_cast<const float4*>(sD + 0 * LDP + p);
+        const float4 d1 = *reinterpret_cast<const float4*>(sD + 1 * LDP + p);
+        const float4 d2 = *reinterpret_cast<const float4*>(sD + 2 * LDP + p);
+        a0 += hv.x * d0.x + hv.y * d0.y + hv.z * d0.z + hv.w * d0.w;
+        a1 += hv.x * d1.x + hv.y * d1.y + hv.z * d1.z + hv.w * d1.w;
+        a2 += hv.x * d2.x + hv.y * d2.y + hv.z * d2.z + hv.w * d2.w;
+      }
+      float* dst = mypart + 4 + tid * 3;
+      dst[0] = first ? a0 : dst[0] + a0;
+      dst[1] = first ? a1 : dst[1] + a1;
+      dst[2] = first ? a2 : dst[2] + a2;
+    } else if (tid < H + 4) {
+      const int row = tid - H;  // 0..2: db3[c] from raw dz3; 3: loss
+      const float* src = sD + (row < 3 ? 3 + row : 6) * LDP;
+      float a = 0.0f;
+      for (int p = 0; p < TP; p += 4) {
+        const float4 v = *reinterpret_cast<const float4*>(src + p);
+        a += (v.x + v.y) + (v.z + v.w);
+      }
+      if (row == 3) a *= g.inv_total;
+      float* dst = mypart + (row < 3 ? 1 + row : 0);
+      dst[0] = first ? a : dst[0] + a;
+    }
+    __syncthreads();
+
+    // raw dz2 to sB (dW2, db2), then dh1 = dz2b W2^T and dz1 = dh1 gelu'(z1)
+#pragma unroll
+    for (int j = 0; j < H; ++j) {
+      sB[j * LDP + tid] = z2[j];
+      z2[j] = cd<BF16>(z2[j]);
+    }
+    if (valid) {
+      float* drow = dz1 + static_cast<size_t>(pix) * H;
+#pragma unroll
+      for (int k4 = 0; k4 < H / 4; ++k4) {
+        float d[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int k = 4 * k4 + q;
+          const float4* wr = reinterpret_cast<const float4*>(sW2 + k * H);
+          float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f, s3 = 0.0f;
+#pragma unroll
+          for (int j4 = 0; j4 < H / 4; ++j4) {
+            const float4 w = wr[j4];
+            s0 = fmaf(z2[4 * j4], w.x, s0);
+            s1 = fmaf(z2[4 * j4 + 1], w.y, s1);
+            s2 = fmaf(z2[4 * j4 + 2], w.z, s2);
+            s3 = fmaf(z2[4 * j4 + 3], w.w, s3);
+          }
+          d[q] = ((s0 + s1) + (s2 + s3)) * gelu_d<G>(z1[k]);
+        }
+        reinterpret_cast<float4*>(drow)[k4] = make_float4(d[0], d[1], d[2], d[3]);
+      }
+    }
+    __syncthreads();
+
+    // block sums of dW2 = h1b^T dz2b and db2: thread owns j = jq + JQ*jj
+    // (jj < 4) and k = kg + KG*m (m < KPT)
+    {
+      constexpr int JQ = H / 4;
+      constexpr int KG = TP / JQ;
+      constexpr int KPT = H >= KG ? H / KG : 1;
+      const int jq = tid % JQ, kg = tid / JQ;
+      if (kg < H) {
+        float acc[KPT][4];
+        float bsum[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+        for (int m = 0; m < KPT; ++m)
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) acc[m][jj] = 0.0f;
+        for (int p = 0; p < TP; p += 4) {
+          float4 bv[4];
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) {
+            bv[jj] = *reinterpret_cast<const float4*>(sB + (jq + JQ * jj) * LDP + p);
+            if (kg == 0) bsum[jj] += (bv[jj].x + bv[jj].y) + (bv[jj].z + bv[jj].w);
+            bv[jj] = make_float4(cd<BF16>(bv[jj].x), cd<BF16>(bv[jj].y),
+                                 cd<BF16>(bv[jj].z), cd<BF16>(bv[jj].w));
+          }
+#pragma unroll
+          for (int m = 0; m < KPT; ++m) {
+            const float4 av =
+                *reinterpret_cast<const float4*>(sA + (kg + KG * m) * LDP + p);
+#pragma unroll
+            for (int jj = 0; jj < 4; ++jj) {
+              float a = acc[m][jj];
+              a = fmaf(av.x, bv[jj].x, a);
+              a = fmaf(av.y, bv[jj].y, a);
+              a = fmaf(av.z, bv[jj].z, a);
+              a = fmaf(av.w, bv[jj].w, a);
+              acc[m][jj] = a;
+            }
+          }
+        }
+        float* dW2 = mypart + 4 + 4 * H;
+        float* db2 = mypart + 4 + 3 * H;
+#pragma unroll
+        for (int m = 0; m < KPT; ++m)
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) {
+            float* dst = dW2 + (kg + KG * m) * H + jq + JQ * jj;
+            *dst = first ? acc[m][jj] : *dst + acc[m][jj];
+          }
+        if (kg == 0)
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) {
+            float* dst = db2 + jq + JQ * jj;
+            *dst = first ? bsum[jj] : *dst + bsum[jj];
+          }
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// ---- B: per-crop node windows of dz1 ----------------------------------
+//
+// P window [crops][rows0][cols0][H]: cell sums; C1 window
+// [crops][rows1][cols1][H]: each pixel adds (1-u)(1-v), (1-u)v, u(1-v), uv
+// of its dz1 to its four C1 nodes (u, v the in-cell fractions). Thread =
+// (window node, h); block = (H, 256/H).
+template <int H>
+__global__ void ff_windows(const float* __restrict__ dz1,
+                           const int* __restrict__ org,
+                           float* __restrict__ win_p,
+                           float* __restrict__ win_c1, int rows0, int cols0,
+                           int rows1, int cols1, Geo g) {
+  const int h = threadIdx.x;
+  const int node = blockIdx.x * blockDim.y + threadIdx.y;
+  const int np = g.crops * rows0 * cols0;
+  const int nc = g.crops * rows1 * cols1;
+  if (node >= np + nc) return;
+  const int n = g.n;
+  const float* base;
+  float acc = 0.0f;
+  if (node < np) {
+    const int crop = node / (rows0 * cols0), rem = node % (rows0 * cols0);
+    const int qr = rem / cols0, qc = rem % cols0;
+    const int r0 = qr * g.f - org[2 * crop] % g.f;
+    const int c0 = qc * g.f - org[2 * crop + 1] % g.f;
+    base = dz1 + static_cast<size_t>(crop) * n * n * H + h;
+    for (int r = max(r0, 0); r < min(r0 + g.f, n); ++r) {
+      float s = 0.0f;
+      for (int c = max(c0, 0); c < min(c0 + g.f, n); ++c)
+        s += base[(static_cast<size_t>(r) * n + c) * H];
+      acc += s;
+    }
+    win_p[static_cast<size_t>(node) * H + h] = acc;
+    return;
+  }
+  const int nd = node - np;
+  const int crop = nd / (rows1 * cols1), rem = nd % (rows1 * cols1);
+  const int qr = rem / cols1, qc = rem % cols1;
+  const int f1 = g.f1;
+  const int ph = org[2 * crop] % f1, phc = org[2 * crop + 1] % f1;
+  base = dz1 + static_cast<size_t>(crop) * n * n * H + h;
+  // rows of cell qr-1 (weight u), then of cell qr (weight 1-u)
+  const int rlo = max((qr - 1) * f1 - ph, 0), rhi = min((qr + 1) * f1 - ph, n);
+  for (int r = rlo; r < rhi; ++r) {
+    const float u = static_cast<float>((r + ph) % f1) * g.inv_f1;
+    const float wr = ((r + ph) / f1 == qr) ? 1.0f - u : u;
+    // this cell's columns with weight 1-v, the previous cell's with v
+    float sa = 0.0f, sb = 0.0f;
+    for (int c = max(qc * f1 - phc, 0); c < min((qc + 1) * f1 - phc, n); ++c) {
+      const float v = static_cast<float>((c + phc) % f1) * g.inv_f1;
+      sa += (1.0f - v) * base[(static_cast<size_t>(r) * n + c) * H];
+    }
+    for (int c = max((qc - 1) * f1 - phc, 0); c < min(qc * f1 - phc, n); ++c) {
+      const float v = static_cast<float>((c + phc) % f1) * g.inv_f1;
+      sb += v * base[(static_cast<size_t>(r) * n + c) * H];
+    }
+    acc += wr * (sa + sb);
+  }
+  win_c1[static_cast<size_t>(nd) * H + h] = acc;
+}
+
+// ---- C: row and column sums of dz1, then the PE grads and db1 ----------
+template <int H>
+__global__ void ff_rowcol(const float* __restrict__ dz1,
+                          float* __restrict__ sums, Geo g) {
+  const int h = threadIdx.x;
+  const int idx = blockIdx.x * blockDim.y + threadIdx.y;  // (crop, line)
+  const int n = g.n;
+  if (idx >= g.crops * n) return;
+  const int crop = idx / n, line = idx % n;
+  const float* base = dz1 + static_cast<size_t>(crop) * n * n * H + h;
+  float sr = 0.0f, sc = 0.0f;
+  for (int k = 0; k < n; ++k) {
+    sr += base[(static_cast<size_t>(line) * n + k) * H];  // row `line`
+    sc += base[(static_cast<size_t>(k) * n + line) * H];  // column `line`
+  }
+  sums[static_cast<size_t>(idx) * H + h] = sr;
+  sums[(static_cast<size_t>(g.crops) * n + idx) * H + h] = sc;
+}
+
+// rows 0..npe-1: dWpe0, npe..2npe-1: dWpe1, 2npe: db1
+template <int H>
+__global__ void ff_pe(const float* __restrict__ sums,
+                      const int* __restrict__ org, float* __restrict__ pe,
+                      Geo g) {
+  const int h = threadIdx.x;
+  const int row = blockIdx.x;
+  const int n = g.n;
+  const bool col = row >= g.npe && row < 2 * g.npe;
+  const float* s = sums + (col ? static_cast<size_t>(g.crops) * n * H : 0) + h;
+  float acc = 0.0f;
+  for (int crop = 0; crop < g.crops; ++crop) {
+    const int o = org[2 * crop + (col ? 1 : 0)];
+    for (int k = 0; k < n; ++k) {
+      const float v = s[(static_cast<size_t>(crop) * n + k) * H];
+      if (row == 2 * g.npe) {
+        acc += v;
+      } else {
+        const float t = static_cast<float>(o + k) * g.inv_f1;
+        acc = fmaf(tri_pe(t, col ? row - g.npe : row, g.npe), v, acc);
+      }
+    }
+  }
+  pe[row * H + h] = acc;
+}
+
+// ---- D: eps^T dz1 (noise only), per-block partials [nfeat][H] ---------
+template <int H, bool BF16>
+__global__ void __launch_bounds__(TP, 2)
+ff_epsgrad(const float* __restrict__ dz1, float* __restrict__ part, Geo g) {
+  extern __shared__ float4 smem4[];
+  float* sZ = reinterpret_cast<float*>(smem4);  // dz1b [H][LDP]
+  float* sE = sZ + H * LDP;                     // eps [fslot][LDP]
+  constexpr int JQ = H / 4;                     // h = jq + JQ*hh
+  constexpr int KG = TP / JQ;                   // feature j = kg + KG*m
+  constexpr int JPT = (80 + KG - 1) / KG;       // nfeat <= 80 (pe <= 8, C <= 12)
+  const int tid = threadIdx.x;
+  const int jq = tid % JQ, kg = tid / JQ;
+  float acc[JPT][4];
+#pragma unroll
+  for (int m = 0; m < JPT; ++m)
+#pragma unroll
+    for (int hh = 0; hh < 4; ++hh) acc[m][hh] = 0.0f;
+  const int tiles = (g.npix + TP - 1) / TP;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int pix = tile * TP + tid;
+    if (pix < g.npix) {
+      const float* drow = dz1 + static_cast<size_t>(pix) * H;
+      for (int h = 0; h < H; ++h) sZ[h * LDP + tid] = cd<BF16>(drow[h]);
+      const uint32_t ctr0 = (static_cast<uint32_t>(pix) + g.pixel_base) *
+                            static_cast<uint32_t>(g.fslot);
+      for (int j = 0; j < g.nfeat; ++j)
+        sE[j * LDP + tid] = cd<BF16>(eps_uniform(
+            ctr0 + static_cast<uint32_t>(j), g.s0, g.s1, g.eps_scale));
+    } else {
+      for (int h = 0; h < H; ++h) sZ[h * LDP + tid] = 0.0f;
+      for (int j = 0; j < g.nfeat; ++j) sE[j * LDP + tid] = 0.0f;
+    }
+    __syncthreads();
+    for (int p = 0; p < TP; p += 4) {
+      float4 zv[4];
+#pragma unroll
+      for (int hh = 0; hh < 4; ++hh)
+        zv[hh] = *reinterpret_cast<const float4*>(sZ + (jq + JQ * hh) * LDP + p);
+#pragma unroll
+      for (int m = 0; m < JPT; ++m) {
+        const int j = kg + KG * m;
+        if (j < g.nfeat) {
+          const float4 ev = *reinterpret_cast<const float4*>(sE + j * LDP + p);
+#pragma unroll
+          for (int hh = 0; hh < 4; ++hh) {
+            float a = acc[m][hh];
+            a = fmaf(ev.x, zv[hh].x, a);
+            a = fmaf(ev.y, zv[hh].y, a);
+            a = fmaf(ev.z, zv[hh].z, a);
+            a = fmaf(ev.w, zv[hh].w, a);
+            acc[m][hh] = a;
+          }
+        }
+      }
+    }
+    __syncthreads();
+  }
+  float* mypart = part + static_cast<size_t>(blockIdx.x) * g.nfeat * H;
+#pragma unroll
+  for (int m = 0; m < JPT; ++m) {
+    const int j = kg + KG * m;
+    if (j < g.nfeat)
+#pragma unroll
+      for (int hh = 0; hh < 4; ++hh) mypart[j * H + jq + JQ * hh] = acc[m][hh];
+  }
+}
+
+struct Args {
+  const float *pp, *c1p, *w1, *bvec, *wpe0, *wpe1, *w2, *b2, *w3, *b3, *tgt;
+  const int* org;
+  float *out, *dz1, *part_mlp, *win_p, *win_c1, *sums, *pe, *part_eps;
+  int nblk_mlp, nblk_eps, rows0, cols0, rows1, cols1;
+  Geo g;
+  cudaStream_t stream;
+};
+
+template <int H, bool BF16, int G>
+cudaError_t launch_pixel(const Args& a) {
+  const size_t smem =
+      sizeof(float) * (2 * H * LDP + 7 * LDP + H * H + 3 * H + 2 * H + 4 +
+                       16 * H + (a.nblk_eps > 0 ? a.g.nfeat * H : 0));
+  auto kern = ff_pixel<H, BF16, G>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  kern<<<a.nblk_mlp, TP, smem, a.stream>>>(
+      a.pp, a.c1p, a.w1, a.bvec, a.wpe0, a.wpe1, a.w2, a.b2, a.w3, a.b3,
+      a.tgt, a.org, a.out, a.dz1, a.part_mlp, a.g);
+  return cudaGetLastError();
+}
+
+template <int H, bool BF16>
+cudaError_t launch_rest(const Args& a) {
+  const dim3 blk(H, 256 / H);
+  const int nodes = a.g.crops * (a.rows0 * a.cols0 + a.rows1 * a.cols1);
+  ff_windows<H><<<(nodes + blk.y - 1) / blk.y, blk, 0, a.stream>>>(
+      a.dz1, a.org, a.win_p, a.win_c1, a.rows0, a.cols0, a.rows1, a.cols1,
+      a.g);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  const int lines = a.g.crops * a.g.n;
+  ff_rowcol<H><<<(lines + blk.y - 1) / blk.y, blk, 0, a.stream>>>(
+      a.dz1, a.sums, a.g);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  ff_pe<H><<<2 * a.g.npe + 1, H, 0, a.stream>>>(a.sums, a.org, a.pe, a.g);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || a.nblk_eps == 0) return e;
+  const size_t smem = sizeof(float) * (H * LDP + a.g.fslot * LDP);
+  auto kern = ff_epsgrad<H, BF16>;
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  kern<<<a.nblk_eps, TP, smem, a.stream>>>(a.dz1, a.part_eps, a.g);
+  return cudaGetLastError();
+}
+
+template <int H, bool BF16, int G>
+cudaError_t launch_all(const Args& a) {
+  const cudaError_t e = launch_pixel<H, BF16, G>(a);
+  if (e != cudaSuccess) return e;
+  return launch_rest<H, BF16>(a);
+}
+
+template <int H, bool BF16>
+cudaError_t dispatch_gelu(int gelu_id, const Args& a) {
+  switch (gelu_id) {
+    case kErf: return launch_all<H, BF16, kErf>(a);
+    case kPoly: return launch_all<H, BF16, kPoly>(a);
+  }
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+extern "C" int nic_train_fused_ff(
+    const void* p_plane, const void* c1_plane, const void* w1,
+    const void* bvec, const void* wpe0, const void* wpe1, const void* w2,
+    const void* b2, const void* w3, const void* b3, const void* tgt,
+    const void* origins, void* out, void* dz1, void* part_mlp, void* win_p,
+    void* win_c1, void* sums, void* pe_grads, void* part_eps, int crops,
+    int n, int f, int p_rows, int p_cols, int c1_rows, int c1_cols,
+    int hidden, int npe, int nfeat, int fslot, int bf16, int gelu_id,
+    int nbits, int s0, int s1, int pixel_base, int nblk_mlp, int nblk_eps,
+    void* stream) {
+  if (crops <= 0 || n <= 0 || f <= 0 || npe < 0 || npe > 8 || nfeat > 80 ||
+      fslot > 80 || nblk_mlp <= 0 || (nbits > 0) != (nblk_eps > 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Geo g;
+  g.crops = crops;
+  g.n = n;
+  g.f = f;
+  g.f1 = 2 * f;
+  g.p_rows = p_rows;
+  g.p_cols = p_cols;
+  g.c1_rows = c1_rows;
+  g.c1_cols = c1_cols;
+  g.npe = npe;
+  g.nfeat = nfeat;
+  g.fslot = fslot;
+  g.npix = crops * n * n;
+  g.inv_f1 = 1.0f / static_cast<float>(2 * f);
+  g.inv_total = 1.0f / (static_cast<float>(g.npix) * 3.0f);
+  g.eps_scale = nbits > 0 ? ldexpf(1.0f, -nbits) : 0.0f;
+  g.s0 = static_cast<uint32_t>(s0);
+  g.s1 = static_cast<uint32_t>(s1);
+  g.pixel_base = static_cast<uint32_t>(pixel_base);
+  Args a;
+  a.pp = static_cast<const float*>(p_plane);
+  a.c1p = static_cast<const float*>(c1_plane);
+  a.w1 = static_cast<const float*>(w1);
+  a.bvec = static_cast<const float*>(bvec);
+  a.wpe0 = static_cast<const float*>(wpe0);
+  a.wpe1 = static_cast<const float*>(wpe1);
+  a.w2 = static_cast<const float*>(w2);
+  a.b2 = static_cast<const float*>(b2);
+  a.w3 = static_cast<const float*>(w3);
+  a.b3 = static_cast<const float*>(b3);
+  a.tgt = static_cast<const float*>(tgt);
+  a.org = static_cast<const int*>(origins);
+  a.out = static_cast<float*>(out);
+  a.dz1 = static_cast<float*>(dz1);
+  a.part_mlp = static_cast<float*>(part_mlp);
+  a.win_p = static_cast<float*>(win_p);
+  a.win_c1 = static_cast<float*>(win_c1);
+  a.sums = static_cast<float*>(sums);
+  a.pe = static_cast<float*>(pe_grads);
+  a.part_eps = static_cast<float*>(part_eps);
+  a.nblk_mlp = nblk_mlp;
+  a.nblk_eps = nblk_eps;
+  a.rows0 = (n + f - 2) / f + 1;
+  a.cols0 = a.rows0;
+  a.rows1 = (n + 2 * f - 2) / (2 * f) + 2;
+  a.cols1 = n / (2 * f) + 2;
+  a.g = g;
+  a.stream = static_cast<cudaStream_t>(stream);
+  if (hidden != 64) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t e = bf16 ? dispatch_gelu<64, true>(gelu_id, a)
+                             : dispatch_gelu<64, false>(gelu_id, a);
+  return static_cast<int>(e);
+}

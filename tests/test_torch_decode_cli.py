@@ -81,7 +81,10 @@ def test_cuda_device_without_cuda_raises():
 
 def test_port_imports_no_jax_and_no_nic():
     code = ("import sys, nic_torch, nic_torch.cli.decode, "
-            "nic_torch.kernels.decode_fused_v2, nic_torch.io.convert\n"
+            "nic_torch.kernels.decode_fused_v2, nic_torch.io.convert, "
+            "nic_torch.config, nic_torch.train.ntc, "
+            "nic_torch.kernels.train_fused_ff, "
+            "nic_torch.cli.image_compression\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'nic'))\n"
             "print(','.join(bad)); sys.exit(1 if bad else 0)\n")
