@@ -5,8 +5,10 @@ var2 flags), parsed into a frozen dataclass. Differences from the JAX copy:
 
 - ``compute_dtype()`` returns the dot-input type: 16 is the surgical mode
   (bf16 dot inputs, fp32 sums and everything else fp32), 32 is fp32;
-- ``TRAIN_FORWARD=auto`` resolves to ``kernel3`` on a CUDA device and to
-  ``gather`` on the CPU, and ``DECODE_BACKEND=auto`` to the CUDA decode
+- ``TRAIN_FORWARD=auto`` resolves to ``kernel3`` on a CUDA device (the
+  trainer then falls back LOD by LOD to kernel2 and kernel through the
+  JAX gates) and to ``gather`` on the CPU, and ``DECODE_BACKEND=auto`` to
+  the CUDA decode
   kernel (``pallas``, the JAX name of the fused backend) on a CUDA device
   and to ``fast`` on the CPU;
 - one new key, ``DEVICE`` (``cuda`` by default, which raises without a
@@ -84,9 +86,9 @@ class CompressionConfig:
     entropy_code_grids: bool = False
     tf_resume: bool = False
     sdc_guard_train: bool = True     # accepted, no effect (no SDC probe)
-    train_forward: str = "auto"      # auto | gather | kernel3 (| folded,
-                                     # kernel2, kernel: not ported yet)
-    train_gelu: str = "poly"         # GELU inside kernel3: poly | erf
+    train_forward: str = "auto"      # auto | gather | kernel3 | kernel2 |
+                                     # kernel (| folded: not ported yet)
+    train_gelu: str = "poly"         # GELU inside the train kernels: poly | erf
     grid_vjp: str = "scatter"        # scatter | dense: both autograd here
     qat_noise_where: str = "feature"  # feature | node
     div_size: int = 10

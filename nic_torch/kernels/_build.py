@@ -2,10 +2,11 @@
 
 Every ``csrc/*.cu`` is compiled with ``nvcc`` for Hopper
 (``-gencode arch=compute_90a,code=sm_90a``), one ``nvcc`` per source, all
-started together, and the objects are linked into one shared library with
-a plain C interface, loaded with ``ctypes``. The library lives under
-``build/nic_torch/<key>/`` at the repository root, where ``<key>`` hashes
-the sources and the flags: a changed source builds anew, an unchanged one
+started together (``-I csrc`` for the shared ``*.cuh`` headers), and the
+objects are linked into one shared library with a plain C interface,
+loaded with ``ctypes``. The library lives under ``build/nic_torch/<key>/``
+at the repository root, where ``<key>`` hashes the sources, the headers
+and the flags: a changed source or header builds anew, an unchanged tree
 loads the library already built. Nothing is built at import time; the
 first kernel launch builds, and a build that fails raises.
 """
@@ -50,7 +51,7 @@ def _sources() -> list[Path]:
 
 def _key(sources: list[Path]) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in sources + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
@@ -64,6 +65,12 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     fn.restype = i
     fn = lib.nic_train_fused_ff
     fn.argtypes = [p] * 20 + [i] * 19 + [p]
+    fn.restype = i
+    fn = lib.nic_train_fused_dx
+    fn.argtypes = [p] * 11 + [i] * 6 + [p]
+    fn.restype = i
+    fn = lib.nic_train_fused_ng
+    fn.argtypes = [p] * 14 + [i] * 8 + [p]
     fn.restype = i
     lib.nic_cuda_error_string.argtypes = [i]
     lib.nic_cuda_error_string.restype = ctypes.c_char_p
@@ -86,8 +93,9 @@ def load() -> ctypes.CDLL:
         t0 = time.perf_counter()
         jobs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                        stderr=subprocess.PIPE, text=True))
-                for cmd in ([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
-                             str(src)] for src, obj in zip(sources, objs))]
+                for cmd in ([nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o",
+                             str(obj), str(src)]
+                            for src, obj in zip(sources, objs))]
         results = []
         for cmd, proc in jobs:
             out, err = proc.communicate()

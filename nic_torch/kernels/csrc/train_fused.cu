@@ -1,0 +1,530 @@
+// The fused MLP train step on gather-built features for Hopper (sm_90a):
+// the dx kernel (TRAIN_FORWARD=kernel) and the node-gradient kernel
+// (kernel2).
+//
+// Replaces the Pallas TPU kernels of nic/kernels/train_fused.py:
+//   nic_train_fused_dx  `_kernel` (launched by `_impl`, pallas_call at :230)
+//   nic_train_fused_ng  `_kernel_ng` (`_impl_ng`, pallas_call at :510) and
+//                       its lane-packed twin `_kernel_ng2` (`_impl_ng2`,
+//                       :762), which is the same math laid out for the
+//                       TPU's 128-lane registers and is not carried over.
+//
+// For decoder-input rows x [N, F] (the gather's features, QAT noise
+// already added) and targets [N, 3]:
+//
+//   z1 = x W1 + b1,  out = sigmoid(gelu(gelu(z1) W2 + b2) W3 + b3),
+//   loss = mean((out - t)^2)
+//
+// and the full backward. Both entry points launch the same per-pixel
+// kernel, mlp_pixel: one thread per pixel, 128-pixel tiles, each block
+// walking a fixed set of tiles. It stages the tile's x rows transposed in
+// shared memory (coalesced reads of the contiguous [128, F] slab), builds
+// z1, runs the forward, the loss and the backward down to dz1 (the body of
+// K11's ff_pixel), and keeps its block's partial sums of loss, dW3, db3,
+// dW2, db2, db1 and dW1 = x^T dz1 in its own slot. A runtime flag picks
+// what leaves the kernel:
+//   dx  dx = dz1 W1^T [N, F], staged through shared memory and written
+//       coalesced; it flows back into the gather's scatter-add (K6);
+//   ng  dz1 [N, H] in fp32, which node_windows (train_common.cuh, shared
+//       with kernel3) reduces per crop window to the node-resolution
+//       cotangents: P-cell sums of dz1 at period f and the C1
+//       interpolation-weighted sums at period 2f (K7). No [N, F]
+//       cotangent exists.
+// Surgical bf16 as in JAX: in bf16-dot mode x, h1, h2, the weights and
+// the cotangents dz3, dz2, dz1 on their way into a dot are rounded with
+// __float2bfloat16_rn; every sum and every elementwise op stays fp32, and
+// the node reductions and db1 read dz1 in fp32.
+//
+// Every reduction is a fixed-order sum (no atomics): per-block partials
+// are summed afterwards in a fixed order, so two runs are bit-identical.
+// The kernel masks the last, partial tile, so any N works (path A's
+// thumbnail LODs launch N = 8).
+//
+// What bounds it: per pixel the products z1 (F x 64), z2 and dh1 (64 x
+// 64), the dW2 and dW1 reductions and, for dx, dz1 W1^T: ~22 kFMA (~26
+// with dx). At the flagship N = 524,288 that is 6 N (F H + H H + 3 H) =
+// 28.2 GFLOP with dx (the JAX cost model) and 4 N F H + 6 N (H H + 3 H) =
+// 23.3 GFLOP without: 0.42 or 0.35 ms on the fp32 CUDA cores at
+// 67 TFLOP/s. The bytes (x read once, out written, and dx for the dx
+// kernel: 166 MB or 319 MB) take 0.05 or 0.10 ms at 3.35 TB/s. So the
+// fp32 arithmetic bounds this kernel, as it bounds K11; its products
+// belong on the tensor cores (wgmma, bf16 inputs) in a later version.
+// Design: weights in shared memory, read by every thread at once
+// (broadcast); activations and cotangents staged per tile as [unit][pixel]
+// columns (stride 132 floats, conflict-free); ~146 KB of shared memory at
+// F = 73, so one block of 128 threads per SM, whose 64-wide register rows
+// give each thread independent FMA chains.
+//
+// The entry points do not synchronise, allocate nothing, and return
+// cudaGetLastError().
+
+#include "train_common.cuh"
+
+namespace {
+
+struct Shape {
+  int npix, feat, write_dx;
+  float inv_total;
+};
+
+// partial row layout (floats): [loss, db3[3], dW3[H][3], db2[H], dW2[H][H],
+// db1[H], dW1[F][H]]
+template <int H, bool BF16, int G>
+__global__ void __launch_bounds__(TP, 1)
+mlp_pixel(const float* __restrict__ x, const float* __restrict__ tgt,
+          const float* __restrict__ w1, const float* __restrict__ b1,
+          const float* __restrict__ w2, const float* __restrict__ b2,
+          const float* __restrict__ w3, const float* __restrict__ b3,
+          float* __restrict__ out, float* __restrict__ grad_out,
+          float* __restrict__ part, Shape s) {
+  extern __shared__ float4 smem4[];
+  const int F = s.feat;
+  float* sA = reinterpret_cast<float*>(smem4);  // h1b, then dz1b [H][LDP]
+  float* sB = sA + H * LDP;                     // h2b, dz2, then dz1 [H][LDP]
+  float* sD = sB + H * LDP;                     // dz3b, dz3, loss [7][LDP]
+  float* sX = sD + 7 * LDP;                     // xb, then dx [F][LDP]
+  float* sW2 = sX + F * LDP;                    // [H][H] (in, out)
+  float* sW1 = sW2 + H * H;                     // [F][H]
+  float* sW3 = sW1 + F * H;                     // [H][3]
+  float* sb1 = sW3 + H * 3;
+  float* sb2 = sb1 + H;
+  float* sb3 = sb2 + H;                         // [4]
+
+  const int tid = threadIdx.x;
+  for (int i = tid; i < H * H; i += TP) sW2[i] = cd<BF16>(w2[i]);
+  for (int i = tid; i < F * H; i += TP) sW1[i] = cd<BF16>(w1[i]);
+  for (int i = tid; i < H * 3; i += TP) sW3[i] = cd<BF16>(w3[i]);
+  for (int i = tid; i < H; i += TP) {
+    sb1[i] = b1[i];
+    sb2[i] = b2[i];
+  }
+  if (tid < 3) sb3[tid] = b3[tid];
+  __syncthreads();
+
+  const size_t part_len = 4 + 5 * H + H * H + static_cast<size_t>(F) * H;
+  float* mypart = part + blockIdx.x * part_len;
+  const int tiles = (s.npix + TP - 1) / TP;
+  bool first = true;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, first = false) {
+    const int base = tile * TP;
+    const int cnt = min(TP, s.npix - base);
+    // the tile's x rows: one contiguous [cnt, F] slab, read coalesced and
+    // staged transposed, rounded to the dot type (zeros past the end)
+    const float* xt = x + static_cast<size_t>(base) * F;
+    for (int i = tid; i < TP * F; i += TP) {
+      const int p = i / F, j = i - p * F;
+      sX[j * LDP + p] = p < cnt ? cd<BF16>(xt[i]) : 0.0f;
+    }
+    __syncthreads();
+
+    const bool valid = tid < cnt;
+    const int pix = base + tid;
+    float z1[H], z2[H];
+    float dz3[3] = {0.0f, 0.0f, 0.0f}, dz3b[3] = {0.0f, 0.0f, 0.0f};
+    float lossv = 0.0f;
+    if (valid) {
+      // layer 1: z1 = xb W1 + b1
+#pragma unroll
+      for (int h = 0; h < H; ++h) z1[h] = 0.0f;
+      for (int j = 0; j < F; ++j) {
+        const float xj = sX[j * LDP + tid];
+        const float4* wr = reinterpret_cast<const float4*>(sW1 + j * H);
+#pragma unroll
+        for (int h4 = 0; h4 < H / 4; ++h4) {
+          const float4 w = wr[h4];
+          z1[4 * h4] = fmaf(xj, w.x, z1[4 * h4]);
+          z1[4 * h4 + 1] = fmaf(xj, w.y, z1[4 * h4 + 1]);
+          z1[4 * h4 + 2] = fmaf(xj, w.z, z1[4 * h4 + 2]);
+          z1[4 * h4 + 3] = fmaf(xj, w.w, z1[4 * h4 + 3]);
+        }
+      }
+#pragma unroll
+      for (int h = 0; h < H; ++h) z1[h] += sb1[h];
+      // layer 2: z2 = h1b W2 + b2, h1b staged for dW2
+#pragma unroll
+      for (int j = 0; j < H; ++j) z2[j] = 0.0f;
+#pragma unroll
+      for (int k = 0; k < H; ++k) {
+        const float hk = cd<BF16>(gelu_f<G>(z1[k]));
+        sA[k * LDP + tid] = hk;
+        const float4* wr = reinterpret_cast<const float4*>(sW2 + k * H);
+#pragma unroll
+        for (int j4 = 0; j4 < H / 4; ++j4) {
+          const float4 w = wr[j4];
+          z2[4 * j4] = fmaf(hk, w.x, z2[4 * j4]);
+          z2[4 * j4 + 1] = fmaf(hk, w.y, z2[4 * j4 + 1]);
+          z2[4 * j4 + 2] = fmaf(hk, w.z, z2[4 * j4 + 2]);
+          z2[4 * j4 + 3] = fmaf(hk, w.w, z2[4 * j4 + 3]);
+        }
+      }
+      // layer 3, sigmoid, loss and dz3
+      float o3[3] = {0.0f, 0.0f, 0.0f};
+#pragma unroll
+      for (int j = 0; j < H; ++j) {
+        z2[j] += sb2[j];
+        const float h2 = cd<BF16>(gelu_f<G>(z2[j]));
+        sB[j * LDP + tid] = h2;
+        o3[0] = fmaf(h2, sW3[j * 3 + 0], o3[0]);
+        o3[1] = fmaf(h2, sW3[j * 3 + 1], o3[1]);
+        o3[2] = fmaf(h2, sW3[j * 3 + 2], o3[2]);
+      }
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        const float ov = 1.0f / (1.0f + expf(-(o3[c] + sb3[c])));
+        out[static_cast<size_t>(pix) * 3 + c] = ov;
+        const float diff = ov - tgt[static_cast<size_t>(pix) * 3 + c];
+        lossv = fmaf(diff, diff, lossv);
+        dz3[c] = (2.0f * s.inv_total) * diff * ov * (1.0f - ov);
+        dz3b[c] = cd<BF16>(dz3[c]);
+      }
+      // dz2 = (dz3b W3^T) * gelu'(z2), in place of z2
+#pragma unroll
+      for (int j = 0; j < H; ++j) {
+        const float dh2 = dz3b[0] * sW3[j * 3 + 0] + dz3b[1] * sW3[j * 3 + 1] +
+                          dz3b[2] * sW3[j * 3 + 2];
+        z2[j] = dh2 * gelu_d<G>(z2[j]);
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < H; ++k) {
+        sA[k * LDP + tid] = 0.0f;
+        sB[k * LDP + tid] = 0.0f;
+        z2[k] = 0.0f;
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      sD[c * LDP + tid] = dz3b[c];
+      sD[(3 + c) * LDP + tid] = dz3[c];
+    }
+    sD[6 * LDP + tid] = lossv;
+    __syncthreads();
+
+    // block sums of dW3 = h2b^T dz3b, db3, loss
+    if (tid < H) {
+      float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f;
+      for (int p = 0; p < TP; p += 4) {
+        const float4 hv = *reinterpret_cast<const float4*>(sB + tid * LDP + p);
+        const float4 d0 = *reinterpret_cast<const float4*>(sD + 0 * LDP + p);
+        const float4 d1 = *reinterpret_cast<const float4*>(sD + 1 * LDP + p);
+        const float4 d2 = *reinterpret_cast<const float4*>(sD + 2 * LDP + p);
+        a0 += hv.x * d0.x + hv.y * d0.y + hv.z * d0.z + hv.w * d0.w;
+        a1 += hv.x * d1.x + hv.y * d1.y + hv.z * d1.z + hv.w * d1.w;
+        a2 += hv.x * d2.x + hv.y * d2.y + hv.z * d2.z + hv.w * d2.w;
+      }
+      float* dst = mypart + 4 + tid * 3;
+      dst[0] = first ? a0 : dst[0] + a0;
+      dst[1] = first ? a1 : dst[1] + a1;
+      dst[2] = first ? a2 : dst[2] + a2;
+    } else if (tid < H + 4) {
+      const int row = tid - H;  // 0..2: db3[c] from raw dz3; 3: loss
+      const float* src = sD + (row < 3 ? 3 + row : 6) * LDP;
+      float a = 0.0f;
+      for (int p = 0; p < TP; p += 4) {
+        const float4 v = *reinterpret_cast<const float4*>(src + p);
+        a += (v.x + v.y) + (v.z + v.w);
+      }
+      if (row == 3) a *= s.inv_total;
+      float* dst = mypart + (row < 3 ? 1 + row : 0);
+      dst[0] = first ? a : dst[0] + a;
+    }
+    __syncthreads();
+
+    // raw dz2 to sB (dW2, db2), then dz1 = (dz2b W2^T) * gelu'(z1), in
+    // place of z1
+#pragma unroll
+    for (int j = 0; j < H; ++j) {
+      sB[j * LDP + tid] = z2[j];
+      z2[j] = cd<BF16>(z2[j]);
+    }
+    if (valid) {
+#pragma unroll
+      for (int k = 0; k < H; ++k) {
+        const float4* wr = reinterpret_cast<const float4*>(sW2 + k * H);
+        float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f, s3 = 0.0f;
+#pragma unroll
+        for (int j4 = 0; j4 < H / 4; ++j4) {
+          const float4 w = wr[j4];
+          s0 = fmaf(z2[4 * j4], w.x, s0);
+          s1 = fmaf(z2[4 * j4 + 1], w.y, s1);
+          s2 = fmaf(z2[4 * j4 + 2], w.z, s2);
+          s3 = fmaf(z2[4 * j4 + 3], w.w, s3);
+        }
+        z1[k] = ((s0 + s1) + (s2 + s3)) * gelu_d<G>(z1[k]);
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < H; ++k) z1[k] = 0.0f;
+    }
+    __syncthreads();
+
+    // block sums of dW2 = h1b^T dz2b and db2: thread owns j = jq + JQ*jj
+    // (jj < 4) and k = kg + KG*m (m < KPT)
+    constexpr int JQ = H / 4;
+    constexpr int KG = TP / JQ;
+    {
+      constexpr int KPT = H >= KG ? H / KG : 1;
+      const int jq = tid % JQ, kg = tid / JQ;
+      if (kg < H) {
+        float acc[KPT][4];
+        float bsum[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+        for (int m = 0; m < KPT; ++m)
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) acc[m][jj] = 0.0f;
+        for (int p = 0; p < TP; p += 4) {
+          float4 bv[4];
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) {
+            bv[jj] = *reinterpret_cast<const float4*>(sB + (jq + JQ * jj) * LDP + p);
+            if (kg == 0) bsum[jj] += (bv[jj].x + bv[jj].y) + (bv[jj].z + bv[jj].w);
+            bv[jj] = make_float4(cd<BF16>(bv[jj].x), cd<BF16>(bv[jj].y),
+                                 cd<BF16>(bv[jj].z), cd<BF16>(bv[jj].w));
+          }
+#pragma unroll
+          for (int m = 0; m < KPT; ++m) {
+            const float4 av =
+                *reinterpret_cast<const float4*>(sA + (kg + KG * m) * LDP + p);
+#pragma unroll
+            for (int jj = 0; jj < 4; ++jj) {
+              float a = acc[m][jj];
+              a = fmaf(av.x, bv[jj].x, a);
+              a = fmaf(av.y, bv[jj].y, a);
+              a = fmaf(av.z, bv[jj].z, a);
+              a = fmaf(av.w, bv[jj].w, a);
+              acc[m][jj] = a;
+            }
+          }
+        }
+        float* dW2 = mypart + 4 + 4 * H;
+        float* db2 = mypart + 4 + 3 * H;
+#pragma unroll
+        for (int m = 0; m < KPT; ++m)
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) {
+            float* dst = dW2 + (kg + KG * m) * H + jq + JQ * jj;
+            *dst = first ? acc[m][jj] : *dst + acc[m][jj];
+          }
+        if (kg == 0)
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) {
+            float* dst = db2 + jq + JQ * jj;
+            *dst = first ? bsum[jj] : *dst + bsum[jj];
+          }
+      }
+    }
+    __syncthreads();
+
+    // dz1b to sA (dW1), raw dz1 to sB (db1); the node-gradient kernel also
+    // writes the raw dz1 row to device memory for the window reduction
+#pragma unroll
+    for (int k = 0; k < H; ++k) {
+      sA[k * LDP + tid] = cd<BF16>(z1[k]);
+      sB[k * LDP + tid] = z1[k];
+    }
+    if (!s.write_dx && valid) {
+      float4* drow = reinterpret_cast<float4*>(grad_out + static_cast<size_t>(pix) * H);
+#pragma unroll
+      for (int k4 = 0; k4 < H / 4; ++k4)
+        drow[k4] = make_float4(z1[4 * k4], z1[4 * k4 + 1], z1[4 * k4 + 2],
+                               z1[4 * k4 + 3]);
+    }
+    __syncthreads();
+
+    // block sums of dW1 = xb^T dz1b and db1: thread owns h = jq + JQ*hh
+    // (hh < 4) and feature j = kg + KG*m (m < JPT, j < F <= 80)
+    {
+      constexpr int JPT = (80 + KG - 1) / KG;
+      const int jq = tid % JQ, kg = tid / JQ;
+      float acc[JPT][4];
+      float bsum[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+      for (int m = 0; m < JPT; ++m)
+#pragma unroll
+        for (int hh = 0; hh < 4; ++hh) acc[m][hh] = 0.0f;
+      for (int p = 0; p < TP; p += 4) {
+        float4 zv[4];
+#pragma unroll
+        for (int hh = 0; hh < 4; ++hh) {
+          zv[hh] = *reinterpret_cast<const float4*>(sA + (jq + JQ * hh) * LDP + p);
+          if (kg == 0) {
+            const float4 rv =
+                *reinterpret_cast<const float4*>(sB + (jq + JQ * hh) * LDP + p);
+            bsum[hh] += (rv.x + rv.y) + (rv.z + rv.w);
+          }
+        }
+#pragma unroll
+        for (int m = 0; m < JPT; ++m) {
+          const int j = kg + KG * m;
+          if (j < F) {
+            const float4 xv = *reinterpret_cast<const float4*>(sX + j * LDP + p);
+#pragma unroll
+            for (int hh = 0; hh < 4; ++hh) {
+              float a = acc[m][hh];
+              a = fmaf(xv.x, zv[hh].x, a);
+              a = fmaf(xv.y, zv[hh].y, a);
+              a = fmaf(xv.z, zv[hh].z, a);
+              a = fmaf(xv.w, zv[hh].w, a);
+              acc[m][hh] = a;
+            }
+          }
+        }
+      }
+      float* db1 = mypart + 4 + 4 * H + H * H;
+      float* dW1 = db1 + H;
+#pragma unroll
+      for (int m = 0; m < JPT; ++m) {
+        const int j = kg + KG * m;
+        if (j < F)
+#pragma unroll
+          for (int hh = 0; hh < 4; ++hh) {
+            float* dst = dW1 + j * H + jq + JQ * hh;
+            *dst = first ? acc[m][hh] : *dst + acc[m][hh];
+          }
+      }
+      if (kg == 0)
+#pragma unroll
+        for (int hh = 0; hh < 4; ++hh) {
+          float* dst = db1 + jq + JQ * hh;
+          *dst = first ? bsum[hh] : *dst + bsum[hh];
+        }
+    }
+
+    if (s.write_dx) {
+      // dx = dz1b W1^T into sX (free once the dW1 sums are read), then one
+      // coalesced write of the tile's [cnt, F] slab
+      __syncthreads();
+      if (valid) {
+        float db[H];
+#pragma unroll
+        for (int h = 0; h < H; ++h) db[h] = cd<BF16>(z1[h]);
+        for (int j = 0; j < F; ++j) {
+          const float4* wr = reinterpret_cast<const float4*>(sW1 + j * H);
+          float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f, s3 = 0.0f;
+#pragma unroll
+          for (int h4 = 0; h4 < H / 4; ++h4) {
+            const float4 w = wr[h4];
+            s0 = fmaf(db[4 * h4], w.x, s0);
+            s1 = fmaf(db[4 * h4 + 1], w.y, s1);
+            s2 = fmaf(db[4 * h4 + 2], w.z, s2);
+            s3 = fmaf(db[4 * h4 + 3], w.w, s3);
+          }
+          sX[j * LDP + tid] = (s0 + s1) + (s2 + s3);
+        }
+      }
+      __syncthreads();
+      float* dxt = grad_out + static_cast<size_t>(base) * F;
+      for (int i = tid; i < cnt * F; i += TP) {
+        const int p = i / F, j = i - p * F;
+        dxt[i] = sX[j * LDP + p];
+      }
+    }
+    __syncthreads();
+  }
+}
+
+template <int H, bool BF16, int G>
+cudaError_t launch_pixel(const float* x, const float* tgt, const float* w1,
+                         const float* b1, const float* w2, const float* b2,
+                         const float* w3, const float* b3, float* out,
+                         float* grad_out, float* part, const Shape& s,
+                         int nblk, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * (2 * H * LDP + 7 * LDP + s.feat * LDP +
+                                       H * H + s.feat * H + 3 * H + 2 * H + 4);
+  auto kern = mlp_pixel<H, BF16, G>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  kern<<<nblk, TP, smem, stream>>>(x, tgt, w1, b1, w2, b2, w3, b3, out,
+                                   grad_out, part, s);
+  return cudaGetLastError();
+}
+
+cudaError_t dispatch(int bf16, int gelu_id, const float* x, const float* tgt,
+                     const float* w1, const float* b1, const float* w2,
+                     const float* b2, const float* w3, const float* b3,
+                     float* out, float* grad_out, float* part, const Shape& s,
+                     int nblk, cudaStream_t stream) {
+#define NIC_LAUNCH(BF, G)                                                    \
+  return launch_pixel<64, BF, G>(x, tgt, w1, b1, w2, b2, w3, b3, out,       \
+                                 grad_out, part, s, nblk, stream)
+  if (bf16) {
+    if (gelu_id == kErf) NIC_LAUNCH(true, kErf);
+    if (gelu_id == kPoly) NIC_LAUNCH(true, kPoly);
+  } else {
+    if (gelu_id == kErf) NIC_LAUNCH(false, kErf);
+    if (gelu_id == kPoly) NIC_LAUNCH(false, kPoly);
+  }
+#undef NIC_LAUNCH
+  return cudaErrorInvalidValue;
+}
+
+bool bad_shape(int npix, int feat, int hidden, int nblk) {
+  return npix <= 0 || feat <= 0 || feat > 80 || hidden != 64 || nblk <= 0;
+}
+
+Shape make_shape(int npix, int feat, int write_dx) {
+  Shape s;
+  s.npix = npix;
+  s.feat = feat;
+  s.write_dx = write_dx;
+  s.inv_total = 1.0f / (static_cast<float>(npix) * 3.0f);
+  return s;
+}
+
+}  // namespace
+
+// K6: loss, out [N, 3], dx [N, F] and the per-block partials
+// [nblk][4 + 5H + H*H + F*H] (layout above).
+extern "C" int nic_train_fused_dx(const void* x, const void* tgt,
+                                  const void* w1, const void* b1,
+                                  const void* w2, const void* b2,
+                                  const void* w3, const void* b3, void* out,
+                                  void* dx, void* part, int npix, int feat,
+                                  int hidden, int bf16, int gelu_id, int nblk,
+                                  void* stream) {
+  if (bad_shape(npix, feat, hidden, nblk))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Shape s = make_shape(npix, feat, 1);
+  return static_cast<int>(dispatch(
+      bf16, gelu_id, static_cast<const float*>(x),
+      static_cast<const float*>(tgt), static_cast<const float*>(w1),
+      static_cast<const float*>(b1), static_cast<const float*>(w2),
+      static_cast<const float*>(b2), static_cast<const float*>(w3),
+      static_cast<const float*>(b3), static_cast<float*>(out),
+      static_cast<float*>(dx), static_cast<float*>(part), s, nblk,
+      static_cast<cudaStream_t>(stream)));
+}
+
+// K7: loss, out [N, 3], the per-block partials, dz1 [N, H] (scratch) and
+// the per-crop node windows win_p [crops][rows0][cols0][H], win_c1
+// [crops][rows1][cols1][H] (extents in train_common.cuh win_geo), for
+// crops of n x n pixels (N = crops n^2, row-major per crop) at origins
+// [crops][2] on the lattice of period f.
+extern "C" int nic_train_fused_ng(const void* x, const void* tgt,
+                                  const void* origins, const void* w1,
+                                  const void* b1, const void* w2,
+                                  const void* b2, const void* w3,
+                                  const void* b3, void* out, void* dz1,
+                                  void* part, void* win_p, void* win_c1,
+                                  int crops, int n, int f, int feat,
+                                  int hidden, int bf16, int gelu_id, int nblk,
+                                  void* stream) {
+  if (crops <= 0 || n <= 0 || f <= 0 ||
+      bad_shape(crops * n * n, feat, hidden, nblk))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Shape s = make_shape(crops * n * n, feat, 0);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t e = dispatch(
+      bf16, gelu_id, static_cast<const float*>(x),
+      static_cast<const float*>(tgt), static_cast<const float*>(w1),
+      static_cast<const float*>(b1), static_cast<const float*>(w2),
+      static_cast<const float*>(b2), static_cast<const float*>(w3),
+      static_cast<const float*>(b3), static_cast<float*>(out),
+      static_cast<float*>(dz1), static_cast<float*>(part), s, nblk, st);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(launch_node_windows<64>(
+      static_cast<const float*>(dz1), static_cast<const int*>(origins),
+      static_cast<float*>(win_p), static_cast<float*>(win_c1),
+      win_geo(crops, n, f), st));
+}

@@ -17,8 +17,9 @@
 //                a fixed set of tiles: z1 build, MLP forward, loss, the
 //                backward down to dz1 (written to device memory, [N, H]),
 //                and the block's partial sums of loss, dW3, db3, dW2, db2;
-//   B ff_windows the node-resolution cotangents per crop window: P-cell
-//                sums of dz1 and C1 interpolation-weighted sums;
+//   B node_windows (train_common.cuh) the node-resolution cotangents per
+//                crop window: P-cell sums of dz1 and C1
+//                interpolation-weighted sums;
 //   C ff_rowcol  row and column sums of dz1 per crop, then ff_pe: the PE
 //                tables against them (dWpe0, dWpe1) and db1;
 //   D ff_epsgrad (noise only) eps^T dz1 per block, the eps stream
@@ -53,81 +54,14 @@
 // planes directly at the crop origin.
 //
 // The entry point does not synchronise, allocates nothing, and returns
-// cudaGetLastError().
+// cudaGetLastError(). The GELU pair, the bf16 rounding and the window
+// kernel are shared with train_fused.cu through train_common.cuh.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "train_common.cuh"
+
 namespace {
-
-constexpr int TP = 128;   // pixels per tile = threads per block in A and D
-constexpr int LDP = 132;  // row stride of the [unit][pixel] staging tiles
-
-enum Gelu { kErf = 0, kPoly = 1 };
-
-__device__ __forceinline__ float bf16_round(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-template <bool BF16>
-__device__ __forceinline__ float cd(float x) {
-  return BF16 ? bf16_round(x) : x;
-}
-
-// erf by Abramowitz & Stegun 7.1.26, as nic/kernels/decode_fused.py _erf
-__device__ __forceinline__ float erf_as(float x) {
-  const float ax = fabsf(x);
-  const float t = 1.0f / (1.0f + 0.3275911f * ax);
-  const float poly =
-      ((((1.061405429f * t + -1.453152027f) * t + 1.421413741f) * t +
-        -0.284496736f) * t + 0.254829592f) * t;
-  const float sign = x > 0.0f ? 1.0f : (x < 0.0f ? -1.0f : 0.0f);
-  return sign * (1.0f - poly * expf(-ax * ax));
-}
-
-__device__ __constant__ float kPolyC[9] = {
-    6.063213460406e-06f, 3.988279991626e-01f, -6.618728056429e-02f,
-    9.689185146121e-03f, -1.058572076001e-03f, 8.262109727744e-05f,
-    -4.286269517788e-06f, 1.303813961965e-07f, -1.739696971198e-09f};
-
-// k * kPolyC[k], the product taken in double and rounded once, as JAX
-// multiplies the Python constants
-__device__ __constant__ float kPolyD[9] = {
-    0.0f, 0.39882799983024597f, -0.13237455487251282f, 0.02906755544245243f,
-    -0.004234288353472948f, 0.0004131054738536477f, -2.5717617972986773e-05f,
-    9.126697477768175e-07f, -1.3917575536481763e-08f};
-
-// the train kernels' GELU pair (nic/kernels/train_fused.py _gelu_fwd/_bwd)
-template <int G>
-__device__ __forceinline__ float gelu_f(float z) {
-  if (G == kErf) {
-    const float cdf = 0.5f * (1.0f + erf_as(z * 0.7071067811865476f));
-    return z * cdf;
-  } else {
-    const float u = z * z;
-    float acc = kPolyC[8];
-#pragma unroll
-    for (int i = 7; i >= 0; --i) acc = acc * u + kPolyC[i];
-    const float h = 0.5f * z + acc;
-    return z > 4.0f ? z : (z < -4.0f ? 0.0f : h);
-  }
-}
-
-template <int G>
-__device__ __forceinline__ float gelu_d(float z) {
-  if (G == kErf) {
-    const float cdf = 0.5f * (1.0f + erf_as(z * 0.7071067811865476f));
-    return cdf + z * (0.3989422804014327f * expf(-0.5f * z * z));
-  } else {
-    const float u = z * z;
-    float acc = kPolyD[8];
-#pragma unroll
-    for (int k = 7; k >= 1; --k) acc = acc * u + kPolyD[k];
-    const float g = 0.5f + 2.0f * z * acc;
-    return z > 4.0f ? 1.0f : (z < -4.0f ? 0.0f : g);
-  }
-}
 
 // the counter hash of nic/kernels/train_fused_ff.py eps_uniform (int32
 // wrapping multiplies and logical shifts = uint32 arithmetic)
@@ -474,67 +408,6 @@ ff_pixel(const float* __restrict__ pp, const float* __restrict__ c1p,
   }
 }
 
-// ---- B: per-crop node windows of dz1 ----------------------------------
-//
-// P window [crops][rows0][cols0][H]: cell sums; C1 window
-// [crops][rows1][cols1][H]: each pixel adds (1-u)(1-v), (1-u)v, u(1-v), uv
-// of its dz1 to its four C1 nodes (u, v the in-cell fractions). Thread =
-// (window node, h); block = (H, 256/H).
-template <int H>
-__global__ void ff_windows(const float* __restrict__ dz1,
-                           const int* __restrict__ org,
-                           float* __restrict__ win_p,
-                           float* __restrict__ win_c1, int rows0, int cols0,
-                           int rows1, int cols1, Geo g) {
-  const int h = threadIdx.x;
-  const int node = blockIdx.x * blockDim.y + threadIdx.y;
-  const int np = g.crops * rows0 * cols0;
-  const int nc = g.crops * rows1 * cols1;
-  if (node >= np + nc) return;
-  const int n = g.n;
-  const float* base;
-  float acc = 0.0f;
-  if (node < np) {
-    const int crop = node / (rows0 * cols0), rem = node % (rows0 * cols0);
-    const int qr = rem / cols0, qc = rem % cols0;
-    const int r0 = qr * g.f - org[2 * crop] % g.f;
-    const int c0 = qc * g.f - org[2 * crop + 1] % g.f;
-    base = dz1 + static_cast<size_t>(crop) * n * n * H + h;
-    for (int r = max(r0, 0); r < min(r0 + g.f, n); ++r) {
-      float s = 0.0f;
-      for (int c = max(c0, 0); c < min(c0 + g.f, n); ++c)
-        s += base[(static_cast<size_t>(r) * n + c) * H];
-      acc += s;
-    }
-    win_p[static_cast<size_t>(node) * H + h] = acc;
-    return;
-  }
-  const int nd = node - np;
-  const int crop = nd / (rows1 * cols1), rem = nd % (rows1 * cols1);
-  const int qr = rem / cols1, qc = rem % cols1;
-  const int f1 = g.f1;
-  const int ph = org[2 * crop] % f1, phc = org[2 * crop + 1] % f1;
-  base = dz1 + static_cast<size_t>(crop) * n * n * H + h;
-  // rows of cell qr-1 (weight u), then of cell qr (weight 1-u)
-  const int rlo = max((qr - 1) * f1 - ph, 0), rhi = min((qr + 1) * f1 - ph, n);
-  for (int r = rlo; r < rhi; ++r) {
-    const float u = static_cast<float>((r + ph) % f1) * g.inv_f1;
-    const float wr = ((r + ph) / f1 == qr) ? 1.0f - u : u;
-    // this cell's columns with weight 1-v, the previous cell's with v
-    float sa = 0.0f, sb = 0.0f;
-    for (int c = max(qc * f1 - phc, 0); c < min((qc + 1) * f1 - phc, n); ++c) {
-      const float v = static_cast<float>((c + phc) % f1) * g.inv_f1;
-      sa += (1.0f - v) * base[(static_cast<size_t>(r) * n + c) * H];
-    }
-    for (int c = max((qc - 1) * f1 - phc, 0); c < min(qc * f1 - phc, n); ++c) {
-      const float v = static_cast<float>((c + phc) % f1) * g.inv_f1;
-      sb += v * base[(static_cast<size_t>(r) * n + c) * H];
-    }
-    acc += wr * (sa + sb);
-  }
-  win_c1[static_cast<size_t>(nd) * H + h] = acc;
-}
-
 // ---- C: row and column sums of dz1, then the PE grads and db1 ----------
 template <int H>
 __global__ void ff_rowcol(const float* __restrict__ dz1,
@@ -651,7 +524,8 @@ struct Args {
   const float *pp, *c1p, *w1, *bvec, *wpe0, *wpe1, *w2, *b2, *w3, *b3, *tgt;
   const int* org;
   float *out, *dz1, *part_mlp, *win_p, *win_c1, *sums, *pe, *part_eps;
-  int nblk_mlp, nblk_eps, rows0, cols0, rows1, cols1;
+  int nblk_mlp, nblk_eps;
+  WinGeo win;
   Geo g;
   cudaStream_t stream;
 };
@@ -674,11 +548,8 @@ cudaError_t launch_pixel(const Args& a) {
 template <int H, bool BF16>
 cudaError_t launch_rest(const Args& a) {
   const dim3 blk(H, 256 / H);
-  const int nodes = a.g.crops * (a.rows0 * a.cols0 + a.rows1 * a.cols1);
-  ff_windows<H><<<(nodes + blk.y - 1) / blk.y, blk, 0, a.stream>>>(
-      a.dz1, a.org, a.win_p, a.win_c1, a.rows0, a.cols0, a.rows1, a.cols1,
-      a.g);
-  cudaError_t e = cudaGetLastError();
+  cudaError_t e = launch_node_windows<H>(a.dz1, a.org, a.win_p, a.win_c1,
+                                         a.win, a.stream);
   if (e != cudaSuccess) return e;
   const int lines = a.g.crops * a.g.n;
   ff_rowcol<H><<<(lines + blk.y - 1) / blk.y, blk, 0, a.stream>>>(
@@ -770,10 +641,7 @@ extern "C" int nic_train_fused_ff(
   a.part_eps = static_cast<float*>(part_eps);
   a.nblk_mlp = nblk_mlp;
   a.nblk_eps = nblk_eps;
-  a.rows0 = (n + f - 2) / f + 1;
-  a.cols0 = a.rows0;
-  a.rows1 = (n + 2 * f - 2) / (2 * f) + 2;
-  a.cols1 = n / (2 * f) + 2;
+  a.win = win_geo(crops, n, f);
   a.g = g;
   a.stream = static_cast<cudaStream_t>(stream);
   if (hidden != 64) return static_cast<int>(cudaErrorInvalidValue);

@@ -41,15 +41,16 @@ from __future__ import annotations
 
 import torch
 
-from nic_torch.kernels.train_fused import (_accumulate_node_planes,
-                                           _gelu_bwd, _gelu_fwd, _pad8)
+from nic_torch.kernels.train_fused import (_CORNERS, GELU_IDS,
+                                           _accumulate_node_planes, _cd,
+                                           _CdDot, _Gelu, _pad8,
+                                           _unfold_node_grads, _window_extents)
 
 __all__ = ["fused_train_ff", "fused_train_ff_kernel", "fused_train_ff_plain",
            "ff_geometry", "eps_uniform", "fold_planes"]
 
 _M32 = 0xFFFFFFFF
 _KERNEL_HIDDEN = (64,)  # widths the .cu instantiates
-_GELU_IDS = {"erf": 0, "poly": 1}
 
 
 # ---- counter-hash feature noise (bit-exact with the JAX package) ---------
@@ -126,12 +127,6 @@ def _tri_table(t: torch.Tensor, npe: int) -> torch.Tensor:
 
 # ---- the fold (torch ops, as the JAX package leaves it to XLA) ---------
 
-def _cd(x: torch.Tensor, cd) -> torch.Tensor:
-    """Round to the dot-input type (bf16) and back to fp32; identity for
-    fp32."""
-    return x if cd is None else x.to(cd).float()
-
-
 def fold_planes(g0: torch.Tensor, g1: torch.Tensor, w1: torch.Tensor,
                 cd=None) -> tuple[torch.Tensor, torch.Tensor]:
     """P [g0r−1, g0c−1, H] = Σ_k shift_k(G0)ᵀ·W1_k and C1 [g1r, g1c, H] =
@@ -139,7 +134,7 @@ def fold_planes(g0: torch.Tensor, g1: torch.Tensor, w1: torch.Tensor,
     ch = g0.shape[0]
     cells_r, cells_c = g0.shape[1] - 1, g0.shape[2] - 1
     p_plane = None
-    for k, (a, b) in enumerate(((0, 0), (0, 1), (1, 0), (1, 1))):
+    for k, (a, b) in enumerate(_CORNERS):
         sl = g0[:, a:a + cells_r, b:b + cells_c].permute(1, 2, 0)
         term = _cd(sl, cd) @ _cd(w1[k * ch:(k + 1) * ch], cd)
         p_plane = term if p_plane is None else p_plane + term
@@ -148,41 +143,6 @@ def fold_planes(g0: torch.Tensor, g1: torch.Tensor, w1: torch.Tensor,
 
 
 # ---- the plain version -------------------------------------------------
-
-class _CdDot(torch.autograd.Function):
-    """a·w with dot inputs rounded to ``cd`` and fp32 sums; the backward
-    rounds the cotangent to ``cd`` before both products, as the kernel
-    does (dh = gb·wbᵀ, dw = abᵀ·gb)."""
-
-    @staticmethod
-    def forward(ctx, a, w, cd):
-        ab, wb = _cd(a, cd), _cd(w, cd)
-        ctx.save_for_backward(ab, wb)
-        ctx.cd = cd
-        return ab @ wb
-
-    @staticmethod
-    def backward(ctx, g):
-        ab, wb = ctx.saved_tensors
-        gb = _cd(g, ctx.cd)
-        return gb @ wb.T, ab.T @ gb, None
-
-
-class _Gelu(torch.autograd.Function):
-    """The train kernels' GELU with its hand-written derivative."""
-
-    @staticmethod
-    def forward(ctx, z, kind):
-        h, aux = _gelu_fwd(z, kind)
-        ctx.save_for_backward(z, *(() if aux is None else (aux,)))
-        ctx.kind = kind
-        return h
-
-    @staticmethod
-    def backward(ctx, g):
-        z, *aux = ctx.saved_tensors
-        return g * _gelu_bwd(z, aux[0] if aux else None, ctx.kind), None
-
 
 def _noise(crops: int, n: int, nfeat: int, seed, nbits: int, device):
     """ε [crops·n², nfeat] of the in-kernel stream; counters gid·fslot + j
@@ -277,9 +237,9 @@ def _check(p_plane, c1_plane, w1, b1, w2, b2, w3, b3, tgt, origins, n, f,
     if len({t.device for t in tensors}) != 1:
         raise ValueError("fused_train_ff: operands on different devices: "
                          f"{sorted(str(t.device) for t in tensors)}")
-    if gelu not in _GELU_IDS:
+    if gelu not in GELU_IDS:
         raise ValueError(f"unknown train gelu {gelu!r}; one of "
-                         f"{list(_GELU_IDS)}")
+                         f"{list(GELU_IDS)}")
     if cd not in (None, torch.bfloat16):
         raise ValueError(f"matmul dtype must be None or bfloat16, not {cd}")
     if f < 1 or f & (f - 1):
@@ -310,14 +270,6 @@ def _check(p_plane, c1_plane, w1, b1, w2, b2, w3, b3, tgt, origins, n, f,
         raise ValueError(f"crop origins {org.tolist()} with n={n}, f={f} "
                          f"reach outside the {tuple(p_plane.shape[:2])} P "
                          "plane")
-
-
-def _window_extents(n: int, f: int) -> tuple[int, int, int, int]:
-    """Per-crop node-window extents (rows0, cols0, rows1, cols1): a crop's
-    dz1 reaches at most these many P cells and C1 nodes per axis."""
-    f1 = 2 * f
-    return ((n + f - 2) // f + 1, (n + f - 2) // f + 1,
-            (n + f1 - 2) // f1 + 2, n // f1 + 2)
 
 
 def fused_train_ff_kernel(p_plane, c1_plane, w1, b1, w2, b2, w3, b3, tgt,
@@ -395,7 +347,7 @@ def fused_train_ff_kernel(p_plane, c1_plane, w1, b1, w2, b2, w3, b3, tgt,
             pe_grads.data_ptr(), part_eps.data_ptr(),
             crops, n, f, p_c.shape[0], p_c.shape[1], c1_c.shape[0],
             c1_c.shape[1], hidden, npe, nfeat, _pad8(nfeat),
-            int(cd is not None), _GELU_IDS[gelu],
+            int(cd is not None), GELU_IDS[gelu],
             0 if nbits is None else int(nbits), s0, s1, pixel_base,
             nblk_mlp, nblk_eps, stream)
     if rc != 0:
@@ -413,9 +365,9 @@ def fused_train_ff_kernel(p_plane, c1_plane, w1, b1, w2, b2, w3, b3, tgt,
     dw2 = part[o + hidden:].reshape(hidden, hidden)
     dpe0, dpe1, db1 = pe_grads[:npe], pe_grads[npe:2 * npe], pe_grads[2 * npe]
     dw1e = part_eps.sum(dim=0) if nbits is not None else None
-    pacc, c1acc = _accumulate_node_planes(
-        win_p, win_c1, origins, crops=crops, ncols=n, rowsb=n, f=f,
-        g0_nodes=g0_nodes, g1_nodes=g1_nodes, hidden=hidden)
+    pacc, c1acc = _accumulate_node_planes(win_p, win_c1, origins, f=f,
+                                          g0_nodes=g0_nodes,
+                                          g1_nodes=g1_nodes)
     return (loss, out, dw2, db2, dw3, db3, dpe0, dpe1, db1, pacc, c1acc,
             dw1e)
 
@@ -435,23 +387,15 @@ def _unfold_ff(pacc, c1acc, g0, g1, w1, db1, dpe0, dpe1, *, lodf: float,
     hidden = w1.shape[1]
     g0r, g0c = g0.shape[1], g0.shape[2]
     g1r, g1c = g1.shape[1], g1.shape[2]
+    dg0 = dg1 = None
+    if grids:
+        dg0, dg1 = _unfold_node_grads(pacc, c1acc, w1, g0_nodes=(g0r, g0c),
+                                      g1_nodes=(g1r, g1c), channels=ch)
     g0p = torch.nn.functional.pad(g0.detach().to(f32), (0, 2, 0, 2))
     g1p = torch.nn.functional.pad(g1.detach().to(f32), (0, 2, 0, 2))
-    w1 = w1.detach().to(f32)
     pflat = pacc.reshape(-1, hidden)
-    dg0 = pacc.new_zeros((g0r + 2, g0c + 2, ch)) if grids else None
-    rows = []
-    for k, (a, b) in enumerate(((0, 0), (0, 1), (1, 0), (1, 1))):
-        blk = w1[k * ch:(k + 1) * ch]
-        if grids:
-            dg0[a:a + g0r + 1, b:b + g0c + 1] += pacc @ blk.T
-        rows.append(g0p[:, a:a + g0r + 1, b:b + g0c + 1].reshape(ch, -1)
-                    @ pflat)
-    blk1 = w1[4 * ch:5 * ch]
-    dg1 = None
-    if grids:
-        dg0 = dg0[:g0r, :g0c].permute(2, 0, 1)
-        dg1 = (c1acc @ blk1.T)[:g1r, :g1c].permute(2, 0, 1)
+    rows = [g0p[:, a:a + g0r + 1, b:b + g0c + 1].reshape(ch, -1) @ pflat
+            for a, b in _CORNERS]
     rows.append(g1p[:, :g1r + 2, :g1c + 2].reshape(ch, -1)
                 @ c1acc.reshape(-1, hidden))
     rows += [dpe0, dpe1, lodf * db1[None, :]]

@@ -58,11 +58,26 @@ def test_cuda_device_without_cuda_raises(tmp_path):
     ("ENTROPY_CODE_GRIDS=True", "item 12"),
     ("DATA_PARALLEL=True", "item 13"),
     ("PROFILE_DIR=prof", "item 14"),
-    ("TRAIN_FORWARD=kernel2", "items 3-4"),
-    ("TRAIN_FORWARD=kernel", "items 3-4"),
     ("TRAIN_FORWARD=folded", "item 15"),
     ("DECODE_BACKEND=xla", "item 15"),
 ])
 def test_unported_options_refuse(tmp_path, extra, item):
     with pytest.raises(NotImplementedError, match=item):
         tcli.run(ARGS + [extra, f"OUTPUT_ROOT={tmp_path}"])
+
+
+@pytest.mark.parametrize("forward,extra", [
+    ("kernel2", "TF_USE_TRI_PE=False"), ("kernel", "TF_NO_MIP=False")])
+def test_kernel_engines_train_on_cpu(tmp_path, forward, extra):
+    """TRAIN_FORWARD=kernel2 (sinusoidal PE) and kernel (mip mode) run
+    through the CLI on the CPU, on their kernels' plain versions: the gate
+    log names the engine, the losses are finite and every mip decodes."""
+    res = tcli.run(ARGS[:3] + ["NUM_EPOCHS=6", "MAX_MIP_LEVEL=3", extra,
+                               f"TRAIN_FORWARD={forward}",
+                               f"OUTPUT_ROOT={tmp_path}"])
+    (log,) = os.listdir(os.path.join(tmp_path, "printlog"))
+    with open(os.path.join(tmp_path, "printlog", log)) as fh:
+        gates = [ln for ln in fh if "train forward gate" in ln]
+    assert gates and all(f"): {forward} [" in ln for ln in gates
+                         if "lod=0," in ln)
+    assert np.isfinite(res["psnr"]).all() and res["bpp"] > 0

@@ -2,12 +2,13 @@
 crops of 2^CROP_MIP_LEVEL).
 
 The LOD stream and the learning-rate schedule are compared exactly (to
-float rounding); the kernel3 gate on a grid of configurations; one train
-step from identical params, crops and noise (JAX's own draws, replayed
-through the port's step core) in loss, grads (Adam's first moment after
-one update is (1 − b1)·grad in both) and post-Adam params; checkpoints in
-both directions; and a kernel3 run across the freeze, step by step. The
-JAX kernels run in Pallas interpret mode, as the JAX suite runs them.
+float rounding); the engine gates (kernel3, kernel2, kernel, gather) on a
+grid of configurations; one train step of every engine from identical
+params, crops and noise (JAX's own draws, replayed through the port's
+step core) in loss, grads (Adam's first moment after one update is
+(1 − b1)·grad in both) and post-Adam params; checkpoints in both
+directions; and a kernel3 run across the freeze, step by step. The JAX
+kernels run in Pallas interpret mode, as the JAX suite runs them.
 """
 
 import warnings
@@ -59,12 +60,13 @@ def _rel(a, b):
     return float(np.abs(a - b).max() / (np.abs(b).max() + 1e-12))
 
 
-def _jax_draws(cfg, n, sub, frozen, forward):
+def _jax_draws(cfg, n, sub, frozen, forward, lod=0):
     """What JAX's train_step draws from its per-step key (ntc.py:761)."""
     k_crop, k_noise = jax.random.split(sub)
+    size = cfg.image_size >> min(lod, cfg.effective_max_mip_level)
     origins = jax.random.randint(
         k_crop, (cfg.num_crops, 2), 0,
-        jnp.asarray([cfg.image_size - n + 1] * 2, jnp.int32))
+        jnp.asarray([size - n + 1] * 2, jnp.int32))
     kw = {}
     if not frozen:
         if forward == "kernel3":
@@ -130,49 +132,64 @@ def test_cosine_lr_matches_optax_across_the_freeze():
 
 
 def test_forward_mode_matches_jax():
-    """kernel3's gate resolves as JAX's on every LOD of mip-mode configs
-    (the port runs gather where JAX would run kernel2/kernel)."""
+    """Every engine's gates resolve as JAX's on every LOD of mip-mode
+    configs, and the engine that runs is the one JAX runs (the PE
+    settings reach only the kernel3 gate)."""
     checked = set()
-    for crop_mip, crops in ((4, 8), (5, 3), (6, 2)):
-        for pe, tri in ((6, True), (4, True), (6, False), (10, True)):
-            kw = dict(tf_no_mip=False, max_mip_level=6, train_forward="kernel3",
-                      crop_mip_level=crop_mip, num_crops=crops,
-                      pe_channels=pe, tf_use_tri_pe=tri)
-            kw = {**BASE, **kw}
-            jcfg = JConfig(**kw)
-            jtr = jntc.NTCTrainer(jcfg, j_load_asset(jcfg))
-            ttr = tntc.NTCTrainer(TConfig(device="cpu", **kw),
-                                  [np.zeros((3, 64 >> i, 64 >> i), np.float32)
-                                   for i in range(7)])
-            for lod in range(7):
-                jtr._build_step(lod, False, jit=False)
-                plan = ttr._plan(lod, False)
-                assert plan.verdict == jtr._forward_mode, (kw, lod)
-                assert plan.mode == ("kernel3" if plan.verdict == "kernel3"
-                                     else "gather")
-                checked.add(plan.verdict)
-    assert {"kernel3", "kernel2", "gather"} <= checked
+    for forward in ("kernel3", "kernel2", "kernel", "gather"):
+        pes = (((6, True), (4, True), (6, False), (10, True))
+               if forward == "kernel3" else ((6, True), (6, False)))
+        for crop_mip, crops in ((4, 8), (5, 3), (6, 2)):
+            for pe, tri in pes:
+                kw = dict(tf_no_mip=False, max_mip_level=6,
+                          train_forward=forward, crop_mip_level=crop_mip,
+                          num_crops=crops, pe_channels=pe, tf_use_tri_pe=tri)
+                kw = {**BASE, **kw}
+                jcfg = JConfig(**kw)
+                jtr = jntc.NTCTrainer(jcfg, j_load_asset(jcfg))
+                ttr = tntc.NTCTrainer(
+                    TConfig(device="cpu", **kw),
+                    [np.zeros((3, 64 >> i, 64 >> i), np.float32)
+                     for i in range(7)])
+                for lod in range(7):
+                    jtr._build_step(lod, False, jit=False)
+                    plan = ttr._plan(lod, False)
+                    assert plan.mode == jtr._forward_mode, (kw, lod)
+                    checked.add(plan.mode)
+    assert checked == {"kernel3", "kernel2", "kernel", "gather"}
+
+
+# the configuration and LOD of each (forward, dtype) case beyond the
+# no-mip flagship at LOD 0: kernel2 as the sinusoidal-PE engine; kernel at
+# a mip-mode LOD with step 2 (the G1 raw-sum quirk in the gather that K6's
+# dx flows back through) and at LOD 0
+ONE_STEP = {("kernel2", 16): (dict(tf_use_tri_pe=False), 0),
+            ("kernel2", 32): (dict(tf_use_tri_pe=False), 0),
+            ("kernel", 16): (dict(tf_no_mip=False, max_mip_level=6), 3)}
 
 
 @pytest.mark.parametrize("frozen", [False, True])
-@pytest.mark.parametrize("forward,dtype", [("gather", 32), ("gather", 16),
-                                           ("kernel3", 16)])
+@pytest.mark.parametrize("forward,dtype", [
+    ("gather", 32), ("gather", 16), ("kernel3", 16), ("kernel2", 16),
+    ("kernel2", 32), ("kernel", 16), ("kernel", 32)])
 def test_one_step_matches_jax(forward, dtype, frozen):
+    extra, lod = ONE_STEP.get((forward, dtype), ({}, 0))
     jtr, ttr, lines = _pair(train_forward=forward, mlp_num_dtype=dtype,
-                            num_epochs=100, crop_mip_level=4)
+                            num_epochs=100, crop_mip_level=4, **extra)
     if frozen:
         jtr.freeze_and_quantize()
         ttr.freeze_and_quantize()
-    _, n, _ = jtr._geometry(0)
-    fn = jtr._build_step(0, frozen, jit=False)
+    _, n, step = jtr._geometry(lod)
+    assert step == (2.0 if lod else 0.25)
+    fn = jtr._build_step(lod, frozen, jit=False)
     assert jtr._forward_mode == forward
     sub = jax.random.split(jtr._key)[1]
     s = jtr.state
     with pltpu.force_tpu_interpret_mode():
         fp, mlp, opt_fp, opt_mlp, jloss, _ = fn(s.fp, s.mlp, s.opt_fp,
                                                 s.opt_mlp, sub)
-    origins, kw = _jax_draws(jtr.cfg, n, sub, frozen, forward)
-    loss, _ = ttr.step_core(0, origins, **kw)
+    origins, kw = _jax_draws(jtr.cfg, n, sub, frozen, forward, lod)
+    loss, _ = ttr.step_core(lod, origins, **kw)
     assert ttr._forward_mode == forward
     assert f"frozen={frozen}): {forward}" in lines[0]
 

@@ -21,7 +21,8 @@ from jax.experimental.pallas import tpu as pltpu
 from nic.kernels import train_fused_ff as jff
 from nic.kernels.train_fused import _accumulate_node_planes as j_accumulate
 from nic_torch.kernels import train_fused_ff as tff
-from nic_torch.kernels.train_fused import _accumulate_node_planes
+from nic_torch.kernels.train_fused import (_accumulate_node_planes,
+                                           _window_extents)
 
 # (n, step, data_size, crops, rowsb): f = 4, 2, 1
 LATTICES = [(16, 0.25, 64, 2, 8), (16, 0.5, 32, 3, 8), (16, 1.0, 32, 2, 8)]
@@ -113,6 +114,24 @@ def _jax_impl(g0, g1, mlp, tgt, origins, *, n, rowsb, f, lodf, cd, gelu,
             [np.asarray(p) for p in planes], (dp, dc1))
 
 
+def _jax_windows(tiles, *, crops, n, rowsb, f, g0_nodes, g1_nodes):
+    """Each crop's node windows, of the port's extents, from the JAX
+    kernel's row-block tiles: JAX's _accumulate_node_planes of one crop's
+    tiles placed at origin 0, cut to the window."""
+    dp, dc1 = (np.asarray(t) for t in tiles)
+    nb = n // rowsb
+    rows0, cols0, rows1, cols1 = _window_extents(n, f)
+    wins = ([], [])
+    for i in range(crops):
+        planes = j_accumulate(
+            dp[i * nb:(i + 1) * nb], dc1[i * nb:(i + 1) * nb],
+            jnp.zeros((1, 2), jnp.int32), crops=1, ncols=n, rowsb=rowsb,
+            f=f, g0_nodes=g0_nodes, g1_nodes=g1_nodes, hidden=H)
+        wins[0].append(np.asarray(planes[0])[:rows0, :cols0])
+        wins[1].append(np.asarray(planes[1])[:rows1, :cols1])
+    return tuple(torch.tensor(np.stack(w)) for w in wins)
+
+
 @pytest.mark.parametrize("noise", [None, 8])
 @pytest.mark.parametrize("mode", list(MODES))
 @pytest.mark.parametrize("lattice", LATTICES, ids=["f4", "f2", "f1"])
@@ -121,7 +140,7 @@ def test_fused_train_ff_matches_jax(lattice, mode, noise):
     function (its plain path) against the JAX kernel; then the accumulated
     node planes of the port's plain version against the JAX kernel's
     tiles through JAX's _accumulate_node_planes, and the port's
-    _accumulate_node_planes on the same tiles."""
+    _accumulate_node_planes on the per-crop windows of the same tiles."""
     n, step, data, crops, rowsb = lattice
     cd, gelu = MODES[mode]
     tol = TOL[cd]
@@ -155,11 +174,11 @@ def test_fused_train_ff_matches_jax(lattice, mode, noise):
                              ("w1", "b1", "w2", "b2", "w3", "b3")),
         torch.tensor(tgt), torch.tensor(origins), torch.tensor(SEED), n=n,
         f=f, npe=PE, lodf=1.0, cd=tcd, gelu=gelu, nbits=noise)
-    ported = _accumulate_node_planes(
-        torch.tensor(np.asarray(j_tiles[0])),
-        torch.tensor(np.asarray(j_tiles[1])), torch.tensor(origins),
-        crops=crops, ncols=n, rowsb=rowsb, f=f, g0_nodes=g0.shape[1],
-        g1_nodes=g1.shape[1], hidden=H)
+    windows = _jax_windows(j_tiles, crops=crops, n=n, rowsb=rowsb, f=f,
+                           g0_nodes=g0.shape[1], g1_nodes=g1.shape[1])
+    ported = _accumulate_node_planes(*windows, torch.tensor(origins), f=f,
+                                     g0_nodes=g0.shape[1],
+                                     g1_nodes=g1.shape[1])
     for mine, acc, want in zip(res[9:11], ported, j_planes):
         assert mine.shape == want.shape
         np.testing.assert_allclose(acc.numpy(), want, rtol=0, atol=1e-7)
