@@ -9,9 +9,10 @@ Phases (any failure exits non-zero):
 
 1. a CUDA device is present; print ``nvidia-smi`` name and power limit;
 2. build every CUDA kernel from ``nic_torch/kernels/csrc`` (the decode
-   kernel K1, the kernel3 train step K11, and the dx (K6) and
-   node-gradient (K7, kernel2) train kernels; one nvcc per source, all
-   started together) for sm_90a, and print the build time;
+   kernels K1 and K5 (the 3D decode, K1's body with a frame axis), the
+   kernel3 train steps K11 (2D) and K12 (3D), and the dx (K6) and
+   node-gradient (K7, kernel2; K9 in 3D) train kernels; one nvcc per
+   source, all started together) for sm_90a, and print the build time;
 3. each kernel against its plain PyTorch version on the card, on the
    committed trained artifact's column-stage outputs at mips 0-2, for every
    plane mode x GELU;
@@ -65,11 +66,40 @@ Phases (any failure exits non-zero):
     (plain autograd), all at LOD 0, with the device operations per step
     counted by ``torch.profiler`` over 5 steps.
 
+The 3D path (methods 3 and 4, the misty 64³ protocol: C=12, H=64, PE 6,
+8 crops of 32³):
+
+13. K5 against its plain version on random m3 and m4 mip-mode pyramids
+    at 64³, mips 0, 1, 2 and 4, in fp32·exact, bf16·exact, bf16·poly and
+    i16·tanherf;
+14. the decode CLI on the committed 3D fixture at mips 0-6 against the
+    JAX fold (fp32·exact within 2 u8 LSB at every mip, mip-0 PSNR within
+    0.05 dB, K5 launched for mips 0, 1, 2, the ``--out`` AVI read back),
+    then bf16 (≤ 8 LSB) and i16·tanherf (≤ 6 LSB) at mip 0;
+15. a random-weight 256³ m3 artifact decoded through the CLI at mip 0 and
+    held to the plain fold; K5 against its plain version timed, and the
+    whole decode against ``fast_decode`` (GVox/s, peak memory);
+16. K12 against its plain version at 8 crops of 32³ (f=4), 16³ (f=2),
+    8³ (f=1) and 8³ at f=4 (slab blocks smaller than a cell in JAX), m3
+    with triangular and m4 with sinusoidal PE, noise off and on,
+    fp32·erf and bf16·poly (K11's tolerances, two runs bit-identical);
+17. K9 likewise on the 3D gather, with dG0/dG1 after the unfold;
+18. K6 at the 3D width F = 127 at 8×4³, 8×2³ and 8×1³ (partial tiles);
+19. four 200-epoch 3D CLI runs: m3 flag-free (200 K12 launches, mip-0
+    PSNR within 1.0 dB of the fixture's JAX run), m4 flag-free (200 K12),
+    m3 mip mode (K12 and K6 as the replayed LOD sequence, K5 at mips 0,
+    1, 2, 4) and m3 TRAIN_FORWARD=kernel2 (200 K9), the last three within
+    1.0 dB of a gather run; then kernel3 (node noise) and kernel2 (shared
+    feature noise) tracking gather from one seed over 10 steps;
+20. the 3D LOD-0 step time for kernel3, kernel2, kernel and gather, as
+    in phase 12.
+
 The last line of standard output is one JSON object
 ``{"ok": true, "device": {...}}``; the line before it the card's name and
 power limit, and before that the ``{"kernels": [...]}`` record: for each
 kernel its launches on its main path (K1 the serve phase, K11 the
-flagship training run, K6 path A, K7 path B), its time and its plain
+flagship training run, K6 path A, K7 path B, K5 the 3D serve, K12 the m3
+flag-free run, K9 the kernel2 run), its time and its plain
 version's at the path's shape and mode, and its bound, the larger of its
 bytes (each input read once, each output written once) over 3.35 TB/s and
 its dot operations (the JAX cost model's count) over the published peak
@@ -100,6 +130,14 @@ K11_REPLACES = "nic/kernels/train_fused_ff.py:568"
 K67_SOURCE = "nic_torch/kernels/csrc/train_fused.cu"
 K6_REPLACES = "nic/kernels/train_fused.py:230"
 K7_REPLACES = "nic/kernels/train_fused.py:510"
+K5_SOURCE = KERNEL_SOURCE
+K5_REPLACES = "nic/kernels/decode_fused_3d.py:144"
+K12_SOURCE = "nic_torch/kernels/csrc/train_fused_ff3.cu"
+K12_REPLACES = "nic/kernels/train_fused_ff3.py:462"
+K9_REPLACES = "nic/kernels/train_fused.py:1171"
+ART3 = os.path.join(ROOT, "tests", "fixtures", "ntc_misty64_m3_fp8.npz")
+REF3 = os.path.join(ROOT, "tests", "fixtures", "ntc_misty64_m3_fp8_ref.npz")
+CLIP = os.path.join(ROOT, "data", "misty_64_64.avi")
 # published H100 SXM peaks at 700 W: memory bytes/s and dot FLOP/s by type
 PEAK_BYTES = 3.35e12
 PEAK_FLOPS = {"fp32": 67e12, "bf16": 989e12}
@@ -132,6 +170,17 @@ PATH_B = TRAIN_ARGS + ["TF_USE_TRI_PE=0"]    # sinusoidal-PE training
 # the engine JAX's gates pick at each flagship LOD in mip mode (kernel3's
 # gate refuses the step-2 LODs and LODs 6 and 8, kernel2's too)
 KERNEL3_LODS = (0, 1, 2, 4)
+# the 3D protocol (BASELINE.md §1.5): misty 64³, 8 crops of 32³; method 3
+# unless a run says otherwise
+MISTY = TRAIN_ARGS + ["IMAGE_PATH=data/misty_64_64.avi", "IMAGE_DIMENSION=3",
+                      "COMPRESSION_METHOD=3", "IMAGE_SIZE=64",
+                      "MAX_MIP_LEVEL=6", "CROP_MIP_LEVEL=5"]
+# in 3D mip mode JAX's gates run kernel3 at LODs 0-2 and the dx kernel at
+# 3-6 (the lattice gate, and at LOD 4 ff3_geometry)
+KERNEL3_LODS_3D = (0, 1, 2)
+# the 3D decode's envelopes at mip 0 against the JAX fold (BASELINE.md:94,
+# :276-277); fp32·exact is held to LSB_FP32 at every mip
+ENVELOPE_3D = {"bf16": ("exact", 8), "i16": ("tanherf", 6)}
 # kernel2/kernel vs gather from one seed: the first step exactly (only the
 # summation order differs), steps 1-10 at the JAX suite's rtol
 TRACK_STEPS, TRACK_FIRST, TRACK_RTOL = 10, 1e-5, 2e-3
@@ -543,7 +592,7 @@ def phase_train(device) -> int:
     if run["engine"] != {(0, False): "kernel3", (0, True): "kernel3"}:
         fail(f"the gate log does not name kernel3 in both phases: "
              f"{run['gates']}")
-    if launches != {"K11": 200, "K6": 0, "K7": 0}:
+    if launches != {"K11": 200, "K6": 0, "K7": 0, "K12": 0, "K9": 0}:
         fail(f"launches {launches} in 200 epochs; want K11 200")
     if len(losses) != 200 or not np.isfinite(losses).all():
         fail(f"{len(losses)} losses, finite: {np.isfinite(losses).all()}")
@@ -695,22 +744,26 @@ def phase_k6(device) -> dict:
 
 def _train_counters() -> dict:
     from nic_torch.kernels.train_fused import (fused_mlp_loss_kernel,
+                                               fused_mlp_loss_ng3_kernel,
                                                fused_mlp_loss_ng_kernel)
     from nic_torch.kernels.train_fused_ff import fused_train_ff_kernel
+    from nic_torch.kernels.train_fused_ff3 import fused_train_ff3_kernel
 
     return {"K11": fused_train_ff_kernel, "K6": fused_mlp_loss_kernel,
-            "K7": fused_mlp_loss_ng_kernel}
+            "K7": fused_mlp_loss_ng_kernel, "K12": fused_train_ff3_kernel,
+            "K9": fused_mlp_loss_ng3_kernel}
 
 
-def _cli_train(args, decode: bool = True) -> dict:
+def _cli_train(args, decode: bool = True, mips=range(10)) -> dict:
     """The training CLI in a fresh output root, every train kernel's
     counter set to 0 just before it and read just after; then (``decode``)
-    the decode CLI at mips 0-9 with K1's counter likewise."""
+    the decode CLI at ``mips`` with K1's and K5's counters likewise."""
     import glob
     import re
 
     from nic_torch.cli import decode as dcli
     from nic_torch.cli import image_compression as tcli
+    from nic_torch.kernels.decode_fused_3d import decode_kernel_3d
     from nic_torch.kernels.decode_fused_v2 import decode_kernel_2d
 
     counters = _train_counters()
@@ -732,10 +785,11 @@ def _cli_train(args, decode: bool = True) -> dict:
             m = re.search(r"lod=(\d+), frozen=(\w+)\): (\w+)", ln)
             run["engine"][(int(m[1]), m[2] == "True")] = m[3]
         if decode:
-            decode_kernel_2d.launches = 0
+            decode_kernel_2d.launches = decode_kernel_3d.launches = 0
             run["recs"] = [dcli.run([run["res"]["artifact"], "--mip",
-                                     str(mip)]) for mip in range(10)]
+                                     str(mip)]) for mip in mips]
             run["k1"] = decode_kernel_2d.launches
+            run["k5"] = decode_kernel_3d.launches
     return run
 
 
@@ -830,7 +884,7 @@ def phase_path_a(device) -> int:
     for (lod, _), engine in run["engine"].items():
         if engine != want[lod]:
             fail(f"path A: LOD {lod} ran {engine}, JAX runs {want[lod]}")
-    if got != {"K11": want_k11, "K6": want_k6, "K7": 0}:
+    if got != {"K11": want_k11, "K6": want_k6, "K7": 0, "K12": 0, "K9": 0}:
         fail(f"path A: launches {got}, want K11 {want_k11}, K6 {want_k6}")
     if len(run["losses"]) != 200 or not np.isfinite(run["losses"]).all():
         fail("path A: the losses are not 200 finite values")
@@ -862,7 +916,7 @@ def phase_path_b(device) -> int:
           f"{g['psnr'][0]:.4f} dB, bpp {g['bpp']:.4f})", flush=True)
     if run["engine"] != {(0, False): "kernel2", (0, True): "kernel2"}:
         fail(f"path B: gates {run['engine']}, want kernel2 in both phases")
-    if got != {"K11": 0, "K6": 0, "K7": 200}:
+    if got != {"K11": 0, "K6": 0, "K7": 200, "K12": 0, "K9": 0}:
         fail(f"path B: launches {got}, want K7 200")
     if len(run["losses"]) != 200 or not np.isfinite(run["losses"]).all():
         fail("path B: the losses are not 200 finite values")
@@ -874,7 +928,7 @@ def phase_path_b(device) -> int:
     return got["K7"]
 
 
-def step_timing(engine, args, device) -> tuple:
+def step_timing(engine, args, device, label=None) -> tuple:
     """200 steps of a trainer of ``args`` with TRAIN_FORWARD=``engine`` →
     (median step ms by CUDA events over steps 50-199, a line with that,
     the host ms per step over the same steps and, by torch.profiler over
@@ -919,7 +973,7 @@ def step_timing(engine, args, device) -> tuple:
                       if a.device_type == torch.autograd.DeviceType.CUDA),
                      reverse=True)
     busy = sum(t for t, _ in kernels)
-    label = " ".join(args[len(TRAIN_ARGS):]) or "flagship"
+    label = label or " ".join(args[len(TRAIN_ARGS):]) or "flagship"
     return ms, (
         f"train step {engine} ({label}): median {ms:.4f} ms by CUDA events "
         f"over steps 50-199 ({1e3 / ms:.1f} steps/s); host clock "
@@ -939,6 +993,548 @@ def phase_step_time(device) -> dict:
                          ("kernel", TRAIN_ARGS), ("gather", TRAIN_ARGS)):
         out[engine], line = step_timing(engine, args, device)
         print(f"phase 12: {line}", flush=True)
+    return out
+
+
+def phase_step_time3(device) -> dict:
+    """3D (misty m3, 8 crops of 32³) train-step times per engine at LOD 0."""
+    out = {}
+    for engine in ("kernel3", "kernel2", "kernel", "gather"):
+        out[engine], line = step_timing(engine, MISTY, device,
+                                        label="3D m3 8×32³")
+        print(f"phase 20: {line}", flush=True)
+    return out
+
+
+# ---- the 3D path (methods 3 and 4) ------------------------------------
+
+def _pyramid3(gen, device, size, sparse, no_mip):
+    """Random flagship-width 3D pyramid and MLP (torch.Generator): C=12,
+    H=64, PE 6, G0 of size/4 cells per axis."""
+    from nic_torch.grids.pyramid import create_pyramid, pyramid_quantize_all
+    from nic_torch.models.mlp import init_mlp
+
+    fp, _ = create_pyramid(gen, size // 4, 12, 8, 3, device=device,
+                           no_mip=no_mip)
+    fp = pyramid_quantize_all(fp, 8)
+    mlp = init_mlp(gen, 12 * ((4 if sparse else 8) + 1) + 3 * 6 + 1, 64, 3,
+                   device=device)
+    return fp, mlp
+
+
+def _k5_work(args, nvox) -> tuple:
+    """(bytes, dot FLOPs) of one K5 call: the planes, the row-PE table and
+    the weights read once, the RGB written once; 2·N·(H² + 3H)."""
+    hidden = args[2].shape[1]
+    return (nbytes(*args) + nvox * 3 * 4,
+            2 * nvox * (hidden * hidden + 3 * hidden))
+
+
+def phase_k5(device) -> float:
+    """K5 vs plain on random m3 and m4 mip-mode pyramids at 64³, mips 0-2
+    and 4, in fp32·exact, bf16·exact, bf16·poly and i16·tanherf; returns
+    the worst fp32·exact error."""
+    import torch
+
+    from nic_torch.grids.pyramid import pyramid_mip_levels
+    from nic_torch.kernels import decode_fused_3d as k
+
+    gen = torch.Generator(device="cpu").manual_seed(5)
+    m2l = pyramid_mip_levels(64, 16, False)
+    modes = (("fp32", None, "exact"), ("bf16", torch.bfloat16, "exact"),
+             ("bf16", torch.bfloat16, "poly"), ("i16", "i16", "tanherf"))
+    worst = {}
+    with torch.inference_mode():
+        for method in (3, 4):
+            sparse = method == 4
+            fp, mlp = _pyramid3(gen, device, 64, sparse, no_mip=False)
+            for mip in (0, 1, 2, 4):
+                if not k.kernel_covers_3d(mip, 64, m2l, 64):
+                    fail(f"K5 does not cover mip {mip} of a mip-mode 64³")
+                for mode, dtype, gelu in modes:
+                    pc, c1v, pe_u, w2, b2, w3, b3, sc, geom = k._prepare_3d(
+                        fp, mlp, mip, image_size=64, mip_to_level=m2l,
+                        pe_channels=6, use_tri_pe=not sparse,
+                        sparse_g0=sparse, dtype=dtype)
+                    kw = dict(f=geom["f"], f1=geom["f1"], gelu=gelu)
+                    args = (pc, c1v, pe_u, w2, b2, w3, b3, sc)
+                    got = k.decode_kernel_3d(*args, **kw)
+                    want = k.decode_kernel_3d_plain(*args, **kw)
+                    if got.shape != want.shape or \
+                            not torch.isfinite(got).all():
+                        fail(f"K5 m{method} mip {mip} {mode}·{gelu}: shape "
+                             f"{tuple(got.shape)} or non-finite")
+                    err = float((got - want).abs().max())
+                    key = f"{mode}·{gelu}"
+                    worst[key] = max(worst.get(key, 0.0), err)
+                    if err > TOL[mode]:
+                        fail(f"K5 vs plain m{method} mip {mip} {key}: "
+                             f"max|Δ| {err:.3e} > {TOL[mode]:.0e}")
+    print("phase 13: K5 vs plain, m3 and m4 at 64³, mips 0, 1, 2, 4, worst "
+          "max|Δ|: " + ", ".join(f"{m} {e:.3e} (tol "
+                                  f"{TOL[m.split('·')[0]]:.0e})"
+                                  for m, e in worst.items()), flush=True)
+    return worst["fp32·exact"]
+
+
+def _misty_orig():
+    """The clip as the trainer scores it: [T, H, W, 3] of codes/256·255."""
+    import numpy as np
+
+    from nic_torch.data.assets import load_volume
+
+    return load_volume(CLIP).astype(np.float64) / 256.0 * 255.0
+
+
+def phase_serve3(device) -> int:
+    """The decode CLI on the 3D fixture at mips 0-6 against the JAX fold;
+    returns K5's launches."""
+    import numpy as np
+    import torch
+
+    from nic_torch.cli.decode import run
+    from nic_torch.core.metrics import psnr
+    from nic_torch.data.assets import read_clip
+    from nic_torch.kernels.decode_fused_3d import decode_kernel_3d
+
+    ref = dict(np.load(REF3))
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        out = os.path.join(tmp, "mip0.avi")
+        decode_kernel_3d.launches = 0
+        recs = [run([ART3, "--mip", str(mip), "--device", device]
+                    + (["--out", out] if mip == 0 else []))
+                for mip in range(7)]
+        launches = decode_kernel_3d.launches
+        clip = read_clip(out)
+    lsb = []
+    for mip, rec in enumerate(recs):
+        want = ref[f"dec{mip}"].astype(np.int64)
+        if rec.shape != want.shape or not np.isfinite(rec).all():
+            fail(f"3D mip {mip}: shape {rec.shape} (want {want.shape}) or "
+                 "non-finite values")
+        lsb.append(int(np.abs(u8(rec) - want).max()))
+    if not np.array_equal(clip, (recs[0] * 255 + 0.5).astype(np.uint8)):
+        fail("the AVI the decode CLI wrote does not read back as the decode")
+    p0 = float(psnr(torch.from_numpy(_misty_orig()),
+                    torch.from_numpy(u8(recs[0])).double()))
+    print(f"phase 14: 3D fixture, fp32·exact u8 LSB vs the JAX fold, mips "
+          f"0-6: {lsb}; mip-0 PSNR {p0:.4f} dB (JAX fold "
+          f"{ref['psnr'][0]:.4f}); K5 launches {launches}; the AVI reads "
+          "back", flush=True)
+    if max(lsb) > LSB_FP32:
+        fail(f"3D: u8 difference {max(lsb)} LSB > {LSB_FP32}")
+    if abs(p0 - float(ref["psnr"][0])) > PSNR_DB:
+        fail(f"3D: mip-0 PSNR {p0:.4f} is not within {PSNR_DB} dB of "
+             f"{float(ref['psnr'][0]):.4f}")
+    if launches != 3:
+        fail(f"K5 launched {launches} times over mips 0-6; expected 3 "
+             "(mips 0, 1, 2)")
+    for mode, (gelu, bar) in ENVELOPE_3D.items():
+        rec = run([ART3, "--mip", "0", "--device", device, "--dtype", mode,
+                   "--gelu", gelu])
+        d = int(np.abs(u8(rec) - ref["dec0"].astype(np.int64)).max())
+        print(f"phase 14: 3D --dtype {mode} --gelu {gelu}: {d} LSB at mip 0 "
+              f"(envelope {bar})", flush=True)
+        if d > bar:
+            fail(f"3D --dtype {mode} --gelu {gelu}: {d} LSB > {bar}")
+    return launches
+
+
+def phase_scale3(device, size: int = 256) -> tuple:
+    """A flagship-width size³ m3 artifact (random weights), decoded at mip
+    0 through the CLI and held to the plain fold; then K5 vs plain and the
+    end-to-end decode timed. Returns (kernel ms, plain ms, work)."""
+    import numpy as np
+    import torch
+
+    from nic_torch.cli.decode import run
+    from nic_torch.grids.fastdecode import fast_decode
+    from nic_torch.grids.pyramid import pyramid_mip_levels
+    from nic_torch.io.artifacts import load_compressed, save_compressed
+    from nic_torch.kernels import decode_fused_3d as k
+
+    gen = torch.Generator(device="cpu").manual_seed(size)
+    fp, mlp = _pyramid3(gen, device, size, False, no_mip=True)
+    meta = {"save_name": f"chip_smoke_{size}3", "config": {
+        "image_size": size, "image_size_w": 0, "pe_channels": 6,
+        "tf_use_tri_pe": True, "tf_no_mip": True, "compression_method": 3,
+        "image_dimension": 3}}
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        path = os.path.join(tmp, f"m3_{size}.npz")
+        save_compressed(path, mlp, fp, 8, meta)
+        rec = run([path, "--mip", "0", "--device", device])
+        mlp, fp, _ = load_compressed(path, device=device)
+    m2l = pyramid_mip_levels(size, size // 4, True)
+    kw = dict(image_size=size, mip_to_level=m2l, pe_channels=6)
+    nvox = size**3
+    with torch.inference_mode():
+        want = fast_decode(fp, mlp, 0, ndim=3, **kw).clamp(0, 1).cpu()
+        err = float(np.abs(rec - want.numpy()).max())
+        del want
+        print(f"phase 15: {size}³ CLI decode {rec.shape}, max|Δ| vs the "
+              f"plain fold {err:.3e} (tol {TOL['fp32']:.0e})", flush=True)
+        if rec.shape != (size,) * 3 + (3,) or not np.isfinite(rec).all():
+            fail(f"{size}³ decode: shape {rec.shape} or non-finite")
+        if err > TOL["fp32"]:
+            fail(f"{size}³ decode differs from the plain fold by {err:.3e}")
+        pc, c1v, pe_u, w2, b2, w3, b3, sc, geom = k._prepare_3d(
+            fp, mlp, 0, use_tri_pe=True, sparse_g0=False, dtype=None, **kw)
+        args = (pc, c1v, pe_u, w2, b2, w3, b3, sc)
+        g = dict(f=geom["f"], f1=geom["f1"], gelu="exact")
+        ms = cuda_ms(lambda: k.decode_kernel_3d(*args, **g))
+        plain = cuda_ms(lambda: k.decode_kernel_3d_plain(*args, **g),
+                        warmup=1, reps=3)
+        work = _k5_work(args, nvox)
+        b_ms, b_by = bound(*work, "fp32")
+        print(f"phase 15: {size}³ K5 fp32·exact: kernel {ms:.4f} ms "
+              f"({nvox / ms / 1e6:.3f} GVox/s) vs plain {plain:.4f} ms; "
+              f"bound {b_ms:.4f} ms ({b_by})", flush=True)
+        del pc, c1v, args
+        for name, fn in (
+                ("decode_volume_fused (frame/column stage + K5)",
+                 lambda: k.decode_volume_fused(fp, mlp, 0, **kw)),
+                ("fast_decode (plain fold)",
+                 lambda: fast_decode(fp, mlp, 0, ndim=3, **kw))):
+            torch.cuda.synchronize(device)
+            torch.cuda.reset_peak_memory_stats(device)
+            base = torch.cuda.memory_allocated(device)
+            t = cuda_ms(fn, warmup=1, reps=3)
+            peak = (torch.cuda.max_memory_allocated(device) - base) / 2**20
+            print(f"phase 15: {size}³ end to end, {name}: {t:.4f} ms "
+                  f"({nvox / t / 1e6:.3f} GVox/s), peak {peak:.0f} MiB above "
+                  "the model", flush=True)
+    return ms, plain, work
+
+
+def _inputs3(gen, device, n, f, sparse, crops=8, size=64):
+    """Random flagship-width no-mip 3D pyramid (G0 [12, 17³]) and MLP, crops
+    of n³ inside what G0 covers at period f, targets and seed words."""
+    import torch
+
+    fp, mlp = _pyramid3(gen, device, size, sparse, no_mip=True)
+    cover = (size // 4) * f
+    origins = torch.randint(0, cover - n + 1, (crops, 3), generator=gen)
+    tgt = torch.rand(crops * n**3, 3, generator=gen).to(device)
+    words = torch.randint(-2**31, 2**31, (2,), generator=gen)
+    seed = torch.cat([words, torch.zeros(2, dtype=torch.int64)]).to(
+        torch.int32)
+    weights = [mlp[k].detach() for k in NAMES]
+    return fp, weights, tgt, origins, seed
+
+
+# the K12/K9 shapes: 8 crops of 32³ (f=4, LOD 0), 16³ (f=2, LOD 1), 8³ (f=1,
+# LOD 2), and 8³ at f=4 (JAX's rowsb < f class: slab blocks straddle cells)
+SHAPES3 = ((32, 4), (16, 2), (8, 1), (8, 4))
+
+
+def phase_k12(device) -> dict:
+    """K12 vs plain at SHAPES3, m3 (triangular PE) and m4 (sinusoidal PE),
+    noise off and on, fp32·erf and bf16·poly; timings at 8×32³."""
+    import torch
+
+    from nic_torch.kernels import train_fused_ff3 as k
+
+    names = ("loss", "out", "dw2", "db2", "dw3", "db3", "dpe0", "dpe1",
+             "dpe2", "db1", "P_acc", "C1_acc", "dw1e")
+    gen = torch.Generator(device="cpu").manual_seed(12)
+    timings, worst = {}, {}
+    with torch.no_grad():
+        for n, f in SHAPES3:
+            for method in (3, 4):
+                sparse = method == 4
+                fp, weights, tgt, origins, seed = _inputs3(gen, device, n, f,
+                                                           sparse)
+                for label, (cd, gelu) in K11_MODES.items():
+                    cdt = None if cd == "fp32" else torch.bfloat16
+                    vols = k.fold_volumes(fp[0], fp[1], weights[0], sparse,
+                                          cdt)
+                    for nbits in (None, 8):
+                        args = (*vols, *weights, tgt, origins, seed)
+                        kw = dict(n=n, f=f, npe=6, lodf=0.0, sparse_g0=sparse,
+                                  use_tri_pe=not sparse, cd=cdt, gelu=gelu,
+                                  nbits=nbits)
+                        cell = (f"8×{n}³ f={f} m{method} {label} noise="
+                                f"{'on' if nbits else 'off'}")
+                        got = _run_twice(f"K12 {cell}", lambda: (
+                            k.fused_train_ff3_kernel(*args, **kw)))
+                        want = k.fused_train_ff3_plain(*args, **kw)
+                        tol = K11_TOL[cd]
+                        errs = _compare(f"K12 vs plain {cell}", names, got,
+                                        want, tol)
+                        for nm, e in errs.items():
+                            key = (label, nm)
+                            worst[key] = max(worst.get(key, 0.0), e)
+                        if n == 32 and method == 3 and (
+                                (cd, nbits) in (("bf16", 8), ("fp32", None))):
+                            ms = cuda_ms(lambda: k.fused_train_ff3_kernel(
+                                *args, **kw))
+                            plain = cuda_ms(lambda: k.fused_train_ff3_plain(
+                                *args, **kw))
+                            npix, hid = tgt.shape[0], 64
+                            feat = weights[0].shape[0]
+                            flops = 6 * npix * (hid * hid + 3 * hid) + (
+                                4 * npix * feat * hid if nbits else 0)
+                            work = (nbytes(*args[:9], origins)
+                                    + nbytes(*got), flops)
+                            timings[cell] = (ms, plain, work, errs["out"])
+                            b_ms, b_by = bound(*work, cd)
+                            print(f"phase 16: K12 {cell}: kernel {ms:.4f} ms "
+                                  f"vs plain {plain:.4f} ms; bound "
+                                  f"{b_ms:.4f} ms ({b_by})", flush=True)
+    for label in K11_MODES:
+        tol = K11_TOL[K11_MODES[label][0]]
+        errs = {nm: e for (lb, nm), e in worst.items() if lb == label}
+        print(f"phase 16: K12 vs plain {label}, worst over {len(SHAPES3)} "
+              f"shapes × m3/m4 × noise off/on: loss rel {errs['loss']:.2e}, "
+              f"out max|Δ| {errs['out']:.2e}, worst grad/volume rel "
+              f"{max(e for nm, e in errs.items() if nm not in ('loss', 'out')):.2e}"
+              f" (tol {tol['loss']:.0e}/{tol['out']:.0e}/{tol['grad']:.0e});"
+              " reruns bit-identical", flush=True)
+    return timings
+
+
+def _gather3(fp, origins, n, f, sparse, device):
+    from nic_torch.grids.sample import decoder_input
+
+    x = decoder_input(fp, 0, origins, 1.0 / f, n, pe_channels=6, mip_level=0,
+                      ndim=3, use_tri_pe=not sparse, sparse_g0=sparse)
+    return x.reshape(origins.shape[0] * n**3, -1).contiguous()
+
+
+def phase_k9(device) -> dict:
+    """K9 vs plain at SHAPES3, m3 and m4, fp32·erf and bf16·poly, on the 3D
+    gather: loss, out, every MLP grad, dG0/dG1 after the unfold; timings at
+    8×32³."""
+    import torch
+
+    from nic_torch.kernels import train_fused as k
+
+    names = ("loss", "out", "dw1", "db1", "dw2", "db2", "dw3", "db3", "dG0",
+             "dG1")
+    gen = torch.Generator(device="cpu").manual_seed(9)
+    timings = {}
+    with torch.no_grad():
+        for n, f in SHAPES3:
+            for method in (3, 4):
+                sparse = method == 4
+                corners = (k._CORNERS_3D_SPARSE if sparse
+                           else k._CORNERS_3D_DENSE)
+                fp, weights, tgt, origins, _ = _inputs3(gen, device, n, f,
+                                                        sparse)
+                x = _gather3(fp, origins, n, f, sparse, device)
+                geo = dict(g0_nodes=tuple(fp[0].shape[1:]),
+                           g1_nodes=tuple(fp[1].shape[1:]))
+
+                def unfolded(res):
+                    dg = k._unfold_node_grads(res[8], res[9], weights[0],
+                                              channels=12, corners=corners,
+                                              **geo)
+                    return tuple(res[:8]) + dg
+
+                for label, (cd, gelu) in K11_MODES.items():
+                    kw = dict(n=n, f=f, gelu=gelu,
+                              cd=None if cd == "fp32" else torch.bfloat16,
+                              **geo)
+                    args = (x, tgt, origins, *weights)
+                    cell = f"8×{n}³ f={f} m{method} {label}"
+                    got = _run_twice(f"K9 {cell}", lambda: (
+                        k.fused_mlp_loss_ng3_kernel(*args, **kw)))
+                    want = k.fused_mlp_loss_ng_plain(*args, **kw)
+                    tol = K11_TOL[cd]
+                    errs = _compare(f"K9 vs plain {cell}", names,
+                                    unfolded(got), unfolded(want), tol)
+                    print(f"phase 17: K9 vs plain {cell}: loss rel "
+                          f"{errs['loss']:.2e}, out max|Δ| {errs['out']:.2e},"
+                          f" MLP grads rel ≤ "
+                          f"{max(errs[m] for m in names[2:8]):.2e}, dG0 "
+                          f"{errs['dG0']:.2e}, dG1 {errs['dG1']:.2e}",
+                          flush=True)
+                    if n == 32 and method == 3:
+                        ms = cuda_ms(lambda: k.fused_mlp_loss_ng3_kernel(
+                            *args, **kw))
+                        plain = cuda_ms(lambda: k.fused_mlp_loss_ng_plain(
+                            *args, **kw))
+                        work = _fused_work(x, tgt, weights, got, origins,
+                                           with_dx=False)
+                        timings[label] = (ms, plain, work, errs["out"])
+                        b_ms, b_by = bound(*work, cd)
+                        print(f"phase 17: K9 {cell}: kernel {ms:.4f} ms vs "
+                              f"plain {plain:.4f} ms; bound {b_ms:.4f} ms "
+                              f"({b_by})", flush=True)
+    return timings
+
+
+def phase_k6_3d(device) -> dict:
+    """K6 at the 3D F = 127 on the 3D gather of 8 crops of 4³, 2³ and 1³
+    (N = 512, 64, 8: partial tiles), fp32·erf and bf16·poly; timings at
+    8×4³ (3D mip mode's LOD 3)."""
+    import torch
+
+    from nic_torch.kernels import train_fused as k
+
+    names = ("loss", "out", "dx", "dw1", "db1", "dw2", "db2", "dw3", "db3")
+    gen = torch.Generator(device="cpu").manual_seed(61)
+    timings = {}
+    with torch.no_grad():
+        for n in (4, 2, 1):
+            fp, weights, tgt, origins, _ = _inputs3(gen, device, n, 1, False)
+            x = _gather3(fp, origins, n, 1, False, device)
+            if x.shape[1] != 127:
+                fail(f"the 3D gather has {x.shape[1]} features, not 127")
+            for label, (cd, gelu) in K11_MODES.items():
+                kw = dict(gelu=gelu,
+                          cd=None if cd == "fp32" else torch.bfloat16)
+                cell = f"8×{n}³ F=127 {label}"
+                got = _run_twice(f"K6 {cell}", lambda: (
+                    k.fused_mlp_loss_kernel(x, tgt, *weights, **kw)))
+                want = k.fused_mlp_loss_plain(x, tgt, *weights, **kw)
+                errs = _compare(f"K6 vs plain {cell}", names, got, want,
+                                K11_TOL[cd])
+                print(f"phase 18: K6 vs plain {cell}: loss rel "
+                      f"{errs['loss']:.2e}, out max|Δ| {errs['out']:.2e}, dx "
+                      f"rel {errs['dx']:.2e}, MLP grads rel ≤ "
+                      f"{max(errs[m] for m in names[3:]):.2e}", flush=True)
+                if n == 4:
+                    ms = cuda_ms(lambda: k.fused_mlp_loss_kernel(
+                        x, tgt, *weights, **kw))
+                    plain = cuda_ms(lambda: k.fused_mlp_loss_plain(
+                        x, tgt, *weights, **kw))
+                    work = _fused_work(x, tgt, weights, got)
+                    timings[label] = (ms, plain, work, errs["out"])
+                    b_ms, b_by = bound(*work, cd)
+                    print(f"phase 18: K6 {cell}: kernel {ms:.4f} ms vs plain "
+                          f"{plain:.4f} ms; bound {b_ms:.4f} ms ({b_by})",
+                          flush=True)
+    return timings
+
+
+def _check_decodes3(tag, run, no_mip: bool) -> int:
+    """Every mip of the 64³ volume decoded at its size; K5 launched once
+    per mip it covers. Returns that count."""
+    import numpy as np
+
+    from nic_torch.grids.pyramid import pyramid_mip_levels
+    from nic_torch.kernels.decode_fused_3d import kernel_covers_3d
+
+    m2l = pyramid_mip_levels(64, 16, no_mip)
+    covered = sum(kernel_covers_3d(mip, 64, m2l, 64) for mip in range(7))
+    for mip, rec in enumerate(run["recs"]):
+        if rec.shape != (64 >> mip,) * 3 + (3,) or \
+                not np.isfinite(rec).all():
+            fail(f"{tag}: decode at mip {mip}: shape {rec.shape} or "
+                 "non-finite")
+    if run["k5"] != covered:
+        fail(f"{tag}: the decode CLI launched K5 {run['k5']} times over "
+             f"mips 0-6; the kernel covers {covered}")
+    return covered
+
+
+def _run3(tag, args, engine, kernel):
+    """A 200-epoch 3D CLI run whose gates must name ``engine`` at LOD 0 in
+    both phases and whose ``kernel`` launches on every step; checks the
+    losses and the decodes."""
+    import numpy as np
+
+    run = _cli_train(args, mips=range(7))
+    want = {k: 0 for k in run["launches"]}
+    want[kernel] = 200
+    if run["engine"] != {(0, False): engine, (0, True): engine}:
+        fail(f"{tag}: gates {run['gates']}, want {engine} in both phases")
+    if run["launches"] != want:
+        fail(f"{tag}: launches {run['launches']}, want {kernel} 200")
+    if len(run["losses"]) != 200 or not np.isfinite(run["losses"]).all():
+        fail(f"{tag}: the losses are not 200 finite values")
+    _check_decodes3(tag, run, no_mip=True)
+    return run
+
+
+def phase_train3(device) -> dict:
+    """The 3D CLI runs: m3 and m4 flag-free (K12 on every step), m3 mip mode
+    (K12 and K6 by LOD), m3 TRAIN_FORWARD=kernel2 (K9 on every step), the
+    last three beside gather runs; then kernel3 and kernel2 tracking gather
+    from one seed. Returns the launches of K12 (m3) and K9."""
+    import numpy as np
+
+    ref = dict(np.load(REF3))
+    jax_psnr = float(ref["run_psnr"][0])
+    out = {}
+    m3 = _run3("phase 19: m3", MISTY, "kernel3", "K12")
+    p3 = m3["res"]["psnr"][0]
+    print(f"phase 19: 3D m3 flag-free, 200 epochs in {m3['wall']:.1f} s of "
+          f"wall time; gates {sorted(m3['engine'].items())}; launches "
+          f"{m3['launches']}; loss {m3['losses'][0]:.5f} → "
+          f"{m3['losses'][-1]:.5f}; mip-0 PSNR {p3:.4f} dB (fixture's JAX "
+          f"run {jax_psnr:.4f}), average PSNR {m3['res']['average_psnr']:.4f}"
+          f", bpp {m3['res']['bpp']:.4f}; K5 launches {m3['k5']}",
+          flush=True)
+    if abs(p3 - jax_psnr) > TRAIN_PSNR_DB:
+        fail(f"3D m3: mip-0 PSNR {p3:.4f} dB is not within {TRAIN_PSNR_DB} "
+             f"dB of the JAX run's {jax_psnr:.4f}")
+    out["K12"] = m3["launches"]["K12"]
+
+    gather = {}
+    for tag, args in (("m4", MISTY + ["COMPRESSION_METHOD=4"]),
+                      ("m3 mip mode", MISTY + ["TF_NO_MIP=0"]),
+                      ("m3", MISTY)):
+        g = _cli_train(args + ["TRAIN_FORWARD=gather"], decode=False)
+        gather[tag] = g["res"]["psnr"][0]
+        print(f"phase 19: 3D {tag} TRAIN_FORWARD=gather, 200 epochs in "
+              f"{g['wall']:.1f} s: mip-0 PSNR {gather[tag]:.4f} dB", flush=True)
+
+    def beside(tag, run, ref_tag):
+        p = run["res"]["psnr"][0]
+        if abs(p - gather[ref_tag]) > TRAIN_PSNR_DB:
+            fail(f"3D {tag}: mip-0 PSNR {p:.4f} dB is not within "
+                 f"{TRAIN_PSNR_DB} dB of the gather run's "
+                 f"{gather[ref_tag]:.4f}")
+
+    m4 = _run3("phase 19: m4", MISTY + ["COMPRESSION_METHOD=4"], "kernel3",
+               "K12")
+    print(f"phase 19: 3D m4 flag-free, 200 epochs in {m4['wall']:.1f} s; "
+          f"launches {m4['launches']}; mip-0 PSNR "
+          f"{m4['res']['psnr'][0]:.4f} dB vs gather {gather['m4']:.4f}, bpp "
+          f"{m4['res']['bpp']:.4f}; K5 launches {m4['k5']}", flush=True)
+    beside("m4", m4, "m4")
+
+    args = MISTY + ["TF_NO_MIP=0"]
+    mm = _cli_train(args, mips=range(7))
+    lods = _lod_sequence(args)
+    want = {lod: "kernel3" if lod in KERNEL3_LODS_3D else "kernel"
+            for lod in set(lods)}
+    want_k12 = sum(want[lod] == "kernel3" for lod in lods)
+    got = mm["launches"]
+    drawn = {int(v): int(c) for v, c in zip(*np.unique(lods,
+                                                      return_counts=True))}
+    print(f"phase 19: 3D m3 mip mode (TF_NO_MIP=0), 200 epochs in "
+          f"{mm['wall']:.1f} s; LODs drawn {drawn}; gates "
+          f"{sorted(mm['engine'].items())}; launches {got} (want K12 "
+          f"{want_k12}, K6 {200 - want_k12}); mip-0 PSNR "
+          f"{mm['res']['psnr'][0]:.4f} dB vs gather "
+          f"{gather['m3 mip mode']:.4f}; K5 launches {mm['k5']}", flush=True)
+    for (lod, _), engine in mm["engine"].items():
+        if engine != want[lod]:
+            fail(f"3D mip mode: LOD {lod} ran {engine}, JAX runs {want[lod]}")
+    if got != {**{k: 0 for k in got}, "K12": want_k12,
+               "K6": 200 - want_k12}:
+        fail(f"3D mip mode: launches {got}, want K12 {want_k12}, K6 "
+             f"{200 - want_k12}")
+    if not np.isfinite(mm["losses"]).all():
+        fail("3D mip mode: non-finite losses")
+    if _check_decodes3("3D mip mode", mm, no_mip=False) != 4:
+        fail("3D mip mode: K5 should cover mips 0, 1, 2 and 4")
+    beside("m3 mip mode", mm, "m3 mip mode")
+
+    k2 = _run3("phase 19: kernel2", MISTY + ["TRAIN_FORWARD=kernel2"],
+               "kernel2", "K9")
+    print(f"phase 19: 3D m3 TRAIN_FORWARD=kernel2, 200 epochs in "
+          f"{k2['wall']:.1f} s; launches {k2['launches']}; mip-0 PSNR "
+          f"{k2['res']['psnr'][0]:.4f} dB vs gather {gather['m3']:.4f}",
+          flush=True)
+    beside("kernel2", k2, "m3")
+    out["K9"] = k2["launches"]["K9"]
+
+    _track("phase 19: 3D m3", MISTY + ["QAT_NOISE_WHERE=node"], "kernel3")
+    _track("phase 19: 3D m3", MISTY, "kernel2")
     return out
 
 
@@ -971,12 +1567,25 @@ def main() -> None:
     k6_launches = phase_path_a("cuda")
     k7_launches = phase_path_b("cuda")
     steps = phase_step_time("cuda")
+    k5_err = phase_k5("cuda")
+    k5_launches = phase_serve3("cuda")
+    k5_ms, k5_plain, k5_work = phase_scale3("cuda")
+    k12 = phase_k12("cuda")
+    k9 = phase_k9("cuda")
+    phase_k6_3d("cuda")
+    launches3 = phase_train3("cuda")
+    steps3 = phase_step_time3("cuda")
     k11_ms, k11_plain, k11_work = k11["timings"]["f=4 bf16·poly noise=on"]
     print(f"K11 share of the kernel3 step: {k11_ms / steps['kernel3']:.3f} "
           f"({k11_ms:.4f} of {steps['kernel3']:.4f} ms); K7 share of the "
           f"kernel2 step: {k7['bf16·poly'][0] / steps['kernel2']:.3f}; K6 "
           f"share of the kernel step: "
           f"{k6[(256, 'bf16·poly')][0] / steps['kernel']:.3f}", flush=True)
+    k12_cell = "8×32³ f=4 m3 bf16·poly noise=on"
+    print(f"K12 share of the 3D kernel3 step: "
+          f"{k12[k12_cell][0] / steps3['kernel3']:.3f}; K9 share of the 3D "
+          f"kernel2 step: {k9['bf16·poly'][0] / steps3['kernel2']:.3f}",
+          flush=True)
     print(f"all phases passed in {time.perf_counter() - t0:.1f} s",
           flush=True)
 
@@ -989,7 +1598,9 @@ def main() -> None:
 
     # each at its path's shape and mode: K1 2048² fp32·exact; K11 8×256²
     # bf16·poly with noise; K6 8×32² (path A's largest launch) and K7
-    # 8×256² (path B), bf16·poly
+    # 8×256² (path B), bf16·poly; K5 256³ fp32·exact (its max|Δ| the worst
+    # fp32·exact of phase 13); K12 8×32³ bf16·poly with noise and K9 8×32³
+    # bf16·poly (the 3D protocol's LOD 0)
     print(json.dumps({"kernels": [
         entry("decode_fused_v2", KERNEL_SOURCE, REPLACES, k1_launches,
               main_err, *timings[2048][("fp32", "exact")], "fp32"),
@@ -998,7 +1609,13 @@ def main() -> None:
         entry("train_fused_dx", K67_SOURCE, K6_REPLACES, k6_launches,
               k6[(32, "bf16·poly")][3], *k6[(32, "bf16·poly")][:3], "bf16"),
         entry("train_fused_ng", K67_SOURCE, K7_REPLACES, k7_launches,
-              k7["bf16·poly"][3], *k7["bf16·poly"][:3], "bf16")]}),
+              k7["bf16·poly"][3], *k7["bf16·poly"][:3], "bf16"),
+        entry("decode_fused_3d", K5_SOURCE, K5_REPLACES, k5_launches,
+              k5_err, k5_ms, k5_plain, k5_work, "fp32"),
+        entry("train_fused_ff3", K12_SOURCE, K12_REPLACES, launches3["K12"],
+              k12[k12_cell][3], *k12[k12_cell][:3], "bf16"),
+        entry("train_fused_ng3", K67_SOURCE, K9_REPLACES, launches3["K9"],
+              k9["bf16·poly"][3], *k9["bf16·poly"][:3], "bf16")]}),
         flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

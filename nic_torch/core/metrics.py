@@ -10,7 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["mse", "psnr", "safe_statistics"]
+__all__ = ["mse", "psnr", "average_psnr", "safe_statistics"]
 
 
 def mse(a, b) -> torch.Tensor:
@@ -26,6 +26,15 @@ def psnr(original, reconstructed, num_bits: int = 8,
     m = mse(original, reconstructed)
     db = 10.0 * torch.log10(max_value * max_value / torch.clamp(m, min=1e-30))
     return torch.where(m == 0, torch.full_like(db, float("inf")), db)
+
+
+def average_psnr(original_video, reconstructed_video, num_bits: int = 8,
+                 max_value: float | None = None) -> torch.Tensor:
+    """Mean of the per-frame PSNR over the leading (frame) axis."""
+    a = torch.as_tensor(original_video)
+    b = torch.as_tensor(reconstructed_video)
+    return torch.stack([psnr(a[i], b[i], num_bits, max_value)
+                        for i in range(a.shape[0])]).mean()
 
 
 def safe_statistics(x) -> dict:

@@ -16,8 +16,10 @@ import torch
 
 __all__ = [
     "scale_to_bit",
+    "normalize_from_bit",
     "quantize",
     "quantize_to_bit",
+    "quantize_from_bit_to_bit",
     "quant_range",
     "quantize_clamp",
     "qat_noise",
@@ -33,6 +35,11 @@ def scale_to_bit(x, bits: int = 8):
     return x * (2.0**bits - 1.0)
 
 
+def normalize_from_bit(x, bits: int = 8):
+    """[0, 2^b − 1] → [0,1]."""
+    return x / (2.0**bits - 1.0)
+
+
 def quantize(x: torch.Tensor, bits: int) -> torch.Tensor:
     """Round-half-up onto the (2^b − 1)-level code book; in/out in [0,1]."""
     s = 2.0**bits - 1.0
@@ -42,6 +49,11 @@ def quantize(x: torch.Tensor, bits: int) -> torch.Tensor:
 def quantize_to_bit(x: torch.Tensor, bits: int = 8) -> torch.Tensor:
     """[0,1] → quantized codes scaled to [0, 2^b − 1]."""
     return scale_to_bit(quantize(x, bits), bits)
+
+
+def quantize_from_bit_to_bit(x: torch.Tensor, bits: int) -> torch.Tensor:
+    """[0, 2^b − 1] → re-quantized [0, 2^b − 1]."""
+    return scale_to_bit(quantize(normalize_from_bit(x, bits), bits), bits)
 
 
 def quant_range(bits: int) -> tuple[float, float]:

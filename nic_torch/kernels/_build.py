@@ -63,6 +63,10 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     fn.argtypes = [p, p, p, p, p, p, p, ctypes.c_float, p,
                    i, i, i, i, i, i, i, p]
     fn.restype = i
+    fn = lib.nic_decode_fused_3d
+    fn.argtypes = [p, p, p, p, p, p, p, ctypes.c_float, p,
+                   i, i, i, i, i, i, i, i, p]
+    fn.restype = i
     fn = lib.nic_train_fused_ff
     fn.argtypes = [p] * 20 + [i] * 19 + [p]
     fn.restype = i
@@ -71,6 +75,12 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     fn.restype = i
     fn = lib.nic_train_fused_ng
     fn.argtypes = [p] * 14 + [i] * 8 + [p]
+    fn.restype = i
+    fn = lib.nic_train_fused_ng3
+    fn.argtypes = [p] * 14 + [i] * 8 + [p]
+    fn.restype = i
+    fn = lib.nic_train_fused_ff3
+    fn.argtypes = [p] * 17 + [i] * 16 + [p]
     fn.restype = i
     lib.nic_cuda_error_string.argtypes = [i]
     lib.nic_cuda_error_string.restype = ctypes.c_char_p

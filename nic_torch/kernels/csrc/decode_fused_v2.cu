@@ -1,7 +1,9 @@
-// Per-pixel stage of the 2D folded decode, for Hopper (sm_90a).
+// Per-pixel stage of the 2D and 3D folded decodes, for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel nic/kernels/decode_fused_v2.py `_kernel`
-// + `_mlp_tail`, launched by `_call` (pallas_call at :369). The column
+// + `_mlp_tail`, launched by `_call` (pallas_call at :369, K1), and the
+// same body over volumes, launched by nic/kernels/decode_fused_3d.py
+// `_call3` (pallas_call at :144, K5). The column
 // stage (W1 fold, column upsample/interp, column-PE + b1 + LOD folded into
 // C1v, the row-PE table) runs before it in PyTorch
 // (nic_torch/kernels/decode_fused_v2.py `_prepare_2d`). For output pixel
@@ -20,6 +22,11 @@
 // folded straight into the three RGB sums, so gelu(h2) is never stored.
 // Rows are indexed directly: C1v already carries the nr/f1+1 rows a halo
 // window would fetch, and ragged edges are masked, so there is no padding.
+// A volume is a stack of such frames (the 3D frame stage, frame-PE
+// included, runs before the kernel in PyTorch, nic_torch/kernels/
+// decode_fused_3d.py `_prepare_3d`): blockIdx.z walks the frames, each
+// with its own P, C1v and output planes; the row-PE table and the weights
+// are shared, and one launch covers the whole volume.
 // The TPU-only devices of the JAX kernel (lane packing with block-diagonal
 // weights, per-step weight tiling, planar output, the column-block retile)
 // are not carried over.
@@ -163,6 +170,11 @@ decode_fused_v2_kernel(const typename Types<MODE>::Plane* __restrict__ pc,
                        const float* __restrict__ b3, float scale,
                        float* __restrict__ out, int nr, int ncl, int f,
                        int f1) {
+  // frame blockIdx.z of a volume: its own P, C1v and output planes
+  const size_t frame = blockIdx.z;
+  pc += frame * static_cast<size_t>(nr / f) * ncl * H;
+  c1v += frame * static_cast<size_t>(nr / f1 + 1) * ncl * H;
+  out += frame * static_cast<size_t>(nr) * ncl * 3;
   constexpr bool kDotBf16 = MODE != kF32;  // bf16 inputs to both dots
   __shared__ float4 s_w2t[H * H / 4];  // W2 transposed: [j][k]
   __shared__ float s_b2[H];
@@ -246,14 +258,15 @@ struct Args {
   const float *w2, *b2, *w3, *b3;
   float scale;
   float* out;
-  int nr, ncl, f, f1;
+  int nr, ncl, f, f1, nt;
   cudaStream_t stream;
 };
 
 template <int H, int MODE, int G>
 void launch(const Args& a) {
   using T = Types<MODE>;
-  const dim3 grid((a.ncl + TILE_C - 1) / TILE_C, (a.nr + TILE_R - 1) / TILE_R);
+  const dim3 grid((a.ncl + TILE_C - 1) / TILE_C, (a.nr + TILE_R - 1) / TILE_R,
+                  a.nt);
   decode_fused_v2_kernel<H, MODE, G><<<grid, TILE_C, 0, a.stream>>>(
       static_cast<const typename T::Plane*>(a.pc),
       static_cast<const typename T::Plane*>(a.c1v),
@@ -285,21 +298,17 @@ bool dispatch_mode(int mode, int gelu_id, const Args& a) {
   return false;
 }
 
-}  // namespace
-
-extern "C" int nic_decode_fused_v2(const void* pc, const void* c1v,
-                                   const void* peu, const void* w2,
-                                   const void* b2, const void* w3,
-                                   const void* b3, float scale, void* out,
-                                   int nr, int ncl, int hidden, int f, int f1,
-                                   int mode, int gelu_id, void* stream) {
-  if (nr <= 0 || ncl <= 0 || f <= 0 || f1 <= 0 ||
-      (nr + TILE_R - 1) / TILE_R > 65535)
+int decode(const void* pc, const void* c1v, const void* peu, const void* w2,
+           const void* b2, const void* w3, const void* b3, float scale,
+           void* out, int nt, int nr, int ncl, int hidden, int f, int f1,
+           int mode, int gelu_id, void* stream) {
+  if (nt <= 0 || nt > 65535 || nr <= 0 || ncl <= 0 || f <= 0 || f1 <= 0 ||
+      nr % f || nr % f1 || (nr + TILE_R - 1) / TILE_R > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a{pc, c1v, peu,
                static_cast<const float*>(w2), static_cast<const float*>(b2),
                static_cast<const float*>(w3), static_cast<const float*>(b3),
-               scale, static_cast<float*>(out), nr, ncl, f, f1,
+               scale, static_cast<float*>(out), nr, ncl, f, f1, nt,
                static_cast<cudaStream_t>(stream)};
   bool ok = false;
   switch (hidden) {
@@ -308,6 +317,33 @@ extern "C" int nic_decode_fused_v2(const void* pc, const void* c1v,
   }
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// K1: one nr x ncl image; pc [nr/f][ncl][H], c1v [nr/f1 + 1][ncl][H],
+// peu [nr][H] -> out [nr][ncl][3]
+extern "C" int nic_decode_fused_v2(const void* pc, const void* c1v,
+                                   const void* peu, const void* w2,
+                                   const void* b2, const void* w3,
+                                   const void* b3, float scale, void* out,
+                                   int nr, int ncl, int hidden, int f, int f1,
+                                   int mode, int gelu_id, void* stream) {
+  return decode(pc, c1v, peu, w2, b2, w3, b3, scale, out, 1, nr, ncl, hidden,
+                f, f1, mode, gelu_id, stream);
+}
+
+// K5: nt frames of nr x ncl; pc [nt][nr/f][ncl][H], c1v [nt][nr/f1 + 1]
+// [ncl][H], peu [nr][H] (shared) -> out [nt][nr][ncl][3]
+extern "C" int nic_decode_fused_3d(const void* pc, const void* c1v,
+                                   const void* peu, const void* w2,
+                                   const void* b2, const void* w3,
+                                   const void* b3, float scale, void* out,
+                                   int nt, int nr, int ncl, int hidden, int f,
+                                   int f1, int mode, int gelu_id,
+                                   void* stream) {
+  return decode(pc, c1v, peu, w2, b2, w3, b3, scale, out, nt, nr, ncl, hidden,
+                f, f1, mode, gelu_id, stream);
 }
 
 extern "C" const char* nic_cuda_error_string(int code) {

@@ -3,11 +3,14 @@
 // (kernel2).
 //
 // Replaces the Pallas TPU kernels of nic/kernels/train_fused.py:
-//   nic_train_fused_dx  `_kernel` (launched by `_impl`, pallas_call at :230)
-//   nic_train_fused_ng  `_kernel_ng` (`_impl_ng`, pallas_call at :510) and
-//                       its lane-packed twin `_kernel_ng2` (`_impl_ng2`,
-//                       :762), which is the same math laid out for the
-//                       TPU's 128-lane registers and is not carried over.
+//   nic_train_fused_dx   `_kernel` (launched by `_impl`, pallas_call at :230)
+//   nic_train_fused_ng   `_kernel_ng` (`_impl_ng`, pallas_call at :510) and
+//                        its lane-packed twin `_kernel_ng2` (`_impl_ng2`,
+//                        :762), which is the same math laid out for the
+//                        TPU's 128-lane registers and is not carried over;
+//   nic_train_fused_ng3  the 3D `_kernel_ng3` (`_impl_ng3`, :1171) and its
+//                        lane-packed twin `_kernel_ng3_2` (`_impl_ng3_2`,
+//                        :1345), likewise one kernel here.
 //
 // For decoder-input rows x [N, F] (the gather's features, QAT noise
 // already added) and targets [N, 3]:
@@ -28,8 +31,9 @@
 //   ng  dz1 [N, H] in fp32, which node_windows (train_common.cuh, shared
 //       with kernel3) reduces per crop window to the node-resolution
 //       cotangents: P-cell sums of dz1 at period f and the C1
-//       interpolation-weighted sums at period 2f (K7). No [N, F]
-//       cotangent exists.
+//       interpolation-weighted sums at period 2f (K7); in 3D node_volumes
+//       does the same per crop volume, trilinear for C1 (K9, shared with
+//       the 3D kernel3). No [N, F] cotangent exists.
 // Surgical bf16 as in JAX: in bf16-dot mode x, h1, h2, the weights and
 // the cotangents dz3, dz2, dz1 on their way into a dot are rounded with
 // __float2bfloat16_rn; every sum and every elementwise op stays fp32, and
@@ -52,8 +56,10 @@
 // Design: weights in shared memory, read by every thread at once
 // (broadcast); activations and cotangents staged per tile as [unit][pixel]
 // columns (stride 132 floats, conflict-free); ~146 KB of shared memory at
-// F = 73, so one block of 128 threads per SM, whose 64-wide register rows
-// give each thread independent FMA chains.
+// F = 73 and ~190 KB at the 3D F = 127 (F <= 128, under the 227 KB
+// opt-in), so one block of 128 threads per SM, whose 64-wide register
+// rows give each thread independent FMA chains. dW1 = x^T dz1 is reduced
+// in passes of 80 features, so the wider F adds a pass, not registers.
 //
 // The entry points do not synchronise, allocate nothing, and return
 // cudaGetLastError().
@@ -332,12 +338,14 @@ mlp_pixel(const float* __restrict__ x, const float* __restrict__ tgt,
     __syncthreads();
 
     // block sums of dW1 = xb^T dz1b and db1: thread owns h = jq + JQ*hh
-    // (hh < 4) and feature j = kg + KG*m (m < JPT, j < F <= 80)
-    {
-      constexpr int JPT = (80 + KG - 1) / KG;
+    // (hh < 4) and feature j = j0 + kg + KG*m (m < JPT), in passes of
+    // KG*JPT = 80 features (one pass for F <= 80, two up to 128)
+    constexpr int JPT = (80 + KG - 1) / KG;
+    for (int j0 = 0; j0 < F; j0 += KG * JPT) {
       const int jq = tid % JQ, kg = tid / JQ;
       float acc[JPT][4];
       float bsum[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      const bool with_b = kg == 0 && j0 == 0;
 #pragma unroll
       for (int m = 0; m < JPT; ++m)
 #pragma unroll
@@ -347,7 +355,7 @@ mlp_pixel(const float* __restrict__ x, const float* __restrict__ tgt,
 #pragma unroll
         for (int hh = 0; hh < 4; ++hh) {
           zv[hh] = *reinterpret_cast<const float4*>(sA + (jq + JQ * hh) * LDP + p);
-          if (kg == 0) {
+          if (with_b) {
             const float4 rv =
                 *reinterpret_cast<const float4*>(sB + (jq + JQ * hh) * LDP + p);
             bsum[hh] += (rv.x + rv.y) + (rv.z + rv.w);
@@ -355,7 +363,7 @@ mlp_pixel(const float* __restrict__ x, const float* __restrict__ tgt,
         }
 #pragma unroll
         for (int m = 0; m < JPT; ++m) {
-          const int j = kg + KG * m;
+          const int j = j0 + kg + KG * m;
           if (j < F) {
             const float4 xv = *reinterpret_cast<const float4*>(sX + j * LDP + p);
 #pragma unroll
@@ -374,7 +382,7 @@ mlp_pixel(const float* __restrict__ x, const float* __restrict__ tgt,
       float* dW1 = db1 + H;
 #pragma unroll
       for (int m = 0; m < JPT; ++m) {
-        const int j = kg + KG * m;
+        const int j = j0 + kg + KG * m;
         if (j < F)
 #pragma unroll
           for (int hh = 0; hh < 4; ++hh) {
@@ -382,7 +390,7 @@ mlp_pixel(const float* __restrict__ x, const float* __restrict__ tgt,
             *dst = first ? acc[m][hh] : *dst + acc[m][hh];
           }
       }
-      if (kg == 0)
+      if (with_b)
 #pragma unroll
         for (int hh = 0; hh < 4; ++hh) {
           float* dst = db1 + jq + JQ * hh;
@@ -460,7 +468,7 @@ cudaError_t dispatch(int bf16, int gelu_id, const float* x, const float* tgt,
 }
 
 bool bad_shape(int npix, int feat, int hidden, int nblk) {
-  return npix <= 0 || feat <= 0 || feat > 80 || hidden != 64 || nblk <= 0;
+  return npix <= 0 || feat <= 0 || feat > 128 || hidden != 64 || nblk <= 0;
 }
 
 Shape make_shape(int npix, int feat, int write_dx) {
@@ -527,4 +535,36 @@ extern "C" int nic_train_fused_ng(const void* x, const void* tgt,
       static_cast<const float*>(dz1), static_cast<const int*>(origins),
       static_cast<float*>(win_p), static_cast<float*>(win_c1),
       win_geo(crops, n, f), st));
+}
+
+// K9 (3D kernel2): as K7 for crops of n^3 voxels (N = crops n^3,
+// row-major per crop) at origins [crops][3]: the per-crop node volumes
+// win_p [crops][r0][r0][r0][H] and win_c1 [crops][r1][c1][c1][H] (extents
+// in train_common.cuh vol_geo).
+extern "C" int nic_train_fused_ng3(const void* x, const void* tgt,
+                                   const void* origins, const void* w1,
+                                   const void* b1, const void* w2,
+                                   const void* b2, const void* w3,
+                                   const void* b3, void* out, void* dz1,
+                                   void* part, void* win_p, void* win_c1,
+                                   int crops, int n, int f, int feat,
+                                   int hidden, int bf16, int gelu_id,
+                                   int nblk, void* stream) {
+  if (crops <= 0 || n <= 0 || f <= 0 ||
+      bad_shape(crops * n * n * n, feat, hidden, nblk))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Shape s = make_shape(crops * n * n * n, feat, 0);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t e = dispatch(
+      bf16, gelu_id, static_cast<const float*>(x),
+      static_cast<const float*>(tgt), static_cast<const float*>(w1),
+      static_cast<const float*>(b1), static_cast<const float*>(w2),
+      static_cast<const float*>(b2), static_cast<const float*>(w3),
+      static_cast<const float*>(b3), static_cast<float*>(out),
+      static_cast<float*>(dz1), static_cast<float*>(part), s, nblk, st);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(launch_node_volumes<64>(
+      static_cast<const float*>(dz1), static_cast<const int*>(origins),
+      static_cast<float*>(win_p), static_cast<float*>(win_c1),
+      vol_geo(crops, n, f), st));
 }

@@ -11,7 +11,9 @@
 //   out = sigmoid(gelu(gelu(z1) W2 + b2) W3 + b3),  loss = mean((out-t)^2)
 //
 // and the full backward. One entry point, nic_train_fused_ff, runs five
-// kernels back to back on the caller's stream:
+// kernels back to back on the caller's stream (the MLP tail, the eps
+// kernel, the counter hash and the window kernel are shared with the 3D
+// kernel3, train_fused_ff3.cu, through train_common.cuh):
 //
 //   A ff_pixel   one thread per pixel, 128-pixel tiles, each block walking
 //                a fixed set of tiles: z1 build, MLP forward, loss, the
@@ -22,8 +24,8 @@
 //                interpolation-weighted sums;
 //   C ff_rowcol  row and column sums of dz1 per crop, then ff_pe: the PE
 //                tables against them (dWpe0, dWpe1) and db1;
-//   D ff_epsgrad (noise only) eps^T dz1 per block, the eps stream
-//                regenerated from the counter hash.
+//   D ff_epsgrad (train_common.cuh; noise only) eps^T dz1 per block, the
+//                eps stream regenerated from the counter hash.
 //
 // Every reduction is a fixed-order sum (no atomics): per-block partials
 // are summed afterwards in a fixed order, so two runs are bit-identical.
@@ -62,23 +64,6 @@
 #include "train_common.cuh"
 
 namespace {
-
-// the counter hash of nic/kernels/train_fused_ff.py eps_uniform (int32
-// wrapping multiplies and logical shifts = uint32 arithmetic)
-__device__ __forceinline__ uint32_t mix32(uint32_t x) {
-  x ^= x >> 16;
-  x *= 0x21F0AAADu;
-  x ^= x >> 15;
-  x *= 0x735A2D97u;
-  x ^= x >> 15;
-  return x;
-}
-
-__device__ __forceinline__ float eps_uniform(uint32_t ctr, uint32_t s0,
-                                             uint32_t s1, float scale) {
-  const uint32_t x = mix32(mix32(ctr ^ s0) ^ s1);
-  return (__uint_as_float((x >> 9) | 0x3F800000u) - 1.5f) * scale;
-}
 
 // tri(t / 2^octave - offset) of PE row o (nic/kernels/train_fused_ff.py
 // _tri_slot_consts: the (octave 0, offset 0.5) slot and rows past the
@@ -152,9 +137,7 @@ ff_pixel(const float* __restrict__ pp, const float* __restrict__ c1p,
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, first = false) {
     const int pix = tile * TP + tid;
     const bool valid = pix < g.npix;
-    float z1[H], z2[H];
-    float dz3[3] = {0.0f, 0.0f, 0.0f}, dz3b[3] = {0.0f, 0.0f, 0.0f};
-    float lossv = 0.0f;
+    float z1[H];
     if (valid) {
       const int crop = pix / nn, rem = pix % nn;
       const int y = org[2 * crop] + rem / g.n;
@@ -228,183 +211,10 @@ ff_pixel(const float* __restrict__ pp, const float* __restrict__ c1p,
           z1[h] = noise ? base + z1[h] : base;
         }
       }
-      // layer 2: z2 = h1b W2 + b2, h1b staged for dW2
-#pragma unroll
-      for (int j = 0; j < H; ++j) z2[j] = 0.0f;
-#pragma unroll
-      for (int k = 0; k < H; ++k) {
-        const float hk = cd<BF16>(gelu_f<G>(z1[k]));
-        sA[k * LDP + tid] = hk;
-        const float4* wr = reinterpret_cast<const float4*>(sW2 + k * H);
-#pragma unroll
-        for (int j4 = 0; j4 < H / 4; ++j4) {
-          const float4 w = wr[j4];
-          z2[4 * j4] = fmaf(hk, w.x, z2[4 * j4]);
-          z2[4 * j4 + 1] = fmaf(hk, w.y, z2[4 * j4 + 1]);
-          z2[4 * j4 + 2] = fmaf(hk, w.z, z2[4 * j4 + 2]);
-          z2[4 * j4 + 3] = fmaf(hk, w.w, z2[4 * j4 + 3]);
-        }
-      }
-      // layer 3, sigmoid, loss and dz3
-      float o3[3] = {0.0f, 0.0f, 0.0f};
-#pragma unroll
-      for (int j = 0; j < H; ++j) {
-        z2[j] += sb2[j];
-        const float h2 = cd<BF16>(gelu_f<G>(z2[j]));
-        sB[j * LDP + tid] = h2;
-        o3[0] = fmaf(h2, sW3[j * 3 + 0], o3[0]);
-        o3[1] = fmaf(h2, sW3[j * 3 + 1], o3[1]);
-        o3[2] = fmaf(h2, sW3[j * 3 + 2], o3[2]);
-      }
-#pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        const float ov = 1.0f / (1.0f + expf(-(o3[c] + sb3[c])));
-        out[static_cast<size_t>(pix) * 3 + c] = ov;
-        const float diff = ov - tgt[static_cast<size_t>(pix) * 3 + c];
-        lossv = fmaf(diff, diff, lossv);
-        dz3[c] = (2.0f * g.inv_total) * diff * ov * (1.0f - ov);
-        dz3b[c] = cd<BF16>(dz3[c]);
-      }
-      // dz2 = (dz3b W3^T) * gelu'(z2), in place of z2
-#pragma unroll
-      for (int j = 0; j < H; ++j) {
-        const float dh2 = dz3b[0] * sW3[j * 3 + 0] + dz3b[1] * sW3[j * 3 + 1] +
-                          dz3b[2] * sW3[j * 3 + 2];
-        z2[j] = dh2 * gelu_d<G>(z2[j]);
-      }
-    } else {
-#pragma unroll
-      for (int k = 0; k < H; ++k) {
-        sA[k * LDP + tid] = 0.0f;
-        sB[k * LDP + tid] = 0.0f;
-        z2[k] = 0.0f;
-      }
     }
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      sD[c * LDP + tid] = dz3b[c];
-      sD[(3 + c) * LDP + tid] = dz3[c];
-    }
-    sD[6 * LDP + tid] = lossv;
-    __syncthreads();
-
-    // block sums of dW3 = h2b^T dz3b, db3, loss
-    if (tid < H) {
-      float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f;
-      for (int p = 0; p < TP; p += 4) {
-        const float4 hv = *reinterpret_cast<const float4*>(sB + tid * LDP + p);
-        const float4 d0 = *reinterpret_cast<const float4*>(sD + 0 * LDP + p);
-        const float4 d1 = *reinterpret_cast<const float4*>(sD + 1 * LDP + p);
-        const float4 d2 = *reinterpret_cast<const float4*>(sD + 2 * LDP + p);
-        a0 += hv.x * d0.x + hv.y * d0.y + hv.z * d0.z + hv.w * d0.w;
-        a1 += hv.x * d1.x + hv.y * d1.y + hv.z * d1.z + hv.w * d1.w;
-        a2 += hv.x * d2.x + hv.y * d2.y + hv.z * d2.z + hv.w * d2.w;
-      }
-      float* dst = mypart + 4 + tid * 3;
-      dst[0] = first ? a0 : dst[0] + a0;
-      dst[1] = first ? a1 : dst[1] + a1;
-      dst[2] = first ? a2 : dst[2] + a2;
-    } else if (tid < H + 4) {
-      const int row = tid - H;  // 0..2: db3[c] from raw dz3; 3: loss
-      const float* src = sD + (row < 3 ? 3 + row : 6) * LDP;
-      float a = 0.0f;
-      for (int p = 0; p < TP; p += 4) {
-        const float4 v = *reinterpret_cast<const float4*>(src + p);
-        a += (v.x + v.y) + (v.z + v.w);
-      }
-      if (row == 3) a *= g.inv_total;
-      float* dst = mypart + (row < 3 ? 1 + row : 0);
-      dst[0] = first ? a : dst[0] + a;
-    }
-    __syncthreads();
-
-    // raw dz2 to sB (dW2, db2), then dh1 = dz2b W2^T and dz1 = dh1 gelu'(z1)
-#pragma unroll
-    for (int j = 0; j < H; ++j) {
-      sB[j * LDP + tid] = z2[j];
-      z2[j] = cd<BF16>(z2[j]);
-    }
-    if (valid) {
-      float* drow = dz1 + static_cast<size_t>(pix) * H;
-#pragma unroll
-      for (int k4 = 0; k4 < H / 4; ++k4) {
-        float d[4];
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int k = 4 * k4 + q;
-          const float4* wr = reinterpret_cast<const float4*>(sW2 + k * H);
-          float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f, s3 = 0.0f;
-#pragma unroll
-          for (int j4 = 0; j4 < H / 4; ++j4) {
-            const float4 w = wr[j4];
-            s0 = fmaf(z2[4 * j4], w.x, s0);
-            s1 = fmaf(z2[4 * j4 + 1], w.y, s1);
-            s2 = fmaf(z2[4 * j4 + 2], w.z, s2);
-            s3 = fmaf(z2[4 * j4 + 3], w.w, s3);
-          }
-          d[q] = ((s0 + s1) + (s2 + s3)) * gelu_d<G>(z1[k]);
-        }
-        reinterpret_cast<float4*>(drow)[k4] = make_float4(d[0], d[1], d[2], d[3]);
-      }
-    }
-    __syncthreads();
-
-    // block sums of dW2 = h1b^T dz2b and db2: thread owns j = jq + JQ*jj
-    // (jj < 4) and k = kg + KG*m (m < KPT)
-    {
-      constexpr int JQ = H / 4;
-      constexpr int KG = TP / JQ;
-      constexpr int KPT = H >= KG ? H / KG : 1;
-      const int jq = tid % JQ, kg = tid / JQ;
-      if (kg < H) {
-        float acc[KPT][4];
-        float bsum[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-#pragma unroll
-        for (int m = 0; m < KPT; ++m)
-#pragma unroll
-          for (int jj = 0; jj < 4; ++jj) acc[m][jj] = 0.0f;
-        for (int p = 0; p < TP; p += 4) {
-          float4 bv[4];
-#pragma unroll
-          for (int jj = 0; jj < 4; ++jj) {
-            bv[jj] = *reinterpret_cast<const float4*>(sB + (jq + JQ * jj) * LDP + p);
-            if (kg == 0) bsum[jj] += (bv[jj].x + bv[jj].y) + (bv[jj].z + bv[jj].w);
-            bv[jj] = make_float4(cd<BF16>(bv[jj].x), cd<BF16>(bv[jj].y),
-                                 cd<BF16>(bv[jj].z), cd<BF16>(bv[jj].w));
-          }
-#pragma unroll
-          for (int m = 0; m < KPT; ++m) {
-            const float4 av =
-                *reinterpret_cast<const float4*>(sA + (kg + KG * m) * LDP + p);
-#pragma unroll
-            for (int jj = 0; jj < 4; ++jj) {
-              float a = acc[m][jj];
-              a = fmaf(av.x, bv[jj].x, a);
-              a = fmaf(av.y, bv[jj].y, a);
-              a = fmaf(av.z, bv[jj].z, a);
-              a = fmaf(av.w, bv[jj].w, a);
-              acc[m][jj] = a;
-            }
-          }
-        }
-        float* dW2 = mypart + 4 + 4 * H;
-        float* db2 = mypart + 4 + 3 * H;
-#pragma unroll
-        for (int m = 0; m < KPT; ++m)
-#pragma unroll
-          for (int jj = 0; jj < 4; ++jj) {
-            float* dst = dW2 + (kg + KG * m) * H + jq + JQ * jj;
-            *dst = first ? acc[m][jj] : *dst + acc[m][jj];
-          }
-        if (kg == 0)
-#pragma unroll
-          for (int jj = 0; jj < 4; ++jj) {
-            float* dst = db2 + jq + JQ * jj;
-            *dst = first ? bsum[jj] : *dst + bsum[jj];
-          }
-      }
-    }
-    __syncthreads();
+    ff_tail<H, BF16, G>(z1, valid, static_cast<size_t>(pix), sW2, sW3, sb2,
+                        sb3, sA, sB, sD, tgt, out, dz1, mypart, first,
+                        g.inv_total);
   }
 }
 
@@ -453,73 +263,6 @@ __global__ void ff_pe(const float* __restrict__ sums,
   pe[row * H + h] = acc;
 }
 
-// ---- D: eps^T dz1 (noise only), per-block partials [nfeat][H] ---------
-template <int H, bool BF16>
-__global__ void __launch_bounds__(TP, 2)
-ff_epsgrad(const float* __restrict__ dz1, float* __restrict__ part, Geo g) {
-  extern __shared__ float4 smem4[];
-  float* sZ = reinterpret_cast<float*>(smem4);  // dz1b [H][LDP]
-  float* sE = sZ + H * LDP;                     // eps [fslot][LDP]
-  constexpr int JQ = H / 4;                     // h = jq + JQ*hh
-  constexpr int KG = TP / JQ;                   // feature j = kg + KG*m
-  constexpr int JPT = (80 + KG - 1) / KG;       // nfeat <= 80 (pe <= 8, C <= 12)
-  const int tid = threadIdx.x;
-  const int jq = tid % JQ, kg = tid / JQ;
-  float acc[JPT][4];
-#pragma unroll
-  for (int m = 0; m < JPT; ++m)
-#pragma unroll
-    for (int hh = 0; hh < 4; ++hh) acc[m][hh] = 0.0f;
-  const int tiles = (g.npix + TP - 1) / TP;
-  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const int pix = tile * TP + tid;
-    if (pix < g.npix) {
-      const float* drow = dz1 + static_cast<size_t>(pix) * H;
-      for (int h = 0; h < H; ++h) sZ[h * LDP + tid] = cd<BF16>(drow[h]);
-      const uint32_t ctr0 = (static_cast<uint32_t>(pix) + g.pixel_base) *
-                            static_cast<uint32_t>(g.fslot);
-      for (int j = 0; j < g.nfeat; ++j)
-        sE[j * LDP + tid] = cd<BF16>(eps_uniform(
-            ctr0 + static_cast<uint32_t>(j), g.s0, g.s1, g.eps_scale));
-    } else {
-      for (int h = 0; h < H; ++h) sZ[h * LDP + tid] = 0.0f;
-      for (int j = 0; j < g.nfeat; ++j) sE[j * LDP + tid] = 0.0f;
-    }
-    __syncthreads();
-    for (int p = 0; p < TP; p += 4) {
-      float4 zv[4];
-#pragma unroll
-      for (int hh = 0; hh < 4; ++hh)
-        zv[hh] = *reinterpret_cast<const float4*>(sZ + (jq + JQ * hh) * LDP + p);
-#pragma unroll
-      for (int m = 0; m < JPT; ++m) {
-        const int j = kg + KG * m;
-        if (j < g.nfeat) {
-          const float4 ev = *reinterpret_cast<const float4*>(sE + j * LDP + p);
-#pragma unroll
-          for (int hh = 0; hh < 4; ++hh) {
-            float a = acc[m][hh];
-            a = fmaf(ev.x, zv[hh].x, a);
-            a = fmaf(ev.y, zv[hh].y, a);
-            a = fmaf(ev.z, zv[hh].z, a);
-            a = fmaf(ev.w, zv[hh].w, a);
-            acc[m][hh] = a;
-          }
-        }
-      }
-    }
-    __syncthreads();
-  }
-  float* mypart = part + static_cast<size_t>(blockIdx.x) * g.nfeat * H;
-#pragma unroll
-  for (int m = 0; m < JPT; ++m) {
-    const int j = kg + KG * m;
-    if (j < g.nfeat)
-#pragma unroll
-      for (int hh = 0; hh < 4; ++hh) mypart[j * H + jq + JQ * hh] = acc[m][hh];
-  }
-}
-
 struct Args {
   const float *pp, *c1p, *w1, *bvec, *wpe0, *wpe1, *w2, *b2, *w3, *b3, *tgt;
   const int* org;
@@ -559,13 +302,16 @@ cudaError_t launch_rest(const Args& a) {
   ff_pe<H><<<2 * a.g.npe + 1, H, 0, a.stream>>>(a.sums, a.org, a.pe, a.g);
   e = cudaGetLastError();
   if (e != cudaSuccess || a.nblk_eps == 0) return e;
-  const size_t smem = sizeof(float) * (H * LDP + a.g.fslot * LDP);
-  auto kern = ff_epsgrad<H, BF16>;
-  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(smem));
-  if (e != cudaSuccess) return e;
-  kern<<<a.nblk_eps, TP, smem, a.stream>>>(a.dz1, a.part_eps, a.g);
-  return cudaGetLastError();
+  NoiseGeo ng;
+  ng.npix = a.g.npix;
+  ng.nfeat = a.g.nfeat;
+  ng.fslot = a.g.fslot;
+  ng.eps_scale = a.g.eps_scale;
+  ng.s0 = a.g.s0;
+  ng.s1 = a.g.s1;
+  ng.pixel_base = a.g.pixel_base;
+  return launch_epsgrad<H, BF16, 80>(a.dz1, a.part_eps, ng, a.nblk_eps,
+                                     a.stream);
 }
 
 template <int H, bool BF16, int G>

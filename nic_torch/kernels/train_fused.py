@@ -1,6 +1,6 @@
 """The fused MLP train kernels on gather-built features (port of
-``nic.kernels.train_fused``, 2D), and the helpers kernel3 shares with them.
-The CUDA kernels are ``csrc/train_fused.cu``.
+``nic.kernels.train_fused``, 2D and 3D), and the helpers kernel3 shares
+with them. The CUDA kernels are ``csrc/train_fused.cu``.
 
 For decoder-input rows x [N, F] (the gather's features, QAT noise already
 added) and targets [N, 3], both kernels compute in one pass
@@ -21,7 +21,12 @@ leaves the kernel beside the MLP gradients:
   to node resolution instead: dP[cell] = Σ dz1 over the pixels of each G0
   cell at period f, dC1[node] = Σ (1−u)·dz1 to the floor node and u·dz1
   to the next one per axis at period 2f. :func:`fused_mlp_loss_ng` unfolds
-  them (:func:`_unfold_node_grads`) into dG0/dG1.
+  them (:func:`_unfold_node_grads`) into dG0/dG1;
+- K9 (``_kernel_ng3``, kernel2 in 3D; K10, ``_kernel_ng3_2``, is its
+  lane-packed twin and the same kernel here) does the same over crop
+  volumes: P cell sums and trilinear C1 sums per crop, unfolded over the
+  8 dense or 4 even-parity (method 4) G0 corners
+  (:func:`fused_mlp_loss_ng3`).
 
 Counterparts of each kernel, as for kernel3: ``*_plain`` (torch ops; the
 node sums as the formula above), ``*_kernel`` (launches the CUDA kernel on
@@ -34,25 +39,34 @@ kernel, |Δerf| ≤ 1.5e-7; ``"poly"``: the 8-FMA even polynomial, exact
 saturation outside ±4) with its hand-written derivative; the bf16 dot of
 the plain versions; :func:`_accumulate_node_planes`, which places per-crop
 node windows into full-grid planes per crop in a fixed order (no atomics);
-and the unfold.
+and the unfold. The node helpers take 2D or 3D by the width of the crop
+origins (or the rank of the windows).
 """
 
 from __future__ import annotations
 
+import itertools
+
 import torch
 
+from nic_torch.grids.sample import EVEN_PARITY_CORNERS_3D
 from nic_torch.kernels.decode_fused_v2 import _GELU_POLY_C, _erf
 
 __all__ = ["pick_block_rows", "fused_mlp_loss", "fused_mlp_loss_kernel",
            "fused_mlp_loss_plain", "fused_mlp_loss_ng",
-           "fused_mlp_loss_ng_kernel", "fused_mlp_loss_ng_plain"]
+           "fused_mlp_loss_ng_kernel", "fused_mlp_loss_ng_plain",
+           "fused_mlp_loss_ng3", "fused_mlp_loss_ng3_kernel"]
 
 _INV_SQRT2 = 0.7071067811865476
 _INV_SQRT2PI = 0.3989422804014327
 _KERNEL_HIDDEN = (64,)  # widths the .cu files instantiate
-_KERNEL_MAX_FEAT = 80   # decoder-input widths csrc/train_fused.cu takes
+_KERNEL_MAX_FEAT = 128  # decoder-input widths csrc/train_fused.cu takes
 GELU_IDS = {"erf": 0, "poly": 1}
 _CORNERS = ((0, 0), (0, 1), (1, 0), (1, 1))
+# the 3D G0 corners: dense (method 3) and the sparse even-parity four
+# (method 4), in the gather's order
+_CORNERS_3D_DENSE = tuple(itertools.product((0, 1), repeat=3))
+_CORNERS_3D_SPARSE = EVEN_PARITY_CORNERS_3D
 
 
 def _gelu_fwd(z: torch.Tensor, kind: str):
@@ -95,8 +109,8 @@ def _pad8(v: int) -> int:
     return -(-v // 8) * 8
 
 
-def _node_counts(nodes) -> tuple[int, int]:
-    return (nodes, nodes) if isinstance(nodes, int) else tuple(nodes)
+def _node_counts(nodes, nd: int = 2) -> tuple:
+    return (nodes,) * nd if isinstance(nodes, int) else tuple(nodes)
 
 
 def _window_extents(n: int, f: int) -> tuple[int, int, int, int]:
@@ -107,47 +121,61 @@ def _window_extents(n: int, f: int) -> tuple[int, int, int, int]:
             (n + f1 - 2) // f1 + 2, n // f1 + 2)
 
 
+def _window_extents_3d(n: int, f: int) -> tuple[tuple, tuple]:
+    """Per-crop node-volume extents in 3D: ((r0, r0, r0) P cells, (r1, c1,
+    c1) C1 nodes), the JAX package's na0 and rows1/na1."""
+    r0, _, r1, c1 = _window_extents(n, f)
+    return (r0,) * 3, (r1, c1, c1)
+
+
 def _accumulate_node_planes(win_p, win_c1, origins, *, f: int, g0_nodes,
                             g1_nodes):
-    """Per-crop node windows → full-grid planes (P [g0_rows+1, g0_cols+1, H]
-    of cell sums of dz1, C1 [g1_rows+2, g1_cols+2, H] of interp-weighted
-    sums).
+    """Per-crop node windows → full-grid planes (2D) or volumes (3D): P
+    [g0+1 per axis, H] of cell sums of dz1, C1 [g1+2 per axis, H] of
+    interp-weighted sums.
 
-    ``win_p`` [crops, rows0, cols0, H] and ``win_c1`` [crops, rows1, cols1,
-    H] (the extents of :func:`_window_extents`) are each crop's windows,
-    whose corners sit at origin // f and origin // 2f; ``origins`` [crops,
-    2]. The windows are added into the planes one crop after the other."""
-    g0r, g0c = _node_counts(g0_nodes)
-    g1r, g1c = _node_counts(g1_nodes)
+    ``win_p`` [crops, *P extents, H] and ``win_c1`` [crops, *C1 extents,
+    H] (:func:`_window_extents`, :func:`_window_extents_3d`) are each
+    crop's windows, whose corners sit at origin // f and origin // 2f;
+    ``origins`` [crops, d]. The windows are added one crop after the
+    other."""
+    nd = win_p.dim() - 2
+    g0 = _node_counts(g0_nodes, nd)
+    g1 = _node_counts(g1_nodes, nd)
     orgs = torch.as_tensor(origins).cpu().tolist()
     planes = []
-    for win, shape, step in ((win_p, (g0r + 1, g0c + 1), f),
-                             (win_c1, (g1r + 2, g1c + 2), 2 * f)):
-        plane = win.new_zeros(shape + win.shape[3:])
-        rows, cols = win.shape[1:3]
-        for i, (o0, o1) in enumerate(orgs):
-            r0, c0 = o0 // step, o1 // step
-            plane[r0:r0 + rows, c0:c0 + cols] += win[i]
+    for win, shape, step in ((win_p, tuple(g + 1 for g in g0), f),
+                             (win_c1, tuple(g + 2 for g in g1), 2 * f)):
+        plane = win.new_zeros(shape + win.shape[nd + 1:])
+        ext = win.shape[1:nd + 1]
+        for i, org in enumerate(orgs):
+            plane[tuple(slice(o // step, o // step + e)
+                        for o, e in zip(org, ext))] += win[i]
         planes.append(plane)
     return tuple(planes)
 
 
 def _unfold_node_grads(pacc, c1acc, w1, *, g0_nodes, g1_nodes,
-                       channels: int):
-    """(dG0 [C, g0r, g0c], dG1 [C, g1r, g1c]) from the accumulated node
-    planes (the JAX package's ``_unfold_node_grads`` after its
-    accumulation): dG0 is the four shifted adds of P·W1_kᵀ in the corner
-    order (0,0), (0,1), (1,0), (1,1), with W1_k the rows k·C:(k+1)·C; dG1
-    is C1·W1_g1ᵀ with the rows 4C:5C; both cropped to the grids."""
-    g0r, g0c = _node_counts(g0_nodes)
-    g1r, g1c = _node_counts(g1_nodes)
+                       channels: int, corners=_CORNERS):
+    """(dG0 [C, g0..], dG1 [C, g1..]) from the accumulated node planes or
+    volumes (the JAX package's ``_unfold_node_grads``/``_3d`` after its
+    accumulation): dG0 is the shifted adds of P·W1_kᵀ over the G0
+    ``corners``, with W1_k the rows k·C:(k+1)·C; dG1 is C1·W1_g1ᵀ with the
+    rows after the corners'; both cropped to the grids."""
+    nd = pacc.dim() - 1
+    g0 = _node_counts(g0_nodes, nd)
+    g1 = _node_counts(g1_nodes, nd)
     ch = channels
     w1 = w1.detach().to(torch.float32)
-    dg0 = pacc.new_zeros((g0r + 2, g0c + 2, ch))
-    for k, (a, b) in enumerate(_CORNERS):
-        dg0[a:a + g0r + 1, b:b + g0c + 1] += pacc @ w1[k * ch:(k + 1) * ch].T
-    dg1 = (c1acc @ w1[4 * ch:5 * ch].T)[:g1r, :g1c]
-    return dg0[:g0r, :g0c].permute(2, 0, 1), dg1.permute(2, 0, 1)
+    dg0 = pacc.new_zeros(tuple(g + 2 for g in g0) + (ch,))
+    for k, off in enumerate(corners):
+        dg0[tuple(slice(o, o + g + 1) for o, g in zip(off, g0))] += (
+            pacc @ w1[k * ch:(k + 1) * ch].T)
+    kg1 = len(corners)
+    dg1 = (c1acc @ w1[kg1 * ch:(kg1 + 1) * ch].T)[
+        tuple(slice(0, g) for g in g1)]
+    dg0 = dg0[tuple(slice(0, g) for g in g0)]
+    return dg0.movedim(-1, 0), dg1.movedim(-1, 0)
 
 
 # ---- the plain versions ------------------------------------------------
@@ -222,42 +250,50 @@ def fused_mlp_loss_plain(x, tgt, w1, b1, w2, b2, w3, b3, *, cd=None,
 
 
 def _node_sums(dz1, origins, *, n: int, f: int, g0_nodes, g1_nodes):
-    """The node-resolution cotangents of dz1 [crops·n², H] (crops of n²
-    pixels at ``origins`` [crops, 2], row-major per crop), as the formula:
-    P [g0r+1, g0c+1, H] with P[cell] = Σ dz1 over the pixels of each G0
-    cell at period f, and C1 [g1r+2, g1c+2, H], where each pixel adds its
-    dz1 with bilinear weights (1−u)(1−v), (1−u)v, u(1−v), uv to its four G1
-    nodes at period 2f (u, v the phases of the absolute coordinate)."""
-    g0r, g0c = _node_counts(g0_nodes)
-    g1r, g1c = _node_counts(g1_nodes)
-    hidden = dz1.shape[1]
-    crops = origins.shape[0]
-    f1 = 2 * f
+    """The node-resolution cotangents of dz1 [crops·n^d, H] (crops of n^d
+    pixels at ``origins`` [crops, d], row-major per crop), as the formula:
+    P [g0+1 per axis, H] with P[cell] = Σ dz1 over the pixels of each G0
+    cell at period f, and C1 [g1+2 per axis, H], where each pixel adds its
+    dz1 to its 2^d G1 nodes at period 2f with the multilinear weights
+    Π_k (u_k or 1 − u_k) (u_k the phases of the absolute coordinate)."""
     org = origins.to(dz1.device).long()
+    crops, nd = org.shape
+    g0 = _node_counts(g0_nodes, nd)
+    g1 = _node_counts(g1_nodes, nd)
+    hidden = dz1.shape[1]
+    f1 = 2 * f
     ar = torch.arange(n, device=dz1.device)
-    ys, xs = org[:, 0, None] + ar, org[:, 1, None] + ar    # [crops, n]
-    d = dz1.reshape(crops, n, n, hidden)
-    pacc = dz1.new_zeros((g0r + 1, g0c + 1, hidden))
-    pacc.index_put_(((ys // f)[:, :, None], (xs // f)[:, None, :]), d,
+    cs = [org[:, d, None] + ar for d in range(nd)]          # [crops, n]
+
+    def axis(t, d):  # [crops, n] → broadcast along pixel axis d
+        shape = [crops] + [1] * nd
+        shape[1 + d] = n
+        return t.reshape(shape)
+
+    dv = dz1.reshape((crops,) + (n,) * nd + (hidden,))
+    pacc = dz1.new_zeros(tuple(g + 1 for g in g0) + (hidden,))
+    pacc.index_put_(tuple(axis(c // f, d) for d, c in enumerate(cs)), dv,
                     accumulate=True)
-    u = (ys % f1).float() * (1.0 / f1)
-    v = (xs % f1).float() * (1.0 / f1)
-    r1, c1 = ys // f1, xs // f1
-    c1acc = dz1.new_zeros((g1r + 2, g1c + 2, hidden))
-    for a, wr in ((0, 1.0 - u), (1, u)):
-        for b, wc in ((0, 1.0 - v), (1, v)):
-            w = wr[:, :, None, None] * wc[:, None, :, None]
-            c1acc.index_put_(((r1 + a)[:, :, None], (c1 + b)[:, None, :]),
-                             w * d, accumulate=True)
+    us = [(c % f1).float() * (1.0 / f1) for c in cs]
+    c1acc = dz1.new_zeros(tuple(g + 2 for g in g1) + (hidden,))
+    for off in itertools.product((0, 1), repeat=nd):
+        w = None
+        for d, o in enumerate(off):
+            wd = axis(us[d] if o else 1.0 - us[d], d)
+            w = wd if w is None else w * wd
+        c1acc.index_put_(tuple(axis(c // f1 + o, d)
+                               for d, (c, o) in enumerate(zip(cs, off))),
+                         w[..., None] * dv, accumulate=True)
     return pacc, c1acc
 
 
 def fused_mlp_loss_ng_plain(x, tgt, origins, w1, b1, w2, b2, w3, b3, *,
                             n: int, f: int, g0_nodes, g1_nodes, cd=None,
                             gelu: str = "erf") -> tuple:
-    """K7's step in torch ops → (loss, out [N, 3], dw1, db1, dw2, db2, dw3,
-    db3, P_acc [g0r+1, g0c+1, H], C1_acc [g1r+2, g1c+2, H]); the node
-    planes are :func:`_node_sums` of the fp32 dz1."""
+    """K7's step (2D origins [crops, 2]) or K9's (3D origins [crops, 3]) in
+    torch ops → (loss, out [N, 3], dw1, db1, dw2, db2, dw3, db3, P_acc
+    [g0+1 per axis, H], C1_acc [g1+2 per axis, H]); the node planes or
+    volumes are :func:`_node_sums` of the fp32 dz1."""
     loss, out, dz1, *grads = _plain_step(x, tgt, (w1, b1, w2, b2, w3, b3),
                                          cd, gelu, with_dx=False)
     planes = _node_sums(dz1, torch.as_tensor(origins), n=n, f=f,
@@ -367,23 +403,71 @@ fused_mlp_loss_kernel.launches = 0
 
 
 def _check_origins(origins, n: int, f: int, g0_nodes, g1_nodes) -> None:
-    """Every crop's node windows inside the full-grid planes (the wrapper
-    places them by slicing, which would clip silently)."""
-    rows0, cols0, rows1, cols1 = _window_extents(n, f)
-    g0r, g0c = _node_counts(g0_nodes)
-    g1r, g1c = _node_counts(g1_nodes)
+    """Every crop's node windows inside the full-grid planes or volumes
+    (the wrapper places them by slicing, which would clip silently)."""
     org = origins.cpu()
-    ok = org.dim() == 2 and org.shape[1] == 2 and int(org.min()) >= 0
+    nd = org.shape[1] if org.dim() == 2 else 0
+    ok = nd in (2, 3) and int(org.min()) >= 0
     if ok:
-        last = org.max(dim=0).values
-        ok = (int(last[0]) // f + rows0 <= g0r + 1
-              and int(last[1]) // f + cols0 <= g0c + 1
-              and int(last[0]) // (2 * f) + rows1 <= g1r + 2
-              and int(last[1]) // (2 * f) + cols1 <= g1c + 2)
+        if nd == 2:
+            r0, c0, r1, c1 = _window_extents(n, f)
+            ext0, ext1 = (r0, c0), (r1, c1)
+        else:
+            ext0, ext1 = _window_extents_3d(n, f)
+        last = org.max(dim=0).values.tolist()
+        ok = all(o // f + e <= g + 1 for o, e, g in
+                 zip(last, ext0, _node_counts(g0_nodes, nd))) and all(
+            o // (2 * f) + e <= g + 2 for o, e, g in
+            zip(last, ext1, _node_counts(g1_nodes, nd)))
     if not ok:
         raise ValueError(f"crop origins {org.tolist()} with n={n}, f={f} "
-                         f"reach outside grids of {(g0r, g0c)} and "
-                         f"{(g1r, g1c)} nodes")
+                         f"reach outside grids of {g0_nodes} and "
+                         f"{g1_nodes} nodes")
+
+
+def _ng_kernel(wrapper, entry: str, x, tgt, origins, weights, *, n: int,
+               f: int, g0_nodes, g1_nodes, cd, gelu) -> tuple:
+    """The node-gradient step on the operands' device, 2D or 3D by the
+    origins' width: the plain version for a CPU tensor, else one launch of
+    ``entry``, counted on ``wrapper.launches``, and the placement of its
+    per-crop windows."""
+    _check(entry, x, tgt, *weights, cd, gelu)
+    origins = torch.as_tensor(origins)
+    if f < 1 or f & (f - 1):
+        raise ValueError(f"f={f} must be a power of two")
+    crops, nd = origins.shape
+    if x.shape[0] != crops * n**nd:
+        raise ValueError(f"x has {x.shape[0]} rows, not crops·n^{nd} = "
+                         f"{crops}·{n}^{nd}")
+    _check_origins(origins, n, f, g0_nodes, g1_nodes)
+    kw = dict(n=n, f=f, g0_nodes=g0_nodes, g1_nodes=g1_nodes, cd=cd,
+              gelu=gelu)
+    if x.device.type == "cpu":
+        return fused_mlp_loss_ng_plain(x, tgt, origins, *weights, **kw)
+    device = x.device
+    npix, feat = x.shape
+    hidden = weights[2].shape[0]
+    if nd == 2:
+        r0, c0, r1, c1 = _window_extents(n, f)
+        ext0, ext1 = (r0, c0), (r1, c1)
+    else:
+        ext0, ext1 = _window_extents_3d(n, f)
+    empty = lambda *s: torch.empty(s, dtype=torch.float32,  # noqa: E731
+                                   device=device)
+    out, dz1 = empty(npix, 3), empty(npix, hidden)
+    win_p = empty(crops, *ext0, hidden)
+    win_c1 = empty(crops, *ext1, hidden)
+    org = origins.to(device=device, dtype=torch.int32).contiguous()
+    part, nblk = _partials(npix, feat, hidden, device)
+    xs, tg, *ws = _prep(x, tgt, *weights)
+    _call(entry, (xs, tg, org, *ws, out, dz1, part, win_p, win_c1),
+          (crops, n, f, feat, hidden, int(cd is not None), GELU_IDS[gelu],
+           nblk), device)
+    wrapper.launches += 1
+    loss, *grads = _sum_partials(part, hidden, feat)
+    planes = _accumulate_node_planes(win_p, win_c1, origins, f=f,
+                                     g0_nodes=g0_nodes, g1_nodes=g1_nodes)
+    return (loss, out, *grads, *planes)
 
 
 def fused_mlp_loss_ng_kernel(x, tgt, origins, w1, b1, w2, b2, w3, b3, *,
@@ -400,44 +484,37 @@ def fused_mlp_loss_ng_kernel(x, tgt, origins, w1, b1, w2, b2, w3, b3, *,
     :func:`_accumulate_node_planes`; a CPU tensor runs
     :func:`fused_mlp_loss_ng_plain`. ``fused_mlp_loss_ng_kernel.launches``
     counts kernel launches."""
-    _check("fused_mlp_loss_ng", x, tgt, w1, b1, w2, b2, w3, b3, cd, gelu)
-    origins = torch.as_tensor(origins)
-    if f < 1 or f & (f - 1):
-        raise ValueError(f"f={f} must be a power of two")
-    crops = origins.shape[0]
-    if x.shape[0] != crops * n * n:
-        raise ValueError(f"x has {x.shape[0]} rows, not crops·n² = "
-                         f"{crops}·{n}²")
-    _check_origins(origins, n, f, g0_nodes, g1_nodes)
-    weights = (w1, b1, w2, b2, w3, b3)
-    kw = dict(n=n, f=f, g0_nodes=g0_nodes, g1_nodes=g1_nodes, cd=cd,
-              gelu=gelu)
-    if x.device.type == "cpu":
-        return fused_mlp_loss_ng_plain(x, tgt, origins, *weights, **kw)
-    device = x.device
-    npix, feat = x.shape
-    hidden = w2.shape[0]
-    rows0, cols0, rows1, cols1 = _window_extents(n, f)
-    empty = lambda *s: torch.empty(s, dtype=torch.float32,  # noqa: E731
-                                   device=device)
-    out, dz1 = empty(npix, 3), empty(npix, hidden)
-    win_p = empty(crops, rows0, cols0, hidden)
-    win_c1 = empty(crops, rows1, cols1, hidden)
-    org = origins.to(device=device, dtype=torch.int32).contiguous()
-    part, nblk = _partials(npix, feat, hidden, device)
-    xs, tg, *ws = _prep(x, tgt, *weights)
-    _call("nic_train_fused_ng",
-          (xs, tg, org, *ws, out, dz1, part, win_p, win_c1),
-          (crops, n, f, feat, hidden, int(cd is not None), GELU_IDS[gelu],
-           nblk), device)
-    fused_mlp_loss_ng_kernel.launches += 1
-    loss, *grads = _sum_partials(part, hidden, feat)
-    planes = _accumulate_node_planes(win_p, win_c1, origins, f=f,
-                                     g0_nodes=g0_nodes, g1_nodes=g1_nodes)
-    return (loss, out, *grads, *planes)
+    if torch.as_tensor(origins).shape[-1] != 2:
+        raise ValueError("fused_mlp_loss_ng_kernel takes 2D origins; 3D "
+                         "crops go to fused_mlp_loss_ng3_kernel")
+    return _ng_kernel(fused_mlp_loss_ng_kernel, "nic_train_fused_ng", x,
+                      tgt, origins, (w1, b1, w2, b2, w3, b3), n=n, f=f,
+                      g0_nodes=g0_nodes, g1_nodes=g1_nodes, cd=cd, gelu=gelu)
 
 
 fused_mlp_loss_ng_kernel.launches = 0
+
+
+def fused_mlp_loss_ng3_kernel(x, tgt, origins, w1, b1, w2, b2, w3, b3, *,
+                              n: int, f: int, g0_nodes, g1_nodes, cd=None,
+                              gelu: str = "erf") -> tuple:
+    """K9 (the 3D kernel2) on the operands' device → the tuple of
+    :func:`fused_mlp_loss_ng_plain` with node volumes. ``x`` [crops·n³,
+    F ≤ 128] row-major per crop, ``origins`` [crops, 3].
+
+    A CUDA tensor launches ``nic_train_fused_ng3`` of ``csrc/
+    train_fused.cu`` (the per-voxel kernel in its node-gradient mode, then
+    the node-volume kernel), whose per-crop volumes are placed by
+    :func:`_accumulate_node_planes`; a CPU tensor runs the plain version.
+    ``fused_mlp_loss_ng3_kernel.launches`` counts kernel launches."""
+    if torch.as_tensor(origins).shape[-1] != 3:
+        raise ValueError("fused_mlp_loss_ng3_kernel takes 3D origins")
+    return _ng_kernel(fused_mlp_loss_ng3_kernel, "nic_train_fused_ng3", x,
+                      tgt, origins, (w1, b1, w2, b2, w3, b3), n=n, f=f,
+                      g0_nodes=g0_nodes, g1_nodes=g1_nodes, cd=cd, gelu=gelu)
+
+
+fused_mlp_loss_ng3_kernel.launches = 0
 
 
 # ---- the autograd functions (the JAX custom VJPs) ----------------------
@@ -472,13 +549,15 @@ def fused_mlp_loss(mlp, x, tgt, matmul_dtype=None, gelu: str = "erf"):
 class _FusedMlpLossNg(torch.autograd.Function):
     @staticmethod
     def forward(ctx, g0, g1, x, tgt, origins, w1, b1, w2, b2, w3, b3, n, f,
-                cd, gelu):
+                cd, gelu, corners):
         g0_nodes, g1_nodes = tuple(g0.shape[1:]), tuple(g1.shape[1:])
-        loss, out, *grads, pacc, c1acc = fused_mlp_loss_ng_kernel(
+        kernel = (fused_mlp_loss_ng_kernel if g0.dim() == 3
+                  else fused_mlp_loss_ng3_kernel)
+        loss, out, *grads, pacc, c1acc = kernel(
             x.detach(), tgt, origins, w1, b1, w2, b2, w3, b3, n=n, f=f,
             g0_nodes=g0_nodes, g1_nodes=g1_nodes, cd=cd, gelu=gelu)
         ctx.save_for_backward(w1, pacc, c1acc, *grads)
-        ctx.geometry = (g0_nodes, g1_nodes, g0.shape[0])
+        ctx.geometry = (g0_nodes, g1_nodes, g0.shape[0], corners)
         ctx.mark_non_differentiable(out)
         return loss, out
 
@@ -487,12 +566,13 @@ class _FusedMlpLossNg(torch.autograd.Function):
         w1, pacc, c1acc, *grads = ctx.saved_tensors
         dg0 = dg1 = None
         if ctx.needs_input_grad[0] or ctx.needs_input_grad[1]:
-            g0_nodes, g1_nodes, ch = ctx.geometry
+            g0_nodes, g1_nodes, channels, corners = ctx.geometry
             dg0, dg1 = _unfold_node_grads(pacc, c1acc, w1, g0_nodes=g0_nodes,
-                                          g1_nodes=g1_nodes, channels=ch)
+                                          g1_nodes=g1_nodes,
+                                          channels=channels, corners=corners)
             dg0, dg1 = dg0 * g_loss, dg1 * g_loss
         return ((dg0, dg1, None, None, None)
-                + tuple(g * g_loss for g in grads) + (None,) * 4)
+                + tuple(g * g_loss for g in grads) + (None,) * 5)
 
 
 def fused_mlp_loss_ng(g0, g1, mlp, x, tgt, origins, n: int, f: int,
@@ -507,4 +587,17 @@ def fused_mlp_loss_ng(g0, g1, mlp, x, tgt, origins, n: int, f: int,
     kernel2 gate). Frozen grids (no grad) skip the unfold."""
     return _FusedMlpLossNg.apply(
         g0, g1, x, tgt, origins, mlp["w1"], mlp["b1"], mlp["w2"], mlp["b2"],
-        mlp["w3"], mlp["b3"], n, f, matmul_dtype, gelu)
+        mlp["w3"], mlp["b3"], n, f, matmul_dtype, gelu, _CORNERS)
+
+
+def fused_mlp_loss_ng3(g0, g1, mlp, x, tgt, origins, n: int, f: int,
+                       sparse_g0: bool = False, matmul_dtype=None,
+                       gelu: str = "erf"):
+    """:func:`fused_mlp_loss_ng` in 3D (the JAX package's
+    ``fused_mlp_loss_ng3``): grids [C, s, s, s], ``x`` [crops·n³, F],
+    ``origins`` [crops, 3]; ``sparse_g0`` unfolds dG0 over method 4's four
+    even-parity corners instead of the eight."""
+    corners = _CORNERS_3D_SPARSE if sparse_g0 else _CORNERS_3D_DENSE
+    return _FusedMlpLossNg.apply(
+        g0, g1, x, tgt, origins, mlp["w1"], mlp["b1"], mlp["w2"], mlp["b2"],
+        mlp["w3"], mlp["b3"], n, f, matmul_dtype, gelu, corners)

@@ -144,12 +144,12 @@ def fold_planes(g0: torch.Tensor, g1: torch.Tensor, w1: torch.Tensor,
 
 # ---- the plain version -------------------------------------------------
 
-def _noise(crops: int, n: int, nfeat: int, seed, nbits: int, device):
-    """ε [crops·n², nfeat] of the in-kernel stream; counters gid·fslot + j
+def _noise(npix: int, nfeat: int, seed, nbits: int, device):
+    """ε [npix, nfeat] of the in-kernel stream; counters gid·fslot + j
     with gid = flat pixel index + seed[2]."""
     s0, s1, base = (int(v) for v in torch.as_tensor(seed).tolist()[:3])
     fslot = _pad8(nfeat)
-    gid = torch.arange(crops * n * n, dtype=torch.int64, device=device) + base
+    gid = torch.arange(npix, dtype=torch.int64, device=device) + base
     ctr = gid[:, None] * fslot + torch.arange(nfeat, device=device)[None]
     return eps_uniform(ctr, s0, s1, nbits)
 
@@ -213,7 +213,7 @@ def fused_train_ff_plain(p_plane, c1_plane, w1, b1, w2, b2, w3, b3, tgt,
         z1 = (g0t + c1t + peu[:, :, None, :] + colterm[:, None, :, :]
               + leaves["bvec"]).reshape(-1, hidden)
         if nbits is not None:
-            eps = _noise(crops, n, w1.shape[0], seed, nbits, device)
+            eps = _noise(crops * n * n, w1.shape[0], seed, nbits, device)
             z1 = z1 + _CdDot.apply(eps, leaves["w1n"], cd)
         h1 = _Gelu.apply(z1, gelu)
         h2 = _Gelu.apply(_CdDot.apply(h1, leaves["w2"], cd) + leaves["b2"],

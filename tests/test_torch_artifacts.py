@@ -11,6 +11,7 @@ from nic.core.quant import quantize
 from nic.io import artifacts as jart
 from nic_torch.io import artifacts as tart
 from nic_torch.io.convert import params_from_jax, params_to_jax
+from test_torch_decode_fused_3d import make_model3
 from test_torch_fastdecode import make_model
 
 META = {"save_name": "t", "config": {"image_size": 64, "pe_channels": 4}}
@@ -68,6 +69,32 @@ def test_torch_artifact_loads_in_jax(tmp_path, bits, store):
     jart.save_compressed(jpath, mlp, tuple(jnp.asarray(g) for g in fp), bits,
                          META, mlp_store_bits=store)
     with np.load(path) as zt, np.load(jpath) as zj:
+        assert sorted(zt.files) == sorted(zj.files)
+        for key in zt.files:
+            np.testing.assert_array_equal(zt[key], zj[key], err_msg=key)
+
+
+@pytest.mark.parametrize("method", [3, 4])
+def test_3d_artifact_crosses_both_ways(tmp_path, method):
+    """A 3D pyramid ([C, s, s, s] grids, methods 3 and 4): JAX's artifact
+    loads in the port and the port's in JAX to identical arrays, and both
+    write the same bytes."""
+    (jfp, jmlp), _, _ = make_model3(90 + method, method)
+    jfp = tuple(quantize(g, 8) for g in jfp)
+    meta = {"save_name": "v", "config": {
+        "image_size": 16, "pe_channels": 4, "image_dimension": 3,
+        "compression_method": method, "tf_no_mip": False}}
+    jpath = str(tmp_path / "jax.npz")
+    jbits = jart.save_compressed(jpath, jmlp, jfp, 8, meta)
+    loaded = tart.load_compressed(jpath, device="cpu")
+    assert loaded[1][0].dim() == 4
+    _assert_same(jart.load_compressed(jpath), loaded)
+    assert tart.compressed_num_bits(jpath) == jbits
+    tpath = str(tmp_path / "torch.npz")
+    assert tart.save_compressed(tpath, loaded[0], loaded[1], 8, meta) == jbits
+    _assert_same(jart.load_compressed(tpath),
+                 tart.load_compressed(tpath, device="cpu"))
+    with np.load(tpath) as zt, np.load(jpath) as zj:
         assert sorted(zt.files) == sorted(zj.files)
         for key in zt.files:
             np.testing.assert_array_equal(zt[key], zj[key], err_msg=key)

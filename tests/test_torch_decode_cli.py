@@ -1,6 +1,7 @@
-"""The port's decoder-only runtime on the committed trained artifact
-(tests/fixtures, made by scripts/make_torch_port_fixture.py), held to the
-JAX fold's decode of the same artifact."""
+"""The port's decoder-only runtime on the committed trained artifacts
+(tests/fixtures, made by scripts/make_torch_port_fixture.py: the 512²
+flagship and the misty 64³ method-3 volume), held to the JAX fold's
+decode of the same artifact."""
 
 import os
 import subprocess
@@ -12,11 +13,12 @@ import torch
 
 from nic_torch.cli import decode as tcli
 from nic_torch.core.metrics import psnr
-from nic_torch.data.assets import save_png
+from nic_torch.data.assets import load_volume, read_clip, save_png
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURES = os.path.join(ROOT, "tests", "fixtures")
 ART = os.path.join(FIXTURES, "ntc_sancho512_fp8.npz")
+ART3 = os.path.join(FIXTURES, "ntc_misty64_m3_fp8.npz")
 
 
 @pytest.fixture(scope="module")
@@ -39,6 +41,38 @@ def test_decode_matches_jax_fold(ref, mip):
     got_psnr = float(psnr(torch.from_numpy(ref[f"orig{mip}"]).float(),
                           torch.from_numpy(u8).float()))
     assert abs(got_psnr - ref["psnr"][mip]) <= 0.01
+
+
+@pytest.fixture(scope="module")
+def ref3():
+    with np.load(os.path.join(FIXTURES, "ntc_misty64_m3_fp8_ref.npz")) as z:
+        return dict(z)
+
+
+@pytest.mark.parametrize("mip", range(7))
+def test_decode_3d_matches_jax_fold(ref3, mip):
+    """The misty 64³ method-3 artifact at every mip: within 1 u8 LSB of the
+    JAX fold, the per-mip PSNR against the clip at stride 2^mip within
+    0.01 dB of the fold's."""
+    rec = tcli.run([ART3, "--mip", str(mip), "--device", "cpu"])
+    u8 = _u8(rec)
+    want = ref3[f"dec{mip}"]
+    assert u8.shape == want.shape == (64 >> mip,) * 3 + (3,)
+    assert np.abs(u8.astype(int) - want.astype(int)).max() <= 1
+    clip = load_volume("data/misty_64_64.avi") / 256.0 * 255.0
+    s = 2**mip
+    got_psnr = float(psnr(torch.from_numpy(clip[::s, ::s, ::s]),
+                          torch.from_numpy(u8).double()))
+    assert abs(got_psnr - ref3["psnr"][mip]) <= 0.01
+
+
+def test_3d_avi_written_reads_back(tmp_path, capsys):
+    out = str(tmp_path / "v.avi")
+    rec = tcli.run([ART3, "--mip", "1", "--device", "cpu", "--dtype",
+                    "surgical", "--out", out])
+    assert "applies to the cuda backend only" in capsys.readouterr().out
+    np.testing.assert_array_equal(read_clip(out),
+                                  (rec * 255 + 0.5).astype(np.uint8))
 
 
 def test_png_written_reads_back(tmp_path, capsys):
@@ -84,6 +118,8 @@ def test_port_imports_no_jax_and_no_nic():
             "nic_torch.kernels.decode_fused_v2, nic_torch.io.convert, "
             "nic_torch.config, nic_torch.train.ntc, "
             "nic_torch.kernels.train_fused_ff, "
+            "nic_torch.kernels.train_fused_ff3, "
+            "nic_torch.kernels.decode_fused_3d, nic_torch.data.assets, "
             "nic_torch.cli.image_compression\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'nic'))\n"
