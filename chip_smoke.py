@@ -94,13 +94,43 @@ The 3D path (methods 3 and 4, the misty 64³ protocol: C=12, H=64, PE 6,
 20. the 3D LOD-0 step time for kernel3, kernel2, kernel and gather, as
     in phase 12.
 
+The alternate 2D decodes and the XLA alternates (phase 12 also times the
+``TRAIN_FORWARD=folded`` step):
+
+21. K3, the v1 decode (``nic_torch.kernels.decode_fused``): the committed
+    artifact at mips 0-9 (exactly 10 launches), against its plain version
+    (the gather decode with the kernel's GELU) in fp32 and bf16 and held
+    to the JAX fold (fp32 within 2 u8 LSB at every mip and 0.05 dB at mip
+    0, bf16 within 8 LSB); a random sinusoidal-PE flagship-width model at
+    mips 0-2; 2048² against its plain version, timed;
+22. K4, the v3 MLP tail (``nic_torch.kernels.decode_fused_v3``): against
+    its plain version on the 2048² random model's first-layer accumulator
+    in fp32 and bf16, timed; the v3 decode against ``fast_decode`` on the
+    artifact at mips 0-9 (exactly 10 launches); the whole v3 decode and
+    K1's at 2048², timed with their peak memory;
+23. K2, the z1-matmul decode: against its plain version and K1 on the
+    artifact at mips 0-2 and at 2048², in fp32·exact, bf16·poly (tensor
+    cores) and surgical·exact; ``z1_matmul="auto"`` serving mips 0-9 must
+    launch K2 exactly 3 times (mips 0-2) and K1 never, within 2 u8 LSB of
+    the JAX fold, and K1 under int16 planes; K2 timed beside K1;
+24. the decode CLI's ``--backend xla`` (the gather decode) at mips 0-9,
+    held to the JAX fold as in phase 4;
+25. a 200-epoch CLI run with TRAIN_FORWARD=folded, DECODE_BACKEND=xla and
+    DIV_SIZE=6 in mip mode (TF_NO_MIP=0, so mips 0-2 decode as 64, 16 and
+    4 tiles): no train kernel launches, the gate log names folded at every
+    LOD and the tiled gather decode, mip-0 PSNR within 1.0 dB of the
+    fixture's JAX run; then folded against gather from one seed (fp32
+    dots), as in phase 10, and the mip-0 decode of such a trainer timed
+    tiled and whole for the xla and fast backends.
+
 The last line of standard output is one JSON object
 ``{"ok": true, "device": {...}}``; the line before it the card's name and
 power limit, and before that the ``{"kernels": [...]}`` record: for each
 kernel its launches on its main path (K1 the serve phase, K11 the
 flagship training run, K6 path A, K7 path B, K5 the 3D serve, K12 the m3
-flag-free run, K9 the kernel2 run), its time and its plain
-version's at the path's shape and mode, and its bound, the larger of its
+flag-free run, K9 the kernel2 run, K2, K3 and K4 their artifact serves of
+phases 21-23), its time and its plain version's at the path's shape and
+mode, and its bound, the larger of its
 bytes (each input read once, each output written once) over 3.35 TB/s and
 its dot operations (the JAX cost model's count) over the published peak
 for their type (67 TFLOP/s fp32, 989 TFLOP/s bf16; H100 SXM, 700 W). No
@@ -138,6 +168,12 @@ K9_REPLACES = "nic/kernels/train_fused.py:1171"
 ART3 = os.path.join(ROOT, "tests", "fixtures", "ntc_misty64_m3_fp8.npz")
 REF3 = os.path.join(ROOT, "tests", "fixtures", "ntc_misty64_m3_fp8_ref.npz")
 CLIP = os.path.join(ROOT, "data", "misty_64_64.avi")
+K3_SOURCE = "nic_torch/kernels/csrc/decode_fused.cu"
+K3_REPLACES = "nic/kernels/decode_fused.py:258"
+K4_SOURCE = "nic_torch/kernels/csrc/decode_fused_v3.cu"
+K4_REPLACES = "nic/kernels/decode_fused_v3.py:75"
+K2_SOURCE = "nic_torch/kernels/csrc/decode_z1mm.cu"
+K2_REPLACES = "nic/kernels/decode_fused_v2.py:191"
 # published H100 SXM peaks at 700 W: memory bytes/s and dot FLOP/s by type
 PEAK_BYTES = 3.35e12
 PEAK_FLOPS = {"fp32": 67e12, "bf16": 989e12}
@@ -184,6 +220,10 @@ ENVELOPE_3D = {"bf16": ("exact", 8), "i16": ("tanherf", 6)}
 # kernel2/kernel vs gather from one seed: the first step exactly (only the
 # summation order differs), steps 1-10 at the JAX suite's rtol
 TRACK_STEPS, TRACK_FIRST, TRACK_RTOL = 10, 1e-5, 2e-3
+# the folded forward with the tiled gather decode: mip mode, so that
+# 2^(9 − mip − 6) > 1 tiles mips 0-2
+FOLDED = PATH_A + ["TRAIN_FORWARD=folded", "DECODE_BACKEND=xla",
+                   "DIV_SIZE=6"]
 
 
 def fail(msg: str) -> None:
@@ -778,8 +818,10 @@ def _cli_train(args, decode: bool = True, mips=range(10)) -> dict:
         run["losses"] = _csv_losses(tmp)
         (printlog,) = glob.glob(os.path.join(tmp, "printlog", "*.txt"))
         with open(printlog) as fh:
-            run["gates"] = [ln.strip() for ln in fh
-                            if "train forward gate" in ln]
+            lines = [ln.strip() for ln in fh]
+        run["gates"] = [ln for ln in lines if "train forward gate" in ln]
+        run["decode_gates"] = [ln for ln in lines
+                               if "decode backend gate" in ln]
         run["engine"] = {}
         for ln in run["gates"]:
             m = re.search(r"lod=(\d+), frozen=(\w+)\): (\w+)", ln)
@@ -990,7 +1032,8 @@ def phase_step_time(device) -> dict:
     """Train-step times per engine at LOD 0 (:func:`step_timing`)."""
     out = {}
     for engine, args in (("kernel3", TRAIN_ARGS), ("kernel2", PATH_B),
-                         ("kernel", TRAIN_ARGS), ("gather", TRAIN_ARGS)):
+                         ("kernel", TRAIN_ARGS), ("gather", TRAIN_ARGS),
+                         ("folded", TRAIN_ARGS)):
         out[engine], line = step_timing(engine, args, device)
         print(f"phase 12: {line}", flush=True)
     return out
@@ -1538,6 +1581,385 @@ def phase_train3(device) -> dict:
     return out
 
 
+# ---- the alternate 2D decodes (K3, K4, K2) and the XLA alternates ---------
+
+def _random_flagship(device, size: int):
+    """phase 5's flagship-width random model at size² (C=12, H=64, PE 6,
+    FP_BITS 8, no mip; seeded with ``size``): (fp, mlp, mip_to_level)."""
+    import torch
+
+    from nic_torch.grids.pyramid import (create_pyramid, pyramid_mip_levels,
+                                         pyramid_quantize_all)
+    from nic_torch.models.mlp import init_mlp
+
+    gen = torch.Generator(device="cpu").manual_seed(size)
+    fp, _ = create_pyramid(gen, size // 4, 12, 8, device=device, no_mip=True)
+    mlp = init_mlp(gen, 12 * 5 + 2 * 6 + 1, 64, 3, device=device)
+    return (pyramid_quantize_all(fp, 8), {k: mlp[k].detach() for k in NAMES},
+            pyramid_mip_levels(size, size // 4, True))
+
+
+def _fixture(device):
+    """The committed 512² artifact: (fp, mlp, mip_to_level, its JAX
+    reference)."""
+    import numpy as np
+
+    from nic_torch.grids.pyramid import pyramid_mip_levels
+    from nic_torch.io.artifacts import load_compressed
+
+    mlp, fp, _ = load_compressed(ART, device=device)
+    return (fp, {k: mlp[k].detach() for k in NAMES},
+            pyramid_mip_levels(512, 128, True), dict(np.load(REF)))
+
+
+def _fold_lsb(tag, recs, ref, bar, hold_psnr=True) -> list:
+    """u8 LSB of each mip's decode against the JAX fold, and the mip-0
+    PSNR; fails past ``bar`` or (``hold_psnr``) PSNR_DB from the fold's."""
+    import numpy as np
+    import torch
+
+    from nic_torch.core.metrics import psnr
+
+    lsb = []
+    for mip, rec in enumerate(recs):
+        rec = np.asarray(rec.cpu() if hasattr(rec, "cpu") else rec)
+        want = ref[f"dec{mip}"].astype(np.int64)
+        if rec.shape != want.shape or not np.isfinite(rec).all():
+            fail(f"{tag}: mip {mip} shape {rec.shape} (want {want.shape}) or "
+                 "non-finite values")
+        lsb.append(int(np.abs(u8(rec) - want).max()))
+        if mip == 0:
+            p0 = float(psnr(torch.from_numpy(ref["orig0"]).double(),
+                            torch.from_numpy(u8(rec)).double()))
+    if max(lsb) > bar:
+        fail(f"{tag}: {max(lsb)} u8 LSB from the JAX fold > {bar} ({lsb})")
+    if hold_psnr and abs(p0 - float(ref["psnr"][0])) > PSNR_DB:
+        fail(f"{tag}: mip-0 PSNR {p0:.4f} is not within {PSNR_DB} dB of the "
+             f"JAX fold's {float(ref['psnr'][0]):.4f}")
+    return lsb + [p0]
+
+
+def _v1_args(fp, mlp, mip, m2l, size, dtype):
+    """K3's operands for one mip and its geometry keywords."""
+    from nic_torch.kernels import decode_fused as k
+
+    fl = m2l[mip]
+    e, n = mip - (fl + 1) * 2, size >> mip
+    g0, g1 = fp[fl * 2], fp[fl * 2 + 1]
+    if dtype is not None:
+        g0, g1 = g0.to(dtype), g1.to(dtype)
+    w = [mlp[name].to(g0.dtype).contiguous() for name in NAMES]
+    return (g0.contiguous(), g1.contiguous(), *w), dict(
+        e=e, n=n, pe_channels=6, mip_level=mip,
+        rows=k.fused_rows_per_block(n, e, g0.shape[0]))
+
+
+def phase_k3(device) -> dict:
+    """K3 (the v1 decode): the fixture at mips 0-9 (the counted path),
+    kernel vs plain in fp32 and bf16 and held to the JAX fold; a random
+    sinusoidal-PE flagship-width model; 2048² timed."""
+    import torch
+
+    from nic_torch.kernels import decode_fused as k
+
+    fp, mlp, m2l, ref = _fixture(device)
+    kw = dict(image_size=512, mip_to_level=m2l, pe_channels=6,
+              use_tri_pe=True)
+    worst = {"fp32": 0.0, "bf16": 0.0}
+
+    def check(tag, got, want, mode):
+        if got.shape != want.shape or not torch.isfinite(got).all():
+            fail(f"K3 {tag}: shape {tuple(got.shape)} or non-finite")
+        err = float((got - want).abs().max())
+        worst[mode] = max(worst[mode], err)
+        if err > TOL[mode]:
+            fail(f"K3 vs plain, {tag}: max|Δ| {err:.3e} > {TOL[mode]:.0e}")
+
+    with torch.inference_mode():
+        k.decode_kernel_v1.launches = 0
+        recs = [k.decode_image_fused(fp, mlp, mip, **kw) for mip in range(10)]
+        launches = k.decode_kernel_v1.launches
+        lsb = {}
+        for mode, dtype in (("fp32", None), ("bf16", torch.bfloat16)):
+            got_all = []
+            for mip in range(10):
+                args, g = _v1_args(fp, mlp, mip, m2l, 512, dtype)
+                got = (recs[mip] if dtype is None else
+                       k.decode_kernel_v1(*args, use_tri_pe=True, **g))
+                check(f"fixture mip {mip} {mode}", got,
+                      k.decode_kernel_v1_plain(*args, use_tri_pe=True, **g),
+                      mode)
+                got_all.append(got)
+            lsb[mode] = _fold_lsb(f"K3 {mode}", got_all, ref,
+                                  LSB_FP32 if mode == "fp32"
+                                  else ENVELOPE["bf16"][1],
+                                  hold_psnr=mode == "fp32")
+        fpr, mlpr, m2lr = _random_flagship(device, 512)
+        for mode, dtype in (("fp32", None), ("bf16", torch.bfloat16)):
+            for mip in (0, 1, 2):
+                args, g = _v1_args(fpr, mlpr, mip, m2lr, 512, dtype)
+                check(f"random sinusoidal PE mip {mip} {mode}",
+                      k.decode_kernel_v1(*args, use_tri_pe=False, **g),
+                      k.decode_kernel_v1_plain(*args, use_tri_pe=False, **g),
+                      mode)
+        fp2, mlp2, m2l2 = _random_flagship(device, 2048)
+        args, g = _v1_args(fp2, mlp2, 0, m2l2, 2048, None)
+        check("2048² fp32", k.decode_kernel_v1(*args, use_tri_pe=True, **g),
+              k.decode_kernel_v1_plain(*args, use_tri_pe=True, **g), "fp32")
+        ms = cuda_ms(lambda: k.decode_kernel_v1(*args, use_tri_pe=True, **g))
+        plain = cuda_ms(lambda: k.decode_kernel_v1_plain(
+            *args, use_tri_pe=True, **g), warmup=1, reps=3)
+    npix = 2048 * 2048
+    nfeat, hidden = args[2].shape
+    work = (nbytes(*args) + npix * 3 * 4,
+            2 * npix * (nfeat * hidden + hidden * hidden + 3 * hidden))
+    b_ms, b_by = bound(*work, "fp32")
+    print(f"phase 21: K3 on the fixture, mips 0-9: {launches} launches; u8 "
+          f"LSB vs the JAX fold fp32 {lsb['fp32'][:10]} (mip-0 PSNR "
+          f"{lsb['fp32'][10]:.4f} dB, JAX fold {float(ref['psnr'][0]):.4f}), "
+          f"bf16 {lsb['bf16'][:10]}; kernel vs plain worst max|Δ| fp32 "
+          f"{worst['fp32']:.3e}, bf16 {worst['bf16']:.3e}; 2048² fp32: "
+          f"kernel {ms:.4f} ms ({npix / ms / 1e6:.3f} GPix/s) vs plain "
+          f"{plain:.4f} ms; bound {b_ms:.4f} ms ({b_by})", flush=True)
+    if launches != 10:
+        fail(f"K3 launched {launches} times over the fixture's mips 0-9; "
+             "want 10")
+    return dict(launches=launches, err=worst["fp32"], ms=ms, plain=plain,
+                work=work)
+
+
+def phase_k4(device) -> dict:
+    """K4 (the v3 MLP tail): vs plain on the 2048² random model's
+    first-layer accumulator in fp32 and bf16, timed; the v3 decode held to
+    fast_decode on the fixture at mips 0-9 (the counted path); the whole
+    v3 decode at 2048² timed with its peak memory, beside K1's."""
+    import torch
+
+    from nic_torch.grids.fastdecode import fast_decode, first_layer_acc
+    from nic_torch.kernels import decode_fused_v2 as k1
+    from nic_torch.kernels import decode_fused_v3 as k
+
+    fp2, mlp2, m2l2 = _random_flagship(device, 2048)
+    kw2 = dict(image_size=2048, mip_to_level=m2l2, pe_channels=6,
+               use_tri_pe=True)
+    npix = 2048 * 2048
+    out = {}
+    with torch.inference_mode():
+        acc = first_layer_acc(fp2, mlp2, 0, **kw2).contiguous()
+        for mode, dtype in (("fp32", torch.float32),
+                            ("bf16", torch.bfloat16)):
+            args = (acc.to(dtype), mlp2["w2"].to(dtype), mlp2["b2"],
+                    mlp2["w3"].to(dtype), mlp2["b3"])
+            got = k.mlp_tail(*args)
+            want = k.mlp_tail_plain(*args)
+            if got.shape != (2048, 2048, 3) or not torch.isfinite(got).all():
+                fail(f"K4 {mode}: shape {tuple(got.shape)} or non-finite")
+            err = float((got - want).abs().max())
+            if err > TOL[mode]:
+                fail(f"K4 vs plain {mode}: max|Δ| {err:.3e} > "
+                     f"{TOL[mode]:.0e}")
+            del want
+            ms = cuda_ms(lambda: k.mlp_tail(*args))
+            plain = cuda_ms(lambda: k.mlp_tail_plain(*args), warmup=1,
+                            reps=3)
+            work = (nbytes(*args) + npix * 3 * 4, 2 * npix * (64 * 64 + 3 * 64))
+            out[mode] = (ms, plain, work, err)
+            b_ms, b_by = bound(*work, "fp32" if mode == "fp32" else "bf16")
+            print(f"phase 22: K4 2048² {mode} accumulator and dots: kernel "
+                  f"{ms:.4f} ms vs plain {plain:.4f} ms, max|Δ| {err:.3e} "
+                  f"(tol {TOL[mode]:.0e}); bound {b_ms:.4f} ms ({b_by})",
+                  flush=True)
+        del acc, args
+        fp, mlp, m2l, _ = _fixture(device)
+        kw = dict(image_size=512, mip_to_level=m2l, pe_channels=6,
+                  use_tri_pe=True)
+        k.mlp_tail.launches = 0
+        recs = [k.decode_image_fused_v3(fp, mlp, mip, **kw)
+                for mip in range(10)]
+        launches = k.mlp_tail.launches
+        errs = [float((r - fast_decode(fp, mlp, mip, **kw)).abs().max())
+                for mip, r in enumerate(recs)]
+        if max(errs) > TOL["fp32"]:
+            fail(f"the v3 decode differs from fast_decode: {errs}")
+        for name, fn in (
+                ("decode_image_fused_v3 (accumulator + K4)",
+                 lambda: k.decode_image_fused_v3(fp2, mlp2, 0, **kw2)),
+                ("decode_image_fused_v2 (column stage + K1)",
+                 lambda: k1.decode_image_fused_v2(fp2, mlp2, 0, **kw2))):
+            torch.cuda.synchronize(device)
+            torch.cuda.reset_peak_memory_stats(device)
+            base = torch.cuda.memory_allocated(device)
+            t = cuda_ms(fn)
+            peak = (torch.cuda.max_memory_allocated(device) - base) / 2**20
+            print(f"phase 22: 2048² end to end, {name}: {t:.4f} ms "
+                  f"({npix / t / 1e6:.3f} GPix/s), peak {peak:.0f} MiB above "
+                  "the model", flush=True)
+    print(f"phase 22: the v3 decode on the fixture, mips 0-9: {launches} K4 "
+          f"launches; max|Δ| vs fast_decode {max(errs):.3e}", flush=True)
+    if launches != 10:
+        fail(f"K4 launched {launches} times over the fixture's mips 0-9; "
+             "want 10")
+    return dict(launches=launches, fp32=out["fp32"], bf16=out["bf16"])
+
+
+def phase_k2(device) -> dict:
+    """K2 (the z1-matmul decode): vs its plain version and K1 on the
+    fixture at mips 0-2 and at 2048² in fp32·exact, bf16·poly and
+    surgical·exact; ``"auto"`` serving the fixture at mips 0-9 (the counted
+    path: K2 at mips 0-2) held to the JAX fold, and K1 under int16 planes;
+    K2 timed beside K1 at 2048²."""
+    import torch
+
+    from nic_torch.kernels import decode_fused_v2 as k
+
+    fp, mlp, m2l, ref = _fixture(device)
+    fp2, mlp2, m2l2 = _random_flagship(device, 2048)
+    modes = (("fp32", None, "exact"), ("bf16", torch.bfloat16, "poly"),
+             ("surgical", "surgical", "exact"))
+    worst, timings = {}, {}
+    with torch.inference_mode():
+        for label, (fpx, mlpx, m2lx, size, mips) in (
+                ("fixture", (fp, mlp, m2l, 512, (0, 1, 2))),
+                ("2048²", (fp2, mlp2, m2l2, 2048, (0,)))):
+            for mip in mips:
+                for mode, dtype, gelu in modes:
+                    pc, c1v, pe_u, w2, b2, w3, b3, s, geom = k._prepare_2d(
+                        fpx, mlpx, mip, image_size=size, mip_to_level=m2lx,
+                        pe_channels=6, use_tri_pe=True, dtype=dtype)
+                    if not geom["packed"]:
+                        fail(f"K2 {label} mip {mip}: JAX's auto would not "
+                             "take the z1-matmul kernel here")
+                    args = (pc, c1v, pe_u, w2, b2, w3, b3)
+                    g = dict(f=geom["f"], f1=geom["f1"], gelu=gelu)
+                    got = k.decode_kernel_z1mm(*args, R=geom["R"], **g)
+                    want = k.decode_kernel_z1mm_plain(*args, R=geom["R"], **g)
+                    k1 = k.decode_kernel_2d(*args, s, **g)
+                    if got.shape != want.shape or \
+                            not torch.isfinite(got).all():
+                        fail(f"K2 {label} mip {mip} {mode}: shape or "
+                             "non-finite")
+                    errs = (float((got - want).abs().max()),
+                            float((got - k1).abs().max()))
+                    key = f"{mode}·{gelu}"
+                    prev = worst.get(key, (0.0, 0.0))
+                    worst[key] = (max(prev[0], errs[0]),
+                                  max(prev[1], errs[1]))
+                    if max(errs) > TOL[mode]:
+                        fail(f"K2 {label} mip {mip} {key}: max|Δ| vs plain "
+                             f"{errs[0]:.3e}, vs K1 {errs[1]:.3e} > "
+                             f"{TOL[mode]:.0e}")
+                    if size == 2048:
+                        ms = cuda_ms(lambda: k.decode_kernel_z1mm(
+                            *args, R=geom["R"], **g))
+                        k1_ms = cuda_ms(lambda: k.decode_kernel_2d(
+                            *args, s, **g))
+                        plain = cuda_ms(lambda: k.decode_kernel_z1mm_plain(
+                            *args, R=geom["R"], **g), warmup=1, reps=3)
+                        kk = geom["R"] // geom["f"] + geom["R"] // geom["f1"] + 1
+                        npix = size * size
+                        work = (nbytes(*args) + npix * 3 * 4,
+                                2 * npix * (64 * 64 + 3 * 64 + kk * 64))
+                        timings[key] = (ms, plain, work, k1_ms)
+                        b_ms, b_by = bound(*work, "fp32" if mode == "fp32"
+                                           else "bf16")
+                        print(f"phase 23: 2048² {key}: K2 {ms:.4f} ms, K1 "
+                              f"{k1_ms:.4f} ms (K2/K1 {ms / k1_ms:.3f}), plain "
+                              f"{plain:.4f} ms; K2 bound {b_ms:.4f} ms "
+                              f"({b_by}, K = {kk})", flush=True)
+        kw = dict(image_size=512, mip_to_level=m2l, pe_channels=6,
+                  use_tri_pe=True)
+        k.decode_kernel_z1mm.launches = k.decode_kernel_2d.launches = 0
+        recs = [k.decode_image_fused_v2(fp, mlp, mip, z1_matmul="auto", **kw)
+                for mip in range(10)]
+        launches = k.decode_kernel_z1mm.launches
+        k1_launches = k.decode_kernel_2d.launches
+        k.decode_kernel_z1mm.launches = k.decode_kernel_2d.launches = 0
+        k.decode_image_fused_v2(fp, mlp, 0, dtype="i16", z1_matmul="auto",
+                                **kw)
+        i16 = (k.decode_kernel_z1mm.launches, k.decode_kernel_2d.launches)
+    lsb = _fold_lsb("K2 auto", recs, ref, LSB_FP32)
+    print(f"phase 23: z1_matmul='auto' on the fixture, mips 0-9: K2 "
+          f"{launches} launches, K1 {k1_launches}; u8 LSB vs the JAX fold "
+          f"{lsb[:10]}, mip-0 PSNR {lsb[10]:.4f} dB; under i16 planes K2 "
+          f"{i16[0]}, K1 {i16[1]}; K2 vs plain / vs K1 worst max|Δ|: "
+          + ", ".join(f"{m} {a:.3e} / {b:.3e}" for m, (a, b) in worst.items()),
+          flush=True)
+    if (launches, k1_launches) != (3, 0):
+        fail(f"'auto' launched K2 {launches} and K1 {k1_launches} times over "
+             "the fixture's mips 0-9; want K2 3 (mips 0-2), K1 0")
+    if i16 != (0, 1):
+        fail(f"'auto' under int16 planes launched K2 {i16[0]}, K1 {i16[1]}; "
+             "want K1")
+    return dict(launches=launches, err=worst["fp32·exact"][0],
+                fp32=timings["fp32·exact"])
+
+
+def phase_xla_cli(device) -> list:
+    """The decode CLI's ``--backend xla`` (the gather decode) on the
+    fixture at mips 0-9, held to the JAX fold."""
+    from nic_torch.cli.decode import run
+
+    _, _, _, ref = _fixture(device)
+    recs = [run([ART, "--mip", str(mip), "--device", device, "--backend",
+                 "xla"]) for mip in range(10)]
+    lsb = _fold_lsb("--backend xla", recs, ref, LSB_FP32)
+    print(f"phase 24: decode CLI --backend xla, mips 0-9: u8 LSB vs the JAX "
+          f"fold {lsb[:10]}, mip-0 PSNR {lsb[10]:.4f} dB (JAX fold "
+          f"{float(ref['psnr'][0]):.4f})", flush=True)
+    return lsb
+
+
+def phase_folded(device) -> dict:
+    """TRAIN_FORWARD=folded with DECODE_BACKEND=xla and DIV_SIZE=6, in mip
+    mode (the tiled decode needs a max mip above DIV_SIZE; no-mip runs have
+    none), 200 epochs through the CLI: no train kernel launches, the gate
+    log names folded at every LOD and the tiled gather decode, mip-0 PSNR
+    within 1.0 dB of the fixture's JAX run; then folded against gather
+    from one seed (fp32 dots, as the JAX suite pins them for this
+    check); then the mip-0 decode, tiled and whole, timed per backend."""
+    import numpy as np
+
+    from nic_torch.cli.image_compression import load_asset
+    from nic_torch.config import parse_overrides
+    from nic_torch.train.ntc import NTCTrainer
+
+    ref = dict(np.load(REF))
+    run = _cli_train(FOLDED, decode=False)
+    res, losses = run["res"], run["losses"]
+    tiled = [ln for ln in run["decode_gates"] if "tiled (" in ln]
+    print(f"phase 25: TRAIN_FORWARD=folded DECODE_BACKEND=xla DIV_SIZE=6 "
+          f"(mip mode), 200 epochs in {run['wall']:.1f} s of wall time; "
+          f"engines {sorted(set(run['engine'].values()))}; launches "
+          f"{run['launches']}; decode gates {run['decode_gates'][:3]}; loss "
+          f"{losses[0]:.5f} → {losses[-1]:.5f}; mip-0 PSNR "
+          f"{res['psnr'][0]:.4f} dB (fixture's JAX run "
+          f"{float(ref['psnr'][0]):.4f}), bpp {res['bpp']:.4f}", flush=True)
+    if set(run["engine"].values()) != {"folded"}:
+        fail(f"folded run: gates {run['gates']}")
+    if any(run["launches"].values()):
+        fail(f"folded run launched train kernels: {run['launches']}")
+    if not tiled or "xla gather" not in tiled[0]:
+        fail(f"folded run: no tiled gather decode in {run['decode_gates']}")
+    if len(losses) != 200 or not np.isfinite(losses).all():
+        fail("folded run: the losses are not 200 finite values")
+    if abs(res["psnr"][0] - float(ref["psnr"][0])) > TRAIN_PSNR_DB:
+        fail(f"folded run: mip-0 PSNR {res['psnr'][0]:.4f} dB is not within "
+             f"{TRAIN_PSNR_DB} dB of {float(ref['psnr'][0]):.4f}")
+    track = _track("phase 25", PATH_A + ["MLP_NUM_DTYPE=32"], "folded")
+    times = {}
+    for backend in ("xla", "fast"):
+        cfg = parse_overrides(PATH_A + [f"DECODE_BACKEND={backend}"])
+        tr = NTCTrainer(cfg, load_asset(cfg))
+        for div in (6, 10):
+            times[(backend, div)] = cuda_ms(
+                lambda: tr.decode(0, div_size=div), warmup=1, reps=5)
+    print("phase 25: mip-0 decode of a mip-mode 512² trainer, tiled "
+          "(DIV_SIZE=6: 64 tiles of 64²) vs whole: " + "; ".join(
+              f"{b} {'tiled' if d == 6 else 'whole'} {t:.4f} ms"
+              for (b, d), t in times.items()), flush=True)
+    return dict(psnr=res["psnr"][0], track=track, decode=times)
+
+
 def main() -> None:
     import torch
 
@@ -1575,6 +1997,11 @@ def main() -> None:
     phase_k6_3d("cuda")
     launches3 = phase_train3("cuda")
     steps3 = phase_step_time3("cuda")
+    k3 = phase_k3("cuda")
+    k4 = phase_k4("cuda")
+    k2 = phase_k2("cuda")
+    phase_xla_cli("cuda")
+    phase_folded("cuda")
     k11_ms, k11_plain, k11_work = k11["timings"]["f=4 bf16·poly noise=on"]
     print(f"K11 share of the kernel3 step: {k11_ms / steps['kernel3']:.3f} "
           f"({k11_ms:.4f} of {steps['kernel3']:.4f} ms); K7 share of the "
@@ -1600,7 +2027,8 @@ def main() -> None:
     # bf16·poly with noise; K6 8×32² (path A's largest launch) and K7
     # 8×256² (path B), bf16·poly; K5 256³ fp32·exact (its max|Δ| the worst
     # fp32·exact of phase 13); K12 8×32³ bf16·poly with noise and K9 8×32³
-    # bf16·poly (the 3D protocol's LOD 0)
+    # bf16·poly (the 3D protocol's LOD 0); K2, K3 and K4 at 2048²
+    # fp32·exact, each with its fixture path's launches (mips 0-9)
     print(json.dumps({"kernels": [
         entry("decode_fused_v2", KERNEL_SOURCE, REPLACES, k1_launches,
               main_err, *timings[2048][("fp32", "exact")], "fp32"),
@@ -1615,7 +2043,13 @@ def main() -> None:
         entry("train_fused_ff3", K12_SOURCE, K12_REPLACES, launches3["K12"],
               k12[k12_cell][3], *k12[k12_cell][:3], "bf16"),
         entry("train_fused_ng3", K67_SOURCE, K9_REPLACES, launches3["K9"],
-              k9["bf16·poly"][3], *k9["bf16·poly"][:3], "bf16")]}),
+              k9["bf16·poly"][3], *k9["bf16·poly"][:3], "bf16"),
+        entry("decode_z1mm", K2_SOURCE, K2_REPLACES, k2["launches"],
+              k2["err"], *k2["fp32"][:3], "fp32"),
+        entry("decode_fused", K3_SOURCE, K3_REPLACES, k3["launches"],
+              k3["err"], k3["ms"], k3["plain"], k3["work"], "fp32"),
+        entry("mlp_tail", K4_SOURCE, K4_REPLACES, k4["launches"],
+              k4["fp32"][3], *k4["fp32"][:3], "fp32")]}),
         flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -9,7 +9,9 @@ Run:
 
 ``--device`` defaults to ``cuda`` and refuses to run without a GPU:
 nothing falls back to the CPU. ``--backend auto`` is the CUDA kernel on a
-CUDA device and the folded ``fast`` decode on the CPU. A 3D artifact
+CUDA device and the folded ``fast`` decode on the CPU; ``--backend xla``
+is the gather decode (``decoder_input`` + ``apply_mlp`` at full size, the
+JAX runtime's XLA graph) on the chosen device. A 3D artifact
 (methods 3 and 4) decodes through the 3D kernel (K5) at the mips its gate
 covers and through the folded path at the others, with a note; ``--out``
 writes a volume as an uncompressed DIB AVI (the JAX runtime writes mp4v
@@ -45,7 +47,7 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--backend", choices=["auto", "fast", "cuda", "xla"],
                    default="auto",
                    help="auto = the CUDA kernel on a CUDA device, the folded "
-                        "fast decode on the CPU; xla is not ported yet")
+                        "fast decode on the CPU; xla = the gather decode")
     p.add_argument("--gelu",
                    choices=["exact", "tanh", "quick", "poly", "erfpoly",
                             "tanherf"],
@@ -73,9 +75,6 @@ def run(argv=None) -> np.ndarray:
     if args.devices > 1:
         p.error("--devices > 1: the multi-device decode is not ported yet "
                 "(ROADMAP.md, queue 1, item 13)")
-    if args.backend == "xla":
-        p.error("--backend xla: the tiled gather decode is not ported yet "
-                "(ROADMAP.md, queue 1, item 15)")
     if args.device == "cuda" and not torch.cuda.is_available():
         p.error("--device cuda: no CUDA device is available (pass --device "
                 "cpu for the plain CPU decode)")
@@ -151,6 +150,16 @@ def run(argv=None) -> np.ndarray:
                 prepare(fp, mlp, mip, **kw)
             else:
                 decode()
+    elif backend == "xla":
+        from nic_torch.grids.sample import gather_decode
+
+        def decode():
+            return gather_decode(fp, mlp, mip, mip_to_level=mip_to_level,
+                                 pe_channels=pe_channels,
+                                 n=image_size // (2**mip), ndim=ndim,
+                                 use_tri_pe=use_tri_pe, sparse_g0=sparse_g0)
+
+        warm_up = decode
     else:
         from nic_torch.grids.fastdecode import fast_decode
 

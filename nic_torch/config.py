@@ -87,7 +87,7 @@ class CompressionConfig:
     tf_resume: bool = False
     sdc_guard_train: bool = True     # accepted, no effect (no SDC probe)
     train_forward: str = "auto"      # auto | gather | kernel3 | kernel2 |
-                                     # kernel (| folded: not ported yet)
+                                     # kernel | folded
     train_gelu: str = "poly"         # GELU inside the train kernels: poly | erf
     grid_vjp: str = "scatter"        # scatter | dense: both autograd here
     qat_noise_where: str = "feature"  # feature | node

@@ -12,9 +12,11 @@ and the per-pixel first layer becomes a nearest sample of P, a
 multilinear sample of C1, separable row/column PE vectors and a constant.
 This is the plain decode of the port (the ``fast`` backend) and the
 reference its CUDA kernel is held to. ndim-generic; rectangular ``n``;
-the G1 step == 2 raw-sum quirk is kept. (The JAX package's tile origins
-and precomputed-plane arguments serve its tiled decode and its folded
-train forward, ROADMAP.md queue 1, item 15.)
+the G1 step == 2 raw-sum quirk is kept. ``origin=`` places a tile or crop
+of ``n`` samples at an integer lattice origin and ``planes=`` takes a
+:func:`precompute_first_layer` result, so a caller that samples many tiles
+(the tiled decode) or crops (the ``TRAIN_FORWARD=folded`` step) folds W1
+once.
 """
 
 from __future__ import annotations
@@ -30,10 +32,15 @@ from nic_torch.grids.sample import EVEN_PARITY_CORNERS_3D, _g1_weights_active
 __all__ = ["precompute_first_layer", "first_layer_acc", "fast_decode"]
 
 
-def _axis_take_up(plane: torch.Tensor, e: int, n: int,
-                  axis: int) -> torch.Tensor:
-    """``plane`` sampled at floor(arange(n) · 2^e) along ``axis``: a
-    repeat (e < 0) or a strided slice (e ≥ 0), no gather."""
+def _axis_take_up(plane: torch.Tensor, e: int, n: int, axis: int,
+                  origin: int = 0) -> torch.Tensor:
+    """``plane`` sampled at floor((origin + arange(n)) · 2^e) along
+    ``axis``: at origin 0 a repeat (e < 0) or a strided slice (e ≥ 0), no
+    gather; elsewhere an index gather."""
+    if origin != 0:
+        t = (torch.arange(n, dtype=torch.float32, device=plane.device)
+             + origin) * (2.0**e)
+        return torch.index_select(plane, axis, torch.floor(t).long())
     if e < 0:
         up = torch.repeat_interleave(plane, 1 << (-e), dim=axis)
         return up.narrow(axis, 0, n)
@@ -75,33 +82,36 @@ def precompute_first_layer(fp, fl: int, mlp, *, ndim: int, channels: int,
 def first_layer_acc(fp, mlp, mip_level: int, *, image_size: int,
                     mip_to_level: dict, pe_channels: int,
                     use_tri_pe: bool = True, ndim: int = 2,
-                    sparse_g0: bool = False, n=None,
-                    g1_quirk: bool = True) -> torch.Tensor:
+                    sparse_g0: bool = False, origin=None, n=None,
+                    g1_quirk: bool = True, planes=None) -> torch.Tensor:
     """The pre-GELU first-layer accumulator ``[n.., H]`` of the folded
-    decode (everything in :func:`fast_decode` before the MLP tail)."""
+    decode (everything in :func:`fast_decode` before the MLP tail), for
+    the ``n`` samples per axis from integer ``origin`` (default 0)."""
     fl = mip_to_level[mip_level]
     e = mip_level - (fl + 1) * 2
     channels = fp[fl * 2].shape[0]
     if n is None:
         n = image_size // (2**mip_level)
     ns = (n,) * ndim if isinstance(n, int) else tuple(n)
+    origin = (0,) * ndim if origin is None else tuple(int(o) for o in origin)
     device = fp[0].device
 
-    p_plane, c1_plane, pe_blocks, w_lod, b1 = precompute_first_layer(
-        fp, fl, mlp, ndim=ndim, channels=channels, pe_channels=pe_channels,
-        sparse_g0=sparse_g0)
+    p_plane, c1_plane, pe_blocks, w_lod, b1 = (
+        planes if planes is not None else precompute_first_layer(
+            fp, fl, mlp, ndim=ndim, channels=channels,
+            pe_channels=pe_channels, sparse_g0=sparse_g0))
 
     # G0 term: nearest sample of P at floor(t) per axis
     acc = p_plane
     for d in range(ndim):
-        acc = _axis_take_up(acc, e, ns[d], axis=d)
+        acc = _axis_take_up(acc, e, ns[d], axis=d, origin=origin[d])
 
     # G1 term: multilinear sample of C1 (or the step == 2 raw sum)
     step = 2.0**e
     t1s, i1s, f1s = [], [], []
     for d in range(ndim):
-        t = torch.arange(ns[d], dtype=torch.float32,
-                         device=device) * (step / 2.0)
+        t = (torch.arange(ns[d], dtype=torch.float32, device=device)
+             + origin[d]) * (step / 2.0)
         i1 = torch.floor(t).long()
         t1s.append(t)
         i1s.append(i1)
@@ -134,15 +144,17 @@ def first_layer_acc(fp, mlp, mip_level: int, *, image_size: int,
 def fast_decode(fp, mlp, mip_level: int, *, image_size: int,
                 mip_to_level: dict, pe_channels: int,
                 use_tri_pe: bool = True, ndim: int = 2,
-                sparse_g0: bool = False, n=None,
-                g1_quirk: bool = True) -> torch.Tensor:
-    """Full decode via the folded first layer → ``[n.., 3]`` on the
-    grids' device; ``n`` (an int or per-axis tuple) defaults to
-    ``image_size >> mip_level``."""
+                sparse_g0: bool = False, origin=None, n=None,
+                g1_quirk: bool = True, planes=None) -> torch.Tensor:
+    """Full (or tile) decode via the folded first layer → ``[n.., 3]`` on
+    the grids' device; ``n`` (an int or per-axis tuple) defaults to
+    ``image_size >> mip_level``, ``origin`` and ``planes`` as in
+    :func:`first_layer_acc`."""
     acc = first_layer_acc(
         fp, mlp, mip_level, image_size=image_size, mip_to_level=mip_to_level,
         pe_channels=pe_channels, use_tri_pe=use_tri_pe, ndim=ndim,
-        sparse_g0=sparse_g0, n=n, g1_quirk=g1_quirk,
+        sparse_g0=sparse_g0, origin=origin, n=n, g1_quirk=g1_quirk,
+        planes=planes,
     )
     h = F.gelu(acc)
     h = F.gelu(h @ mlp["w2"] + mlp["b2"])

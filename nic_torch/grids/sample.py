@@ -28,10 +28,11 @@ import itertools
 import torch
 
 from nic_torch.core.encodings import sinusoidal_pe, triangular_pe
+from nic_torch.models.mlp import apply_mlp
 
 __all__ = ["effective_pe_flags", "EVEN_PARITY_CORNERS_3D", "axis_coords",
            "corner_features", "interp_weights", "apply_g1_weights",
-           "decoder_input"]
+           "decoder_input", "gather_decode"]
 
 
 def effective_pe_flags(compression_method: int, ndim: int,
@@ -163,3 +164,20 @@ def decoder_input(fp, fl: int, origins: torch.Tensor, step: float, n: int, *,
     feats += [g1_sum.reshape(c, b, npts), pe, lod]
     x = torch.cat(feats, dim=0).permute(1, 2, 0)            # [B, N, F]
     return x[0] if single else x
+
+
+def gather_decode(fp, mlp, mip_level: int, *, mip_to_level: dict,
+                  pe_channels: int, n: int, ndim: int = 2,
+                  use_tri_pe: bool = True, sparse_g0: bool = False,
+                  g1_quirk: bool = True, origin=None) -> torch.Tensor:
+    """The gather decode (the JAX package's XLA decode): the [n^d, F]
+    decoder input of one tile of ``n`` samples per axis at ``origin``
+    (default 0), through the MLP → ``[n.., 3]``."""
+    fl = mip_to_level[mip_level]
+    step = 2.0 ** (mip_level - (fl + 1) * 2)
+    origin = (torch.zeros(ndim, dtype=torch.long) if origin is None
+              else torch.as_tensor(origin, dtype=torch.long))
+    x = decoder_input(fp, fl, origin, step, n, pe_channels=pe_channels,
+                      mip_level=mip_level, ndim=ndim, use_tri_pe=use_tri_pe,
+                      sparse_g0=sparse_g0, g1_quirk=g1_quirk)
+    return apply_mlp(mlp, x).reshape((n,) * ndim + (3,))

@@ -18,6 +18,14 @@ Two stages, as in the JAX package:
   CUDA tensor it launches ``csrc/decode_fused_v2.cu``; on a CPU tensor it
   runs :func:`decode_kernel_2d_plain`, the same formula in torch ops.
 
+``z1_matmul`` (``True`` or ``"auto"``, as in the JAX package) sends the
+per-pixel stage through :func:`decode_kernel_z1mm` instead (K2,
+``csrc/decode_z1mm.cu``): per tile
+of R rows, z1 is the product of the static ``[A0 | A1]`` matrix with the
+tile's stacked P and C1v rows, then the same MLP tail; ``"auto"`` takes it
+exactly where JAX's lane-packed layout would (a geometric predicate), and
+int16 planes refuse it.
+
 Plane modes (``dtype`` of :func:`decode_image_fused_v2`): ``None`` fp32
 planes and fp32 dots; ``torch.bfloat16`` bf16 plane storage and bf16 dot
 inputs; ``"i16"`` int16 fixed-point planes × one shared scale with bf16
@@ -41,7 +49,9 @@ from nic_torch.grids.fastdecode import (_axis_take_up, fast_decode,
                                         precompute_first_layer)
 
 __all__ = ["decode_image_fused_v2", "decode_kernel_2d",
-           "decode_kernel_2d_plain", "kernel_covers_2d", "GELUS"]
+           "decode_kernel_2d_plain", "decode_kernel_z1mm",
+           "decode_kernel_z1mm_plain", "z1_matrix", "kernel_covers_2d",
+           "GELUS"]
 
 
 # ---- the six GELUs, coefficients exactly as the JAX package's ----------
@@ -201,12 +211,20 @@ def _dot(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return h.to(w.dtype).float() @ w.float()
 
 
+def _tail_plain(z1, pe_u, w2, b2, w3, b3, gelu: str) -> torch.Tensor:
+    """The MLP tail on the first-layer sums ``z1`` [nr, ncl, H] plus the
+    row-PE table → [nr, ncl, 3] fp32."""
+    act = GELUS[gelu]
+    h = act(z1 + pe_u.float()[:, None, :])
+    h = act(_dot(h, w2) + b2)
+    return torch.sigmoid(_dot(h, w3) + b3)
+
+
 def decode_kernel_2d_plain(pc, c1v, pe_u, w2, b2, w3, b3, plane_scale=None,
                            *, f: int, f1: int,
                            gelu: str = "exact") -> torch.Tensor:
     """The kernel's formula in torch ops → [nr, ncl, 3] fp32."""
     _check(pc, c1v, pe_u, w2, b2, w3, b3, plane_scale, f, f1, gelu)
-    act = GELUS[gelu]
     nr = pe_u.shape[0]
     r = torch.arange(nr, device=pc.device)
     pcf, c1f = pc.float(), c1v.float()
@@ -215,9 +233,7 @@ def decode_kernel_2d_plain(pc, c1v, pe_u, w2, b2, w3, b3, plane_scale=None,
     ia = r // f1
     u = ((r % f1).float() / f1)[:, None, None]
     z1 = pcf[r // f] + ((1.0 - u) * c1f[ia] + u * c1f[ia + 1])
-    h = act(z1 + pe_u.float()[:, None, :])
-    h = act(_dot(h, w2) + b2)
-    return torch.sigmoid(_dot(h, w3) + b3)
+    return _tail_plain(z1, pe_u, w2, b2, w3, b3, gelu)
 
 
 def decode_kernel_2d(pc, c1v, pe_u, w2, b2, w3, b3, plane_scale=None, *,
@@ -266,6 +282,109 @@ def decode_kernel_2d(pc, c1v, pe_u, w2, b2, w3, b3, plane_scale=None, *,
 decode_kernel_2d.launches = 0
 
 
+# ---- K2: the z1-matmul per-pixel stage -----------------------------------
+
+def z1_matrix(R: int, f: int, f1: int, device=None) -> torch.Tensor:
+    """The static ``[A0 | A1]`` matrix [R, R/f + R/f1 + 1] of a tile of R
+    rows (nic/kernels/decode_fused_v2.py:338-345): A0[r, r//f] = 1,
+    A1[r, r//f1] = 1 − fu, A1[r, r//f1 + 1] = fu, fu = (r % f1)/f1 (exact
+    in bf16)."""
+    k0, m = R // f, R // f1
+    a = torch.zeros((R, k0 + m + 1), dtype=torch.float32)
+    for r in range(R):
+        fu = (r % f1) / f1
+        a[r, r // f] = 1.0
+        a[r, k0 + r // f1] = 1.0 - fu
+        a[r, k0 + r // f1 + 1] += fu
+    return a.to(device)
+
+
+def _check_z1mm(pc, c1v, pe_u, w2, b2, w3, b3, f, f1, R, gelu) -> int:
+    mode = _check(pc, c1v, pe_u, w2, b2, w3, b3, None, f, f1, gelu)
+    nr = pe_u.shape[0]
+    if R < 8 or R & (R - 1) or nr % R or R % f or R % f1:
+        raise ValueError(f"tile rows R={R} must be a power of two ≥ 8 that "
+                         f"divides {nr} rows and is a multiple of f={f} and "
+                         f"f1={f1}")
+    return mode
+
+
+def decode_kernel_z1mm_plain(pc, c1v, pe_u, w2, b2, w3, b3, *, f: int,
+                             f1: int, R: int,
+                             gelu: str = "exact") -> torch.Tensor:
+    """K2's formula in torch ops → [nr, ncl, 3] fp32: per tile t of R
+    rows, z1 = A0·P[t·R/f : (t+1)·R/f] + A1·C1v[t·m : t·m + m + 1] (A0 is
+    the identity for f == 1 and P is added as it is, as in JAX), then the
+    tail."""
+    _check_z1mm(pc, c1v, pe_u, w2, b2, w3, b3, f, f1, R, gelu)
+    nr, hidden = pe_u.shape
+    ncl = pc.shape[1]
+    k0, m, nt = R // f, R // f1, nr // R
+    a = z1_matrix(R, f, f1, pc.device)
+    rows = (torch.arange(nt, device=pc.device)[:, None] * m
+            + torch.arange(m + 1, device=pc.device)[None, :])
+    c1t = c1v.float()[rows]                                # [nt, m+1, ncl, H]
+    z1 = torch.einsum("rj,tjch->trch", a[:, k0:], c1t)
+    if f == 1:
+        z1 = z1 + pc.float().reshape(nt, R, ncl, hidden)
+    else:
+        pt = pc.float().reshape(nt, k0, ncl, hidden)
+        z1 = torch.einsum("rj,tjch->trch", a[:, :k0], pt) + z1
+    return _tail_plain(z1.reshape(nr, ncl, hidden), pe_u, w2, b2, w3, b3,
+                       gelu)
+
+
+def decode_kernel_z1mm(pc, c1v, pe_u, w2, b2, w3, b3, *, f: int, f1: int,
+                       R: int, gelu: str = "exact") -> torch.Tensor:
+    """The z1-matmul per-pixel stage (K2) → [nr, ncl, 3] fp32; float or
+    bf16 planes (int16 planes cannot feed its product).
+
+    A CUDA tensor launches the hand-written kernel (fp32 FMAs for float
+    planes, ``mma.sync`` tensor-core tiles for bf16 planes) and raises if
+    it does not build or launch; a CPU tensor runs
+    :func:`decode_kernel_z1mm_plain`. ``decode_kernel_z1mm.launches``
+    counts kernel launches."""
+    mode = _check_z1mm(pc, c1v, pe_u, w2, b2, w3, b3, f, f1, R, gelu)
+    if pc.device.type == "cpu":
+        return decode_kernel_z1mm_plain(pc, c1v, pe_u, w2, b2, w3, b3, f=f,
+                                        f1=f1, R=R, gelu=gelu)
+    if pc.device.type != "cuda":
+        raise ValueError(f"decode_kernel_z1mm runs on cuda or cpu, not "
+                         f"{pc.device}")
+    nr, hidden = pe_u.shape
+    ncl = pc.shape[1]
+    if hidden != 64:
+        raise ValueError(f"the z1-matmul CUDA kernel is built for hidden "
+                         f"width 64, not {hidden}")
+    if any(t.data_ptr() % 16 for t in (pc, c1v, pe_u)):
+        raise ValueError("pc, c1v and pe_u must be 16-byte aligned")
+    from nic_torch.kernels import _build
+
+    lib = _build.load()
+    k0, m = R // f, R // f1
+    a = z1_matrix(R, f, f1, pc.device)
+    add_p = f == 1  # A0 is the identity: P is added as it is
+    if add_p:
+        a = a[:, k0:].contiguous()
+    w2f, w3f = w2.float().contiguous(), w3.float().contiguous()
+    out = torch.empty((nr, ncl, 3), dtype=torch.float32, device=pc.device)
+    with torch.cuda.device(pc.device):
+        stream = torch.cuda.current_stream(pc.device).cuda_stream
+        rc = lib.nic_decode_z1mm(
+            pc.data_ptr(), c1v.data_ptr(), pe_u.data_ptr(), a.data_ptr(),
+            w2f.data_ptr(), b2.data_ptr(), w3f.data_ptr(), b3.data_ptr(),
+            out.data_ptr(), nr, ncl, hidden, R, a.shape[1],
+            0 if add_p else k0, m, int(add_p), mode, _GELU_IDS[gelu], stream)
+    if rc != 0:
+        raise RuntimeError("decode_fused_v2 z1-matmul kernel launch failed: "
+                           + lib.nic_cuda_error_string(rc).decode())
+    decode_kernel_z1mm.launches += 1
+    return out
+
+
+decode_kernel_z1mm.launches = 0
+
+
 # ---- geometry gate and column stage ------------------------------------
 
 def _geometry_ok(e, nr, ncl, R, C, f, f1) -> bool:
@@ -281,16 +400,17 @@ def _hw(image_size) -> tuple[int, int]:
 
 
 def _gate(mip_level, image_size, mip_to_level, hidden):
-    """(e, nr, ncl, f, f1, covered) for a mip; e > 0 is never covered."""
+    """(e, nr, ncl, f, f1, R, C, covered) for a mip at JAX's default R×C
+    tiles; e > 0 is never covered."""
     e = mip_level - (mip_to_level[mip_level] + 1) * 2
     nr, ncl = (s // (2**mip_level) for s in _hw(image_size))
     if e > 0:
-        return e, nr, ncl, None, None, False
+        return e, nr, ncl, None, None, None, None, False
     f = 1 << (-e) if e < 0 else 1
     f1 = 1 << (1 - e)
     R = max(8, f1)
     C = min(ncl, 2048 if 2 * hidden == 128 else 1024)
-    return e, nr, ncl, f, f1, _geometry_ok(e, nr, ncl, R, C, f, f1)
+    return e, nr, ncl, f, f1, R, C, _geometry_ok(e, nr, ncl, R, C, f, f1)
 
 
 def kernel_covers_2d(mip_level: int, image_size, mip_to_level: dict,
@@ -304,11 +424,13 @@ def _prepare_2d(fp, mlp, mip_level: int, *, image_size, mip_to_level: dict,
                 pe_channels: int, use_tri_pe: bool, dtype):
     """The column stage on the grids' device. Returns ``None`` when the
     geometry is outside the kernel's gate, else ``(pc, c1v, pe_u, w2, b2,
-    w3, b3, plane_scale, geom)`` with ``geom`` the kernel's ``f``/``f1``
-    and the output size ``n`` × ``nc``."""
+    w3, b3, plane_scale, geom)`` with ``geom`` the kernel's ``f``/``f1``,
+    the output size ``n`` × ``nc``, JAX's tile rows ``R`` and its
+    lane-packing predicate ``packed``."""
     fl = mip_to_level[mip_level]
-    e, nr, ncl, f, f1, covered = _gate(mip_level, image_size, mip_to_level,
-                                       mlp["w2"].shape[0])
+    hidden = mlp["w2"].shape[0]
+    e, nr, ncl, f, f1, R, C, covered = _gate(mip_level, image_size,
+                                             mip_to_level, hidden)
     if not covered:
         return None
     device = fp[0].device
@@ -374,7 +496,10 @@ def _prepare_2d(fp, mlp, mip_level: int, *, image_size, mip_to_level: dict,
     if dtype is not None:  # bf16 dot inputs in every reduced mode
         mxu = torch.bfloat16 if (surgical or i16) else dtype
         w2, w3 = w2.to(mxu), w3.to(mxu)
-    geom = dict(n=nr, nc=ncl, f=f, f1=f1)
+    # JAX's lane-packing predicate (the layout its "auto" z1-matmul rides)
+    packed = (2 * hidden == 128 and C % 16 == 0 and (R * C // 2) % 128 == 0
+              and ncl % 2 == 0)
+    geom = dict(n=nr, nc=ncl, f=f, f1=f1, R=R, packed=packed)
     return (pc.contiguous(), c1v.contiguous(), pe_u.contiguous(), w2, b2,
             w3, b3, plane_scale, geom)
 
@@ -382,10 +507,13 @@ def _prepare_2d(fp, mlp, mip_level: int, *, image_size, mip_to_level: dict,
 def decode_image_fused_v2(fp, mlp, mip_level: int, *, image_size,
                           mip_to_level: dict, pe_channels: int,
                           use_tri_pe: bool = True, g1_quirk: bool = True,
-                          dtype=None, gelu: str = "exact") -> torch.Tensor:
+                          dtype=None, gelu: str = "exact",
+                          z1_matmul: bool | str = False) -> torch.Tensor:
     """Full-image 2D decode: the column stage, then the per-pixel kernel
     (``fast_decode`` for mips outside the gate). ``image_size`` is an int
-    (square) or an (H, W) pair. Returns [H, W, 3] fp32."""
+    (square) or an (H, W) pair. ``z1_matmul``: False (K1), True (K2) or
+    ``"auto"`` (K2 where JAX's lane-packed layout applies, K1 under int16
+    planes). Returns [H, W, 3] fp32."""
     prep = _prepare_2d(
         fp, mlp, mip_level, image_size=image_size, mip_to_level=mip_to_level,
         pe_channels=pe_channels, use_tri_pe=use_tri_pe, dtype=dtype,
@@ -400,5 +528,16 @@ def decode_image_fused_v2(fp, mlp, mip_level: int, *, image_size,
                                                 for s in hw),
         )
     pc, c1v, pe_u, w2, b2, w3, b3, plane_scale, geom = prep
+    z1mm = geom["packed"] if z1_matmul == "auto" else bool(z1_matmul)
+    if z1mm and plane_scale is not None:
+        if z1_matmul != "auto":
+            raise ValueError(
+                "z1_matmul=True is incompatible with dtype='i16' planes "
+                "(int16 cannot feed the z1 product); use z1_matmul='auto' "
+                "or a float plane dtype")
+        z1mm = False  # auto: int16 planes take the per-row kernel
+    if z1mm:
+        return decode_kernel_z1mm(pc, c1v, pe_u, w2, b2, w3, b3, f=geom["f"],
+                                  f1=geom["f1"], R=geom["R"], gelu=gelu)
     return decode_kernel_2d(pc, c1v, pe_u, w2, b2, w3, b3, plane_scale,
                             f=geom["f"], f1=geom["f1"], gelu=gelu)

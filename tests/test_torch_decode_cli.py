@@ -94,9 +94,22 @@ def test_png_written_reads_back(tmp_path, capsys):
         save_png(img[:, :, 0], str(tmp_path / "y.png"))
 
 
+def test_backend_xla_matches_jax_cli(capsys):
+    """``--backend xla``, the gather decode at full size, against the JAX
+    runtime's own ``--backend xla`` on the same artifact (the two differ in
+    summation order and the erf: atol 2e-5)."""
+    from nic.cli import decode as jcli
+
+    want = jcli.run([ART, "--mip", "1", "--backend", "xla"])
+    rec = tcli.run([ART, "--mip", "1", "--device", "cpu", "--backend",
+                    "xla"])
+    assert "backend=xla" in capsys.readouterr().out
+    assert rec.shape == want.shape == (256, 256, 3)
+    np.testing.assert_allclose(rec, want, atol=2e-5, rtol=0)
+
+
 @pytest.mark.parametrize("argv", [
     ["--device", "cpu", "--devices", "2"],
-    ["--device", "cpu", "--backend", "xla"],
     ["--device", "cpu", "--backend", "cuda"],
 ])
 def test_refusals(argv, capsys):
@@ -120,10 +133,28 @@ def test_port_imports_no_jax_and_no_nic():
             "nic_torch.kernels.train_fused_ff, "
             "nic_torch.kernels.train_fused_ff3, "
             "nic_torch.kernels.decode_fused_3d, nic_torch.data.assets, "
-            "nic_torch.cli.image_compression\n"
+            "nic_torch.kernels.decode_fused, nic_torch.kernels.decode_fused_v3, "
+            "nic_torch.grids.sample, nic_torch.cli.image_compression\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'nic'))\n"
             "print(','.join(bad)); sys.exit(1 if bad else 0)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, (proc.stdout, proc.stderr)
+
+
+def test_port_sources_name_no_jax_and_no_nic():
+    """No source of the port, and not chip_smoke.py, imports jax or the
+    JAX package, by a grep of every import statement."""
+    import re
+
+    pattern = re.compile(r"^\s*(from|import)\s+(jax|jaxlib|nic)(\.|\s|$)",
+                         re.M)
+    paths = [os.path.join(ROOT, "chip_smoke.py")] + [
+        os.path.join(d, f) for d, _, files in os.walk(
+            os.path.join(ROOT, "nic_torch")) for f in files
+        if f.endswith(".py")]
+    assert len(paths) > 30
+    bad = {p: m.group(0).strip() for p in paths
+           for m in [pattern.search(open(p).read())] if m}
+    assert not bad, bad

@@ -163,3 +163,123 @@ def test_cuda_kernel_matches_plain(mode):
                                           scale, **kw)
         err = float((got - want).abs().max())
         assert err <= TOL[mode], (gelu, err)
+
+
+# ---- K2: the z1-matmul per-pixel stage ----------------------------------
+
+def test_z1mm_plain_matches_jax_z1mm_kernel():
+    """JAX's z1-matmul kernel (explicit True, any width) in interpret mode
+    at mip 0 (f = 4: [A0 | A1] is [8, 4])."""
+    (jfp, jmlp), (tfp, tmlp), m2l = _model(81, 64)
+    kw = dict(image_size=64, mip_to_level=m2l, pe_channels=PE)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(jdf.decode_image_fused_v2(jfp, jmlp, 0,
+                                                    z1_matmul=True, **kw))
+    before = tdf.decode_kernel_z1mm.launches
+    with torch.inference_mode():
+        got = tdf.decode_image_fused_v2(tfp, tmlp, 0, z1_matmul=True, **kw)
+    assert tdf.decode_kernel_z1mm.launches == before  # no kernel on the CPU
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-5, rtol=0)
+
+
+@pytest.mark.parametrize("mip", [0, 1, 2])
+@pytest.mark.parametrize("mode", ["fp32", "bf16", "surgical"])
+def test_z1mm_plain_matches_k1_plain(mode, mip):
+    """The dense [A0 | A1] product is the per-row interpolation, f ∈ {4,
+    2, 1} (f = 1 adds P as it is); 128², several tiles."""
+    _, (tfp, tmlp), m2l = _model(83, 128, no_mip=True)
+    kw = dict(image_size=128, mip_to_level=m2l, pe_channels=PE,
+              dtype=TORCH_DTYPES[mode])
+    with torch.inference_mode():
+        k1 = tdf.decode_image_fused_v2(tfp, tmlp, mip, **kw)
+        k2 = tdf.decode_image_fused_v2(tfp, tmlp, mip, z1_matmul=True, **kw)
+    np.testing.assert_allclose(k2.numpy(), k1.numpy(), atol=TOL[mode],
+                               rtol=0)
+
+
+def test_z1_matrix_matches_jax_rule():
+    for R, f, f1 in ((8, 4, 8), (8, 2, 4), (8, 1, 2), (16, 8, 16),
+                     (32, 16, 32)):
+        a = tdf.z1_matrix(R, f, f1).numpy()
+        k0 = R // f
+        assert a.shape == (R, k0 + R // f1 + 1)
+        np.testing.assert_array_equal(a[:, :k0].sum(1), 1.0)
+        np.testing.assert_array_equal(a[:, k0:].sum(1), 1.0)
+        for r in range(R):
+            assert a[r, r // f] == 1.0
+            assert a[r, k0 + r // f1] == 1.0 - (r % f1) / f1
+
+
+def test_z1mm_auto_picks_as_jax(monkeypatch):
+    """``"auto"`` takes K2 exactly where JAX's lane-packing predicate holds
+    (read from JAX's own ``_prepare_2d``), and K1 under int16 planes;
+    ``True`` with int16 planes raises in both packages."""
+    calls = []
+    for name in ("decode_kernel_2d", "decode_kernel_z1mm"):
+        real = getattr(tdf, name)
+        monkeypatch.setattr(tdf, name, lambda *a, _n=name, _r=real, **k: (
+            calls.append(_n), _r(*a, **k))[1])
+    seen = set()
+    # (hidden, image size, grid base, mips): packed needs 2H == 128
+    for hidden, size, base, mips in ((64, 64, 16, range(4)),
+                                     (64, (32, 64), (8, 16), range(3)),
+                                     (16, 64, 16, (0,))):
+        (jfp, jmlp), (tfp, tmlp) = both(*make_model(
+            85, base=base, hidden=hidden, no_mip=True))
+        smin = size if isinstance(size, int) else min(size)
+        m2l = pyramid_mip_levels(smin, smin // 4, True)
+        kw = dict(image_size=size, mip_to_level=m2l, pe_channels=PE,
+                  use_tri_pe=True)
+        for mip in mips:
+            want = jdf._prepare_2d(jfp, jmlp, mip, dtype=None,
+                                   block_rows=None, block_cols=None,
+                                   **kw)
+            if want is None:
+                continue
+            for mode in ("fp32", "i16"):
+                calls.clear()
+                with torch.inference_mode():
+                    tdf.decode_image_fused_v2(
+                        tfp, tmlp, mip, dtype=TORCH_DTYPES[mode],
+                        z1_matmul="auto", **kw)
+                k2 = want[-1]["packed"] and mode == "fp32"
+                assert calls == ["decode_kernel_z1mm" if k2
+                                 else "decode_kernel_2d"], (size, mip)
+                seen.add(k2)
+    assert seen == {True, False}
+    for pkg, (fp, mlp) in ((jdf, (jfp, jmlp)), (tdf, (tfp, tmlp))):
+        with pytest.raises(ValueError, match="i16"):
+            pkg.decode_image_fused_v2(fp, mlp, 0, dtype="i16",
+                                      z1_matmul=True, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["fp32", "bf16", "surgical"])
+def test_cuda_z1mm_matches_plain(mode):
+    """K2 against its plain version on the card at every GELU, mips 0-2
+    of a 128² hidden-64 model (tolerances as in chip_smoke.py)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    fp, mlp = make_model(87, base=32, hidden=64, no_mip=True)
+    _, (tfp, tmlp) = both(fp, mlp)
+    m2l = pyramid_mip_levels(128, 32, True)
+    tfp = tuple(g.cuda() for g in tfp)
+    tmlp = {k: tmlp[k].detach().cuda() for k in ("w1", "b1", "w2", "b2",
+                                                   "w3", "b3")}
+    for mip in (0, 1, 2):
+        with torch.inference_mode():
+            prep = tdf._prepare_2d(tfp, tmlp, mip, image_size=128,
+                                   mip_to_level=m2l, pe_channels=PE,
+                                   use_tri_pe=True,
+                                   dtype=TORCH_DTYPES[mode])
+        pc, c1v, pe_u, w2, b2, w3, b3, _, geom = prep
+        for gelu in tdf.GELUS:
+            kw = dict(f=geom["f"], f1=geom["f1"], R=geom["R"], gelu=gelu)
+            before = tdf.decode_kernel_z1mm.launches
+            got = tdf.decode_kernel_z1mm(pc, c1v, pe_u, w2, b2, w3, b3, **kw)
+            torch.cuda.synchronize()
+            assert tdf.decode_kernel_z1mm.launches == before + 1
+            want = tdf.decode_kernel_z1mm_plain(pc, c1v, pe_u, w2, b2, w3,
+                                                b3, **kw)
+            err = float((got - want).abs().max())
+            assert err <= TOL[mode], (mip, gelu, err)

@@ -59,8 +59,6 @@ def test_cuda_device_without_cuda_raises(tmp_path):
     ("ENTROPY_CODE_GRIDS=True", "item 12"),
     ("DATA_PARALLEL=True", "item 13"),
     ("PROFILE_DIR=prof", "item 14"),
-    ("TRAIN_FORWARD=folded", "item 15"),
-    ("DECODE_BACKEND=xla", "item 15"),
 ])
 def test_unported_options_refuse(tmp_path, extra, item):
     with pytest.raises(NotImplementedError, match=item):
@@ -81,6 +79,25 @@ def test_kernel_engines_train_on_cpu(tmp_path, forward, extra):
         gates = [ln for ln in fh if "train forward gate" in ln]
     assert gates and all(f"): {forward} [" in ln for ln in gates
                          if "lod=0," in ln)
+    assert np.isfinite(res["psnr"]).all() and res["bpp"] > 0
+
+
+@pytest.mark.parametrize("extra,gate", [
+    (["TRAIN_FORWARD=folded"], "train forward gate (lod=0, frozen=False): "
+                               "folded [TRAIN_FORWARD=folded]"),
+    (["DECODE_BACKEND=xla", "DIV_SIZE=1"],
+     "decode backend gate (mip=0): tiled (16 tiles, xla gather) "
+     "[DECODE_BACKEND=xla -> xla]")], ids=["folded", "xla-tiled"])
+def test_folded_forward_and_xla_decode_run(tmp_path, extra, gate):
+    """TRAIN_FORWARD=folded, and DECODE_BACKEND=xla with the tiled decode
+    (2^(3 − 0 − 1) = 4 tiles per axis at mip 0), through the CLI: the gate
+    log names them, the losses are finite and every mip decodes."""
+    res = tcli.run(ARGS[:3] + ["NUM_EPOCHS=6", "MAX_MIP_LEVEL=3",
+                               "TF_NO_MIP=False", *extra,
+                               f"OUTPUT_ROOT={tmp_path}"])
+    (log,) = os.listdir(os.path.join(tmp_path, "printlog"))
+    with open(os.path.join(tmp_path, "printlog", log)) as fh:
+        assert gate in fh.read()
     assert np.isfinite(res["psnr"]).all() and res["bpp"] > 0
 
 
