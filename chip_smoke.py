@@ -29,8 +29,9 @@ Phases (any failure exits non-zero):
 6. K11 against its plain version on the card at the flagship shape class
    (C=12, H=64, PE 6, 8 crops of 256², f=4) and at f=2 (128² crops) and
    f=1 (64² crops), random pyramid and MLP from a seeded torch.Generator,
-   in fp32·erf and bf16·poly, each with QAT noise off and on: loss,
-   ``out``, every MLP and PE grad and both accumulated node planes; then
+   in fp32·erf and bf16·poly (the tensor-core kernel), each with QAT
+   noise off and on: loss, ``out``, every MLP and PE grad and both
+   accumulated node planes, two runs bit-identical; then
    kernel vs plain timed at the flagship shape (bf16·poly noise on, the
    path's mode, and fp32·erf);
 7. K7 against its plain version on the card at 8 crops of 256² (f=4),
@@ -122,6 +123,24 @@ The alternate 2D decodes and the XLA alternates (phase 12 also times the
     fixture's JAX run; then folded against gather from one seed (fp32
     dots), as in phase 10, and the mip-0 decode of such a trainer timed
     tiled and whole for the xla and fast backends.
+
+Every hidden and feature width the gates admit (``nic_torch/kernels/
+_widths.py``: narrower widths zero-padded to an instantiated one):
+
+26. kernel vs plain (K11's tolerances, two runs bit-identical; the decode
+    tolerances): K11 at H = 16 and 32 in four modes; K7 and K6 at H = 16
+    and 128 (at 128 x in feature chunks, W1 from device memory); K12 m3
+    at PE 8 (F = 133) and F = 205 (C = 20), and at H = 128 with F = 133,
+    in four modes; K9 at F = 133 and 205; K1, K2, K3, K4 on random 512²
+    models and K5 on a 64³ m3 mip-mode model at H = 32 and 128 in their
+    plane modes; every counter must rise; the padding's cost timed (K11
+    at 8×256² and K1 at 2048² beside H = 64);
+27. the training CLI for 50 epochs at HIDDEN_LAYER_CHANNELS=16 and 32
+    under TRAIN_FORWARD=auto: kernel3 in both phases and every step, then
+    the decode CLI at mips 0-9.
+
+``--only a,b`` runs the build and the named phases (``PHASES``) and
+prints no kernels or result line; the driver's run takes no arguments.
 
 The last line of standard output is one JSON object
 ``{"ok": true, "device": {...}}``; the line before it the card's name and
@@ -285,7 +304,11 @@ def phase_build() -> float:
     wall = time.perf_counter() - t0
     secs = _build.build_seconds if _build.build_seconds is not None else wall
     print(f"phase 2: kernels built in {secs:.1f} s "
-          f"(nvcc, sm_90a; load {wall:.1f} s)", flush=True)
+          f"(nvcc, sm_90a; load {wall:.1f} s); per source: "
+          + (", ".join(f"{name} {sec:.1f} s" for name, sec in
+                       sorted(_build.source_seconds.items(),
+                              key=lambda kv: -kv[1]))
+             or "already built"), flush=True)
     return secs
 
 
@@ -513,9 +536,10 @@ def _run_twice(tag, fn):
     return got
 
 
-def _k11_inputs(gen, device, n, f, crops=8, size=512):
-    """Random flagship-width pyramid and MLP (torch.Generator), folded,
-    with crops of n² on the LOD image of size·f/4."""
+def _k11_inputs(gen, device, n, f, crops=8, size=512, hidden=64):
+    """Random flagship-width pyramid and MLP (torch.Generator; another
+    hidden width if given), folded, with crops of n² on the LOD image of
+    size·f/4."""
     import torch
 
     from nic_torch.grids.pyramid import create_pyramid
@@ -523,7 +547,7 @@ def _k11_inputs(gen, device, n, f, crops=8, size=512):
     from nic_torch.models.mlp import init_mlp
 
     fp, _ = create_pyramid(gen, size // 4, 12, 8, device=device, no_mip=True)
-    mlp = init_mlp(gen, 12 * 5 + 2 * 6 + 1, 64, 3, device=device)
+    mlp = init_mlp(gen, 12 * 5 + 2 * 6 + 1, hidden, 3, device=device)
     img = size * f // 4
     origins = torch.randint(0, img - n + 1, (crops, 2), generator=gen)
     tgt = torch.rand(crops * n * n, 3, generator=gen).to(device)
@@ -596,8 +620,22 @@ def phase_k11(device) -> dict:
                         work = (nbytes(*args[:9], origins) + nbytes(*got),
                                 flops)
                         timings[cell] = (ms, plain, work)
+                        # the per-pixel kernel alone (ff_pixel or
+                        # ff_pixel_mma): planes, weights, targets read;
+                        # out, dz1 and the block partials written; z2, dh1,
+                        # dW2 (6·N·H²), the 64 → 3 layer and its two
+                        # products (18·N·H) and ε·W1 (2·N·F·H)
+                        nblk = min(-(-npix // 128), 264)
+                        px_bytes = (nbytes(*args[:9], origins)
+                                    + 4 * npix * (3 + hid) + 4 * nblk
+                                    * (4 + 4 * hid + hid * hid))
+                        px_flops = 6 * npix * hid * hid + 18 * npix * hid \
+                            + (2 * npix * feat * hid if nbits else 0)
+                        px_ms, px_by = bound(px_bytes, px_flops, cd)
                         print(f"phase 6: K11 {cell} at 8×256²: kernel "
-                              f"{ms:.4f} ms vs plain {plain:.4f} ms",
+                              f"{ms:.4f} ms vs plain {plain:.4f} ms; bound "
+                              f"{bound(*work, cd)[0]:.4f} ms; the per-pixel "
+                              f"kernel alone {px_ms:.4f} ms ({px_by})",
                               flush=True)
     return {"timings": timings, "out_err": out_err}
 
@@ -650,10 +688,12 @@ def phase_train(device) -> int:
 NAMES = ("w1", "b1", "w2", "b2", "w3", "b3")
 
 
-def _gather_inputs(gen, device, n, step, tri_pe, crops=8, size=512):
+def _gather_inputs(gen, device, n, step, tri_pe, crops=8, size=512,
+                   hidden=64):
     """Random flagship-width no-mip pyramid (G0 [12,129,129]) and MLP
-    (torch.Generator), and the gather of crops of n² at ``step`` on G0:
-    (fp, weights, x [crops·n², 73], tgt, origins)."""
+    (torch.Generator; another hidden width if given), and the gather of
+    crops of n² at ``step`` on G0: (fp, weights, x [crops·n², 73], tgt,
+    origins)."""
     import torch
 
     from nic_torch.grids.pyramid import create_pyramid
@@ -661,7 +701,7 @@ def _gather_inputs(gen, device, n, step, tri_pe, crops=8, size=512):
     from nic_torch.models.mlp import init_mlp
 
     fp, _ = create_pyramid(gen, size // 4, 12, 8, device=device, no_mip=True)
-    mlp = init_mlp(gen, 12 * 5 + 2 * 6 + 1, 64, 3, device=device)
+    mlp = init_mlp(gen, 12 * 5 + 2 * 6 + 1, hidden, 3, device=device)
     img = int(round((size // 4) / step))   # pixels G0 spans at this step
     origins = torch.randint(0, img - n + 1, (crops, 2), generator=gen)
     x = decoder_input(fp, 0, origins.to(device), step, n, pe_channels=6,
@@ -1051,17 +1091,17 @@ def phase_step_time3(device) -> dict:
 
 # ---- the 3D path (methods 3 and 4) ------------------------------------
 
-def _pyramid3(gen, device, size, sparse, no_mip):
-    """Random flagship-width 3D pyramid and MLP (torch.Generator): C=12,
-    H=64, PE 6, G0 of size/4 cells per axis."""
+def _pyramid3(gen, device, size, sparse, no_mip, c=12, pe=6, hidden=64):
+    """Random 3D pyramid and MLP (torch.Generator), flagship width unless
+    told (C=12, H=64, PE 6), G0 of size/4 cells per axis."""
     from nic_torch.grids.pyramid import create_pyramid, pyramid_quantize_all
     from nic_torch.models.mlp import init_mlp
 
-    fp, _ = create_pyramid(gen, size // 4, 12, 8, 3, device=device,
+    fp, _ = create_pyramid(gen, size // 4, c, 8, 3, device=device,
                            no_mip=no_mip)
     fp = pyramid_quantize_all(fp, 8)
-    mlp = init_mlp(gen, 12 * ((4 if sparse else 8) + 1) + 3 * 6 + 1, 64, 3,
-                   device=device)
+    mlp = init_mlp(gen, c * ((4 if sparse else 8) + 1) + 3 * pe + 1, hidden,
+                   3, device=device)
     return fp, mlp
 
 
@@ -1249,12 +1289,13 @@ def phase_scale3(device, size: int = 256) -> tuple:
     return ms, plain, work
 
 
-def _inputs3(gen, device, n, f, sparse, crops=8, size=64):
-    """Random flagship-width no-mip 3D pyramid (G0 [12, 17³]) and MLP, crops
-    of n³ inside what G0 covers at period f, targets and seed words."""
+def _inputs3(gen, device, n, f, sparse, crops=8, size=64, **width):
+    """Random no-mip 3D pyramid (G0 [12, 17³] at flagship width, or
+    ``width``'s c, pe, hidden) and MLP, crops of n³ inside what G0 covers at
+    period f, targets and seed words."""
     import torch
 
-    fp, mlp = _pyramid3(gen, device, size, sparse, no_mip=True)
+    fp, mlp = _pyramid3(gen, device, size, sparse, no_mip=True, **width)
     cover = (size // 4) * f
     origins = torch.randint(0, cover - n + 1, (crops, 3), generator=gen)
     tgt = torch.rand(crops * n**3, 3, generator=gen).to(device)
@@ -1336,11 +1377,12 @@ def phase_k12(device) -> dict:
     return timings
 
 
-def _gather3(fp, origins, n, f, sparse, device):
+def _gather3(fp, origins, n, f, sparse, device, pe=6):
     from nic_torch.grids.sample import decoder_input
 
-    x = decoder_input(fp, 0, origins, 1.0 / f, n, pe_channels=6, mip_level=0,
-                      ndim=3, use_tri_pe=not sparse, sparse_g0=sparse)
+    x = decoder_input(fp, 0, origins, 1.0 / f, n, pe_channels=pe,
+                      mip_level=0, ndim=3, use_tri_pe=not sparse,
+                      sparse_g0=sparse)
     return x.reshape(origins.shape[0] * n**3, -1).contiguous()
 
 
@@ -1583,9 +1625,10 @@ def phase_train3(device) -> dict:
 
 # ---- the alternate 2D decodes (K3, K4, K2) and the XLA alternates ---------
 
-def _random_flagship(device, size: int):
-    """phase 5's flagship-width random model at size² (C=12, H=64, PE 6,
-    FP_BITS 8, no mip; seeded with ``size``): (fp, mlp, mip_to_level)."""
+def _random_flagship(device, size: int, hidden: int = 64):
+    """phase 5's flagship-width random model at size² (C=12, H=64 unless
+    told, PE 6, FP_BITS 8, no mip; seeded with ``size``): (fp, mlp,
+    mip_to_level)."""
     import torch
 
     from nic_torch.grids.pyramid import (create_pyramid, pyramid_mip_levels,
@@ -1594,7 +1637,7 @@ def _random_flagship(device, size: int):
 
     gen = torch.Generator(device="cpu").manual_seed(size)
     fp, _ = create_pyramid(gen, size // 4, 12, 8, device=device, no_mip=True)
-    mlp = init_mlp(gen, 12 * 5 + 2 * 6 + 1, 64, 3, device=device)
+    mlp = init_mlp(gen, 12 * 5 + 2 * 6 + 1, hidden, 3, device=device)
     return (pyramid_quantize_all(fp, 8), {k: mlp[k].detach() for k in NAMES},
             pyramid_mip_levels(size, size // 4, True))
 
@@ -1960,9 +2003,281 @@ def phase_folded(device) -> dict:
     return dict(psnr=res["psnr"][0], track=track, decode=times)
 
 
-def main() -> None:
+# ---- widths: every hidden and feature width the gates admit -----------
+
+def _width_counters() -> dict:
+    from nic_torch.kernels.decode_fused import decode_kernel_v1
+    from nic_torch.kernels.decode_fused_3d import decode_kernel_3d
+    from nic_torch.kernels.decode_fused_v2 import (decode_kernel_2d,
+                                                   decode_kernel_z1mm)
+    from nic_torch.kernels.decode_fused_v3 import mlp_tail
+
+    return {**_train_counters(), "K1": decode_kernel_2d,
+            "K2": decode_kernel_z1mm, "K3": decode_kernel_v1, "K4": mlp_tail,
+            "K5": decode_kernel_3d}
+
+
+def _widths_train(device) -> dict:
+    """K11 at H = 16, 32; K6, K7 at H = 16 and 128; K12 at m3 PE 8 (F =
+    133) and F = 205 and at H = 128; K9 at F = 133 and F = 205 (C = 20):
+    kernel vs plain (two runs bit-identical) at K11's tolerances. Returns
+    K11's padding cost: {H: ms} at 8×256² bf16·poly with noise."""
     import torch
 
+    from nic_torch.kernels import train_fused as k67
+    from nic_torch.kernels import train_fused_ff as k11
+    from nic_torch.kernels import train_fused_ff3 as k12
+
+    gen = torch.Generator(device="cpu").manual_seed(26)
+    modes = [(label, cd, gelu, nbits) for label, (cd, gelu) in
+             K11_MODES.items() for nbits in (None, 8)]
+
+    def check(tag, names, fn, plain, cd):
+        got = _run_twice(tag, fn)
+        errs = _compare(f"{tag} vs plain", names, got, plain(), K11_TOL[cd])
+        print(f"phase 26: {tag} vs plain: loss rel {errs['loss']:.2e}, out "
+              f"max|Δ| {errs['out']:.2e}, worst grad rel "
+              f"{max(e for nm, e in errs.items() if nm not in ('loss', 'out')):.2e}",
+              flush=True)
+        return got
+
+    pad_ms = {}
+    names11 = ("loss", "out", "dw2", "db2", "dw3", "db3", "dpe0", "dpe1",
+               "db1", "P_acc", "C1_acc", "dw1e")
+    with torch.no_grad():
+        for hidden in (16, 32):
+            inputs = _k11_inputs(gen, device, 64, 1, hidden=hidden)
+            for label, cd, gelu, nbits in modes:
+                args, kw = _k11_call(inputs, 64, 1, cd, gelu, nbits)
+                check(f"K11 H={hidden} 8×64² f=1 {label} noise="
+                      f"{'on' if nbits else 'off'}", names11,
+                      lambda: k11.fused_train_ff_kernel(*args, **kw),
+                      lambda: k11.fused_train_ff_plain(*args, **kw), cd)
+        for hidden in (16, 32, 64):
+            inputs = _k11_inputs(gen, device, 256, 4, hidden=hidden)
+            args, kw = _k11_call(inputs, 256, 4, "bf16", "poly", 8)
+            pad_ms[hidden] = cuda_ms(
+                lambda: k11.fused_train_ff_kernel(*args, **kw))
+        print("phase 26: K11 at 8×256² f=4 bf16·poly noise=on by hidden "
+              "width (16 and 32 zero-padded to 64): " + ", ".join(
+                  f"H={h} {ms:.4f} ms" for h, ms in pad_ms.items()),
+              flush=True)
+
+        names67 = ("loss", "out", "dw1", "db1", "dw2", "db2", "dw3", "db3",
+                   "P_acc", "C1_acc")
+        names6 = ("loss", "out", "dx", "dw1", "db1", "dw2", "db2", "dw3",
+                  "db3")
+        for hidden in (16, 128):
+            fp, weights, x, tgt, origins = _gather_inputs(
+                gen, device, 64, 1.0, True, hidden=hidden)
+            geo = dict(g0_nodes=tuple(fp[0].shape[1:]),
+                       g1_nodes=tuple(fp[1].shape[1:]))
+            _, weights6, x6, tgt6, _ = _gather_inputs(gen, device, 32, 2.0,
+                                                      True, hidden=hidden)
+            for label, (cd, gelu) in K11_MODES.items():
+                cdt = None if cd == "fp32" else torch.bfloat16
+                kw = dict(n=64, f=1, gelu=gelu, cd=cdt, **geo)
+                check(f"K7 H={hidden} 8×64² f=1 {label}", names67,
+                      lambda: k67.fused_mlp_loss_ng_kernel(
+                          x, tgt, origins, *weights, **kw),
+                      lambda: k67.fused_mlp_loss_ng_plain(
+                          x, tgt, origins, *weights, **kw), cd)
+                check(f"K6 H={hidden} 8×32² {label}", names6,
+                      lambda: k67.fused_mlp_loss_kernel(
+                          x6, tgt6, *weights6, gelu=gelu, cd=cdt),
+                      lambda: k67.fused_mlp_loss_plain(
+                          x6, tgt6, *weights6, gelu=gelu, cd=cdt), cd)
+
+        names12 = ("loss", "out", "dw2", "db2", "dw3", "db3", "dpe0", "dpe1",
+                   "dpe2", "db1", "P_acc", "C1_acc", "dw1e")
+        n, f = 16, 2
+        for c, pe, hidden in ((12, 8, 64), (20, 8, 64), (12, 8, 128)):
+            fp, weights, tgt, origins, seed = _inputs3(
+                gen, device, n, f, False, c=c, pe=pe, hidden=hidden)
+            feat = weights[0].shape[0]
+            x = _gather3(fp, origins, n, f, False, device, pe=pe)
+            geo = dict(g0_nodes=tuple(fp[0].shape[1:]),
+                       g1_nodes=tuple(fp[1].shape[1:]))
+            for label, cd, gelu, nbits in modes:
+                cdt = None if cd == "fp32" else torch.bfloat16
+                vols = k12.fold_volumes(fp[0], fp[1], weights[0], False, cdt)
+                args = (*vols, *weights, tgt, origins, seed)
+                kw = dict(n=n, f=f, npe=pe, lodf=0.0, sparse_g0=False,
+                          use_tri_pe=True, cd=cdt, gelu=gelu, nbits=nbits)
+                check(f"K12 H={hidden} F={feat} 8×{n}³ f={f} m3 {label} "
+                      f"noise={'on' if nbits else 'off'}", names12,
+                      lambda: k12.fused_train_ff3_kernel(*args, **kw),
+                      lambda: k12.fused_train_ff3_plain(*args, **kw), cd)
+                if nbits is None and hidden == 64:
+                    kw9 = dict(n=n, f=f, gelu=gelu, cd=cdt, **geo)
+                    check(f"K9 F={feat} 8×{n}³ f={f} m3 {label}", names67,
+                          lambda: k67.fused_mlp_loss_ng3_kernel(
+                              x, tgt, origins, *weights, **kw9),
+                          lambda: k67.fused_mlp_loss_ng_plain(
+                              x, tgt, origins, *weights, **kw9), cd)
+    return pad_ms
+
+
+def _widths_decode(device) -> dict:
+    """K1, K2, K3, K4 (2D, 512² random models) and K5 (a 64³ m3 mip-mode
+    model) at H = 32 (zero-padded to 64) and 128, against their plain
+    versions at the decode tolerances. Returns K1's padding cost at 2048²
+    fp32·exact: {H: ms}."""
+    import torch
+
+    from nic_torch.grids.fastdecode import first_layer_acc
+    from nic_torch.grids.pyramid import pyramid_mip_levels
+    from nic_torch.kernels import decode_fused as k3
+    from nic_torch.kernels import decode_fused_3d as k5
+    from nic_torch.kernels import decode_fused_v2 as k1
+    from nic_torch.kernels import decode_fused_v3 as k4
+
+    modes = (("fp32", None, "exact"), ("bf16", torch.bfloat16, "poly"),
+             ("i16", "i16", "tanherf"), ("surgical", "surgical", "exact"))
+    worst = {}
+
+    def hold(tag, mode, got, want):
+        if got.shape != want.shape or not torch.isfinite(got).all():
+            fail(f"{tag}: shape {tuple(got.shape)} or non-finite values")
+        err = float((got - want).abs().max())
+        worst[tag.split(" ")[0]] = max(worst.get(tag.split(" ")[0], 0.0), err)
+        if err > TOL[mode]:
+            fail(f"{tag} vs plain: max|Δ| {err:.3e} > {TOL[mode]:.0e}")
+
+    gen3 = torch.Generator(device="cpu").manual_seed(27)
+    m2l3 = pyramid_mip_levels(64, 16, False)
+    with torch.inference_mode():
+        for hidden in (32, 128):
+            fp, mlp, m2l = _random_flagship(device, 512, hidden)
+            for mip in (0, 1, 2):
+                for mode, dtype, gelu in modes:
+                    pc, c1v, pe_u, w2, b2, w3, b3, s, geom = k1._prepare_2d(
+                        fp, mlp, mip, image_size=512, mip_to_level=m2l,
+                        pe_channels=6, use_tri_pe=True, dtype=dtype)
+                    g = dict(f=geom["f"], f1=geom["f1"], gelu=gelu)
+                    args = (pc, c1v, pe_u, w2, b2, w3, b3)
+                    tag = f"H={hidden} mip {mip} {mode}·{gelu}"
+                    hold(f"K1 {tag}", mode, k1.decode_kernel_2d(*args, s, **g),
+                         k1.decode_kernel_2d_plain(*args, s, **g))
+                    if mode != "i16":
+                        hold(f"K2 {tag}", mode,
+                             k1.decode_kernel_z1mm(*args, R=geom["R"], **g),
+                             k1.decode_kernel_z1mm_plain(*args, R=geom["R"],
+                                                         **g))
+                for mode, dtype in (("fp32", None), ("bf16", torch.bfloat16)):
+                    vargs, vkw = _v1_args(fp, mlp, mip, m2l, 512, dtype)
+                    hold(f"K3 H={hidden} mip {mip} {mode}", mode,
+                         k3.decode_kernel_v1(*vargs, use_tri_pe=True, **vkw),
+                         k3.decode_kernel_v1_plain(*vargs, use_tri_pe=True,
+                                                   **vkw))
+            acc = first_layer_acc(fp, mlp, 0, image_size=512,
+                                  mip_to_level=m2l, pe_channels=6,
+                                  use_tri_pe=True).contiguous()
+            for mode, dtype in (("fp32", torch.float32),
+                                ("bf16", torch.bfloat16)):
+                args = (acc.to(dtype), mlp["w2"].to(dtype), mlp["b2"],
+                        mlp["w3"].to(dtype), mlp["b3"])
+                hold(f"K4 H={hidden} {mode}", mode, k4.mlp_tail(*args),
+                     k4.mlp_tail_plain(*args))
+            fp3, mlp3 = _pyramid3(gen3, device, 64, False, no_mip=False,
+                                  hidden=hidden)
+            for mip in (0, 1):
+                for mode, dtype, gelu in modes:
+                    pc, c1v, pe_u, w2, b2, w3, b3, s, geom = k5._prepare_3d(
+                        fp3, mlp3, mip, image_size=64, mip_to_level=m2l3,
+                        pe_channels=6, use_tri_pe=True, sparse_g0=False,
+                        dtype=dtype)
+                    g = dict(f=geom["f"], f1=geom["f1"], gelu=gelu)
+                    args = (pc, c1v, pe_u, w2, b2, w3, b3, s)
+                    hold(f"K5 H={hidden} mip {mip} {mode}·{gelu}", mode,
+                         k5.decode_kernel_3d(*args, **g),
+                         k5.decode_kernel_3d_plain(*args, **g))
+        print("phase 26: decodes at H = 32 (padded to 64) and 128 vs plain, "
+              "worst max|Δ| (fp32 and reduced modes together): " + ", ".join(
+                  f"{nm} {e:.3e}" for nm, e in sorted(worst.items())),
+              flush=True)
+        pad_ms = {}
+        for hidden in (32, 64):
+            fp, mlp, m2l = _random_flagship(device, 2048, hidden)
+            pc, c1v, pe_u, w2, b2, w3, b3, s, geom = k1._prepare_2d(
+                fp, mlp, 0, image_size=2048, mip_to_level=m2l, pe_channels=6,
+                use_tri_pe=True, dtype=None)
+            g = dict(f=geom["f"], f1=geom["f1"], gelu="exact")
+            pad_ms[hidden] = cuda_ms(lambda: k1.decode_kernel_2d(
+                pc, c1v, pe_u, w2, b2, w3, b3, s, **g))
+        print("phase 26: K1 at 2048² fp32·exact by hidden width (32 "
+              "zero-padded to 64, planes copied): " + ", ".join(
+                  f"H={h} {ms:.4f} ms" for h, ms in pad_ms.items()),
+              flush=True)
+    return pad_ms
+
+
+def phase_widths(device) -> dict:
+    """Every kernel at the widths its gate admits beyond the flagship's:
+    each must launch (counter > 0) and agree with its plain version."""
+    counters = _width_counters()
+    for c in counters.values():
+        c.launches = 0
+    pad = {"K11": _widths_train(device), "K1": _widths_decode(device)}
+    launches = {k: c.launches for k, c in counters.items()}
+    print(f"phase 26: launches {launches}", flush=True)
+    if not all(launches.values()):
+        fail(f"phase 26: a kernel never launched: {launches}")
+    return pad
+
+
+# HIDDEN_LAYER_CHANNELS=16 (the JAX suite's small model) trains on K11 at
+# every step; H = 32 also decodes through K1 zero-padded to 64
+SMALL_EPOCHS = 50
+
+
+def phase_small_cli(device) -> None:
+    """Short CLI runs at H = 16 and 32 under TRAIN_FORWARD=auto: kernel3 at
+    every step, then the decode CLI at mips 0-9."""
+    import numpy as np
+
+    for hidden in (16, 32):
+        run = _cli_train([f"NUM_EPOCHS={SMALL_EPOCHS}", "SDC_GUARD_TRAIN=False",
+                          f"HIDDEN_LAYER_CHANNELS={hidden}"])
+        got = run["launches"]
+        print(f"phase 27: training CLI at H={hidden}, {SMALL_EPOCHS} epochs "
+              f"in {run['wall']:.1f} s; gates {sorted(run['engine'].items())};"
+              f" launches {got}; loss {run['losses'][0]:.5f} → "
+              f"{run['losses'][-1]:.5f}; mip-0 PSNR "
+              f"{run['res']['psnr'][0]:.4f} dB; decode CLI mips 0-9, K1 "
+              f"launches {run['k1']}", flush=True)
+        if run["engine"] != {(0, False): "kernel3", (0, True): "kernel3"}:
+            fail(f"H={hidden}: the gate log does not name kernel3 in both "
+                 f"phases: {run['gates']}")
+        if got["K11"] != SMALL_EPOCHS:
+            fail(f"H={hidden}: K11 launched {got['K11']} times in "
+                 f"{SMALL_EPOCHS} epochs")
+        if not np.isfinite(run["losses"]).all():
+            fail(f"H={hidden}: non-finite losses")
+        _check_decodes(f"H={hidden}", run, no_mip=True)
+
+
+# the phases by name, in the order a full run takes them
+PHASES = ("parity", "serve", "scale", "k11", "k7", "k6", "train", "path_a",
+          "path_b", "step_time", "k5", "serve3", "scale3", "k12", "k9",
+          "k6_3d", "train3", "step_time3", "k3", "k4", "k2", "xla_cli",
+          "folded", "widths", "small_cli")
+
+
+def main(argv=None) -> None:
+    import argparse
+
+    import torch
+
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument(
+        "--only", default=None,
+        help="comma-separated phases to run after the build (of "
+        f"{', '.join(PHASES)}); prints no kernels or result line")
+    opts = parser.parse_args(argv)
+    only = None if opts.only is None else opts.only.split(",")
+    if only and set(only) - set(PHASES):
+        fail(f"unknown phases {sorted(set(only) - set(PHASES))}")
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs an "
              "NVIDIA GPU")
@@ -1979,6 +2294,12 @@ def main() -> None:
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     t0 = time.perf_counter()
     phase_build()
+    if only:
+        for name in only:
+            globals()[f"phase_{name}"]("cuda")
+        print(f"phases {', '.join(only)} passed in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        return
     main_err = phase_parity("cuda")
     k1_launches = phase_serve("cuda")
     timings = phase_scale("cuda")
@@ -2002,6 +2323,8 @@ def main() -> None:
     k2 = phase_k2("cuda")
     phase_xla_cli("cuda")
     phase_folded("cuda")
+    phase_widths("cuda")
+    phase_small_cli("cuda")
     k11_ms, k11_plain, k11_work = k11["timings"]["f=4 bf16·poly noise=on"]
     print(f"K11 share of the kernel3 step: {k11_ms / steps['kernel3']:.3f} "
           f"({k11_ms:.4f} of {steps['kernel3']:.4f} ms); K7 share of the "

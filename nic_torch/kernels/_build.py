@@ -19,18 +19,21 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
-__all__ = ["load", "build_seconds"]
+__all__ = ["load", "build_seconds", "source_seconds"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "nic_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 LIB_NAME = "libnic_torch_kernels.so"
+NVCC_TIMEOUT = 600  # seconds one source may take before the build fails
 
 _lib: ctypes.CDLL | None = None
 build_seconds: float | None = None  # wall time of this process's build
+source_seconds: dict = {}  # per source: seconds from the start to its end
 
 
 def _nvcc() -> str:
@@ -115,10 +118,22 @@ def load() -> ctypes.CDLL:
                 for cmd in ([nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o",
                              str(obj), str(src)]
                             for src, obj in zip(sources, objs))]
-        results = []
-        for cmd, proc in jobs:
-            out, err = proc.communicate()
-            results.append((cmd, proc.returncode, out, err))
+
+        def finish(job):  # waits for one nvcc and notes when it ended
+            cmd, proc = job
+            try:
+                out, err = proc.communicate(timeout=NVCC_TIMEOUT)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                out, err = proc.communicate()
+                err += f"\nkilled after {NVCC_TIMEOUT} s\n"
+            return cmd, proc.returncode, out, err, time.perf_counter() - t0
+
+        with ThreadPoolExecutor(len(jobs)) as pool:
+            done = list(pool.map(finish, jobs))
+        results = [r[:4] for r in done]
+        source_seconds.update((src.name, r[4])
+                              for src, r in zip(sources, done))
         tmp = out_dir / f"{LIB_NAME}.{tag}"
         if all(rc == 0 for _, rc, _, _ in results):
             cmd = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
@@ -126,14 +141,19 @@ def load() -> ctypes.CDLL:
             results.append((cmd, proc.returncode, proc.stdout, proc.stderr))
         build_seconds = time.perf_counter() - t0
         (out_dir / "nvcc.log").write_text("".join(
-            " ".join(cmd) + "\n" + out + err for cmd, _, out, err in results))
+            " ".join(cmd) + "\n" + out + err for cmd, _, out, err in results)
+            + "".join(f"{name}: {sec:.1f} s\n"
+                      for name, sec in source_seconds.items()))
         for obj in objs:
             obj.unlink(missing_ok=True)
         failed = [(cmd, rc, err) for cmd, rc, _, err in results if rc != 0]
         if failed:
             cmd, rc, err = failed[0]
-            raise RuntimeError(f"nvcc failed ({rc}) building {lib_path}: "
-                               f"{' '.join(cmd)}\n" + err[-4000:])
+            raise RuntimeError(
+                f"nvcc failed ({rc}) building {lib_path}: {' '.join(cmd)}\n"
+                + err[-4000:] + "\nseconds per source: "
+                + ", ".join(f"{name} {sec:.1f}"
+                            for name, sec in source_seconds.items()))
         os.replace(tmp, lib_path)  # atomic: a reader never sees half a file
     _lib = _declare(ctypes.CDLL(str(lib_path)))
     return _lib

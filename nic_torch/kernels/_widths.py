@@ -1,0 +1,98 @@
+"""The hidden widths the CUDA kernels are built for, and the zero padding
+that runs any narrower width on them.
+
+Each CUDA source instantiates its kernels for a few hidden widths H (the
+``.cu`` files dispatch on exactly these). A model whose H lies between
+two of them runs at the next one up: the wrapper zero-pads the hidden
+axis, launches, and slices the results back. The padding is exact:
+
+- a padded unit gets zero first-layer weights (W1 columns, b1, the
+  folded P/C1 planes or volumes), so its z1 is 0;
+- its outgoing weights (W2 rows, W3 rows) are zero, so whatever its
+  activation (the poly GELU gives 6.06e-6 at 0) adds exactly 0
+  downstream, and W2's zero columns and b2 keep its second-layer unit at
+  0 as well;
+- in the backward its dz2 and dz1 are exactly 0, so it adds nothing to
+  the real units' gradients, and its own gradients are sliced off;
+- the counter-hash feature noise indexes (pixel, feature), never H, so
+  the noise stream is unchanged.
+
+A width that is already instantiated passes through untouched: no copy
+and no launch (the flagship's H = 64). Feature counts F have no bound in
+any kernel (the ``.cu`` files stage what fits in shared memory and read
+the rest from device memory).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+__all__ = ["KERNEL_WIDTHS", "kernel_width", "pad_hidden", "pad_mlp",
+           "unpad", "unpad_all"]
+
+# hidden widths each CUDA source instantiates, by the wrapper family
+KERNEL_WIDTHS = {
+    "decode_v2": (16, 64, 128),   # K1 and K5, csrc/decode_fused_v2.cu
+    "decode_z1mm": (64, 128),     # K2, csrc/decode_z1mm.cu
+    "decode_v1": (16, 64, 128),   # K3, csrc/decode_fused.cu
+    "decode_v3": (16, 64, 128),   # K4, csrc/decode_fused_v3.cu
+    "train_ff": (64,),            # K11, csrc/train_fused_ff.cu
+    "train_ff3": (64, 128),       # K12, csrc/train_fused_ff3.cu
+    "train_mlp": (64, 128),       # K6, K7, K9, csrc/train_fused.cu
+}
+
+
+def kernel_width(family: str, hidden: int) -> int:
+    """The instantiated width that runs hidden width ``hidden`` for the
+    kernels of ``family`` (a key of :data:`KERNEL_WIDTHS`): the smallest
+    one ≥ ``hidden``. Raises ValueError past the widest."""
+    widths = KERNEL_WIDTHS[family]
+    fits = [w for w in widths if 1 <= hidden <= w]
+    if fits:
+        return fits[0]
+    raise ValueError(f"the {family} CUDA kernels are built for hidden "
+                     f"widths {widths} (narrower ones are zero-padded to "
+                     f"the next), not {hidden}")
+
+
+def pad_hidden(t: torch.Tensor | None, width: int, dims=(-1,)):
+    """``t`` zero-padded at the end of each axis in ``dims`` to ``width``
+    (the hidden axes), or ``t`` itself when they already have it."""
+    if t is None:
+        return None
+    pad = [0] * (2 * t.dim())
+    for d in dims:
+        d = d % t.dim()
+        pad[2 * (t.dim() - 1 - d) + 1] = width - t.shape[d]
+    if not any(pad):
+        return t
+    return F.pad(t, pad)
+
+
+def pad_mlp(w1, b1, w2, b2, w3, b3, width: int) -> tuple:
+    """The MLP's parameters with the hidden axis zero-padded to ``width``:
+    W1 [F, H] columns, b1, W2 [H, H] rows and columns, b2, W3 [H, 3]
+    rows; b3 as it is. ``w1``/``b1`` may be None (kernels that take the
+    first layer folded)."""
+    return (pad_hidden(w1, width), pad_hidden(b1, width),
+            pad_hidden(w2, width, (0, 1)), pad_hidden(b2, width),
+            pad_hidden(w3, width, (0,)), b3)
+
+
+def unpad(t: torch.Tensor | None, hidden: int, dims=(-1,)):
+    """``t`` sliced back to the first ``hidden`` entries of each axis in
+    ``dims`` (a view; ``t`` itself when nothing was padded)."""
+    if t is None:
+        return None
+    idx = [slice(None)] * t.dim()
+    for d in dims:
+        idx[d] = slice(0, hidden)
+    return t[tuple(idx)] if any(t.shape[d] != hidden for d in dims) else t
+
+
+def unpad_all(outs, hidden: int, dims) -> tuple:
+    """Each of ``outs`` sliced back by :func:`unpad` along its entry of
+    ``dims`` (None: kept as it is, for values without a hidden axis)."""
+    return tuple(t if d is None else unpad(t, hidden, d)
+                 for t, d in zip(outs, dims))

@@ -14,6 +14,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+// Loops over the hidden width unroll fully up to H = 64, where the arrays
+// they index stay in registers. At H = 128 they stay loops (those arrays
+// live in local memory, and the H = 128 kernels are slow): fully unrolled,
+// their straight-line code would take ptxas longer than a build may.
+#ifndef NIC_UNROLL_H
+#define NIC_PRAGMA(x) _Pragma(#x)
+#define NIC_UNROLL_H(n) NIC_PRAGMA(unroll (H > 64 ? 1 : (n)))
+#endif
+
 namespace nic_decode {
 
 enum Gelu { kExact = 0, kTanh, kQuick, kPoly, kErfPoly, kTanhErf };
@@ -139,6 +148,17 @@ struct TailSmem {
   float b3[3];
 };
 
+// at H = 128 W2 (64 KB) would pass the 48 KB of static shared memory a
+// block may hold: the tail reads it from device memory, [in=k][out=j],
+// through L1 (every thread reads the same weight at the same time)
+template <>
+struct TailSmem<128> {
+  const float* w2;
+  float b2[128];
+  float w3[128 * 3];
+  float b3[3];
+};
+
 // all threads of the block take part; the caller synchronises after
 template <int H>
 __device__ __forceinline__ void stage_tail(TailSmem<H>& s,
@@ -146,14 +166,31 @@ __device__ __forceinline__ void stage_tail(TailSmem<H>& s,
                                            const float* __restrict__ b2,
                                            const float* __restrict__ w3,
                                            const float* __restrict__ b3) {
-  float* w2t = reinterpret_cast<float*>(s.w2t);
-  for (int i = threadIdx.x; i < H * H; i += blockDim.x) {
-    const int k = i / H, j = i % H;  // w2 is [in=k][out=j]
-    w2t[j * H + k] = w2[i];
+  if constexpr (H > 64) {
+    if (threadIdx.x == 0) s.w2 = w2;
+  } else {
+    float* w2t = reinterpret_cast<float*>(s.w2t);
+    for (int i = threadIdx.x; i < H * H; i += blockDim.x) {
+      const int k = i / H, j = i % H;  // w2 is [in=k][out=j]
+      w2t[j * H + k] = w2[i];
+    }
   }
   for (int i = threadIdx.x; i < H * 3; i += blockDim.x) s.w3[i] = w3[i];
   for (int i = threadIdx.x; i < H; i += blockDim.x) s.b2[i] = b2[i];
   if (threadIdx.x < 3) s.b3[threadIdx.x] = b3[threadIdx.x];
+}
+
+// W2[4 k4 .. 4 k4 + 3][j]
+template <int H>
+__device__ __forceinline__ float4 w2_quad(const TailSmem<H>& s, int j,
+                                          int k4) {
+  if constexpr (H > 64) {
+    const float* c = s.w2 + static_cast<size_t>(4 * k4) * H + j;
+    return make_float4(__ldg(c), __ldg(c + H), __ldg(c + 2 * H),
+                       __ldg(c + 3 * H));
+  } else {
+    return s.w2t[j * (H / 4) + k4];
+  }
 }
 
 // gelu of a first-layer preactivation, as the second dot's input: rounded
@@ -174,11 +211,10 @@ __device__ __forceinline__ void mlp_head(const float (&h)[H],
   float o0 = 0.0f, o1 = 0.0f, o2 = 0.0f;
 #pragma unroll 2
   for (int j = 0; j < H; ++j) {
-    const float4* wj = s.w2t + j * (H / 4);
     float s0 = 0.0f, s1 = 0.0f;
-#pragma unroll
+NIC_UNROLL_H(H / 4)
     for (int k4 = 0; k4 < H / 4; ++k4) {
-      const float4 w = wj[k4];
+      const float4 w = w2_quad<H>(s, j, k4);
       s0 = fmaf(h[4 * k4], w.x, s0);
       s1 = fmaf(h[4 * k4 + 1], w.y, s1);
       s0 = fmaf(h[4 * k4 + 2], w.z, s0);
@@ -199,10 +235,13 @@ __device__ __forceinline__ void mlp_head(const float (&h)[H],
 template <int H, int G, bool kDotBf16>
 __device__ __forceinline__ void mlp_tail(float (&z)[H], const TailSmem<H>& s,
                                          float* __restrict__ o) {
-#pragma unroll
+NIC_UNROLL_H(H)
   for (int k = 0; k < H; ++k) z[k] = first_act<G, kDotBf16>(z[k]);
   mlp_head<H, G, kDotBf16>(z, s, o);
 }
+
+// the largest shared memory a block may use (227 KB)
+constexpr size_t kMaxSmem = 232448;
 
 // a kernel whose static and dynamic shared memory together pass 48 KB must
 // say so before its launch

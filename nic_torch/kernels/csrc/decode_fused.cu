@@ -23,7 +23,10 @@
 // Design: one thread per pixel; a block is 128 columns, its threads
 // walking `rows` rows (fused_rows_per_block, the JAX block picker). W1 and
 // b1 (dynamic shared memory, F x H fp32) and K1's tail weights are staged
-// once per block. The feature row never exists: each feature is formed in
+// once per block; any F runs: where F x H does not fit in shared memory
+// (F > 838 at H = 64), W1 rows are read from device memory through L1.
+// Built for H = 16, 64 and 128; the wrapper zero-pads other widths up to
+// the next of them (nic_torch/kernels/_widths.py). The feature row never exists: each feature is formed in
 // a register and folded into the H first-layer sums at once, so neither x
 // nor the feature matrix reaches device memory (the whole point of v1).
 // The grids are read in their [C, S, S] layout through L2 (neighbouring
@@ -50,14 +53,13 @@ namespace {
 using namespace nic_decode;
 
 constexpr int THREADS = 128;
-constexpr int MAX_F = 128;
 
 // one decoder-input feature into the H first-layer sums
 template <int H, bool kBf16>
 __device__ __forceinline__ void feed(float x, const float4* __restrict__ wf,
                                      float (&z)[H]) {
   if (kBf16) x = bf16_round(x);
-#pragma unroll
+NIC_UNROLL_H(H / 4)
   for (int k4 = 0; k4 < H / 4; ++k4) {
     const float4 w = wf[k4];
     z[4 * k4] = fmaf(x, w.x, z[4 * k4]);
@@ -92,16 +94,20 @@ decode_fused_v1_kernel(const T* __restrict__ g0, const T* __restrict__ g1,
                        const float* __restrict__ w3,
                        const float* __restrict__ b3, float* __restrict__ out,
                        int n, int nch, int s0, int s1, int e, int pe, int tri,
-                       float pe_scale, float lod, int rows) {
+                       float pe_scale, float lod, int rows, int w1_smem) {
   constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
   extern __shared__ __align__(16) unsigned char dyn[];
-  const float4* sw1 = reinterpret_cast<const float4*>(dyn);  // [F][H/4]
   __shared__ TailSmem<H> sm;
   __shared__ float sb1[H];
   const int nfeat = 5 * nch + 2 * pe + 1;
+  // W1 [F][H/4] in shared memory, or read from device memory when it did
+  // not fit there (the launch gives no dynamic shared memory then)
+  const float4* sw1 = w1_smem ? reinterpret_cast<const float4*>(dyn)
+                              : reinterpret_cast<const float4*>(w1);
   stage_tail<H>(sm, w2, b2, w3, b3);
-  for (int i = threadIdx.x; i < nfeat * H; i += THREADS)
-    reinterpret_cast<float*>(dyn)[i] = w1[i];
+  if (w1_smem)
+    for (int i = threadIdx.x; i < nfeat * H; i += THREADS)
+      reinterpret_cast<float*>(dyn)[i] = w1[i];
   for (int i = threadIdx.x; i < H; i += THREADS) sb1[i] = b1[i];
   __syncthreads();
 
@@ -113,7 +119,7 @@ decode_fused_v1_kernel(const T* __restrict__ g0, const T* __restrict__ g1,
     const int r = blockIdx.y * rows + rr;
     if (r >= n) return;
     float z[H];
-#pragma unroll
+NIC_UNROLL_H(H)
     for (int k = 0; k < H; ++k) z[k] = 0.0f;
     const float4* wf = sw1;
 
@@ -165,7 +171,7 @@ decode_fused_v1_kernel(const T* __restrict__ g0, const T* __restrict__ g1,
       feed<H, kBf16>(pe_value(v, p, pe, tri, pe_scale), wf, z);
     feed<H, kBf16>(lod, wf, z);
 
-#pragma unroll
+NIC_UNROLL_H(H)
     for (int k = 0; k < H; ++k) z[k] += sb1[k];
     mlp_tail<H, kExact, kBf16>(z, sm,
                                out + (static_cast<size_t>(r) * n + c) * 3);
@@ -178,14 +184,19 @@ int launch(const void* g0, const void* g1, const float* w1, const float* b1,
            float* out, int n, int nch, int s0, int s1, int e, int pe,
            int tri, float pe_scale, float lod, int rows,
            cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(5 * nch + 2 * pe + 1) * H * 4;
   const auto kernel = decode_fused_v1_kernel<H, T>;
-  const cudaError_t err = allow_dynamic_smem(kernel, smem);
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t w1_bytes = static_cast<size_t>(5 * nch + 2 * pe + 1) * H * 4;
+  const int w1_smem = w1_bytes + attr.sharedSizeBytes <= kMaxSmem;
+  const size_t smem = w1_smem ? w1_bytes : 0;
+  err = allow_dynamic_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((n + THREADS - 1) / THREADS, (n + rows - 1) / rows);
   kernel<<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(g0), static_cast<const T*>(g1), w1, b1, w2, b2,
-      w3, b3, out, n, nch, s0, s1, e, pe, tri, pe_scale, lod, rows);
+      w3, b3, out, n, nch, s0, s1, e, pe, tri, pe_scale, lod, rows, w1_smem);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -202,7 +213,7 @@ extern "C" int nic_decode_fused_v1(const void* g0, const void* g1,
                                    float lod, int rows, int bf16,
                                    void* stream) {
   if (n <= 0 || nch <= 0 || pe < 0 || rows <= 0 || e < -30 || e > 30 ||
-      5 * nch + 2 * pe + 1 > MAX_F || (n + rows - 1) / rows > 65535)
+      (n + rows - 1) / rows > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const auto* fw1 = static_cast<const float*>(w1);
   const auto* fb1 = static_cast<const float*>(b1);
@@ -219,6 +230,8 @@ extern "C" int nic_decode_fused_v1(const void* g0, const void* g1,
   if (hidden == 64 && bf16) NIC_V1(64, __nv_bfloat16);
   if (hidden == 16 && !bf16) NIC_V1(16, float);
   if (hidden == 16 && bf16) NIC_V1(16, __nv_bfloat16);
+  if (hidden == 128 && !bf16) NIC_V1(128, float);
+  if (hidden == 128 && bf16) NIC_V1(128, __nv_bfloat16);
 #undef NIC_V1
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -39,6 +39,10 @@
 // tile), which leaves the GELUs and the plane reads as the bound, and then
 // stage the plane rows through shared memory with TMA.
 //
+// Built for H = 16, 64 and 128 (at 128 the tail reads W2 from device
+// memory, decode_common.cuh); the wrapper zero-pads other widths up to the
+// next of them (nic_torch/kernels/_widths.py).
+//
 // The GELUs, the plane modes, the plane-row loads and the MLP tail live in
 // decode_common.cuh, shared with K2 (decode_z1mm.cu, this kernel with its
 // z1 build replaced), K3 (decode_fused.cu) and K4 (decode_fused_v3.cu).
@@ -93,7 +97,7 @@ decode_fused_v2_kernel(const typename Types<MODE>::Plane* __restrict__ pc,
 
     // first layer: z1 -> gelu, kept in registers
     float h[H];
-#pragma unroll
+NIC_UNROLL_H(H)
     for (int k0 = 0; k0 < H; k0 += 8) {
       float p[8], a[8], b[8], e[8];
       load8(prow + k0, p);
@@ -177,6 +181,7 @@ int decode(const void* pc, const void* c1v, const void* peu, const void* w2,
   switch (hidden) {
     case 16: ok = dispatch_mode<16>(mode, gelu_id, a); break;
     case 64: ok = dispatch_mode<64>(mode, gelu_id, a); break;
+    case 128: ok = dispatch_mode<128>(mode, gelu_id, a); break;
   }
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());

@@ -67,7 +67,7 @@ mlp_tail_kernel(const TA* __restrict__ acc, const float* __restrict__ w2,
     const long long p = q0 + threadIdx.x;
     if (base + threadIdx.x < block && p < npix) {
       float z[H];
-#pragma unroll
+NIC_UNROLL_H(H)
       for (int k0 = 0; k0 < H; k0 += 8)
         load8(stage + threadIdx.x * (H + 4) + k0, z + k0);
       mlp_tail<H, kExact, kDotBf16>(z, sm, out + p * 3);
@@ -117,6 +117,10 @@ extern "C" int nic_mlp_tail(const void* acc, const void* w2, const void* b2,
   NIC_TAIL(16, float, true);
   NIC_TAIL(16, __nv_bfloat16, false);
   NIC_TAIL(16, __nv_bfloat16, true);
+  NIC_TAIL(128, float, false);
+  NIC_TAIL(128, float, true);
+  NIC_TAIL(128, __nv_bfloat16, false);
+  NIC_TAIL(128, __nv_bfloat16, true);
 #undef NIC_TAIL
   return static_cast<int>(cudaErrorInvalidValue);
 }

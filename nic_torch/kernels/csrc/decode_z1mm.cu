@@ -61,14 +61,14 @@ decode_z1mm_f32_kernel(const float* __restrict__ pc,
   for (int rl = 0; rl < R; ++rl) {
     const int r = t * R + rl;
     float h[H];
-#pragma unroll
+NIC_UNROLL_H(H)
     for (int k = 0; k < H; ++k) h[k] = 0.0f;
     for (int j = 0; j < K; ++j) {
       const float a = sa[rl * K + j];
       const float* row =
           j < kp ? pc + (static_cast<size_t>(t * kp + j) * ncl + c) * H
                  : c1v + (static_cast<size_t>(t * m + j - kp) * ncl + c) * H;
-#pragma unroll
+NIC_UNROLL_H(H)
       for (int k0 = 0; k0 < H; k0 += 8) {
         float v[8];
         load8(row + k0, v);
@@ -78,7 +78,7 @@ decode_z1mm_f32_kernel(const float* __restrict__ pc,
     }
     const float* prow = pc + (static_cast<size_t>(r) * ncl + c) * H;
     const float* erow = peu + static_cast<size_t>(r) * H;
-#pragma unroll
+NIC_UNROLL_H(H)
     for (int k0 = 0; k0 < H; k0 += 8) {
       float p[8], e[8];
       load8(erow + k0, e);
@@ -208,7 +208,7 @@ decode_z1mm_bf16_kernel(const __nv_bfloat16* __restrict__ pc,
   const __nv_bfloat16* prow = pc + (static_cast<size_t>(r) * ncl + c) * H;
   const __nv_bfloat16* erow = peu + static_cast<size_t>(r) * H;
   float h[H];
-#pragma unroll
+NIC_UNROLL_H(H)
   for (int k0 = 0; k0 < H; k0 += 8) {
     float p[8], e[8];
     load8(zr + k0, h + k0);
@@ -255,16 +255,16 @@ cudaError_t launch_z1mm(const Z1Args& a) {
   return cudaSuccess;
 }
 
-template <int MODE>
+template <int H, int MODE>
 int dispatch_z1mm_gelu(int gelu_id, const Z1Args& a) {
   cudaError_t err;
   switch (gelu_id) {
-    case kExact: err = launch_z1mm<64, MODE, kExact>(a); break;
-    case kTanh: err = launch_z1mm<64, MODE, kTanh>(a); break;
-    case kQuick: err = launch_z1mm<64, MODE, kQuick>(a); break;
-    case kPoly: err = launch_z1mm<64, MODE, kPoly>(a); break;
-    case kErfPoly: err = launch_z1mm<64, MODE, kErfPoly>(a); break;
-    case kTanhErf: err = launch_z1mm<64, MODE, kTanhErf>(a); break;
+    case kExact: err = launch_z1mm<H, MODE, kExact>(a); break;
+    case kTanh: err = launch_z1mm<H, MODE, kTanh>(a); break;
+    case kQuick: err = launch_z1mm<H, MODE, kQuick>(a); break;
+    case kPoly: err = launch_z1mm<H, MODE, kPoly>(a); break;
+    case kErfPoly: err = launch_z1mm<H, MODE, kErfPoly>(a); break;
+    case kTanhErf: err = launch_z1mm<H, MODE, kTanhErf>(a); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -275,8 +275,8 @@ int dispatch_z1mm_gelu(int gelu_id, const Z1Args& a) {
 
 // K2: one nr x ncl image; pc [nr/f][ncl][H], c1v [nr/f1 + 1][ncl][H],
 // peu [nr][H], amat [R][K] fp32 (kp of its columns over P rows, the rest
-// over C1v rows) -> out [nr][ncl][3]; H = 64, plane modes fp32, bf16 and
-// surgical
+// over C1v rows) -> out [nr][ncl][3]; H = 64 or 128 (a narrower model is
+// zero-padded to 64 by the wrapper), plane modes fp32, bf16 and surgical
 extern "C" int nic_decode_z1mm(const void* pc, const void* c1v,
                                const void* peu, const void* amat,
                                const void* w2, const void* b2,
@@ -284,8 +284,8 @@ extern "C" int nic_decode_z1mm(const void* pc, const void* c1v,
                                int nr, int ncl, int hidden, int R, int K,
                                int kp, int m, int add_p, int mode,
                                int gelu_id, void* stream) {
-  if (hidden != 64 || nr <= 0 || ncl <= 0 || R < 8 || (R & (R - 1)) ||
-      nr % R || K <= 0 || kp < 0 || kp > K || R * K > MAX_A ||
+  if ((hidden != 64 && hidden != 128) || nr <= 0 || ncl <= 0 || R < 8 ||
+      (R & (R - 1)) || nr % R || K <= 0 || kp < 0 || kp > K || R * K > MAX_A ||
       (mode == kBF16 && K > 16) || nr / R > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const Z1Args a{pc, c1v, peu,
@@ -294,11 +294,15 @@ extern "C" int nic_decode_z1mm(const void* pc, const void* c1v,
                  static_cast<const float*>(w3), static_cast<const float*>(b3),
                  static_cast<float*>(out), nr, ncl, R, K, kp, m, add_p,
                  static_cast<cudaStream_t>(stream)};
-  switch (mode) {
-    case kF32: return dispatch_z1mm_gelu<kF32>(gelu_id, a);
-    case kBF16: return dispatch_z1mm_gelu<kBF16>(gelu_id, a);
-    case kSurgical: return dispatch_z1mm_gelu<kSurgical>(gelu_id, a);
+#define NIC_Z1MM(H)                                              \
+  switch (mode) {                                                \
+    case kF32: return dispatch_z1mm_gelu<H, kF32>(gelu_id, a);   \
+    case kBF16: return dispatch_z1mm_gelu<H, kBF16>(gelu_id, a); \
+    case kSurgical:                                              \
+      return dispatch_z1mm_gelu<H, kSurgical>(gelu_id, a);       \
   }
+  if (hidden == 64) { NIC_Z1MM(64) } else { NIC_Z1MM(128) }
+#undef NIC_Z1MM
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

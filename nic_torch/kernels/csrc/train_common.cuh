@@ -1,9 +1,12 @@
 // Device code shared by the train kernels (train_fused_ff.cu, kernel3 in
 // 2D; train_fused_ff3.cu, kernel3 in 3D; train_fused.cu, the dx and
 // node-gradient kernels): bf16 rounding of dot inputs, the GELU pair and
-// its derivative, the counter-hash feature noise, kernel3's per-pixel MLP
-// tail (ff_tail) and eps^T dz1 kernel (ff_epsgrad), and the per-crop
-// node-window (2D) and node-volume (3D) reductions of dz1.
+// its derivative, the counter-hash feature noise, W1 rows staged in shared
+// memory or read from device memory, kernel3's per-pixel MLP tail on the
+// CUDA cores (ff_tail) and, for bf16 dots, on the tensor cores
+// (ff_tail_mma, with noise_mma and the mma.sync/ldmatrix wrappers), the
+// eps^T dz1 kernel (ff_epsgrad), and the per-crop node-window (2D) and
+// node-volume (3D) reductions of dz1.
 //
 // Everything here sits in an anonymous namespace: each source that
 // includes it gets its own copy (the __constant__ tables included), so the
@@ -14,6 +17,15 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+// Loops over the hidden width unroll fully up to H = 64, where the arrays
+// they index stay in registers. At H = 128 they stay loops (those arrays
+// live in local memory, and the H = 128 kernels are slow): fully unrolled,
+// their straight-line code would take ptxas longer than a build may.
+#ifndef NIC_UNROLL_H
+#define NIC_PRAGMA(x) _Pragma(#x)
+#define NIC_UNROLL_H(n) NIC_PRAGMA(unroll (H > 64 ? 1 : (n)))
+#endif
 
 namespace {
 
@@ -102,6 +114,122 @@ __device__ __forceinline__ float eps_uniform(uint32_t ctr, uint32_t s0,
   return (__uint_as_float((x >> 9) | 0x3F800000u) - 1.5f) * scale;
 }
 
+// The largest dynamic shared memory a block may use (227 KB), and the W1
+// rule of the train kernels: W1 [F][H] is staged in shared memory, rounded
+// to the dot type, when it fits beside the kernel's other tiles; otherwise
+// its rows are read from device memory through L1 (every thread of a block
+// reads the same row at the same time) and rounded as they arrive.
+constexpr size_t kMaxSmem = 232448;
+
+// acc[h] += x * W[h] over one W1 row (16-byte aligned): staged (kGlobal
+// false) or read from device memory and rounded here (kGlobal true)
+template <int H, bool BF16, bool kGlobal>
+__device__ __forceinline__ void fma_row(float (&acc)[H], float x,
+                                        const float* row) {
+  const float4* wr = reinterpret_cast<const float4*>(row);
+NIC_UNROLL_H(H / 4)
+  for (int h4 = 0; h4 < H / 4; ++h4) {
+    float4 w;
+    if (kGlobal) {
+      w = __ldg(wr + h4);
+      w = make_float4(cd<BF16>(w.x), cd<BF16>(w.y), cd<BF16>(w.z),
+                      cd<BF16>(w.w));
+    } else {
+      w = wr[h4];
+    }
+    acc[4 * h4] = fmaf(x, w.x, acc[4 * h4]);
+    acc[4 * h4 + 1] = fmaf(x, w.y, acc[4 * h4 + 1]);
+    acc[4 * h4 + 2] = fmaf(x, w.z, acc[4 * h4 + 2]);
+    acc[4 * h4 + 3] = fmaf(x, w.w, acc[4 * h4 + 3]);
+  }
+}
+
+// v . W over one W1 row, in four interleaved partial sums
+template <int H, bool BF16, bool kGlobal>
+__device__ __forceinline__ float dot_row(const float (&v)[H],
+                                         const float* row) {
+  const float4* wr = reinterpret_cast<const float4*>(row);
+  float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f, s3 = 0.0f;
+NIC_UNROLL_H(H / 4)
+  for (int h4 = 0; h4 < H / 4; ++h4) {
+    float4 w;
+    if (kGlobal) {
+      w = __ldg(wr + h4);
+      w = make_float4(cd<BF16>(w.x), cd<BF16>(w.y), cd<BF16>(w.z),
+                      cd<BF16>(w.w));
+    } else {
+      w = wr[h4];
+    }
+    s0 = fmaf(v[4 * h4], w.x, s0);
+    s1 = fmaf(v[4 * h4 + 1], w.y, s1);
+    s2 = fmaf(v[4 * h4 + 2], w.z, s2);
+    s3 = fmaf(v[4 * h4 + 3], w.w, s3);
+  }
+  return (s0 + s1) + (s2 + s3);
+}
+
+// z1 += eps_j W1[j] over the pixel's nfeat features (kernel3's feature
+// noise; eps from the counter hash at ctr0 + j, rounded to the dot type)
+template <int H, bool BF16, bool kGlobal>
+__device__ __forceinline__ void noise_rows(float (&z1)[H], const float* w1,
+                                           int nfeat, uint32_t ctr0,
+                                           uint32_t s0, uint32_t s1,
+                                           float scale) {
+  for (int j = 0; j < nfeat; ++j) {
+    const float e = cd<BF16>(
+        eps_uniform(ctr0 + static_cast<uint32_t>(j), s0, s1, scale));
+    fma_row<H, BF16, kGlobal>(z1, e, w1 + static_cast<size_t>(j) * H);
+  }
+}
+
+// W1 staged in shared memory (rounded), or nothing when it stays in
+// device memory; every thread of the block takes part
+template <bool BF16>
+__device__ __forceinline__ void stage_w1(float* sW1, const float* w1, int n,
+                                         bool staged) {
+  if (staged)
+    for (int i = threadIdx.x; i < n; i += blockDim.x) sW1[i] = cd<BF16>(w1[i]);
+}
+
+// block sums of dW3 = h2b^T dz3b (rows 0..H-1 of the loop, from the
+// staged h2b [H][LDP] and dz3b [3][LDP]), db3 from the raw dz3 (rows H..H+2)
+// and the loss (row H+3), set on the block's first tile and added to
+// after it; a thread takes rows tid, tid + TP, ...
+template <int H>
+__device__ __forceinline__ void tail_w3_sums(const float* sB, const float* sD,
+                                             float* mypart, bool first,
+                                             float inv_total) {
+  for (int row = threadIdx.x; row < H + 4; row += TP) {
+    if (row < H) {
+      float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f;
+      for (int p = 0; p < TP; p += 4) {
+        const float4 hv = *reinterpret_cast<const float4*>(sB + row * LDP + p);
+        const float4 d0 = *reinterpret_cast<const float4*>(sD + 0 * LDP + p);
+        const float4 d1 = *reinterpret_cast<const float4*>(sD + 1 * LDP + p);
+        const float4 d2 = *reinterpret_cast<const float4*>(sD + 2 * LDP + p);
+        a0 += hv.x * d0.x + hv.y * d0.y + hv.z * d0.z + hv.w * d0.w;
+        a1 += hv.x * d1.x + hv.y * d1.y + hv.z * d1.z + hv.w * d1.w;
+        a2 += hv.x * d2.x + hv.y * d2.y + hv.z * d2.z + hv.w * d2.w;
+      }
+      float* dst = mypart + 4 + row * 3;
+      dst[0] = first ? a0 : dst[0] + a0;
+      dst[1] = first ? a1 : dst[1] + a1;
+      dst[2] = first ? a2 : dst[2] + a2;
+    } else {
+      const int r = row - H;  // 0..2: db3[c] from raw dz3; 3: loss
+      const float* src = sD + (r < 3 ? 3 + r : 6) * LDP;
+      float a = 0.0f;
+      for (int p = 0; p < TP; p += 4) {
+        const float4 v = *reinterpret_cast<const float4*>(src + p);
+        a += (v.x + v.y) + (v.z + v.w);
+      }
+      if (r == 3) a *= inv_total;
+      float* dst = mypart + (r < 3 ? 1 + r : 0);
+      dst[0] = first ? a : dst[0] + a;
+    }
+  }
+}
+
 // kernel3's per-pixel MLP tail, from z1 (in registers) to dz1: the
 // forward z2 = gelu(z1)b W2 + b2, out = sigmoid(gelu(z2)b W3 + b3), the
 // squared error, and the backward dz3, dz2, dz1 (written to device memory
@@ -125,14 +253,14 @@ __device__ __forceinline__ void ff_tail(
   float lossv = 0.0f;
   if (valid) {
     // layer 2: z2 = h1b W2 + b2, h1b staged for dW2
-#pragma unroll
+NIC_UNROLL_H(H)
     for (int j = 0; j < H; ++j) z2[j] = 0.0f;
-#pragma unroll
+NIC_UNROLL_H(H)
     for (int k = 0; k < H; ++k) {
       const float hk = cd<BF16>(gelu_f<G>(z1[k]));
       sA[k * LDP + tid] = hk;
       const float4* wr = reinterpret_cast<const float4*>(sW2 + k * H);
-#pragma unroll
+NIC_UNROLL_H(H / 4)
       for (int j4 = 0; j4 < H / 4; ++j4) {
         const float4 w = wr[j4];
         z2[4 * j4] = fmaf(hk, w.x, z2[4 * j4]);
@@ -143,7 +271,7 @@ __device__ __forceinline__ void ff_tail(
     }
     // layer 3, sigmoid, loss and dz3
     float o3[3] = {0.0f, 0.0f, 0.0f};
-#pragma unroll
+NIC_UNROLL_H(H)
     for (int j = 0; j < H; ++j) {
       z2[j] += sb2[j];
       const float h2 = cd<BF16>(gelu_f<G>(z2[j]));
@@ -162,14 +290,14 @@ __device__ __forceinline__ void ff_tail(
       dz3b[c] = cd<BF16>(dz3[c]);
     }
     // dz2 = (dz3b W3^T) * gelu'(z2), in place of z2
-#pragma unroll
+NIC_UNROLL_H(H)
     for (int j = 0; j < H; ++j) {
       const float dh2 = dz3b[0] * sW3[j * 3 + 0] + dz3b[1] * sW3[j * 3 + 1] +
                         dz3b[2] * sW3[j * 3 + 2];
       z2[j] = dh2 * gelu_d<G>(z2[j]);
     }
   } else {
-#pragma unroll
+NIC_UNROLL_H(H)
     for (int k = 0; k < H; ++k) {
       sA[k * LDP + tid] = 0.0f;
       sB[k * LDP + tid] = 0.0f;
@@ -184,45 +312,18 @@ __device__ __forceinline__ void ff_tail(
   sD[6 * LDP + tid] = lossv;
   __syncthreads();
 
-  // block sums of dW3 = h2b^T dz3b, db3, loss
-  if (tid < H) {
-    float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f;
-    for (int p = 0; p < TP; p += 4) {
-      const float4 hv = *reinterpret_cast<const float4*>(sB + tid * LDP + p);
-      const float4 d0 = *reinterpret_cast<const float4*>(sD + 0 * LDP + p);
-      const float4 d1 = *reinterpret_cast<const float4*>(sD + 1 * LDP + p);
-      const float4 d2 = *reinterpret_cast<const float4*>(sD + 2 * LDP + p);
-      a0 += hv.x * d0.x + hv.y * d0.y + hv.z * d0.z + hv.w * d0.w;
-      a1 += hv.x * d1.x + hv.y * d1.y + hv.z * d1.z + hv.w * d1.w;
-      a2 += hv.x * d2.x + hv.y * d2.y + hv.z * d2.z + hv.w * d2.w;
-    }
-    float* dst = mypart + 4 + tid * 3;
-    dst[0] = first ? a0 : dst[0] + a0;
-    dst[1] = first ? a1 : dst[1] + a1;
-    dst[2] = first ? a2 : dst[2] + a2;
-  } else if (tid < H + 4) {
-    const int row = tid - H;  // 0..2: db3[c] from raw dz3; 3: loss
-    const float* src = sD + (row < 3 ? 3 + row : 6) * LDP;
-    float a = 0.0f;
-    for (int p = 0; p < TP; p += 4) {
-      const float4 v = *reinterpret_cast<const float4*>(src + p);
-      a += (v.x + v.y) + (v.z + v.w);
-    }
-    if (row == 3) a *= inv_total;
-    float* dst = mypart + (row < 3 ? 1 + row : 0);
-    dst[0] = first ? a : dst[0] + a;
-  }
+  tail_w3_sums<H>(sB, sD, mypart, first, inv_total);
   __syncthreads();
 
   // raw dz2 to sB (dW2, db2), then dh1 = dz2b W2^T and dz1 = dh1 gelu'(z1)
-#pragma unroll
+NIC_UNROLL_H(H)
   for (int j = 0; j < H; ++j) {
     sB[j * LDP + tid] = z2[j];
     z2[j] = cd<BF16>(z2[j]);
   }
   if (valid) {
     float* drow = dz1 + pix * H;
-#pragma unroll
+NIC_UNROLL_H(H / 4)
     for (int k4 = 0; k4 < H / 4; ++k4) {
       float d[4];
 #pragma unroll
@@ -230,7 +331,7 @@ __device__ __forceinline__ void ff_tail(
         const int k = 4 * k4 + q;
         const float4* wr = reinterpret_cast<const float4*>(sW2 + k * H);
         float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f, s3 = 0.0f;
-#pragma unroll
+NIC_UNROLL_H(H / 4)
         for (int j4 = 0; j4 < H / 4; ++j4) {
           const float4 w = wr[j4];
           s0 = fmaf(z2[4 * j4], w.x, s0);
@@ -255,7 +356,7 @@ __device__ __forceinline__ void ff_tail(
     if (kg < H) {
       float acc[KPT][4];
       float bsum[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-#pragma unroll
+NIC_UNROLL_H(KPT)
       for (int m = 0; m < KPT; ++m)
 #pragma unroll
         for (int jj = 0; jj < 4; ++jj) acc[m][jj] = 0.0f;
@@ -268,7 +369,7 @@ __device__ __forceinline__ void ff_tail(
           bv[jj] = make_float4(cd<BF16>(bv[jj].x), cd<BF16>(bv[jj].y),
                                cd<BF16>(bv[jj].z), cd<BF16>(bv[jj].w));
         }
-#pragma unroll
+NIC_UNROLL_H(KPT)
         for (int m = 0; m < KPT; ++m) {
           const float4 av =
               *reinterpret_cast<const float4*>(sA + (kg + KG * m) * LDP + p);
@@ -285,7 +386,7 @@ __device__ __forceinline__ void ff_tail(
       }
       float* dW2 = mypart + 4 + 4 * H;
       float* db2 = mypart + 4 + 3 * H;
-#pragma unroll
+NIC_UNROLL_H(KPT)
       for (int m = 0; m < KPT; ++m)
 #pragma unroll
         for (int jj = 0; jj < 4; ++jj) {
@@ -303,6 +404,278 @@ __device__ __forceinline__ void ff_tail(
   __syncthreads();
 }
 
+// ---- tensor-core pieces (bf16 inputs, fp32 accumulators) ----------------
+
+constexpr int MT = 256;   // threads of a tensor-core block: 8 warps x 16 pixels
+constexpr int LDB = 72;   // bf16 row stride of the tensor-core tiles: 144 B,
+                          // so ldmatrix rows are 16-byte aligned and the
+                          // 8 rows of a matrix hit distinct banks
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// d += a b: one m16n8k16 product, bf16 inputs, fp32 accumulators
+__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// four transposed 8x8 bf16 matrices from shared memory; lane l gives the
+// address of row l % 8 of matrix l / 8
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              const __nv_bfloat16* p) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a)
+      : "memory");
+}
+
+// The tensor-core layout of kernel3's bf16-dot tail: a warp owns 16
+// pixels of the 128-pixel tile (rows 16 warp + g and + 8, g = lane / 4) and
+// holds a [16][64] activation as the m16n8k16 accumulator of eight n-tiles,
+// v[nt][e]: pixel row g (e < 2) or g + 8 (e >= 2), unit 8 nt + 2 (lane % 4)
+// + (e & 1). Two neighbouring n-tiles of that layout are the A operand of
+// the next product, so z1 -> h1 -> z2 and dz2 -> dh1 stay in registers.
+
+// z1 += eps W1 over kernel3's feature noise for the warp's 16 pixels (the
+// accumulator layout above): A is the counter-hash eps, rounded to bf16,
+// built in registers (pixel row r at counter ctr[r] + feature, zero past
+// nfeat and for invalid rows); B is W1^T, bf16 [64][ldk] in shared memory,
+// or (kGlobal) W1 [F][64] fp32 in device memory rounded as it is read
+template <bool kGlobal>
+__device__ __forceinline__ void noise_mma(float (&z1)[8][4],
+                                          const __nv_bfloat16* sW1t, int ldk,
+                                          const float* __restrict__ w1,
+                                          int nfeat, const uint32_t (&ctr)[2],
+                                          const bool (&valid)[2], uint32_t s0,
+                                          uint32_t s1, float scale) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+  auto eps = [&](int r, int j) -> float {
+    return (valid[r] && j < nfeat)
+               ? eps_uniform(ctr[r] + static_cast<uint32_t>(j), s0, s1, scale)
+               : 0.0f;
+  };
+  auto w1g = [&](int k, int n) -> float {
+    return k < nfeat ? __ldg(w1 + static_cast<size_t>(k) * 64 + n) : 0.0f;
+  };
+  for (int k0 = 0; k0 < nfeat; k0 += 16) {
+    const int c = k0 + 2 * q;
+    const uint32_t a[4] = {pack_bf16(eps(0, c), eps(0, c + 1)),
+                           pack_bf16(eps(1, c), eps(1, c + 1)),
+                           pack_bf16(eps(0, c + 8), eps(0, c + 9)),
+                           pack_bf16(eps(1, c + 8), eps(1, c + 9))};
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const int n = 8 * nt + g;
+      uint32_t b0, b1;
+      if (kGlobal) {
+        b0 = pack_bf16(w1g(c, n), w1g(c + 1, n));
+        b1 = pack_bf16(w1g(c + 8, n), w1g(c + 9, n));
+      } else {
+        const __nv_bfloat16* w = sW1t + n * ldk + c;
+        b0 = ld_u32(w);
+        b1 = ld_u32(w + 8);
+      }
+      mma16816(z1[nt], a, b0, b1);
+    }
+  }
+}
+
+// shared memory of the tensor-core tail
+struct TailMma {
+  float* sB;                  // h2b [64][LDP] fp32, for dW3
+  float* sD;                  // dz3b, dz3, loss [7][LDP]
+  float* sDb2;                // the warps' db2 sums [8][64]
+  __nv_bfloat16* sH1;         // h1b [128][LDB], for dW2
+  __nv_bfloat16* sDZ;         // dz2b [128][LDB], for dW2
+  const __nv_bfloat16* sW2t;  // W2^T [64 (out j)][LDB]
+  const __nv_bfloat16* sW2;   // W2 [64 (in k)][LDB]
+  const float* sW3;           // [64][3], bf16 values
+  const float* sb2;
+  const float* sb3;
+};
+
+// ff_tail in bf16-dot mode on the tensor cores, H = 64, for a block of MT
+// threads and a tile of TP = 128 pixels: from z1 (the accumulator layout
+// above) to dz1 (written for the valid pixels, rows pix[r] of [N, 64]).
+// z2 = h1b W2 and dh1 = dz2b W2^T are m16n8k16 products with A in
+// registers; dW2 = h1b^T dz2b over the tile is one with both operands
+// staged in shared memory (ldmatrix.trans), added to the warp's slice
+// dw2 (units 16 (warp / 2).., outputs 32 (warp % 2)..) in registers, which
+// the caller writes once. The GELUs, the 64 -> 3 layer, the sigmoid, the
+// loss and dh2 = dz3b W3^T stay on the CUDA cores; the block's partial
+// sums of loss, dW3, db3 (tail_w3_sums) and db2 (per warp by shuffles,
+// then over the warps in order) are set on its first tile and added to
+// after it. Every sum runs in a fixed order. All threads call it (it
+// synchronises).
+template <int G>
+__device__ __forceinline__ void ff_tail_mma(
+    float (&z1)[8][4], const bool (&valid)[2], const size_t (&pix)[2],
+    const TailMma& s, const float* __restrict__ tgt, float* __restrict__ out,
+    float* __restrict__ dz1, float* mypart, bool first, float inv_total,
+    float (&dw2)[4][4]) {
+  constexpr int H = 64;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, q = lane & 3;
+  const int row[2] = {16 * warp + g, 16 * warp + g + 8};
+
+  // h1b = bf16(gelu(z1)): z2's A operand, and staged for dW2
+  uint32_t ah[4][4];
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+    const uint32_t lo = pack_bf16(gelu_f<G>(z1[nt][0]), gelu_f<G>(z1[nt][1]));
+    const uint32_t hi = pack_bf16(gelu_f<G>(z1[nt][2]), gelu_f<G>(z1[nt][3]));
+    *reinterpret_cast<uint32_t*>(s.sH1 + row[0] * LDB + 8 * nt + 2 * q) = lo;
+    *reinterpret_cast<uint32_t*>(s.sH1 + row[1] * LDB + 8 * nt + 2 * q) = hi;
+    ah[nt >> 1][(nt & 1) * 2] = lo;
+    ah[nt >> 1][(nt & 1) * 2 + 1] = hi;
+  }
+  // z2 = h1b W2 + b2
+  float z2[8][4];
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+    z2[nt][0] = z2[nt][1] = z2[nt][2] = z2[nt][3] = 0.0f;
+#pragma unroll
+    for (int kb = 0; kb < 4; ++kb) {
+      const __nv_bfloat16* w = s.sW2t + (8 * nt + g) * LDB + 16 * kb + 2 * q;
+      mma16816(z2[nt], ah[kb], ld_u32(w), ld_u32(w + 8));
+    }
+  }
+  // layer 3 (this thread's 16 units of its two pixels, then the quad's sum)
+  float o3[2][3] = {{0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f}};
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int j = 8 * nt + 2 * q + (e & 1), r = e >> 1;
+      z2[nt][e] += s.sb2[j];
+      const float h2 = bf16_round(gelu_f<G>(z2[nt][e]));
+      s.sB[j * LDP + row[r]] = h2;
+#pragma unroll
+      for (int c = 0; c < 3; ++c)
+        o3[r][c] = fmaf(h2, s.sW3[j * 3 + c], o3[r][c]);
+    }
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      o3[r][c] += __shfl_xor_sync(0xffffffffu, o3[r][c], 1);
+      o3[r][c] += __shfl_xor_sync(0xffffffffu, o3[r][c], 2);
+    }
+  // sigmoid, loss and dz3 per pixel (the quad's threads alike)
+  float dz3b[2][3];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float lossv = 0.0f;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      float dz3 = 0.0f;
+      if (valid[r]) {
+        const float ov = 1.0f / (1.0f + expf(-(o3[r][c] + s.sb3[c])));
+        if (q == 0) out[pix[r] * 3 + c] = ov;
+        const float diff = ov - tgt[pix[r] * 3 + c];
+        lossv = fmaf(diff, diff, lossv);
+        dz3 = (2.0f * inv_total) * diff * ov * (1.0f - ov);
+      }
+      dz3b[r][c] = bf16_round(dz3);
+      if (q == 0) {
+        s.sD[c * LDP + row[r]] = dz3b[r][c];
+        s.sD[(3 + c) * LDP + row[r]] = dz3;
+      }
+    }
+    if (q == 0) s.sD[6 * LDP + row[r]] = lossv;
+  }
+  // dz2 = (dz3b W3^T) gelu'(z2); db2 over the warp's pixels; dz2b: dh1's
+  // A operand, and staged for dW2
+  uint32_t ad[4][4];
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int j = 8 * nt + 2 * q + (e & 1), r = e >> 1;
+      const float dh2 = dz3b[r][0] * s.sW3[j * 3 + 0] +
+                        dz3b[r][1] * s.sW3[j * 3 + 1] +
+                        dz3b[r][2] * s.sW3[j * 3 + 2];
+      z2[nt][e] = dh2 * gelu_d<G>(z2[nt][e]);
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float b = z2[nt][i] + z2[nt][2 + i];
+      b += __shfl_xor_sync(0xffffffffu, b, 4);
+      b += __shfl_xor_sync(0xffffffffu, b, 8);
+      b += __shfl_xor_sync(0xffffffffu, b, 16);
+      if (g == 0) s.sDb2[warp * H + 8 * nt + 2 * q + i] = b;
+    }
+    const uint32_t lo = pack_bf16(z2[nt][0], z2[nt][1]);
+    const uint32_t hi = pack_bf16(z2[nt][2], z2[nt][3]);
+    *reinterpret_cast<uint32_t*>(s.sDZ + row[0] * LDB + 8 * nt + 2 * q) = lo;
+    *reinterpret_cast<uint32_t*>(s.sDZ + row[1] * LDB + 8 * nt + 2 * q) = hi;
+    ad[nt >> 1][(nt & 1) * 2] = lo;
+    ad[nt >> 1][(nt & 1) * 2 + 1] = hi;
+  }
+  // dh1 = dz2b W2^T, dz1 = dh1 gelu'(z1) to device memory
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+    float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+    for (int kb = 0; kb < 4; ++kb) {
+      const __nv_bfloat16* w = s.sW2 + (8 * nt + g) * LDB + 16 * kb + 2 * q;
+      mma16816(d, ad[kb], ld_u32(w), ld_u32(w + 8));
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      if (valid[r])
+        *reinterpret_cast<float2*>(dz1 + pix[r] * H + 8 * nt + 2 * q) =
+            make_float2(d[2 * r] * gelu_d<G>(z1[nt][2 * r]),
+                        d[2 * r + 1] * gelu_d<G>(z1[nt][2 * r + 1]));
+  }
+  __syncthreads();
+
+  // the block's sums of loss, dW3, db3 (threads 0..67) and db2 (128..191)
+  tail_w3_sums<H>(s.sB, s.sD, mypart, first, inv_total);
+  if (tid >= 128 && tid < 128 + H) {
+    const int j = tid - 128;
+    float a = 0.0f;
+    for (int w = 0; w < MT / 32; ++w) a += s.sDb2[w * H + j];
+    float* dst = mypart + 4 + 3 * H + j;
+    *dst = first ? a : *dst + a;
+  }
+  // dW2 += h1b^T dz2b over the tile's 128 pixels, the warp's slice
+  {
+    const int mt = warp >> 1, nb = (warp & 1) * 4;
+    const int i = lane >> 3, rr = lane & 7;
+#pragma unroll
+    for (int ks = 0; ks < TP / 16; ++ks) {
+      uint32_t a[4];
+      ldsm_x4_trans(a, s.sH1 + (16 * ks + 8 * (i >> 1) + rr) * LDB + 16 * mt +
+                           8 * (i & 1));
+#pragma unroll
+      for (int np = 0; np < 2; ++np) {
+        uint32_t b[4];
+        ldsm_x4_trans(b, s.sDZ + (16 * ks + 8 * (i & 1) + rr) * LDB +
+                             8 * (nb + 2 * np + (i >> 1)));
+        mma16816(dw2[2 * np], a, b[0], b[1]);
+        mma16816(dw2[2 * np + 1], a, b[2], b[3]);
+      }
+    }
+  }
+  __syncthreads();
+}
+
 // Geometry of the feature noise: npix pixels, nfeat features in slots of
 // fslot (counter = (pixel + pixel_base) * fslot + feature), amplitude
 // eps_scale = 2^-bits (0: no noise).
@@ -314,80 +687,88 @@ struct NoiseGeo {
 
 // eps^T dz1, per-block partials [nblk][nfeat][H], the eps stream
 // regenerated from the counter hash (kernel3 with feature noise; dz1
-// rounded to the dot type, as the JAX kernel's dot takes it). MAXF bounds
-// nfeat.
-template <int H, bool BF16, int MAXF>
+// rounded to the dot type, as the JAX kernel's dot takes it). The features
+// go in passes of PASS (one pass when nfeat <= PASS): each pass walks the
+// block's tiles again, so any nfeat fits the same registers and shared
+// memory.
+template <int H, bool BF16, int PASS>
 __global__ void __launch_bounds__(TP, 2)
 ff_epsgrad(const float* __restrict__ dz1, float* __restrict__ part,
            NoiseGeo g) {
   extern __shared__ float4 smem4[];
   float* sZ = reinterpret_cast<float*>(smem4);  // dz1b [H][LDP]
-  float* sE = sZ + H * LDP;                     // eps [fslot][LDP]
+  float* sE = sZ + H * LDP;                     // eps [PASS][LDP]
   constexpr int JQ = H / 4;                     // h = jq + JQ*hh
   constexpr int KG = TP / JQ;                   // feature j = kg + KG*m
-  constexpr int JPT = (MAXF + KG - 1) / KG;
+  constexpr int JPT = (PASS + KG - 1) / KG;
   const int tid = threadIdx.x;
   const int jq = tid % JQ, kg = tid / JQ;
-  float acc[JPT][4];
-#pragma unroll
-  for (int m = 0; m < JPT; ++m)
-#pragma unroll
-    for (int hh = 0; hh < 4; ++hh) acc[m][hh] = 0.0f;
+  float* mypart = part + static_cast<size_t>(blockIdx.x) * g.nfeat * H;
   const int tiles = (g.npix + TP - 1) / TP;
-  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const int pix = tile * TP + tid;
-    if (pix < g.npix) {
-      const float* drow = dz1 + static_cast<size_t>(pix) * H;
-      for (int h = 0; h < H; ++h) sZ[h * LDP + tid] = cd<BF16>(drow[h]);
-      const uint32_t ctr0 = (static_cast<uint32_t>(pix) + g.pixel_base) *
-                            static_cast<uint32_t>(g.fslot);
-      for (int j = 0; j < g.nfeat; ++j)
-        sE[j * LDP + tid] = cd<BF16>(eps_uniform(
-            ctr0 + static_cast<uint32_t>(j), g.s0, g.s1, g.eps_scale));
-    } else {
-      for (int h = 0; h < H; ++h) sZ[h * LDP + tid] = 0.0f;
-      for (int j = 0; j < g.nfeat; ++j) sE[j * LDP + tid] = 0.0f;
-    }
-    __syncthreads();
-    for (int p = 0; p < TP; p += 4) {
-      float4 zv[4];
+  for (int j0 = 0; j0 < g.nfeat; j0 += PASS) {
+    const int nf = min(PASS, g.nfeat - j0);
+    float acc[JPT][4];
+NIC_UNROLL_H(JPT)
+    for (int m = 0; m < JPT; ++m)
 #pragma unroll
-      for (int hh = 0; hh < 4; ++hh)
-        zv[hh] = *reinterpret_cast<const float4*>(sZ + (jq + JQ * hh) * LDP + p);
+      for (int hh = 0; hh < 4; ++hh) acc[m][hh] = 0.0f;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int pix = tile * TP + tid;
+      if (pix < g.npix) {
+        const float* drow = dz1 + static_cast<size_t>(pix) * H;
+        for (int h = 0; h < H; ++h) sZ[h * LDP + tid] = cd<BF16>(drow[h]);
+        const uint32_t ctr0 = (static_cast<uint32_t>(pix) + g.pixel_base) *
+                                  static_cast<uint32_t>(g.fslot) +
+                              static_cast<uint32_t>(j0);
+        for (int j = 0; j < nf; ++j)
+          sE[j * LDP + tid] = cd<BF16>(eps_uniform(
+              ctr0 + static_cast<uint32_t>(j), g.s0, g.s1, g.eps_scale));
+      } else {
+        for (int h = 0; h < H; ++h) sZ[h * LDP + tid] = 0.0f;
+        for (int j = 0; j < nf; ++j) sE[j * LDP + tid] = 0.0f;
+      }
+      __syncthreads();
+      for (int p = 0; p < TP; p += 4) {
+        float4 zv[4];
 #pragma unroll
-      for (int m = 0; m < JPT; ++m) {
-        const int j = kg + KG * m;
-        if (j < g.nfeat) {
-          const float4 ev = *reinterpret_cast<const float4*>(sE + j * LDP + p);
+        for (int hh = 0; hh < 4; ++hh)
+          zv[hh] =
+              *reinterpret_cast<const float4*>(sZ + (jq + JQ * hh) * LDP + p);
+NIC_UNROLL_H(JPT)
+        for (int m = 0; m < JPT; ++m) {
+          const int j = kg + KG * m;
+          if (j < nf) {
+            const float4 ev = *reinterpret_cast<const float4*>(sE + j * LDP + p);
 #pragma unroll
-          for (int hh = 0; hh < 4; ++hh) {
-            float a = acc[m][hh];
-            a = fmaf(ev.x, zv[hh].x, a);
-            a = fmaf(ev.y, zv[hh].y, a);
-            a = fmaf(ev.z, zv[hh].z, a);
-            a = fmaf(ev.w, zv[hh].w, a);
-            acc[m][hh] = a;
+            for (int hh = 0; hh < 4; ++hh) {
+              float a = acc[m][hh];
+              a = fmaf(ev.x, zv[hh].x, a);
+              a = fmaf(ev.y, zv[hh].y, a);
+              a = fmaf(ev.z, zv[hh].z, a);
+              a = fmaf(ev.w, zv[hh].w, a);
+              acc[m][hh] = a;
+            }
           }
         }
       }
+      __syncthreads();
     }
-    __syncthreads();
-  }
-  float* mypart = part + static_cast<size_t>(blockIdx.x) * g.nfeat * H;
+NIC_UNROLL_H(JPT)
+    for (int m = 0; m < JPT; ++m) {
+      const int j = kg + KG * m;
+      if (j < nf)
 #pragma unroll
-  for (int m = 0; m < JPT; ++m) {
-    const int j = kg + KG * m;
-    if (j < g.nfeat)
-#pragma unroll
-      for (int hh = 0; hh < 4; ++hh) mypart[j * H + jq + JQ * hh] = acc[m][hh];
+        for (int hh = 0; hh < 4; ++hh)
+          mypart[(j0 + j) * H + jq + JQ * hh] = acc[m][hh];
+    }
   }
 }
 
-template <int H, bool BF16, int MAXF>
+template <int H, bool BF16, int PASS>
 cudaError_t launch_epsgrad(const float* dz1, float* part, const NoiseGeo& g,
                            int nblk, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (H * LDP + g.fslot * LDP);
-  auto kern = ff_epsgrad<H, BF16, MAXF>;
+  const size_t smem = sizeof(float) * (H * LDP + PASS * LDP);
+  auto kern = ff_epsgrad<H, BF16, PASS>;
   const cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (e != cudaSuccess) return e;

@@ -56,10 +56,17 @@
 // Design: weights in shared memory, read by every thread at once
 // (broadcast); activations and cotangents staged per tile as [unit][pixel]
 // columns (stride 132 floats, conflict-free); ~146 KB of shared memory at
-// F = 73 and ~190 KB at the 3D F = 127 (F <= 128, under the 227 KB
-// opt-in), so one block of 128 threads per SM, whose 64-wide register
-// rows give each thread independent FMA chains. dW1 = x^T dz1 is reduced
-// in passes of 80 features, so the wider F adds a pass, not registers.
+// F = 73 and ~190 KB at the 3D F = 127 (under the 227 KB opt-in), so one
+// block of 128 threads per SM, whose 64-wide register rows give each
+// thread independent FMA chains. dW1 = x^T dz1 is reduced in passes of 80
+// features, so the wider F adds a pass, not registers.
+// Widths: H = 64 and H = 128 are built (a narrower model is zero-padded to
+// 64 by the wrapper, nic_torch/kernels/_widths.py), and any F runs. Where
+// x's slab and W1 do not both fit in shared memory (F > 183 at H = 64, any
+// F > 24 at H = 128, whose W2 and staging tiles take 202 KB), W1 rows are
+// read from device memory through L1 and x is staged in chunks of as many
+// features as fit (mlp_layout), staged again for the dW1 sums and used
+// chunk by chunk for dx.
 //
 // The entry points do not synchronise, allocate nothing, and return
 // cudaGetLastError().
@@ -68,10 +75,113 @@
 
 namespace {
 
+// fc: the features of x staged per pass (fc < feat: x is staged in
+// chunks, again for the dW1 sums and dx); w1_smem: W1 staged in shared
+// memory (else read from device memory)
 struct Shape {
-  int npix, feat, write_dx;
+  int npix, feat, write_dx, fc, w1_smem;
   float inv_total;
 };
+
+// z1 += xb W1 over the staged chunk of nf features starting at j0
+template <int H, bool BF16, bool kGlobal>
+__device__ __forceinline__ void z1_chunk(float (&z1)[H], const float* sX,
+                                         const float* w1, int j0, int nf) {
+  for (int j = 0; j < nf; ++j)
+    fma_row<H, BF16, kGlobal>(z1, sX[j * LDP + threadIdx.x],
+                              w1 + static_cast<size_t>(j0 + j) * H);
+}
+
+// dx for the chunk's nf features (dz1b . W1 row) into sX
+template <int H, bool BF16, bool kGlobal>
+__device__ __forceinline__ void dx_chunk(const float (&db)[H], float* sX,
+                                         const float* w1, int j0, int nf) {
+  for (int j = 0; j < nf; ++j)
+    sX[j * LDP + threadIdx.x] =
+        dot_row<H, BF16, kGlobal>(db, w1 + static_cast<size_t>(j0 + j) * H);
+}
+
+// block sums of dW1 = xb^T dz1b over the nc staged features c0.. of x
+// (sX) and, with the first chunk, db1 from the raw dz1 (sB): thread owns
+// h = jq + JQ*hh (hh < 4) and feature j = j0 + kg + KG*m (m < JPT), in
+// passes of KG*JPT = 80 features (one pass for nc <= 80)
+template <int H>
+__device__ __forceinline__ void dw1_sums(const float* sA, const float* sB,
+                                         const float* sX, float* mypart,
+                                         int c0, int nc, bool first) {
+  constexpr int JQ = H / 4;
+  constexpr int KG = TP / JQ;
+  constexpr int JPT = (80 + KG - 1) / KG;
+  const int tid = threadIdx.x;
+  const int jq = tid % JQ, kg = tid / JQ;
+  float* db1 = mypart + 4 + 4 * H + H * H;
+  float* dW1 = db1 + H;
+  for (int j0 = 0; j0 < nc; j0 += KG * JPT) {
+    float acc[JPT][4];
+    float bsum[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    const bool with_b = kg == 0 && c0 == 0 && j0 == 0;
+NIC_UNROLL_H(JPT)
+    for (int m = 0; m < JPT; ++m)
+#pragma unroll
+      for (int hh = 0; hh < 4; ++hh) acc[m][hh] = 0.0f;
+    for (int p = 0; p < TP; p += 4) {
+      float4 zv[4];
+#pragma unroll
+      for (int hh = 0; hh < 4; ++hh) {
+        zv[hh] = *reinterpret_cast<const float4*>(sA + (jq + JQ * hh) * LDP + p);
+        if (with_b) {
+          const float4 rv =
+              *reinterpret_cast<const float4*>(sB + (jq + JQ * hh) * LDP + p);
+          bsum[hh] += (rv.x + rv.y) + (rv.z + rv.w);
+        }
+      }
+NIC_UNROLL_H(JPT)
+      for (int m = 0; m < JPT; ++m) {
+        const int j = j0 + kg + KG * m;
+        if (j < nc) {
+          const float4 xv = *reinterpret_cast<const float4*>(sX + j * LDP + p);
+#pragma unroll
+          for (int hh = 0; hh < 4; ++hh) {
+            float a = acc[m][hh];
+            a = fmaf(xv.x, zv[hh].x, a);
+            a = fmaf(xv.y, zv[hh].y, a);
+            a = fmaf(xv.z, zv[hh].z, a);
+            a = fmaf(xv.w, zv[hh].w, a);
+            acc[m][hh] = a;
+          }
+        }
+      }
+    }
+NIC_UNROLL_H(JPT)
+    for (int m = 0; m < JPT; ++m) {
+      const int j = j0 + kg + KG * m;
+      if (j < nc)
+#pragma unroll
+        for (int hh = 0; hh < 4; ++hh) {
+          float* dst = dW1 + static_cast<size_t>(c0 + j) * H + jq + JQ * hh;
+          *dst = first ? acc[m][hh] : *dst + acc[m][hh];
+        }
+    }
+    if (with_b)
+#pragma unroll
+      for (int hh = 0; hh < 4; ++hh) {
+        float* dst = db1 + jq + JQ * hh;
+        *dst = first ? bsum[hh] : *dst + bsum[hh];
+      }
+  }
+}
+
+// the tile's x columns [j0, j0 + nf): one [cnt, F] slab, read row by row
+// and staged transposed, rounded to the dot type (zeros past the end)
+template <bool BF16>
+__device__ __forceinline__ void stage_x(float* sX, const float* xt, int F,
+                                        int j0, int nf, int cnt) {
+  for (int i = threadIdx.x; i < TP * nf; i += TP) {
+    const int p = i / nf, j = i - p * nf;
+    sX[j * LDP + p] = p < cnt ? cd<BF16>(xt[static_cast<size_t>(p) * F + j0 + j])
+                              : 0.0f;
+  }
+}
 
 // partial row layout (floats): [loss, db3[3], dW3[H][3], db2[H], dW2[H][H],
 // db1[H], dW1[F][H]]
@@ -84,21 +194,22 @@ mlp_pixel(const float* __restrict__ x, const float* __restrict__ tgt,
           float* __restrict__ out, float* __restrict__ grad_out,
           float* __restrict__ part, Shape s) {
   extern __shared__ float4 smem4[];
-  const int F = s.feat;
+  const int F = s.feat, FC = s.fc;
+  const bool chunked = FC < F;
   float* sA = reinterpret_cast<float*>(smem4);  // h1b, then dz1b [H][LDP]
   float* sB = sA + H * LDP;                     // h2b, dz2, then dz1 [H][LDP]
   float* sD = sB + H * LDP;                     // dz3b, dz3, loss [7][LDP]
-  float* sX = sD + 7 * LDP;                     // xb, then dx [F][LDP]
-  float* sW2 = sX + F * LDP;                    // [H][H] (in, out)
-  float* sW1 = sW2 + H * H;                     // [F][H]
-  float* sW3 = sW1 + F * H;                     // [H][3]
+  float* sX = sD + 7 * LDP;                     // xb, then dx [FC][LDP]
+  float* sW2 = sX + FC * LDP;                   // [H][H] (in, out)
+  float* sW3 = sW2 + H * H;                     // [H][3]
   float* sb1 = sW3 + H * 3;
   float* sb2 = sb1 + H;
   float* sb3 = sb2 + H;                         // [4]
+  float* sW1 = sb3 + 4;                         // [F][H] when staged
 
   const int tid = threadIdx.x;
   for (int i = tid; i < H * H; i += TP) sW2[i] = cd<BF16>(w2[i]);
-  for (int i = tid; i < F * H; i += TP) sW1[i] = cd<BF16>(w1[i]);
+  stage_w1<BF16>(sW1, w1, F * H, s.w1_smem);
   for (int i = tid; i < H * 3; i += TP) sW3[i] = cd<BF16>(w3[i]);
   for (int i = tid; i < H; i += TP) {
     sb1[i] = b1[i];
@@ -114,47 +225,39 @@ mlp_pixel(const float* __restrict__ x, const float* __restrict__ tgt,
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, first = false) {
     const int base = tile * TP;
     const int cnt = min(TP, s.npix - base);
-    // the tile's x rows: one contiguous [cnt, F] slab, read coalesced and
-    // staged transposed, rounded to the dot type (zeros past the end)
     const float* xt = x + static_cast<size_t>(base) * F;
-    for (int i = tid; i < TP * F; i += TP) {
-      const int p = i / F, j = i - p * F;
-      sX[j * LDP + p] = p < cnt ? cd<BF16>(xt[i]) : 0.0f;
-    }
-    __syncthreads();
-
     const bool valid = tid < cnt;
     const int pix = base + tid;
     float z1[H], z2[H];
     float dz3[3] = {0.0f, 0.0f, 0.0f}, dz3b[3] = {0.0f, 0.0f, 0.0f};
     float lossv = 0.0f;
-    if (valid) {
-      // layer 1: z1 = xb W1 + b1
-#pragma unroll
-      for (int h = 0; h < H; ++h) z1[h] = 0.0f;
-      for (int j = 0; j < F; ++j) {
-        const float xj = sX[j * LDP + tid];
-        const float4* wr = reinterpret_cast<const float4*>(sW1 + j * H);
-#pragma unroll
-        for (int h4 = 0; h4 < H / 4; ++h4) {
-          const float4 w = wr[h4];
-          z1[4 * h4] = fmaf(xj, w.x, z1[4 * h4]);
-          z1[4 * h4 + 1] = fmaf(xj, w.y, z1[4 * h4 + 1]);
-          z1[4 * h4 + 2] = fmaf(xj, w.z, z1[4 * h4 + 2]);
-          z1[4 * h4 + 3] = fmaf(xj, w.w, z1[4 * h4 + 3]);
-        }
+    // layer 1: z1 = xb W1 + b1, x staged FC features at a time
+NIC_UNROLL_H(H)
+    for (int h = 0; h < H; ++h) z1[h] = 0.0f;
+    for (int j0 = 0; j0 < F; j0 += FC) {
+      const int nf = min(FC, F - j0);
+      if (j0 > 0) __syncthreads();
+      stage_x<BF16>(sX, xt, F, j0, nf, cnt);
+      __syncthreads();
+      if (valid) {
+        if (s.w1_smem)
+          z1_chunk<H, BF16, false>(z1, sX, sW1, j0, nf);
+        else
+          z1_chunk<H, BF16, true>(z1, sX, w1, j0, nf);
       }
-#pragma unroll
+    }
+    if (valid) {
+NIC_UNROLL_H(H)
       for (int h = 0; h < H; ++h) z1[h] += sb1[h];
       // layer 2: z2 = h1b W2 + b2, h1b staged for dW2
-#pragma unroll
+NIC_UNROLL_H(H)
       for (int j = 0; j < H; ++j) z2[j] = 0.0f;
-#pragma unroll
+NIC_UNROLL_H(H)
       for (int k = 0; k < H; ++k) {
         const float hk = cd<BF16>(gelu_f<G>(z1[k]));
         sA[k * LDP + tid] = hk;
         const float4* wr = reinterpret_cast<const float4*>(sW2 + k * H);
-#pragma unroll
+NIC_UNROLL_H(H / 4)
         for (int j4 = 0; j4 < H / 4; ++j4) {
           const float4 w = wr[j4];
           z2[4 * j4] = fmaf(hk, w.x, z2[4 * j4]);
@@ -165,7 +268,7 @@ mlp_pixel(const float* __restrict__ x, const float* __restrict__ tgt,
       }
       // layer 3, sigmoid, loss and dz3
       float o3[3] = {0.0f, 0.0f, 0.0f};
-#pragma unroll
+NIC_UNROLL_H(H)
       for (int j = 0; j < H; ++j) {
         z2[j] += sb2[j];
         const float h2 = cd<BF16>(gelu_f<G>(z2[j]));
@@ -184,14 +287,14 @@ mlp_pixel(const float* __restrict__ x, const float* __restrict__ tgt,
         dz3b[c] = cd<BF16>(dz3[c]);
       }
       // dz2 = (dz3b W3^T) * gelu'(z2), in place of z2
-#pragma unroll
+NIC_UNROLL_H(H)
       for (int j = 0; j < H; ++j) {
         const float dh2 = dz3b[0] * sW3[j * 3 + 0] + dz3b[1] * sW3[j * 3 + 1] +
                           dz3b[2] * sW3[j * 3 + 2];
         z2[j] = dh2 * gelu_d<G>(z2[j]);
       }
     } else {
-#pragma unroll
+NIC_UNROLL_H(H)
       for (int k = 0; k < H; ++k) {
         sA[k * LDP + tid] = 0.0f;
         sB[k * LDP + tid] = 0.0f;
@@ -207,48 +310,22 @@ mlp_pixel(const float* __restrict__ x, const float* __restrict__ tgt,
     __syncthreads();
 
     // block sums of dW3 = h2b^T dz3b, db3, loss
-    if (tid < H) {
-      float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f;
-      for (int p = 0; p < TP; p += 4) {
-        const float4 hv = *reinterpret_cast<const float4*>(sB + tid * LDP + p);
-        const float4 d0 = *reinterpret_cast<const float4*>(sD + 0 * LDP + p);
-        const float4 d1 = *reinterpret_cast<const float4*>(sD + 1 * LDP + p);
-        const float4 d2 = *reinterpret_cast<const float4*>(sD + 2 * LDP + p);
-        a0 += hv.x * d0.x + hv.y * d0.y + hv.z * d0.z + hv.w * d0.w;
-        a1 += hv.x * d1.x + hv.y * d1.y + hv.z * d1.z + hv.w * d1.w;
-        a2 += hv.x * d2.x + hv.y * d2.y + hv.z * d2.z + hv.w * d2.w;
-      }
-      float* dst = mypart + 4 + tid * 3;
-      dst[0] = first ? a0 : dst[0] + a0;
-      dst[1] = first ? a1 : dst[1] + a1;
-      dst[2] = first ? a2 : dst[2] + a2;
-    } else if (tid < H + 4) {
-      const int row = tid - H;  // 0..2: db3[c] from raw dz3; 3: loss
-      const float* src = sD + (row < 3 ? 3 + row : 6) * LDP;
-      float a = 0.0f;
-      for (int p = 0; p < TP; p += 4) {
-        const float4 v = *reinterpret_cast<const float4*>(src + p);
-        a += (v.x + v.y) + (v.z + v.w);
-      }
-      if (row == 3) a *= s.inv_total;
-      float* dst = mypart + (row < 3 ? 1 + row : 0);
-      dst[0] = first ? a : dst[0] + a;
-    }
+    tail_w3_sums<H>(sB, sD, mypart, first, s.inv_total);
     __syncthreads();
 
     // raw dz2 to sB (dW2, db2), then dz1 = (dz2b W2^T) * gelu'(z1), in
     // place of z1
-#pragma unroll
+NIC_UNROLL_H(H)
     for (int j = 0; j < H; ++j) {
       sB[j * LDP + tid] = z2[j];
       z2[j] = cd<BF16>(z2[j]);
     }
     if (valid) {
-#pragma unroll
+NIC_UNROLL_H(H)
       for (int k = 0; k < H; ++k) {
         const float4* wr = reinterpret_cast<const float4*>(sW2 + k * H);
         float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f, s3 = 0.0f;
-#pragma unroll
+NIC_UNROLL_H(H / 4)
         for (int j4 = 0; j4 < H / 4; ++j4) {
           const float4 w = wr[j4];
           s0 = fmaf(z2[4 * j4], w.x, s0);
@@ -259,7 +336,7 @@ mlp_pixel(const float* __restrict__ x, const float* __restrict__ tgt,
         z1[k] = ((s0 + s1) + (s2 + s3)) * gelu_d<G>(z1[k]);
       }
     } else {
-#pragma unroll
+NIC_UNROLL_H(H)
       for (int k = 0; k < H; ++k) z1[k] = 0.0f;
     }
     __syncthreads();
@@ -274,7 +351,7 @@ mlp_pixel(const float* __restrict__ x, const float* __restrict__ tgt,
       if (kg < H) {
         float acc[KPT][4];
         float bsum[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-#pragma unroll
+NIC_UNROLL_H(KPT)
         for (int m = 0; m < KPT; ++m)
 #pragma unroll
           for (int jj = 0; jj < 4; ++jj) acc[m][jj] = 0.0f;
@@ -287,7 +364,7 @@ mlp_pixel(const float* __restrict__ x, const float* __restrict__ tgt,
             bv[jj] = make_float4(cd<BF16>(bv[jj].x), cd<BF16>(bv[jj].y),
                                  cd<BF16>(bv[jj].z), cd<BF16>(bv[jj].w));
           }
-#pragma unroll
+NIC_UNROLL_H(KPT)
           for (int m = 0; m < KPT; ++m) {
             const float4 av =
                 *reinterpret_cast<const float4*>(sA + (kg + KG * m) * LDP + p);
@@ -304,7 +381,7 @@ mlp_pixel(const float* __restrict__ x, const float* __restrict__ tgt,
         }
         float* dW2 = mypart + 4 + 4 * H;
         float* db2 = mypart + 4 + 3 * H;
-#pragma unroll
+NIC_UNROLL_H(KPT)
         for (int m = 0; m < KPT; ++m)
 #pragma unroll
           for (int jj = 0; jj < 4; ++jj) {
@@ -323,122 +400,95 @@ mlp_pixel(const float* __restrict__ x, const float* __restrict__ tgt,
 
     // dz1b to sA (dW1), raw dz1 to sB (db1); the node-gradient kernel also
     // writes the raw dz1 row to device memory for the window reduction
-#pragma unroll
+NIC_UNROLL_H(H)
     for (int k = 0; k < H; ++k) {
       sA[k * LDP + tid] = cd<BF16>(z1[k]);
       sB[k * LDP + tid] = z1[k];
     }
     if (!s.write_dx && valid) {
       float4* drow = reinterpret_cast<float4*>(grad_out + static_cast<size_t>(pix) * H);
-#pragma unroll
+NIC_UNROLL_H(H / 4)
       for (int k4 = 0; k4 < H / 4; ++k4)
         drow[k4] = make_float4(z1[4 * k4], z1[4 * k4 + 1], z1[4 * k4 + 2],
                                z1[4 * k4 + 3]);
     }
     __syncthreads();
 
-    // block sums of dW1 = xb^T dz1b and db1: thread owns h = jq + JQ*hh
-    // (hh < 4) and feature j = j0 + kg + KG*m (m < JPT), in passes of
-    // KG*JPT = 80 features (one pass for F <= 80, two up to 128)
-    constexpr int JPT = (80 + KG - 1) / KG;
-    for (int j0 = 0; j0 < F; j0 += KG * JPT) {
-      const int jq = tid % JQ, kg = tid / JQ;
-      float acc[JPT][4];
-      float bsum[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-      const bool with_b = kg == 0 && j0 == 0;
-#pragma unroll
-      for (int m = 0; m < JPT; ++m)
-#pragma unroll
-        for (int hh = 0; hh < 4; ++hh) acc[m][hh] = 0.0f;
-      for (int p = 0; p < TP; p += 4) {
-        float4 zv[4];
-#pragma unroll
-        for (int hh = 0; hh < 4; ++hh) {
-          zv[hh] = *reinterpret_cast<const float4*>(sA + (jq + JQ * hh) * LDP + p);
-          if (with_b) {
-            const float4 rv =
-                *reinterpret_cast<const float4*>(sB + (jq + JQ * hh) * LDP + p);
-            bsum[hh] += (rv.x + rv.y) + (rv.z + rv.w);
-          }
-        }
-#pragma unroll
-        for (int m = 0; m < JPT; ++m) {
-          const int j = j0 + kg + KG * m;
-          if (j < F) {
-            const float4 xv = *reinterpret_cast<const float4*>(sX + j * LDP + p);
-#pragma unroll
-            for (int hh = 0; hh < 4; ++hh) {
-              float a = acc[m][hh];
-              a = fmaf(xv.x, zv[hh].x, a);
-              a = fmaf(xv.y, zv[hh].y, a);
-              a = fmaf(xv.z, zv[hh].z, a);
-              a = fmaf(xv.w, zv[hh].w, a);
-              acc[m][hh] = a;
-            }
-          }
-        }
+    // block sums of dW1 = xb^T dz1b and db1, over each staged chunk of x
+    // (the whole slab, still in sX, unless chunked)
+    for (int c0 = 0; c0 < F; c0 += FC) {
+      const int nc = min(FC, F - c0);
+      if (chunked) {
+        __syncthreads();
+        stage_x<BF16>(sX, xt, F, c0, nc, cnt);
+        __syncthreads();
       }
-      float* db1 = mypart + 4 + 4 * H + H * H;
-      float* dW1 = db1 + H;
-#pragma unroll
-      for (int m = 0; m < JPT; ++m) {
-        const int j = j0 + kg + KG * m;
-        if (j < F)
-#pragma unroll
-          for (int hh = 0; hh < 4; ++hh) {
-            float* dst = dW1 + j * H + jq + JQ * hh;
-            *dst = first ? acc[m][hh] : *dst + acc[m][hh];
-          }
-      }
-      if (with_b)
-#pragma unroll
-        for (int hh = 0; hh < 4; ++hh) {
-          float* dst = db1 + jq + JQ * hh;
-          *dst = first ? bsum[hh] : *dst + bsum[hh];
-        }
+      dw1_sums<H>(sA, sB, sX, mypart, c0, nc, first);
     }
 
     if (s.write_dx) {
-      // dx = dz1b W1^T into sX (free once the dW1 sums are read), then one
-      // coalesced write of the tile's [cnt, F] slab
-      __syncthreads();
-      if (valid) {
-        float db[H];
-#pragma unroll
-        for (int h = 0; h < H; ++h) db[h] = cd<BF16>(z1[h]);
-        for (int j = 0; j < F; ++j) {
-          const float4* wr = reinterpret_cast<const float4*>(sW1 + j * H);
-          float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f, s3 = 0.0f;
-#pragma unroll
-          for (int h4 = 0; h4 < H / 4; ++h4) {
-            const float4 w = wr[h4];
-            s0 = fmaf(db[4 * h4], w.x, s0);
-            s1 = fmaf(db[4 * h4 + 1], w.y, s1);
-            s2 = fmaf(db[4 * h4 + 2], w.z, s2);
-            s3 = fmaf(db[4 * h4 + 3], w.w, s3);
-          }
-          sX[j * LDP + tid] = (s0 + s1) + (s2 + s3);
-        }
-      }
-      __syncthreads();
+      // dx = dz1b W1^T into sX (free once the dW1 sums are read), FC
+      // features at a time, each chunk written to the tile's [cnt, F] slab
+      float db[H];
+NIC_UNROLL_H(H)
+      for (int h = 0; h < H; ++h) db[h] = cd<BF16>(z1[h]);
       float* dxt = grad_out + static_cast<size_t>(base) * F;
-      for (int i = tid; i < cnt * F; i += TP) {
-        const int p = i / F, j = i - p * F;
-        dxt[i] = sX[j * LDP + p];
+      for (int c0 = 0; c0 < F; c0 += FC) {
+        const int nc = min(FC, F - c0);
+        __syncthreads();
+        if (valid) {
+          if (s.w1_smem)
+            dx_chunk<H, BF16, false>(db, sX, sW1, c0, nc);
+          else
+            dx_chunk<H, BF16, true>(db, sX, w1, c0, nc);
+        }
+        __syncthreads();
+        for (int i = tid; i < cnt * nc; i += TP) {
+          const int p = i / nc, j = i - p * nc;
+          dxt[static_cast<size_t>(p) * F + c0 + j] = sX[j * LDP + p];
+        }
       }
     }
     __syncthreads();
   }
 }
 
+// shared memory of mlp_pixel for fc staged features of x, with W1 staged
+// when w1_smem: 2 x [H][132] + [7][132] + fc [132] + H^2 + 5H + 4 floats,
+// + F H for W1. The fixed part is 88,960 bytes at H = 64 and 206,976 at
+// H = 128.
+template <int H>
+size_t mlp_smem(int feat, int fc, bool w1_smem) {
+  return sizeof(float) *
+         (2 * H * LDP + 7 * LDP + static_cast<size_t>(fc) * LDP + H * H +
+          5 * H + 4 + (w1_smem ? static_cast<size_t>(feat) * H : 0));
+}
+
+// where x and W1 go: the whole slab of x and W1 in shared memory when both
+// fit (at H = 64 up to F = 183); else W1 from device memory and x in as
+// few chunks as fit (one up to F = 271 at H = 64; 48 features a chunk at
+// H = 128)
+template <int H>
+void mlp_layout(Shape& s) {
+  if (mlp_smem<H>(s.feat, s.feat, true) <= kMaxSmem) {
+    s.fc = s.feat;
+    s.w1_smem = 1;
+    return;
+  }
+  s.w1_smem = 0;
+  const size_t fixed = mlp_smem<H>(s.feat, 0, false);
+  const int fit = static_cast<int>((kMaxSmem - fixed) / (sizeof(float) * LDP));
+  s.fc = s.feat < fit ? s.feat : fit;
+}
+
 template <int H, bool BF16, int G>
 cudaError_t launch_pixel(const float* x, const float* tgt, const float* w1,
                          const float* b1, const float* w2, const float* b2,
                          const float* w3, const float* b3, float* out,
-                         float* grad_out, float* part, const Shape& s,
+                         float* grad_out, float* part, Shape s,
                          int nblk, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (2 * H * LDP + 7 * LDP + s.feat * LDP +
-                                       H * H + s.feat * H + 3 * H + 2 * H + 4);
+  mlp_layout<H>(s);
+  const size_t smem = mlp_smem<H>(s.feat, s.fc, s.w1_smem);
   auto kern = mlp_pixel<H, BF16, G>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -448,27 +498,33 @@ cudaError_t launch_pixel(const float* x, const float* tgt, const float* w1,
   return cudaGetLastError();
 }
 
-cudaError_t dispatch(int bf16, int gelu_id, const float* x, const float* tgt,
+cudaError_t dispatch(int hidden, int bf16, int gelu_id, const float* x,
+                     const float* tgt,
                      const float* w1, const float* b1, const float* w2,
                      const float* b2, const float* w3, const float* b3,
                      float* out, float* grad_out, float* part, const Shape& s,
                      int nblk, cudaStream_t stream) {
-#define NIC_LAUNCH(BF, G)                                                    \
-  return launch_pixel<64, BF, G>(x, tgt, w1, b1, w2, b2, w3, b3, out,       \
-                                 grad_out, part, s, nblk, stream)
-  if (bf16) {
-    if (gelu_id == kErf) NIC_LAUNCH(true, kErf);
-    if (gelu_id == kPoly) NIC_LAUNCH(true, kPoly);
-  } else {
-    if (gelu_id == kErf) NIC_LAUNCH(false, kErf);
-    if (gelu_id == kPoly) NIC_LAUNCH(false, kPoly);
+#define NIC_LAUNCH(H, BF, G)                                                 \
+  return launch_pixel<H, BF, G>(x, tgt, w1, b1, w2, b2, w3, b3, out,        \
+                                grad_out, part, s, nblk, stream)
+#define NIC_WIDTH(H)                                                         \
+  if (bf16) {                                                                \
+    if (gelu_id == kErf) NIC_LAUNCH(H, true, kErf);                          \
+    if (gelu_id == kPoly) NIC_LAUNCH(H, true, kPoly);                        \
+  } else {                                                                   \
+    if (gelu_id == kErf) NIC_LAUNCH(H, false, kErf);                         \
+    if (gelu_id == kPoly) NIC_LAUNCH(H, false, kPoly);                       \
   }
+  if (hidden == 64) { NIC_WIDTH(64) }
+  if (hidden == 128) { NIC_WIDTH(128) }
+#undef NIC_WIDTH
 #undef NIC_LAUNCH
   return cudaErrorInvalidValue;
 }
 
 bool bad_shape(int npix, int feat, int hidden, int nblk) {
-  return npix <= 0 || feat <= 0 || feat > 128 || hidden != 64 || nblk <= 0;
+  return npix <= 0 || feat <= 0 || (hidden != 64 && hidden != 128) ||
+         nblk <= 0;
 }
 
 Shape make_shape(int npix, int feat, int write_dx) {
@@ -495,7 +551,7 @@ extern "C" int nic_train_fused_dx(const void* x, const void* tgt,
     return static_cast<int>(cudaErrorInvalidValue);
   const Shape s = make_shape(npix, feat, 1);
   return static_cast<int>(dispatch(
-      bf16, gelu_id, static_cast<const float*>(x),
+      hidden, bf16, gelu_id, static_cast<const float*>(x),
       static_cast<const float*>(tgt), static_cast<const float*>(w1),
       static_cast<const float*>(b1), static_cast<const float*>(w2),
       static_cast<const float*>(b2), static_cast<const float*>(w3),
@@ -524,17 +580,22 @@ extern "C" int nic_train_fused_ng(const void* x, const void* tgt,
   const Shape s = make_shape(crops * n * n, feat, 0);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t e = dispatch(
-      bf16, gelu_id, static_cast<const float*>(x),
+      hidden, bf16, gelu_id, static_cast<const float*>(x),
       static_cast<const float*>(tgt), static_cast<const float*>(w1),
       static_cast<const float*>(b1), static_cast<const float*>(w2),
       static_cast<const float*>(b2), static_cast<const float*>(w3),
       static_cast<const float*>(b3), static_cast<float*>(out),
       static_cast<float*>(dz1), static_cast<float*>(part), s, nblk, st);
   if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(launch_node_windows<64>(
-      static_cast<const float*>(dz1), static_cast<const int*>(origins),
-      static_cast<float*>(win_p), static_cast<float*>(win_c1),
-      win_geo(crops, n, f), st));
+  const auto* d = static_cast<const float*>(dz1);
+  const auto* o = static_cast<const int*>(origins);
+  const WinGeo w = win_geo(crops, n, f);
+  return static_cast<int>(
+      hidden == 64
+          ? launch_node_windows<64>(d, o, static_cast<float*>(win_p),
+                                    static_cast<float*>(win_c1), w, st)
+          : launch_node_windows<128>(d, o, static_cast<float*>(win_p),
+                                     static_cast<float*>(win_c1), w, st));
 }
 
 // K9 (3D kernel2): as K7 for crops of n^3 voxels (N = crops n^3,
@@ -556,15 +617,20 @@ extern "C" int nic_train_fused_ng3(const void* x, const void* tgt,
   const Shape s = make_shape(crops * n * n * n, feat, 0);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t e = dispatch(
-      bf16, gelu_id, static_cast<const float*>(x),
+      hidden, bf16, gelu_id, static_cast<const float*>(x),
       static_cast<const float*>(tgt), static_cast<const float*>(w1),
       static_cast<const float*>(b1), static_cast<const float*>(w2),
       static_cast<const float*>(b2), static_cast<const float*>(w3),
       static_cast<const float*>(b3), static_cast<float*>(out),
       static_cast<float*>(dz1), static_cast<float*>(part), s, nblk, st);
   if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(launch_node_volumes<64>(
-      static_cast<const float*>(dz1), static_cast<const int*>(origins),
-      static_cast<float*>(win_p), static_cast<float*>(win_c1),
-      vol_geo(crops, n, f), st));
+  const auto* d = static_cast<const float*>(dz1);
+  const auto* o = static_cast<const int*>(origins);
+  const VolGeo v = vol_geo(crops, n, f);
+  return static_cast<int>(
+      hidden == 64
+          ? launch_node_volumes<64>(d, o, static_cast<float*>(win_p),
+                                    static_cast<float*>(win_c1), v, st)
+          : launch_node_volumes<128>(d, o, static_cast<float*>(win_p),
+                                     static_cast<float*>(win_c1), v, st));
 }

@@ -53,6 +53,14 @@
 // = 262,144 voxels ~16 GFLOP with noise, ~0.24 ms of fp32 CUDA cores at 67
 // TFLOP/s, against ~0.2 GB of traffic (dz1 written once, read by B, C, D).
 //
+// Widths: H = 64 and H = 128 are built (a narrower model is zero-padded
+// to the next by the wrapper, nic_torch/kernels/_widths.py), and any F.
+// At H = 128 the staging tiles and W2 take 206,464 bytes of shared memory,
+// so W1 (F = 127: another 65 KB) does not fit beside them: the noise term
+// reads W1's rows from device memory through L1 instead (ff3_smem picks
+// this from F); ff_epsgrad takes the features in passes of 64 there (128
+// at H = 64), any F in both.
+//
 // The entry point does not synchronise, allocates nothing, and returns
 // cudaGetLastError().
 
@@ -62,6 +70,7 @@ namespace {
 
 struct Geo3 {
   int crops, n, f, f1, p_side, c_side, nfeat, fslot, npix;
+  int w1_smem;  // W1 staged in shared memory (else read from device memory)
   float inv_f1, inv_total, eps_scale;
   uint32_t s0, s1, pixel_base;
 };
@@ -91,8 +100,7 @@ ff3_pixel(const float* __restrict__ pv, const float* __restrict__ c1v,
   for (int i = tid; i < H; i += TP) sb2[i] = b2[i];
   if (tid < 3) sb3[tid] = b3[tid];
   const bool noise = g.eps_scale != 0.0f;
-  if (noise)
-    for (int i = tid; i < g.nfeat * H; i += TP) sW1[i] = cd<BF16>(w1[i]);
+  stage_w1<BF16>(sW1, w1, g.nfeat * H, noise && g.w1_smem);
   __syncthreads();
 
   constexpr int PART = 4 + 4 * H + H * H;
@@ -113,24 +121,17 @@ ff3_pixel(const float* __restrict__ pv, const float* __restrict__ c1v,
       const int* o = org + 3 * crop;
       const int S = o[0] + s, A = o[1] + a, B = o[2] + b;
       // eps W1 first (it is added last, as in the JAX kernel)
-#pragma unroll
+NIC_UNROLL_H(H)
       for (int h = 0; h < H; ++h) z1[h] = 0.0f;
       if (noise) {
         const uint32_t ctr0 = (static_cast<uint32_t>(pix) + g.pixel_base) *
                               static_cast<uint32_t>(g.fslot);
-        for (int j = 0; j < g.nfeat; ++j) {
-          const float e = cd<BF16>(eps_uniform(
-              ctr0 + static_cast<uint32_t>(j), g.s0, g.s1, g.eps_scale));
-          const float4* wr = reinterpret_cast<const float4*>(sW1 + j * H);
-#pragma unroll
-          for (int h4 = 0; h4 < H / 4; ++h4) {
-            const float4 w = wr[h4];
-            z1[4 * h4] = fmaf(e, w.x, z1[4 * h4]);
-            z1[4 * h4 + 1] = fmaf(e, w.y, z1[4 * h4 + 1]);
-            z1[4 * h4 + 2] = fmaf(e, w.z, z1[4 * h4 + 2]);
-            z1[4 * h4 + 3] = fmaf(e, w.w, z1[4 * h4 + 3]);
-          }
-        }
+        if (g.w1_smem)
+          noise_rows<H, BF16, false>(z1, sW1, g.nfeat, ctr0, g.s0, g.s1,
+                                     g.eps_scale);
+        else
+          noise_rows<H, BF16, true>(z1, w1, g.nfeat, ctr0, g.s0, g.s1,
+                                    g.eps_scale);
       }
       // C1 taps: nodes S/f1, A/f1, B/f1 and the next ones (clamped; the
       // clamped tap always has weight 0), in-cell fractions u
@@ -151,7 +152,7 @@ ff3_pixel(const float* __restrict__ pv, const float* __restrict__ c1v,
       const float* e0 = pe + (static_cast<size_t>(crop) * n + s) * H;
       const float* e1 = pe + tab + (static_cast<size_t>(crop) * n + a) * H;
       const float* e2 = pe + 2 * tab + (static_cast<size_t>(crop) * n + b) * H;
-#pragma unroll
+NIC_UNROLL_H(H / 4)
       for (int h4 = 0; h4 < H / 4; ++h4) {
         float v[8][4];
 #pragma unroll
@@ -227,11 +228,19 @@ struct Args3 {
   cudaStream_t stream;
 };
 
+// shared memory of ff3_pixel: the staging tiles, W2, W3, b2, b3 and, with
+// noise when it fits, W1 (2 x [H][132] + [7][132] + H^2 + 4H + 4 floats:
+// 88,704 bytes at H = 64, 206,464 at H = 128; W1 adds 4 F H bytes, so it
+// stays in device memory from F = 141 on at H = 64 and F = 51 at H = 128)
+template <int H>
+size_t ff3_smem(int nfeat, bool w1_smem) {
+  return sizeof(float) * (2 * H * LDP + 7 * LDP + H * H + 3 * H + H + 4 +
+                          (w1_smem ? static_cast<size_t>(nfeat) * H : 0));
+}
+
 template <int H, bool BF16, int G>
 cudaError_t launch_all(const Args3& a) {
-  const size_t smem =
-      sizeof(float) * (2 * H * LDP + 7 * LDP + H * H + 3 * H + H + 4 +
-                       (a.nblk_eps > 0 ? a.g.nfeat * H : 0));
+  const size_t smem = ff3_smem<H>(a.g.nfeat, a.g.w1_smem);
   auto kern = ff3_pixel<H, BF16, G>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -257,8 +266,8 @@ cudaError_t launch_all(const Args3& a) {
   ng.s0 = a.g.s0;
   ng.s1 = a.g.s1;
   ng.pixel_base = a.g.pixel_base;
-  return launch_epsgrad<H, BF16, 128>(a.dz1, a.part_eps, ng, a.nblk_eps,
-                                      a.stream);
+  return launch_epsgrad<H, BF16, (H > 64 ? 64 : 128)>(
+      a.dz1, a.part_eps, ng, a.nblk_eps, a.stream);
 }
 
 template <int H, bool BF16>
@@ -289,8 +298,8 @@ extern "C" int nic_train_fused_ff3(
     int fslot, int bf16, int gelu_id, int nbits, int s0, int s1,
     int pixel_base, int nblk_mlp, int nblk_eps, void* stream) {
   if (crops <= 0 || n <= 0 || f <= 0 || p_side <= 0 || c_side <= 0 ||
-      nfeat <= 0 || nfeat > 128 || fslot < nfeat || nblk_mlp <= 0 ||
-      (nbits > 0) != (nblk_eps > 0) || hidden != 64)
+      nfeat <= 0 || fslot < nfeat || nblk_mlp <= 0 ||
+      (nbits > 0) != (nblk_eps > 0) || (hidden != 64 && hidden != 128))
     return static_cast<int>(cudaErrorInvalidValue);
   Geo3 g;
   g.crops = crops;
@@ -308,6 +317,9 @@ extern "C" int nic_train_fused_ff3(
   g.s0 = static_cast<uint32_t>(s0);
   g.s1 = static_cast<uint32_t>(s1);
   g.pixel_base = static_cast<uint32_t>(pixel_base);
+  g.w1_smem = nbits > 0 && (hidden == 64 ? ff3_smem<64>(nfeat, true)
+                                         : ff3_smem<128>(nfeat, true)) <=
+                               kMaxSmem;
   Args3 a;
   a.pv = static_cast<const float*>(p_vol);
   a.c1v = static_cast<const float*>(c1_vol);
@@ -331,7 +343,12 @@ extern "C" int nic_train_fused_ff3(
   a.vol = vol_geo(crops, n, f);
   a.g = g;
   a.stream = static_cast<cudaStream_t>(stream);
-  const cudaError_t e = bf16 ? dispatch_gelu<64, true>(gelu_id, a)
-                             : dispatch_gelu<64, false>(gelu_id, a);
+  cudaError_t e;
+  if (hidden == 64)
+    e = bf16 ? dispatch_gelu<64, true>(gelu_id, a)
+             : dispatch_gelu<64, false>(gelu_id, a);
+  else
+    e = bf16 ? dispatch_gelu<128, true>(gelu_id, a)
+             : dispatch_gelu<128, false>(gelu_id, a);
   return static_cast<int>(e);
 }

@@ -29,14 +29,13 @@ import torch
 
 from nic_torch.grids.pyramid import pyramid_mip_levels
 from nic_torch.grids.sample import decoder_input
+from nic_torch.kernels._widths import kernel_width, pad_mlp
 from nic_torch.kernels.decode_fused_v2 import GELUS, _dot
 from nic_torch.models.mlp import PARAM_NAMES
 
 __all__ = ["decode_image_fused", "fused_rows_per_block", "decode_kernel_v1",
            "decode_kernel_v1_plain"]
 
-_KERNEL_HIDDEN = (16, 64)  # widths the .cu instantiates
-_MAX_FEATURES = 128
 
 
 def fused_rows_per_block(decode_size: int, e: int, channels: int) -> int:
@@ -122,7 +121,9 @@ def decode_kernel_v1(g0, g1, w1, b1, w2, b2, w3, b3, *, e: int, n: int,
     weights in one dtype (fp32 or bf16), ``rows`` rows per CUDA block.
 
     A CUDA tensor launches the hand-written kernel (and raises if it does
-    not build or launch); a CPU tensor runs :func:`decode_kernel_v1_plain`.
+    not build or launch), a hidden width between the instantiated 16, 64
+    and 128 zero-padded to the next, any F; a CPU tensor runs
+    :func:`decode_kernel_v1_plain`.
     ``decode_kernel_v1.launches`` counts kernel launches."""
     kw = dict(e=e, n=n, pe_channels=pe_channels)
     _check(g0, g1, w1, b1, w2, b2, w3, b3, **kw)
@@ -134,10 +135,12 @@ def decode_kernel_v1(g0, g1, w1, b1, w2, b2, w3, b3, *, e: int, n: int,
         raise ValueError(f"decode_kernel_v1 runs on cuda or cpu, not "
                          f"{g0.device}")
     nfeat, hidden = w1.shape
-    if hidden not in _KERNEL_HIDDEN or nfeat > _MAX_FEATURES:
-        raise ValueError(f"the CUDA kernel is built for hidden widths "
-                         f"{_KERNEL_HIDDEN} and ≤ {_MAX_FEATURES} features, "
-                         f"not {hidden} and {nfeat}")
+    width = kernel_width("decode_v1", hidden)
+    if width != hidden:
+        return decode_kernel_v1(g0, g1, *pad_mlp(w1, b1, w2, b2, w3, b3,
+                                                 width),
+                                use_tri_pe=use_tri_pe, mip_level=mip_level,
+                                rows=rows, **kw)
     if rows < 1:
         raise ValueError(f"rows must be positive, not {rows}")
     from nic_torch.kernels import _build

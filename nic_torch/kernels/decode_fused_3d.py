@@ -38,7 +38,8 @@ import torch
 from nic_torch.core.encodings import sinusoidal_pe, triangular_pe
 from nic_torch.grids.fastdecode import (_axis_take_up, fast_decode,
                                         precompute_first_layer)
-from nic_torch.kernels.decode_fused_v2 import (_GELU_IDS, _KERNEL_HIDDEN,
+from nic_torch.kernels._widths import kernel_width
+from nic_torch.kernels.decode_fused_v2 import (_GELU_IDS, _padded_planes,
                                                _check, decode_kernel_2d_plain)
 
 __all__ = ["decode_volume_fused", "decode_kernel_3d", "decode_kernel_3d_plain",
@@ -182,7 +183,9 @@ def decode_kernel_3d(pc, c1v, pe_u, w2, b2, w3, b3, plane_scale=None, *,
     """The per-voxel stage → [T, nr, ncl, 3] fp32.
 
     A CUDA tensor launches ``nic_decode_fused_3d`` (and raises if it does
-    not build or launch); a CPU tensor runs :func:`decode_kernel_3d_plain`.
+    not build or launch), a hidden width between the instantiated 16, 64
+    and 128 zero-padded to the next; a CPU tensor runs
+    :func:`decode_kernel_3d_plain`.
     ``decode_kernel_3d.launches`` counts kernel launches."""
     mode = _check3(pc, c1v, pe_u, w2, b2, w3, b3, plane_scale, f, f1, gelu)
     if pc.device.type == "cpu":
@@ -194,9 +197,10 @@ def decode_kernel_3d(pc, c1v, pe_u, w2, b2, w3, b3, plane_scale=None, *,
     nt = pc.shape[0]
     nr, hidden = pe_u.shape
     ncl = pc.shape[2]
-    if hidden not in _KERNEL_HIDDEN:
-        raise ValueError(f"the CUDA kernel is built for hidden widths "
-                         f"{_KERNEL_HIDDEN}, not {hidden}")
+    width = kernel_width("decode_v2", hidden)
+    if width != hidden:
+        return _padded_planes(decode_kernel_3d, width, pc, c1v, pe_u, w2, b2,
+                              w3, b3, plane_scale, f=f, f1=f1, gelu=gelu)
     if any(t.data_ptr() % 16 for t in (pc, c1v, pe_u)):
         raise ValueError("pc, c1v and pe_u must be 16-byte aligned")
     from nic_torch.kernels import _build

@@ -47,6 +47,7 @@ import torch
 from nic_torch.core.encodings import sinusoidal_pe, triangular_pe
 from nic_torch.grids.fastdecode import (_axis_take_up, fast_decode,
                                         precompute_first_layer)
+from nic_torch.kernels._widths import kernel_width, pad_hidden, pad_mlp
 
 __all__ = ["decode_image_fused_v2", "decode_kernel_2d",
            "decode_kernel_2d_plain", "decode_kernel_z1mm",
@@ -146,6 +147,16 @@ _GELU_IDS = {name: i for i, name in enumerate(GELUS)}  # order of the .cu
 
 # ---- the per-pixel stage: plain version and CUDA wrapper ---------------
 
+def _padded_planes(fn, width: int, pc, c1v, pe_u, w2, b2, w3, b3, *rest,
+                   **kw):
+    """``fn`` (a per-pixel or per-voxel stage) on its planes and tail
+    weights zero-padded along the hidden axis to ``width`` (``_widths``:
+    the padded units add exactly 0 to the output)."""
+    _, _, w2, b2, w3, b3 = pad_mlp(None, None, w2, b2, w3, b3, width)
+    return fn(pad_hidden(pc, width), pad_hidden(c1v, width),
+              pad_hidden(pe_u, width), w2, b2, w3, b3, *rest, **kw)
+
+
 # (plane dtype, dot dtype) → the kernel's plane mode; the row-PE table is
 # stored like the planes in bf16 mode and fp32 otherwise
 _MODES = {
@@ -154,7 +165,6 @@ _MODES = {
     (torch.int16, torch.bfloat16): 2,     # i16
     (torch.float32, torch.bfloat16): 3,   # surgical
 }
-_KERNEL_HIDDEN = (16, 64)  # widths the .cu instantiates
 
 
 def _check(pc, c1v, pe_u, w2, b2, w3, b3, plane_scale, f, f1, gelu) -> int:
@@ -241,8 +251,10 @@ def decode_kernel_2d(pc, c1v, pe_u, w2, b2, w3, b3, plane_scale=None, *,
     """The per-pixel stage → [nr, ncl, 3] fp32.
 
     A CUDA tensor launches the hand-written kernel (and raises if it does
-    not build or launch); a CPU tensor runs :func:`decode_kernel_2d_plain`.
-    ``decode_kernel_2d.launches`` counts kernel launches."""
+    not build or launch), a hidden width between the instantiated 16, 64
+    and 128 zero-padded to the next; a CPU tensor runs
+    :func:`decode_kernel_2d_plain`. ``decode_kernel_2d.launches`` counts
+    kernel launches."""
     mode = _check(pc, c1v, pe_u, w2, b2, w3, b3, plane_scale, f, f1, gelu)
     if pc.device.type == "cpu":
         return decode_kernel_2d_plain(pc, c1v, pe_u, w2, b2, w3, b3,
@@ -252,9 +264,10 @@ def decode_kernel_2d(pc, c1v, pe_u, w2, b2, w3, b3, plane_scale=None, *,
                          f"{pc.device}")
     nr, hidden = pe_u.shape
     ncl = pc.shape[1]
-    if hidden not in _KERNEL_HIDDEN:
-        raise ValueError(f"the CUDA kernel is built for hidden widths "
-                         f"{_KERNEL_HIDDEN}, not {hidden}")
+    width = kernel_width("decode_v2", hidden)
+    if width != hidden:
+        return _padded_planes(decode_kernel_2d, width, pc, c1v, pe_u, w2, b2,
+                              w3, b3, plane_scale, f=f, f1=f1, gelu=gelu)
     if any(t.data_ptr() % 16 for t in (pc, c1v, pe_u)):
         raise ValueError("pc, c1v and pe_u must be 16-byte aligned")
     from nic_torch.kernels import _build
@@ -341,7 +354,8 @@ def decode_kernel_z1mm(pc, c1v, pe_u, w2, b2, w3, b3, *, f: int, f1: int,
 
     A CUDA tensor launches the hand-written kernel (fp32 FMAs for float
     planes, ``mma.sync`` tensor-core tiles for bf16 planes) and raises if
-    it does not build or launch; a CPU tensor runs
+    it does not build or launch, a hidden width below the instantiated 64
+    or 128 zero-padded to it; a CPU tensor runs
     :func:`decode_kernel_z1mm_plain`. ``decode_kernel_z1mm.launches``
     counts kernel launches."""
     mode = _check_z1mm(pc, c1v, pe_u, w2, b2, w3, b3, f, f1, R, gelu)
@@ -353,9 +367,10 @@ def decode_kernel_z1mm(pc, c1v, pe_u, w2, b2, w3, b3, *, f: int, f1: int,
                          f"{pc.device}")
     nr, hidden = pe_u.shape
     ncl = pc.shape[1]
-    if hidden != 64:
-        raise ValueError(f"the z1-matmul CUDA kernel is built for hidden "
-                         f"width 64, not {hidden}")
+    width = kernel_width("decode_z1mm", hidden)
+    if width != hidden:
+        return _padded_planes(decode_kernel_z1mm, width, pc, c1v, pe_u, w2,
+                              b2, w3, b3, f=f, f1=f1, R=R, gelu=gelu)
     if any(t.data_ptr() % 16 for t in (pc, c1v, pe_u)):
         raise ValueError("pc, c1v and pe_u must be 16-byte aligned")
     from nic_torch.kernels import _build

@@ -20,12 +20,12 @@ from __future__ import annotations
 import torch
 
 from nic_torch.grids.fastdecode import first_layer_acc
+from nic_torch.kernels._widths import kernel_width, pad_hidden, pad_mlp
 from nic_torch.kernels.decode_fused_v2 import GELUS, _dot
 from nic_torch.models.mlp import PARAM_NAMES
 
 __all__ = ["decode_image_fused_v3", "mlp_tail", "mlp_tail_plain"]
 
-_KERNEL_HIDDEN = (16, 64)  # widths the .cu instantiates
 _FLOATS = (torch.float32, torch.bfloat16)
 
 
@@ -66,8 +66,10 @@ def mlp_tail(acc, w2, b2, w3, b3, *, block: int = 4096,
     divides S²).
 
     A CUDA tensor launches the hand-written kernel (and raises if it does
-    not build or launch); a CPU tensor runs :func:`mlp_tail_plain`.
-    ``mlp_tail.launches`` counts kernel launches."""
+    not build or launch), a hidden width between the instantiated 16, 64
+    and 128 zero-padded to the next (the accumulator too: a copy); a CPU
+    tensor runs :func:`mlp_tail_plain`. ``mlp_tail.launches`` counts
+    kernel launches."""
     if acc.dim() != 3:
         raise ValueError(f"acc must be [S, S, H], not {tuple(acc.shape)}")
     _check(acc, w2, b2, w3, b3)
@@ -79,9 +81,11 @@ def mlp_tail(acc, w2, b2, w3, b3, *, block: int = 4096,
         return mlp_tail_plain(acc, w2, b2, w3, b3).to(out_dtype)
     if acc.device.type != "cuda":
         raise ValueError(f"mlp_tail runs on cuda or cpu, not {acc.device}")
-    if hidden not in _KERNEL_HIDDEN:
-        raise ValueError(f"the CUDA kernel is built for hidden widths "
-                         f"{_KERNEL_HIDDEN}, not {hidden}")
+    width = kernel_width("decode_v3", hidden)
+    if width != hidden:
+        _, _, w2, b2, w3, b3 = pad_mlp(None, None, w2, b2, w3, b3, width)
+        return mlp_tail(pad_hidden(acc, width), w2, b2, w3, b3, block=block,
+                        out_dtype=out_dtype)
     if acc.data_ptr() % 16:
         raise ValueError("acc must be 16-byte aligned")
     from nic_torch.kernels import _build

@@ -50,17 +50,17 @@ import itertools
 import torch
 
 from nic_torch.grids.sample import EVEN_PARITY_CORNERS_3D
+from nic_torch.kernels._widths import kernel_width, pad_mlp, unpad_all
 from nic_torch.kernels.decode_fused_v2 import _GELU_POLY_C, _erf
 
 __all__ = ["pick_block_rows", "fused_mlp_loss", "fused_mlp_loss_kernel",
            "fused_mlp_loss_plain", "fused_mlp_loss_ng",
            "fused_mlp_loss_ng_kernel", "fused_mlp_loss_ng_plain",
-           "fused_mlp_loss_ng3", "fused_mlp_loss_ng3_kernel"]
+           "fused_mlp_loss_ng3", "fused_mlp_loss_ng3_kernel",
+           "fused_mlp_loss_padded"]
 
 _INV_SQRT2 = 0.7071067811865476
 _INV_SQRT2PI = 0.3989422804014327
-_KERNEL_HIDDEN = (64,)  # widths the .cu files instantiate
-_KERNEL_MAX_FEAT = 128  # decoder-input widths csrc/train_fused.cu takes
 GELU_IDS = {"erf": 0, "poly": 1}
 _CORNERS = ((0, 0), (0, 1), (1, 0), (1, 1))
 # the 3D G0 corners: dense (method 3) and the sparse even-parity four
@@ -324,11 +324,24 @@ def _check(name, x, tgt, w1, b1, w2, b2, w3, b3, cd, gelu) -> None:
                              f"expected {want[k]}")
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name} runs on cuda or cpu, not {x.device}")
-    if x.device.type == "cuda" and (hidden not in _KERNEL_HIDDEN
-                                    or feat > _KERNEL_MAX_FEAT):
-        raise ValueError(f"the CUDA kernel is built for hidden widths "
-                         f"{_KERNEL_HIDDEN} and at most {_KERNEL_MAX_FEAT} "
-                         f"features, not H={hidden}, F={feat}")
+
+
+# the hidden axes of the K6 (dx) and K7/K9 (node) tuples (None: none)
+_DX_OUT_DIMS = (None, None, None, (-1,), (-1,), (0, 1), (-1,), (0,), None)
+_NG_OUT_DIMS = (None, None, (-1,), (-1,), (0, 1), (-1,), (0,), None, (-1,),
+                (-1,))
+
+
+def fused_mlp_loss_padded(fn, width: int, *args, **kw) -> tuple:
+    """``fn`` (any kernel or plain step of this module, called as
+    ``fn(x, tgt[, origins], w1, b1, w2, b2, w3, b3, **kw)``) at hidden
+    width ``width`` ≥ H on weights zero-padded along the hidden axis,
+    with every result sliced back to H: the same step (``_widths``)."""
+    *lead, w1, b1, w2, b2, w3, b3 = args
+    hidden = w2.shape[0]
+    outs = fn(*lead, *pad_mlp(w1, b1, w2, b2, w3, b3, width), **kw)
+    dims = _DX_OUT_DIMS if len(outs) == len(_DX_OUT_DIMS) else _NG_OUT_DIMS
+    return unpad_all(outs, hidden, dims)
 
 
 def _call(entry: str, tensors, ints, device) -> None:
@@ -347,7 +360,10 @@ def _call(entry: str, tensors, ints, device) -> None:
 
 
 def _prep(*tensors):
-    return [t.detach().to(torch.float32).contiguous() for t in tensors]
+    """fp32, contiguous and 16-byte aligned (the kernels read weight rows
+    as float4)."""
+    out = [t.detach().to(torch.float32).contiguous() for t in tensors]
+    return [t.clone() if t.data_ptr() % 16 else t for t in out]
 
 
 def _partials(npix: int, feat: int, hidden: int, device):
@@ -378,8 +394,10 @@ def fused_mlp_loss_kernel(x, tgt, w1, b1, w2, b2, w3, b3, *, cd=None,
     :func:`fused_mlp_loss_plain`.
 
     A CUDA tensor launches ``nic_train_fused_dx`` of ``csrc/
-    train_fused.cu`` (and raises if it does not build or launch); a CPU
-    tensor runs :func:`fused_mlp_loss_plain`.
+    train_fused.cu`` (and raises if it does not build or launch), a hidden
+    width below an instantiated one (64, 128) zero-padded to it
+    (:func:`fused_mlp_loss_padded`); a CPU tensor runs
+    :func:`fused_mlp_loss_plain`.
     ``fused_mlp_loss_kernel.launches`` counts kernel launches."""
     _check("fused_mlp_loss", x, tgt, w1, b1, w2, b2, w3, b3, cd, gelu)
     weights = (w1, b1, w2, b2, w3, b3)
@@ -388,6 +406,10 @@ def fused_mlp_loss_kernel(x, tgt, w1, b1, w2, b2, w3, b3, *, cd=None,
     device = x.device
     npix, feat = x.shape
     hidden = w2.shape[0]
+    width = kernel_width("train_mlp", hidden)
+    if width != hidden:
+        return fused_mlp_loss_padded(fused_mlp_loss_kernel, width, x, tgt,
+                                     *weights, cd=cd, gelu=gelu)
     out = torch.empty((npix, 3), dtype=torch.float32, device=device)
     dx = torch.empty((npix, feat), dtype=torch.float32, device=device)
     part, nblk = _partials(npix, feat, hidden, device)
@@ -447,6 +469,10 @@ def _ng_kernel(wrapper, entry: str, x, tgt, origins, weights, *, n: int,
     device = x.device
     npix, feat = x.shape
     hidden = weights[2].shape[0]
+    width = kernel_width("train_mlp", hidden)
+    if width != hidden:
+        return fused_mlp_loss_padded(wrapper, width, x, tgt, origins,
+                                     *weights, **kw)
     if nd == 2:
         r0, c0, r1, c1 = _window_extents(n, f)
         ext0, ext1 = (r0, c0), (r1, c1)
@@ -500,7 +526,7 @@ def fused_mlp_loss_ng3_kernel(x, tgt, origins, w1, b1, w2, b2, w3, b3, *,
                               gelu: str = "erf") -> tuple:
     """K9 (the 3D kernel2) on the operands' device → the tuple of
     :func:`fused_mlp_loss_ng_plain` with node volumes. ``x`` [crops·n³,
-    F ≤ 128] row-major per crop, ``origins`` [crops, 3].
+    F] row-major per crop, ``origins`` [crops, 3].
 
     A CUDA tensor launches ``nic_train_fused_ng3`` of ``csrc/
     train_fused.cu`` (the per-voxel kernel in its node-gradient mode, then

@@ -41,16 +41,18 @@ from __future__ import annotations
 
 import torch
 
+from nic_torch.kernels._widths import (kernel_width, pad_hidden, pad_mlp,
+                                      unpad_all)
 from nic_torch.kernels.train_fused import (_CORNERS, GELU_IDS,
                                            _accumulate_node_planes, _cd,
                                            _CdDot, _Gelu, _pad8,
                                            _unfold_node_grads, _window_extents)
 
 __all__ = ["fused_train_ff", "fused_train_ff_kernel", "fused_train_ff_plain",
-           "ff_geometry", "eps_uniform", "fold_planes"]
+           "fused_train_ff_padded", "ff_geometry", "eps_uniform",
+           "fold_planes"]
 
 _M32 = 0xFFFFFFFF
-_KERNEL_HIDDEN = (64,)  # widths the .cu instantiates
 
 
 # ---- counter-hash feature noise (bit-exact with the JAX package) ---------
@@ -81,8 +83,9 @@ def eps_uniform(ctr, s0: int, s1: int, bits: int) -> torch.Tensor:
 def ff_geometry(*, crops: int, n: int, rowsb: int, f: int, hidden: int,
                 pe_channels: int, oc: int = 3) -> bool:
     """The JAX kernel's eligibility gate, kept so the same geometries take
-    kernel3 in both packages (the CUDA kernel has no lane or tile
-    limits of its own beyond its instantiated widths)."""
+    kernel3 in both packages (the CUDA kernel has no lane or tile limits
+    of its own; every H it admits runs at the instantiated H = 64,
+    zero-padded, and any F runs)."""
     f1 = 2 * f
     nb = n // rowsb
     return (
@@ -229,6 +232,28 @@ def fused_train_ff_plain(p_plane, c1_plane, w1, b1, w2, b2, w3, b3, tgt,
             grads["bvec"], grads["pacc"], grads["c1acc"], grads.get("w1n"))
 
 
+# ---- hidden-width padding ----------------------------------------------
+
+# the hidden axes of the step's results, in the order of
+# fused_train_ff_plain's tuple (None: no hidden axis)
+_OUT_DIMS = (None, None, (0, 1), (-1,), (0,), None, (-1,), (-1,), (-1,),
+             (-1,), (-1,), (-1,))
+
+
+def fused_train_ff_padded(fn, width: int, p_plane, c1_plane, w1, b1, w2, b2,
+                          w3, b3, tgt, origins, seed, **kw) -> tuple:
+    """``fn`` (:func:`fused_train_ff_kernel` or
+    :func:`fused_train_ff_plain`) at hidden width ``width`` ≥ H on
+    operands zero-padded along the hidden axis (the planes' last axis,
+    W1's columns, b1, W2's rows and columns, b2, W3's rows), with every
+    result sliced back to H: the same step (``_widths``)."""
+    hidden = w2.shape[0]
+    outs = fn(pad_hidden(p_plane, width), pad_hidden(c1_plane, width),
+              *pad_mlp(w1, b1, w2, b2, w3, b3, width), tgt, origins, seed,
+              **kw)
+    return unpad_all(outs, hidden, _OUT_DIMS)
+
+
 # ---- the CUDA wrapper --------------------------------------------------
 
 def _check(p_plane, c1_plane, w1, b1, w2, b2, w3, b3, tgt, origins, n, f,
@@ -280,7 +305,8 @@ def fused_train_ff_kernel(p_plane, c1_plane, w1, b1, w2, b2, w3, b3, tgt,
     :func:`fused_train_ff_plain`.
 
     A CUDA tensor launches ``csrc/train_fused_ff.cu`` (and raises if it
-    does not build or launch); a CPU tensor runs
+    does not build or launch), a hidden width below the instantiated 64
+    zero-padded to it (:func:`fused_train_ff_padded`); a CPU tensor runs
     :func:`fused_train_ff_plain`. ``fused_train_ff_kernel.launches``
     counts kernel launches."""
     origins = torch.as_tensor(origins)
@@ -294,9 +320,11 @@ def fused_train_ff_kernel(p_plane, c1_plane, w1, b1, w2, b2, w3, b3, tgt,
     if device.type != "cuda":
         raise ValueError(f"fused_train_ff runs on cuda or cpu, not {device}")
     hidden = w2.shape[0]
-    if hidden not in _KERNEL_HIDDEN:
-        raise ValueError(f"the CUDA kernel is built for hidden widths "
-                         f"{_KERNEL_HIDDEN}, not {hidden}")
+    width = kernel_width("train_ff", hidden)
+    if width != hidden:
+        return fused_train_ff_padded(fused_train_ff_kernel, width, p_plane,
+                                     c1_plane, w1, b1, w2, b2, w3, b3, tgt,
+                                     origins, seed, **kw)
     from nic_torch.kernels import _build
 
     lib = _build.load()
@@ -313,6 +341,8 @@ def fused_train_ff_kernel(p_plane, c1_plane, w1, b1, w2, b2, w3, b3, tgt,
         return t.detach().to(f32).contiguous()
 
     w1f = prep(w1)
+    if w1f.data_ptr() % 16:  # the kernel may read its rows as float4
+        w1f = w1f.clone()
     bvec = prep(b1.float() + lodf * w1[base + 2 * npe].float())
     wpe0 = prep(w1[base:base + npe])
     wpe1 = prep(w1[base + npe:base + 2 * npe])

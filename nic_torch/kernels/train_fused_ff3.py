@@ -40,6 +40,8 @@ from __future__ import annotations
 import torch
 
 from nic_torch.core.encodings import sinusoidal_pe, triangular_pe
+from nic_torch.kernels._widths import (kernel_width, pad_hidden, pad_mlp,
+                                      unpad_all)
 from nic_torch.kernels.train_fused import (_CORNERS_3D_DENSE,
                                            _CORNERS_3D_SPARSE, GELU_IDS,
                                            _accumulate_node_planes, _cd,
@@ -50,17 +52,15 @@ from nic_torch.kernels.train_fused import (_CORNERS_3D_DENSE,
 from nic_torch.kernels.train_fused_ff import _noise
 
 __all__ = ["fused_train_ff3", "fused_train_ff3_kernel",
-           "fused_train_ff3_plain", "ff3_geometry", "fold_volumes",
-           "pe_tables"]
-
-_KERNEL_HIDDEN = (64,)  # widths the .cu instantiates
-
+           "fused_train_ff3_plain", "fused_train_ff3_padded", "ff3_geometry",
+           "fold_volumes", "pe_tables"]
 
 def ff3_geometry(*, crops: int, n: int, rowsb: int, f: int, hidden: int,
                  pe_channels: int, oc: int = 3, nfeat: int = 0) -> bool:
     """The JAX kernel's eligibility gate, kept so the same geometries take
     kernel3 in both packages (the CUDA kernel has no block or lane limits
-    of its own beyond its instantiated width and F ≤ 128)."""
+    of its own; every H ≤ 128 runs at the instantiated 64 or 128,
+    zero-padded, and any F runs)."""
     f1 = 2 * f
     rows = rowsb * n * n
     fslot = _pad8(nfeat) if nfeat else 8
@@ -220,6 +220,27 @@ def fused_train_ff3_plain(p_vol, c1_vol, w1, b1, w2, b2, w3, b3, tgt,
             grads.get("w1n"))
 
 
+# ---- hidden-width padding ----------------------------------------------
+
+# the hidden axes of the step's results, in the order of
+# fused_train_ff3_plain's tuple (None: no hidden axis)
+_OUT_DIMS = (None, None, (0, 1), (-1,), (0,), None, (-1,), (-1,), (-1,),
+             (-1,), (-1,), (-1,), (-1,))
+
+
+def fused_train_ff3_padded(fn, width: int, p_vol, c1_vol, w1, b1, w2, b2,
+                           w3, b3, tgt, origins, seed, **kw) -> tuple:
+    """``fn`` (:func:`fused_train_ff3_kernel` or
+    :func:`fused_train_ff3_plain`) at hidden width ``width`` ≥ H on
+    operands zero-padded along the hidden axis, with every result sliced
+    back to H: the same step (``_widths``)."""
+    hidden = w2.shape[0]
+    outs = fn(pad_hidden(p_vol, width), pad_hidden(c1_vol, width),
+              *pad_mlp(w1, b1, w2, b2, w3, b3, width), tgt, origins, seed,
+              **kw)
+    return unpad_all(outs, hidden, _OUT_DIMS)
+
+
 # ---- the CUDA wrapper --------------------------------------------------
 
 def _check(p_vol, c1_vol, w1, b1, w2, b2, w3, b3, tgt, origins, n, f, npe,
@@ -271,7 +292,9 @@ def fused_train_ff3_kernel(p_vol, c1_vol, w1, b1, w2, b2, w3, b3, tgt,
     :func:`fused_train_ff3_plain`.
 
     A CUDA tensor launches ``nic_train_fused_ff3`` (and raises if it does
-    not build or launch); a CPU tensor runs :func:`fused_train_ff3_plain`.
+    not build or launch), a hidden width between the instantiated 64 and
+    128 zero-padded to the next (:func:`fused_train_ff3_padded`); a CPU
+    tensor runs :func:`fused_train_ff3_plain`.
     ``fused_train_ff3_kernel.launches`` counts kernel launches."""
     origins = torch.as_tensor(origins)
     _check(p_vol, c1_vol, w1, b1, w2, b2, w3, b3, tgt, origins, n, f, npe,
@@ -286,10 +309,11 @@ def fused_train_ff3_kernel(p_vol, c1_vol, w1, b1, w2, b2, w3, b3, tgt,
         raise ValueError(f"fused_train_ff3 runs on cuda or cpu, not {device}")
     hidden = w2.shape[0]
     nfeat = w1.shape[0]
-    if hidden not in _KERNEL_HIDDEN or nfeat > 128:
-        raise ValueError(f"the CUDA kernel is built for hidden widths "
-                         f"{_KERNEL_HIDDEN} and at most 128 features, not "
-                         f"H={hidden}, F={nfeat}")
+    width = kernel_width("train_ff3", hidden)
+    if width != hidden:
+        return fused_train_ff3_padded(fused_train_ff3_kernel, width, p_vol,
+                                      c1_vol, w1, b1, w2, b2, w3, b3, tgt,
+                                      origins, seed, **kw)
     from nic_torch.kernels import _build
 
     lib = _build.load()
@@ -309,6 +333,8 @@ def fused_train_ff3_kernel(p_vol, c1_vol, w1, b1, w2, b2, w3, b3, tgt,
     pe[1] += (b1.float() + lodf * w_lod.float()).detach()
     pe = pe.contiguous()
     w1f, w2f, b2f, w3f, b3f = (prep(t) for t in (w1, w2, b2, w3, b3))
+    if w1f.data_ptr() % 16:  # the kernel may read its rows as float4
+        w1f = w1f.clone()
     p_c, c1_c, tgt_c = prep(p_vol), prep(c1_vol), prep(tgt)
     org = origins.to(device=device, dtype=torch.int32).contiguous()
     s0, s1, pixel_base = (0, 0, 0) if nbits is None else (

@@ -16,7 +16,8 @@ by the same code. On a machine with one NVIDIA GPU it prints:
   K6 (``fused_mlp_loss_kernel``) at 8×32² (step 2) and 8×256², bf16·poly
   and fp32·erf (seeds 7 and 6): each the median of 50 CUDA-event timings
   of the wrapper and, by ``torch.profiler``, the device time per call of
-  every kernel it launches (so host time and device time separate);
+  all the kernels it launches and of the four longest by name (so host
+  time and device time separate, and ``ff_pixel`` shows on its own);
 - the train step of TRAIN_FORWARD=kernel3 and gather at the flagship
   configuration: ``chip_smoke.step_timing``.
 
@@ -42,9 +43,10 @@ import nic_torch  # noqa: E402
 from nic_torch.kernels import train_fused, train_fused_ff  # noqa: E402
 
 
-def device_ms(fn, reps: int = 20) -> float:
-    """Device time per call of ``fn``: the sum of its CUDA kernels' times
-    by torch.profiler over ``reps`` calls, after a warm-up."""
+def device_ms(fn, reps: int = 20) -> tuple:
+    """Device time per call of ``fn`` by torch.profiler over ``reps``
+    calls, after a warm-up: (the sum over its CUDA kernels, {kernel name:
+    ms per call})."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -53,15 +55,19 @@ def device_ms(fn, reps: int = 20) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return sum(a.self_device_time_total for a in prof.key_averages()
-               if a.device_type == torch.autograd.DeviceType.CUDA) \
-        / reps / 1e3
+    per = {a.key: a.self_device_time_total / reps / 1e3
+           for a in prof.key_averages()
+           if a.device_type == torch.autograd.DeviceType.CUDA}
+    return sum(per.values()), per
 
 
 def report(tag: str, fn) -> None:
     ms = chip_smoke.cuda_ms(fn, reps=50)
-    print(f"AB {sys.argv[1]}: {tag}: {ms:.4f} ms (device {device_ms(fn):.4f}"
-          " ms)", flush=True)
+    total, per = device_ms(fn)
+    top = sorted(per.items(), key=lambda kv: -kv[1])[:4]
+    print(f"AB {sys.argv[1]}: {tag}: {ms:.4f} ms (device {total:.4f} ms: "
+          + "; ".join(f"{name[:40]} {t:.4f}" for name, t in top) + ")",
+          flush=True)
 
 
 def main() -> None:
