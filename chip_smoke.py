@@ -12,7 +12,8 @@ Phases (any failure exits non-zero):
    kernels K1 and K5 (the 3D decode, K1's body with a frame axis), the
    kernel3 train steps K11 (2D) and K12 (3D), and the dx (K6) and
    node-gradient (K7, kernel2; K9 in 3D) train kernels; one nvcc per
-   source, all started together) for sm_90a, and print the build time;
+   source, all started together) for sm_90a, and print the build time
+   and the registers and spills of the tensor-core bodies (``ptxas -v``);
 3. each kernel against its plain PyTorch version on the card, on the
    committed trained artifact's column-stage outputs at mips 0-2, for every
    plane mode x GELU;
@@ -33,7 +34,13 @@ Phases (any failure exits non-zero):
    noise off and on: loss, ``out``, every MLP and PE grad and both
    accumulated node planes, two runs bit-identical; then
    kernel vs plain timed at the flagship shape (bf16·poly noise on, the
-   path's mode, and fp32·erf);
+   path's mode, and fp32·erf), with the device time of the per-pixel
+   body. In phases 6-8, 16-18 and 26 the second of the two runs of each
+   cell is profiled, and the per-pixel body that ran must be the one
+   ``nic_torch/kernels/_widths.py`` ``kernel_body`` names: the
+   tensor-core body (``ff_pixel_mma``, ``mlp_pixel_mma``,
+   ``ff3_pixel_mma``) for bf16 dots at H = 64, the CUDA-core one
+   (``ff_pixel``, ``mlp_pixel``, ``ff3_pixel``) for fp32 dots and H = 128;
 7. K7 against its plain version on the card at 8 crops of 256² (f=4),
    128² (f=2), 64² (f=1) and 16² (f=1), on the sinusoidal-PE gather of a
    random flagship-width pyramid and MLP, in fp32·erf and bf16·poly: loss,
@@ -131,7 +138,8 @@ _widths.py``: narrower widths zero-padded to an instantiated one):
     tolerances): K11 at H = 16 and 32 in four modes; K7 and K6 at H = 16
     and 128 (at 128 x in feature chunks, W1 from device memory); K12 m3
     at PE 8 (F = 133) and F = 205 (C = 20), and at H = 128 with F = 133,
-    in four modes; K9 at F = 133 and 205; K1, K2, K3, K4 on random 512²
+    in four modes; K9 at F = 133 and 205; K6 at F = 413 (the tensor-core
+    body's two feature chunks), 200 rows; K1, K2, K3, K4 on random 512²
     models and K5 on a 64³ m3 mip-mode model at H = 32 and 128 in their
     plane modes; every counter must rise; the padding's cost timed (K11
     at 8×256² and K1 at 2048² beside H = 64);
@@ -176,7 +184,8 @@ KERNEL_SOURCE = "nic_torch/kernels/csrc/decode_fused_v2.cu"
 REPLACES = "nic/kernels/decode_fused_v2.py:369"
 K11_SOURCE = "nic_torch/kernels/csrc/train_fused_ff.cu"
 K11_REPLACES = "nic/kernels/train_fused_ff.py:568"
-K67_SOURCE = "nic_torch/kernels/csrc/train_fused.cu"
+# K6, K7 and K9 are timed in bf16·poly, where their body is mlp_pixel_mma
+K67_SOURCE = "nic_torch/kernels/csrc/train_fused_mma.cu"
 K6_REPLACES = "nic/kernels/train_fused.py:230"
 K7_REPLACES = "nic/kernels/train_fused.py:510"
 K5_SOURCE = KERNEL_SOURCE
@@ -296,6 +305,36 @@ def u8(x):
     return np.floor(np.clip(x, 0, 1) * 255.0 + 0.5).astype(np.int64)
 
 
+# the tensor-core bodies whose registers and spills phase 2 reports
+MMA_BODIES = ("ff_pixel_mma", "mlp_pixel_mma", "ff3_pixel_mma")
+
+
+def ptxas_usage(log: str) -> dict:
+    """{(body, gelu): (registers, spill stores, spill loads, stack bytes)}
+    from the ``ptxas -v`` lines of an nvcc log, for the template kernels
+    MMA_BODIES (their one template argument: the GELU, 0 erf, 1 poly)."""
+    import re
+
+    out, cur, props = {}, None, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            hit = [(b, int(g)) for b in MMA_BODIES for g in re.findall(
+                rf"\d{b}ILi(\d)E", m.group(1))]
+            cur, props = (hit[0] if hit else None), None
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and cur:
+            props = tuple(int(v) for v in m.groups())
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur and props:
+            out[cur] = (int(m.group(1)), props[1], props[2], props[0])
+            cur = None
+    return out
+
+
 def phase_build() -> float:
     from nic_torch.kernels import _build
 
@@ -309,6 +348,14 @@ def phase_build() -> float:
                        sorted(_build.source_seconds.items(),
                               key=lambda kv: -kv[1]))
              or "already built"), flush=True)
+    usage = ptxas_usage(_build.log_path().read_text())
+    if {b for b, _ in usage} != set(MMA_BODIES):
+        fail(f"ptxas reported {sorted(usage)}, not every one of "
+             f"{MMA_BODIES} (nvcc log {_build.log_path()})")
+    print("phase 2: tensor-core bodies (ptxas -v): " + "; ".join(
+        f"{b}<{'poly' if g else 'erf'}> {r} registers, {ss} B spill stores, "
+        f"{sl} B spill loads, {st} B stack"
+        for (b, g), (r, ss, sl, st) in sorted(usage.items())), flush=True)
     return secs
 
 
@@ -522,12 +569,158 @@ def _compare(tag, names, got, want, tol) -> dict:
     return errs
 
 
-def _run_twice(tag, fn):
-    """``fn()`` twice on the card: the results must be bit-identical (every
-    reduction runs in a fixed order)."""
+def _traced(fn, reps: int = 1, cpu: bool = False):
+    """torch.profiler over ``reps`` calls of ``fn`` after one warm-up call
+    that the profiler runs but does not record (its schedule's warm-up
+    step: the card's trace starts late otherwise, and a call's first
+    kernels go missing) → (the profile, the last call's result)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
+    with profile(activities=acts,
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
+        for _ in range(reps):
+            got = fn()
+        torch.cuda.synchronize()
+        prof.step()
+    return prof, got
+
+
+def device_ms(fn, reps: int = 20) -> tuple:
+    """Device time per call of ``fn`` by torch.profiler over ``reps``
+    calls, after a warm-up: (the sum over its CUDA kernels, {kernel name:
+    ms per call})."""
     import torch
 
-    got, again = fn(), fn()
+    prof, _ = _traced(fn, reps)
+    per = {a.key: a.self_device_time_total / reps / 1e3
+           for a in prof.key_averages()
+           if a.device_type == torch.autograd.DeviceType.CUDA}
+    return sum(per.values()), per
+
+
+def _is_body(body: str, name: str) -> bool:
+    """Is the kernel ``name`` (demangled or mangled) the template body
+    ``body``? ``mlp_pixel`` is not ``mlp_pixel_mma``."""
+    import re
+
+    return re.search(rf"(?<![A-Za-z0-9_]){body}(?=[<(])|\d{body}I",
+                     name) is not None
+
+
+def _body_ms(per: dict, body: str) -> float:
+    """The device ms per call of ``body`` in a :func:`device_ms` table."""
+    return sum(t for name, t in per.items() if _is_body(body, name))
+
+
+# per phase: the cells whose per-pixel body the profiler confirmed, by
+# body; the cells whose traces named no body (tag, CUDA kernels in the
+# last trace); and the bodies the phase's cells want. The launch log
+# (``_build.body_launches``) checks every cell; the card's profiler now
+# and then returns a trace that lacks the first kernels of its recorded
+# window (all of a call of a few microseconds) or holds no kernel, so a
+# trace records BODY_REPS calls, a cell is traced up to BODY_TRIES times,
+# and a phase fails if a body it wants is confirmed by the profiler in
+# none of its cells
+BODY_CELLS: dict = {}
+BODY_LOST: list = []
+BODY_WANTED: set = set()
+BODY_TRIES = 5
+BODY_REPS = 3
+
+
+def _bodies_named(names) -> set:
+    """The per-pixel bodies of any family that the kernel ``names`` hold."""
+    from nic_torch.kernels._widths import KERNEL_BODIES
+
+    return {b for fam in KERNEL_BODIES.values() for b in fam.values()
+            if any(_is_body(b, nm) for nm in names)}
+
+
+def _check_body(tag, fn, family: str, hidden: int, cd: str):
+    """Calls of ``fn`` under torch.profiler (:func:`_traced`): of all the
+    per-pixel bodies exactly the one ``kernel_body`` names for (family,
+    hidden, cd) must run (``nic_torch/kernels/_widths.py``), by the names
+    in the kernels' launch log and by those in the trace. Another body in
+    either fails at once; a trace with no body is taken again, up to
+    BODY_TRIES times, then the cell is counted as lost to the profiler
+    (:func:`_body_summary` judges). Returns the last call's result."""
+    import torch
+
+    from nic_torch.kernels._build import body_launches, clear_body_launches
+    from nic_torch.kernels._widths import kernel_body
+
+    want = kernel_body(family, hidden, cd == "bf16")
+    BODY_WANTED.add(want)
+    clear_body_launches()
+    for _ in range(BODY_TRIES):
+        prof, got = _traced(fn, BODY_REPS, cpu=True)
+        names = [a.key for a in prof.key_averages()
+                 if a.device_type == torch.autograd.DeviceType.CUDA]
+        ran = _bodies_named(names)
+        if ran:
+            break
+    logged = body_launches()
+    if _bodies_named(logged) != {want}:
+        fail(f"{tag}: the launch log names the bodies "
+             f"{sorted(_bodies_named(logged))}, want {want} (log: "
+             f"{ {nm[:60]: c for nm, c in logged.items()} })")
+    if not ran:
+        BODY_LOST.append((tag, len(names)))
+    elif ran != {want}:
+        fail(f"{tag}: the profiler saw the bodies {sorted(ran)} run, want "
+             f"{want} (kernels: {sorted(nm[:60] for nm in names)})")
+    else:
+        BODY_CELLS[want] = BODY_CELLS.get(want, 0) + 1
+    return got
+
+
+def _device_line(phase: int, tag: str, fn, family: str, hidden: int,
+                 cd: str) -> None:
+    """Print the device time per call of ``fn`` (torch.profiler) and its
+    per-pixel body's share."""
+    from nic_torch.kernels._widths import kernel_body
+
+    body = kernel_body(family, hidden, cd == "bf16")
+    total, per = device_ms(fn)
+    print(f"phase {phase}: {tag}: device {total:.4f} ms per call, of it "
+          f"{body} {_body_ms(per, body):.4f} ms", flush=True)
+
+
+def _body_summary(phase: int) -> None:
+    """Print and reset the bodies the profiler confirmed in a phase (the
+    launch log has checked every cell); fail if a wanted body was confirmed
+    by the profiler in no cell."""
+    cells = sum(BODY_CELLS.values()) + len(BODY_LOST)
+    print(f"phase {phase}: per-pixel bodies confirmed by the launch log in "
+          f"all {cells} cells and by torch.profiler in "
+          + ", ".join(f"{b} {c}" for b, c in sorted(BODY_CELLS.items()))
+          + f"; {len(BODY_LOST)} of {cells} cells' traces held no body"
+          + "".join(f"; {tag} ({n} kernels in the last trace)"
+                    for tag, n in BODY_LOST), flush=True)
+    unseen = BODY_WANTED - set(BODY_CELLS)
+    if unseen:
+        fail(f"phase {phase}: torch.profiler confirmed {sorted(unseen)} in "
+             f"no cell ({len(BODY_LOST)} of {cells} cells' traces held no "
+             "body)")
+    BODY_CELLS.clear()
+    BODY_LOST.clear()
+    BODY_WANTED.clear()
+
+
+def _run_twice(tag, fn, body):
+    """``fn()`` twice on the card: the results must be bit-identical (every
+    reduction runs in a fixed order). ``body`` (family, hidden, cd): the
+    second call runs under :func:`_check_body`."""
+    import torch
+
+    got = fn()
+    again = _check_body(tag, fn, *body)
     torch.cuda.synchronize()
     if not all(torch.equal(a, b) for a, b in zip(got, again)
                if a is not None):
@@ -593,7 +786,8 @@ def phase_k11(device) -> dict:
                     args, kw = _k11_call(inputs, n, f, cd, gelu, nbits)
                     cell = f"f={f} {label} noise={'on' if nbits else 'off'}"
                     got = _run_twice(f"K11 {cell}", lambda: (
-                        k.fused_train_ff_kernel(*args, **kw)))
+                        k.fused_train_ff_kernel(*args, **kw)),
+                        ("train_ff", 64, cd))
                     want = k.fused_train_ff_plain(*args, **kw)
                     errs = _compare(f"K11 vs plain {cell}", names, got, want,
                                     tol)
@@ -637,6 +831,10 @@ def phase_k11(device) -> dict:
                               f"{bound(*work, cd)[0]:.4f} ms; the per-pixel "
                               f"kernel alone {px_ms:.4f} ms ({px_by})",
                               flush=True)
+                        _device_line(6, f"K11 {cell} at 8×256²", lambda: (
+                            k.fused_train_ff_kernel(*args, **kw)),
+                            "train_ff", 64, cd)
+    _body_summary(6)
     return {"timings": timings, "out_err": out_err}
 
 
@@ -751,7 +949,8 @@ def phase_k7(device) -> dict:
                 args = (x, tgt, origins, *weights)
                 cell = f"8×{n}² f={f} {label}"
                 got = _run_twice(f"K7 {cell}", lambda: (
-                    k.fused_mlp_loss_ng_kernel(*args, **kw)))
+                    k.fused_mlp_loss_ng_kernel(*args, **kw)),
+                    ("train_mlp", 64, cd))
                 want = k.fused_mlp_loss_ng_plain(*args, **kw)
                 tol = K11_TOL[cd]
                 errs = _compare(f"K7 vs plain {cell}", names, unfolded(got),
@@ -775,6 +974,10 @@ def phase_k7(device) -> dict:
                     print(f"phase 7: K7 {cell}: kernel {ms:.4f} ms vs plain "
                           f"{plain:.4f} ms; bound {b_ms:.4f} ms ({b_by})",
                           flush=True)
+                    _device_line(7, f"K7 {cell}", lambda: (
+                        k.fused_mlp_loss_ng_kernel(*args, **kw)),
+                        "train_mlp", 64, cd)
+    _body_summary(7)
     return timings
 
 
@@ -799,7 +1002,8 @@ def phase_k6(device) -> dict:
                           cd=None if cd == "fp32" else torch.bfloat16)
                 cell = f"8×{n}² {label}"
                 got = _run_twice(f"K6 {cell}", lambda: (
-                    k.fused_mlp_loss_kernel(x, tgt, *weights, **kw)))
+                    k.fused_mlp_loss_kernel(x, tgt, *weights, **kw)),
+                    ("train_mlp", 64, cd))
                 want = k.fused_mlp_loss_plain(x, tgt, *weights, **kw)
                 tol = K11_TOL[cd]
                 errs = _compare(f"K6 vs plain {cell}", names, got, want, tol)
@@ -819,6 +1023,10 @@ def phase_k6(device) -> dict:
                     print(f"phase 8: K6 {cell}: kernel {ms:.4f} ms vs plain "
                           f"{plain:.4f} ms; bound {b_ms:.4f} ms ({b_by})",
                           flush=True)
+                    _device_line(8, f"K6 {cell}", lambda: (
+                        k.fused_mlp_loss_kernel(x, tgt, *weights, **kw)),
+                        "train_mlp", 64, cd)
+    _body_summary(8)
     return timings
 
 
@@ -1340,7 +1548,8 @@ def phase_k12(device) -> dict:
                         cell = (f"8×{n}³ f={f} m{method} {label} noise="
                                 f"{'on' if nbits else 'off'}")
                         got = _run_twice(f"K12 {cell}", lambda: (
-                            k.fused_train_ff3_kernel(*args, **kw)))
+                            k.fused_train_ff3_kernel(*args, **kw)),
+                            ("train_ff3", 64, cd))
                         want = k.fused_train_ff3_plain(*args, **kw)
                         tol = K11_TOL[cd]
                         errs = _compare(f"K12 vs plain {cell}", names, got,
@@ -1365,6 +1574,9 @@ def phase_k12(device) -> dict:
                             print(f"phase 16: K12 {cell}: kernel {ms:.4f} ms "
                                   f"vs plain {plain:.4f} ms; bound "
                                   f"{b_ms:.4f} ms ({b_by})", flush=True)
+                            _device_line(16, f"K12 {cell}", lambda: (
+                                k.fused_train_ff3_kernel(*args, **kw)),
+                                "train_ff3", 64, cd)
     for label in K11_MODES:
         tol = K11_TOL[K11_MODES[label][0]]
         errs = {nm: e for (lb, nm), e in worst.items() if lb == label}
@@ -1374,6 +1586,7 @@ def phase_k12(device) -> dict:
               f"{max(e for nm, e in errs.items() if nm not in ('loss', 'out')):.2e}"
               f" (tol {tol['loss']:.0e}/{tol['out']:.0e}/{tol['grad']:.0e});"
               " reruns bit-identical", flush=True)
+    _body_summary(16)
     return timings
 
 
@@ -1423,7 +1636,8 @@ def phase_k9(device) -> dict:
                     args = (x, tgt, origins, *weights)
                     cell = f"8×{n}³ f={f} m{method} {label}"
                     got = _run_twice(f"K9 {cell}", lambda: (
-                        k.fused_mlp_loss_ng3_kernel(*args, **kw)))
+                        k.fused_mlp_loss_ng3_kernel(*args, **kw)),
+                        ("train_mlp", 64, cd))
                     want = k.fused_mlp_loss_ng_plain(*args, **kw)
                     tol = K11_TOL[cd]
                     errs = _compare(f"K9 vs plain {cell}", names,
@@ -1446,6 +1660,10 @@ def phase_k9(device) -> dict:
                         print(f"phase 17: K9 {cell}: kernel {ms:.4f} ms vs "
                               f"plain {plain:.4f} ms; bound {b_ms:.4f} ms "
                               f"({b_by})", flush=True)
+                        _device_line(17, f"K9 {cell}", lambda: (
+                            k.fused_mlp_loss_ng3_kernel(*args, **kw)),
+                            "train_mlp", 64, cd)
+    _body_summary(17)
     return timings
 
 
@@ -1471,7 +1689,8 @@ def phase_k6_3d(device) -> dict:
                           cd=None if cd == "fp32" else torch.bfloat16)
                 cell = f"8×{n}³ F=127 {label}"
                 got = _run_twice(f"K6 {cell}", lambda: (
-                    k.fused_mlp_loss_kernel(x, tgt, *weights, **kw)))
+                    k.fused_mlp_loss_kernel(x, tgt, *weights, **kw)),
+                    ("train_mlp", 64, cd))
                 want = k.fused_mlp_loss_plain(x, tgt, *weights, **kw)
                 errs = _compare(f"K6 vs plain {cell}", names, got, want,
                                 K11_TOL[cd])
@@ -1490,6 +1709,7 @@ def phase_k6_3d(device) -> dict:
                     print(f"phase 18: K6 {cell}: kernel {ms:.4f} ms vs plain "
                           f"{plain:.4f} ms; bound {b_ms:.4f} ms ({b_by})",
                           flush=True)
+    _body_summary(18)
     return timings
 
 
@@ -2027,13 +2247,14 @@ def _widths_train(device) -> dict:
     from nic_torch.kernels import train_fused as k67
     from nic_torch.kernels import train_fused_ff as k11
     from nic_torch.kernels import train_fused_ff3 as k12
+    from nic_torch.models.mlp import init_mlp
 
     gen = torch.Generator(device="cpu").manual_seed(26)
     modes = [(label, cd, gelu, nbits) for label, (cd, gelu) in
              K11_MODES.items() for nbits in (None, 8)]
 
-    def check(tag, names, fn, plain, cd):
-        got = _run_twice(tag, fn)
+    def check(tag, names, fn, plain, cd, family, hidden):
+        got = _run_twice(tag, fn, (family, hidden, cd))
         errs = _compare(f"{tag} vs plain", names, got, plain(), K11_TOL[cd])
         print(f"phase 26: {tag} vs plain: loss rel {errs['loss']:.2e}, out "
               f"max|Δ| {errs['out']:.2e}, worst grad rel "
@@ -2052,7 +2273,8 @@ def _widths_train(device) -> dict:
                 check(f"K11 H={hidden} 8×64² f=1 {label} noise="
                       f"{'on' if nbits else 'off'}", names11,
                       lambda: k11.fused_train_ff_kernel(*args, **kw),
-                      lambda: k11.fused_train_ff_plain(*args, **kw), cd)
+                      lambda: k11.fused_train_ff_plain(*args, **kw), cd,
+                      "train_ff", hidden)
         for hidden in (16, 32, 64):
             inputs = _k11_inputs(gen, device, 256, 4, hidden=hidden)
             args, kw = _k11_call(inputs, 256, 4, "bf16", "poly", 8)
@@ -2081,12 +2303,29 @@ def _widths_train(device) -> dict:
                       lambda: k67.fused_mlp_loss_ng_kernel(
                           x, tgt, origins, *weights, **kw),
                       lambda: k67.fused_mlp_loss_ng_plain(
-                          x, tgt, origins, *weights, **kw), cd)
+                          x, tgt, origins, *weights, **kw), cd,
+                      "train_mlp", hidden)
                 check(f"K6 H={hidden} 8×32² {label}", names6,
                       lambda: k67.fused_mlp_loss_kernel(
                           x6, tgt6, *weights6, gelu=gelu, cd=cdt),
                       lambda: k67.fused_mlp_loss_plain(
-                          x6, tgt6, *weights6, gelu=gelu, cd=cdt), cd)
+                          x6, tgt6, *weights6, gelu=gelu, cd=cdt), cd,
+                      "train_mlp", hidden)
+        # F = 413 (C = 80): x and W1 past the 384 features the tensor-core
+        # body stages at once, so it takes them in two chunks; 200 rows
+        # leave the second tile's last warps partly empty
+        x6 = torch.rand(200, 413, generator=gen).to(device) * 2.0 - 1.0
+        tgt6 = torch.rand(200, 3, generator=gen).to(device)
+        mlp6 = init_mlp(gen, 413, 64, 3, device=device)
+        weights6 = [mlp6[k].detach() for k in NAMES]
+        for label, (cd, gelu) in K11_MODES.items():
+            cdt = None if cd == "fp32" else torch.bfloat16
+            check(f"K6 F=413 N=200 {label}", names6,
+                  lambda: k67.fused_mlp_loss_kernel(
+                      x6, tgt6, *weights6, gelu=gelu, cd=cdt),
+                  lambda: k67.fused_mlp_loss_plain(
+                      x6, tgt6, *weights6, gelu=gelu, cd=cdt), cd,
+                  "train_mlp", 64)
 
         names12 = ("loss", "out", "dw2", "db2", "dw3", "db3", "dpe0", "dpe1",
                    "dpe2", "db1", "P_acc", "C1_acc", "dw1e")
@@ -2107,14 +2346,17 @@ def _widths_train(device) -> dict:
                 check(f"K12 H={hidden} F={feat} 8×{n}³ f={f} m3 {label} "
                       f"noise={'on' if nbits else 'off'}", names12,
                       lambda: k12.fused_train_ff3_kernel(*args, **kw),
-                      lambda: k12.fused_train_ff3_plain(*args, **kw), cd)
+                      lambda: k12.fused_train_ff3_plain(*args, **kw), cd,
+                      "train_ff3", hidden)
                 if nbits is None and hidden == 64:
                     kw9 = dict(n=n, f=f, gelu=gelu, cd=cdt, **geo)
                     check(f"K9 F={feat} 8×{n}³ f={f} m3 {label}", names67,
                           lambda: k67.fused_mlp_loss_ng3_kernel(
                               x, tgt, origins, *weights, **kw9),
                           lambda: k67.fused_mlp_loss_ng_plain(
-                              x, tgt, origins, *weights, **kw9), cd)
+                              x, tgt, origins, *weights, **kw9), cd,
+                          "train_mlp", hidden)
+    _body_summary(26)
     return pad_ms
 
 

@@ -22,7 +22,8 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
-__all__ = ["load", "build_seconds", "source_seconds"]
+__all__ = ["load", "log_path", "build_seconds", "source_seconds",
+           "body_launches", "clear_body_launches"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "nic_torch"
@@ -80,23 +81,56 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     fn.argtypes = [p] * 6 + [ctypes.c_longlong] + [i] * 4 + [p]
     fn.restype = i
     fn = lib.nic_train_fused_ff
-    fn.argtypes = [p] * 20 + [i] * 19 + [p]
+    fn.argtypes = [p] * 20 + [i] * 20 + [p]
     fn.restype = i
     fn = lib.nic_train_fused_dx
-    fn.argtypes = [p] * 11 + [i] * 6 + [p]
+    fn.argtypes = [p] * 11 + [i] * 7 + [p]
     fn.restype = i
     fn = lib.nic_train_fused_ng
-    fn.argtypes = [p] * 14 + [i] * 8 + [p]
+    fn.argtypes = [p] * 14 + [i] * 9 + [p]
     fn.restype = i
     fn = lib.nic_train_fused_ng3
-    fn.argtypes = [p] * 14 + [i] * 8 + [p]
+    fn.argtypes = [p] * 14 + [i] * 9 + [p]
     fn.restype = i
     fn = lib.nic_train_fused_ff3
-    fn.argtypes = [p] * 17 + [i] * 16 + [p]
+    fn.argtypes = [p] * 17 + [i] * 17 + [p]
     fn.restype = i
     lib.nic_cuda_error_string.argtypes = [i]
     lib.nic_cuda_error_string.restype = ctypes.c_char_p
+    lib.nic_body_log.argtypes = [i, ctypes.c_char_p, i,
+                                 ctypes.POINTER(ctypes.c_longlong)]
+    lib.nic_body_log.restype = i
+    lib.nic_body_log_clear.argtypes = []
+    lib.nic_body_log_clear.restype = None
     return lib
+
+
+def body_launches() -> dict[str, int]:
+    """The per-pixel training bodies launched since the last
+    :func:`clear_body_launches`: {the CUDA runtime's name of the launched
+    ``__global__``: launches} (``csrc/body_log.cu``)."""
+    lib = load()
+    name = ctypes.create_string_buffer(512)
+    count = ctypes.c_longlong(0)
+    n = lib.nic_body_log(-1, name, len(name), ctypes.byref(count))
+    if n < 0:
+        raise RuntimeError("the body launch log overflowed; clear it first")
+    got = {}
+    for i in range(n):
+        lib.nic_body_log(i, name, len(name), ctypes.byref(count))
+        got[name.value.decode()] = count.value
+    return got
+
+
+def clear_body_launches() -> None:
+    """Empty the launch log that :func:`body_launches` reads."""
+    load().nic_body_log_clear()
+
+
+def log_path() -> Path:
+    """The nvcc log of this checkout's build (``ptxas -v`` per kernel, then
+    each source's seconds)."""
+    return BUILD_ROOT / _key(_sources()) / "nvcc.log"
 
 
 def load() -> ctypes.CDLL:

@@ -21,6 +21,13 @@ A width that is already instantiated passes through untouched: no copy
 and no launch (the flagship's H = 64). Feature counts F have no bound in
 any kernel (the ``.cu`` files stage what fits in shared memory and read
 the rest from device memory).
+
+The train families have two per-pixel bodies each, which compute the
+same step: one on the bf16 tensor cores (``*_mma``, built at H = 64 for
+bf16 dot inputs) and one on the fp32 CUDA cores (fp32 dots, and H = 128).
+:func:`kernel_body` is the one place that picks between them; the
+wrappers pass its choice to the ``.cu`` entry point, which runs that body
+or refuses the call, and size their grids by :data:`BODY_BLOCKS_PER_SM`.
 """
 
 from __future__ import annotations
@@ -28,8 +35,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-__all__ = ["KERNEL_WIDTHS", "kernel_width", "pad_hidden", "pad_mlp",
-           "unpad", "unpad_all"]
+__all__ = ["KERNEL_WIDTHS", "KERNEL_BODIES", "BODY_BLOCKS_PER_SM",
+           "kernel_width", "kernel_body", "body_blocks", "pad_hidden",
+           "pad_mlp", "unpad", "unpad_all"]
 
 # hidden widths each CUDA source instantiates, by the wrapper family
 KERNEL_WIDTHS = {
@@ -43,6 +51,24 @@ KERNEL_WIDTHS = {
 }
 
 
+# the per-pixel CUDA body each train family runs, by (built width, bf16
+# dot inputs): the tensor-core bodies take bf16 dots at H = 64
+KERNEL_BODIES = {
+    "train_ff": {(64, True): "ff_pixel_mma", (64, False): "ff_pixel"},
+    "train_ff3": {(64, True): "ff3_pixel_mma", (64, False): "ff3_pixel",
+                  (128, True): "ff3_pixel", (128, False): "ff3_pixel"},
+    "train_mlp": {(64, True): "mlp_pixel_mma", (64, False): "mlp_pixel",
+                  (128, True): "mlp_pixel", (128, False): "mlp_pixel"},
+}
+
+# the blocks per SM each body is built for (its __launch_bounds__); a
+# wrapper launches that many per SM, and where shared memory holds fewer
+# (mlp_pixel_mma at F > 80) the rest run as a second wave
+BODY_BLOCKS_PER_SM = {"ff_pixel": 2, "ff_pixel_mma": 2, "ff3_pixel": 1,
+                      "ff3_pixel_mma": 2, "mlp_pixel": 1,
+                      "mlp_pixel_mma": 2}
+
+
 def kernel_width(family: str, hidden: int) -> int:
     """The instantiated width that runs hidden width ``hidden`` for the
     kernels of ``family`` (a key of :data:`KERNEL_WIDTHS`): the smallest
@@ -54,6 +80,20 @@ def kernel_width(family: str, hidden: int) -> int:
     raise ValueError(f"the {family} CUDA kernels are built for hidden "
                      f"widths {widths} (narrower ones are zero-padded to "
                      f"the next), not {hidden}")
+
+
+def kernel_body(family: str, hidden: int, bf16: bool) -> str:
+    """The per-pixel CUDA body that runs hidden width ``hidden`` for the
+    train kernels of ``family`` (a key of :data:`KERNEL_BODIES`) with bf16
+    (True) or fp32 (False) dot inputs."""
+    return KERNEL_BODIES[family][(kernel_width(family, hidden), bool(bf16))]
+
+
+def body_blocks(body: str, tiles: int, device) -> int:
+    """Blocks of a launch of ``body`` over ``tiles`` 128-pixel tiles on
+    ``device``: its blocks per SM on every SM, at most one per tile."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return min(tiles, BODY_BLOCKS_PER_SM[body] * sms)
 
 
 def pad_hidden(t: torch.Tensor | None, width: int, dims=(-1,)):

@@ -27,6 +27,10 @@
 #define NIC_UNROLL_H(n) NIC_PRAGMA(unroll (H > 64 ? 1 : (n)))
 #endif
 
+// Notes a per-pixel body's launch in the launch log (body_log.cu): called
+// with the function pointer just launched, once the launch succeeded.
+extern "C" void nic_note_body(const void* kernel);
+
 namespace {
 
 constexpr int TP = 128;   // pixels per tile = threads per block
@@ -191,19 +195,34 @@ __device__ __forceinline__ void stage_w1(float* sW1, const float* w1, int n,
     for (int i = threadIdx.x; i < n; i += blockDim.x) sW1[i] = cd<BF16>(w1[i]);
 }
 
+// four consecutive entries of a staged row as floats (fp32 rows, or bf16
+// rows whose values are already bf16: the tensor-core tail's h2b)
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ float4 ld4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 lo =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 hi =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
 // block sums of dW3 = h2b^T dz3b (rows 0..H-1 of the loop, from the
 // staged h2b [H][LDP] and dz3b [3][LDP]), db3 from the raw dz3 (rows H..H+2)
 // and the loss (row H+3), set on the block's first tile and added to
 // after it; a thread takes rows tid, tid + TP, ...
-template <int H>
-__device__ __forceinline__ void tail_w3_sums(const float* sB, const float* sD,
+template <int H, typename T>
+__device__ __forceinline__ void tail_w3_sums(const T* sB, const float* sD,
                                              float* mypart, bool first,
                                              float inv_total) {
   for (int row = threadIdx.x; row < H + 4; row += TP) {
     if (row < H) {
       float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f;
       for (int p = 0; p < TP; p += 4) {
-        const float4 hv = *reinterpret_cast<const float4*>(sB + row * LDP + p);
+        const float4 hv = ld4(sB + row * LDP + p);
         const float4 d0 = *reinterpret_cast<const float4*>(sD + 0 * LDP + p);
         const float4 d1 = *reinterpret_cast<const float4*>(sD + 1 * LDP + p);
         const float4 d2 = *reinterpret_cast<const float4*>(sD + 2 * LDP + p);
@@ -497,7 +516,7 @@ __device__ __forceinline__ void noise_mma(float (&z1)[8][4],
 
 // shared memory of the tensor-core tail
 struct TailMma {
-  float* sB;                  // h2b [64][LDP] fp32, for dW3
+  __nv_bfloat16* sB;          // h2b [64][LDP], for dW3
   float* sD;                  // dz3b, dz3, loss [7][LDP]
   float* sDb2;                // the warps' db2 sums [8][64]
   __nv_bfloat16* sH1;         // h1b [128][LDB], for dW2
@@ -511,7 +530,9 @@ struct TailMma {
 
 // ff_tail in bf16-dot mode on the tensor cores, H = 64, for a block of MT
 // threads and a tile of TP = 128 pixels: from z1 (the accumulator layout
-// above) to dz1 (written for the valid pixels, rows pix[r] of [N, 64]).
+// above) to dz1 = dh1 gelu'(z1), left in z1's registers (zero for invalid
+// pixels) and, when dz1_out is not null, written for the valid pixels
+// (rows pix[r] of [N, 64]).
 // z2 = h1b W2 and dh1 = dz2b W2^T are m16n8k16 products with A in
 // registers; dW2 = h1b^T dz2b over the tile is one with both operands
 // staged in shared memory (ldmatrix.trans), added to the warp's slice
@@ -521,12 +542,12 @@ struct TailMma {
 // sums of loss, dW3, db3 (tail_w3_sums) and db2 (per warp by shuffles,
 // then over the warps in order) are set on its first tile and added to
 // after it. Every sum runs in a fixed order. All threads call it (it
-// synchronises).
+// synchronises); on return sH1, sDZ, sB, sD and sDb2 are free.
 template <int G>
 __device__ __forceinline__ void ff_tail_mma(
     float (&z1)[8][4], const bool (&valid)[2], const size_t (&pix)[2],
     const TailMma& s, const float* __restrict__ tgt, float* __restrict__ out,
-    float* __restrict__ dz1, float* mypart, bool first, float inv_total,
+    float* __restrict__ dz1_out, float* mypart, bool first, float inv_total,
     float (&dw2)[4][4]) {
   constexpr int H = 64;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -564,7 +585,7 @@ __device__ __forceinline__ void ff_tail_mma(
       const int j = 8 * nt + 2 * q + (e & 1), r = e >> 1;
       z2[nt][e] += s.sb2[j];
       const float h2 = bf16_round(gelu_f<G>(z2[nt][e]));
-      s.sB[j * LDP + row[r]] = h2;
+      s.sB[j * LDP + row[r]] = __float2bfloat16_rn(h2);
 #pragma unroll
       for (int c = 0; c < 3; ++c)
         o3[r][c] = fmaf(h2, s.sW3[j * 3 + c], o3[r][c]);
@@ -627,7 +648,8 @@ __device__ __forceinline__ void ff_tail_mma(
     ad[nt >> 1][(nt & 1) * 2] = lo;
     ad[nt >> 1][(nt & 1) * 2 + 1] = hi;
   }
-  // dh1 = dz2b W2^T, dz1 = dh1 gelu'(z1) to device memory
+  // dh1 = dz2b W2^T, dz1 = dh1 gelu'(z1) in place of z1 (and to device
+  // memory when asked)
 #pragma unroll
   for (int nt = 0; nt < 8; ++nt) {
     float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
@@ -637,11 +659,16 @@ __device__ __forceinline__ void ff_tail_mma(
       mma16816(d, ad[kb], ld_u32(w), ld_u32(w + 8));
     }
 #pragma unroll
-    for (int r = 0; r < 2; ++r)
-      if (valid[r])
-        *reinterpret_cast<float2*>(dz1 + pix[r] * H + 8 * nt + 2 * q) =
-            make_float2(d[2 * r] * gelu_d<G>(z1[nt][2 * r]),
-                        d[2 * r + 1] * gelu_d<G>(z1[nt][2 * r + 1]));
+    for (int r = 0; r < 2; ++r) {
+      const float d0 = valid[r] ? d[2 * r] * gelu_d<G>(z1[nt][2 * r]) : 0.0f;
+      const float d1 =
+          valid[r] ? d[2 * r + 1] * gelu_d<G>(z1[nt][2 * r + 1]) : 0.0f;
+      z1[nt][2 * r] = d0;
+      z1[nt][2 * r + 1] = d1;
+      if (dz1_out != nullptr && valid[r])
+        *reinterpret_cast<float2*>(dz1_out + pix[r] * H + 8 * nt + 2 * q) =
+            make_float2(d0, d1);
+    }
   }
   __syncthreads();
 

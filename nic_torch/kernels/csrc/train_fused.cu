@@ -18,14 +18,19 @@
 //   z1 = x W1 + b1,  out = sigmoid(gelu(gelu(z1) W2 + b2) W3 + b3),
 //   loss = mean((out - t)^2)
 //
-// and the full backward. Both entry points launch the same per-pixel
-// kernel, mlp_pixel: one thread per pixel, 128-pixel tiles, each block
-// walking a fixed set of tiles. It stages the tile's x rows transposed in
-// shared memory (coalesced reads of the contiguous [128, F] slab), builds
-// z1, runs the forward, the loss and the backward down to dz1 (the body of
-// K11's ff_pixel), and keeps its block's partial sums of loss, dW3, db3,
-// dW2, db2, db1 and dW1 = x^T dz1 in its own slot. A runtime flag picks
-// what leaves the kernel:
+// and the full backward. Each entry point runs one of two per-pixel
+// bodies, which write the same outputs: in bf16-dot mode at H = 64
+// mlp_pixel_mma (train_fused_mma.cu) on the tensor cores, in fp32-dot mode
+// and at H = 128 mlp_pixel, below, on the CUDA cores. The caller names the
+// body (`mma`, from nic_torch/kernels/_widths.py kernel_body) and a body
+// that does not take the mode is refused. mlp_pixel: one thread per pixel,
+// 128-pixel tiles, each block walking a fixed set of tiles. It stages the
+// tile's x rows transposed in shared memory (coalesced reads of the
+// contiguous [128, F] slab), builds z1, runs the forward, the loss and the
+// backward down to dz1 (the body of K11's ff_pixel), and keeps its
+// block's partial sums of loss, dW3, db3, dW2, db2, db1 and dW1 = x^T dz1
+// in its own slot. A runtime flag picks what leaves the kernel (either
+// body):
 //   dx  dx = dz1 W1^T [N, F], staged through shared memory and written
 //       coalesced; it flows back into the gather's scatter-add (K6);
 //   ng  dz1 [N, H] in fp32, which node_windows (train_common.cuh, shared
@@ -51,8 +56,8 @@
 // 23.3 GFLOP without: 0.42 or 0.35 ms on the fp32 CUDA cores at
 // 67 TFLOP/s. The bytes (x read once, out written, and dx for the dx
 // kernel: 166 MB or 319 MB) take 0.05 or 0.10 ms at 3.35 TB/s. So the
-// fp32 arithmetic bounds this kernel, as it bounds K11; its products
-// belong on the tensor cores (wgmma, bf16 inputs) in a later version.
+// fp32 arithmetic bounds mlp_pixel, as it bounded K11; in bf16-dot mode
+// the products run on the tensor cores (mlp_pixel_mma).
 // Design: weights in shared memory, read by every thread at once
 // (broadcast); activations and cotangents staged per tile as [unit][pixel]
 // columns (stride 132 floats, conflict-free); ~146 KB of shared memory at
@@ -60,8 +65,9 @@
 // block of 128 threads per SM, whose 64-wide register rows give each
 // thread independent FMA chains. dW1 = x^T dz1 is reduced in passes of 80
 // features, so the wider F adds a pass, not registers.
-// Widths: H = 64 and H = 128 are built (a narrower model is zero-padded to
-// 64 by the wrapper, nic_torch/kernels/_widths.py), and any F runs. Where
+// Widths: H = 64 (fp32 dots; bf16 dots run mlp_pixel_mma) and H = 128
+// are built (a narrower model is zero-padded to 64 by the wrapper,
+// nic_torch/kernels/_widths.py), and any F runs. Where
 // x's slab and W1 do not both fit in shared memory (F > 183 at H = 64, any
 // F > 24 at H = 128, whose W2 and staging tiles take 202 KB), W1 rows are
 // read from device memory through L1 and x is staged in chunks of as many
@@ -72,6 +78,15 @@
 // cudaGetLastError().
 
 #include "train_common.cuh"
+
+// the tensor-core body (train_fused_mma.cu)
+extern "C" int nic_mlp_pixel_mma(const float* x, const float* tgt,
+                                 const float* w1, const float* b1,
+                                 const float* w2, const float* b2,
+                                 const float* w3, const float* b3, float* out,
+                                 float* grad_out, float* part, int npix,
+                                 int feat, int write_dx, int gelu_id, int nblk,
+                                 void* stream);
 
 namespace {
 
@@ -487,23 +502,38 @@ cudaError_t launch_pixel(const float* x, const float* tgt, const float* w1,
                          const float* w3, const float* b3, float* out,
                          float* grad_out, float* part, Shape s,
                          int nblk, cudaStream_t stream) {
-  mlp_layout<H>(s);
-  const size_t smem = mlp_smem<H>(s.feat, s.fc, s.w1_smem);
-  auto kern = mlp_pixel<H, BF16, G>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (e != cudaSuccess) return e;
-  kern<<<nblk, TP, smem, stream>>>(x, tgt, w1, b1, w2, b2, w3, b3, out,
-                                   grad_out, part, s);
-  return cudaGetLastError();
+  if constexpr (BF16 && H == 64) {
+    return cudaErrorInvalidValue;  // mlp_pixel_mma's mode
+  } else {
+    mlp_layout<H>(s);
+    const size_t smem = mlp_smem<H>(s.feat, s.fc, s.w1_smem);
+    auto kern = mlp_pixel<H, BF16, G>;
+    cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+    kern<<<nblk, TP, smem, stream>>>(x, tgt, w1, b1, w2, b2, w3, b3, out,
+                                     grad_out, part, s);
+    e = cudaGetLastError();
+    if (e == cudaSuccess) nic_note_body(reinterpret_cast<const void*>(kern));
+    return e;
+  }
 }
 
-cudaError_t dispatch(int hidden, int bf16, int gelu_id, const float* x,
-                     const float* tgt,
+// mma: the tensor-core body (bf16 dots at H = 64 only), else mlp_pixel
+// (fp32 dots, and bf16 at H = 128)
+cudaError_t dispatch(int hidden, int bf16, int gelu_id, int mma,
+                     const float* x, const float* tgt,
                      const float* w1, const float* b1, const float* w2,
                      const float* b2, const float* w3, const float* b3,
                      float* out, float* grad_out, float* part, const Shape& s,
                      int nblk, cudaStream_t stream) {
+  if (mma) {
+    if (hidden != 64 || !bf16) return cudaErrorInvalidValue;
+    return static_cast<cudaError_t>(nic_mlp_pixel_mma(
+        x, tgt, w1, b1, w2, b2, w3, b3, out, grad_out, part, s.npix, s.feat,
+        s.write_dx, gelu_id, nblk, stream));
+  }
 #define NIC_LAUNCH(H, BF, G)                                                 \
   return launch_pixel<H, BF, G>(x, tgt, w1, b1, w2, b2, w3, b3, out,        \
                                 grad_out, part, s, nblk, stream)
@@ -545,13 +575,13 @@ extern "C" int nic_train_fused_dx(const void* x, const void* tgt,
                                   const void* w2, const void* b2,
                                   const void* w3, const void* b3, void* out,
                                   void* dx, void* part, int npix, int feat,
-                                  int hidden, int bf16, int gelu_id, int nblk,
-                                  void* stream) {
+                                  int hidden, int bf16, int gelu_id, int mma,
+                                  int nblk, void* stream) {
   if (bad_shape(npix, feat, hidden, nblk))
     return static_cast<int>(cudaErrorInvalidValue);
   const Shape s = make_shape(npix, feat, 1);
   return static_cast<int>(dispatch(
-      hidden, bf16, gelu_id, static_cast<const float*>(x),
+      hidden, bf16, gelu_id, mma, static_cast<const float*>(x),
       static_cast<const float*>(tgt), static_cast<const float*>(w1),
       static_cast<const float*>(b1), static_cast<const float*>(w2),
       static_cast<const float*>(b2), static_cast<const float*>(w3),
@@ -572,15 +602,15 @@ extern "C" int nic_train_fused_ng(const void* x, const void* tgt,
                                   const void* b3, void* out, void* dz1,
                                   void* part, void* win_p, void* win_c1,
                                   int crops, int n, int f, int feat,
-                                  int hidden, int bf16, int gelu_id, int nblk,
-                                  void* stream) {
+                                  int hidden, int bf16, int gelu_id, int mma,
+                                  int nblk, void* stream) {
   if (crops <= 0 || n <= 0 || f <= 0 ||
       bad_shape(crops * n * n, feat, hidden, nblk))
     return static_cast<int>(cudaErrorInvalidValue);
   const Shape s = make_shape(crops * n * n, feat, 0);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t e = dispatch(
-      hidden, bf16, gelu_id, static_cast<const float*>(x),
+      hidden, bf16, gelu_id, mma, static_cast<const float*>(x),
       static_cast<const float*>(tgt), static_cast<const float*>(w1),
       static_cast<const float*>(b1), static_cast<const float*>(w2),
       static_cast<const float*>(b2), static_cast<const float*>(w3),
@@ -610,14 +640,14 @@ extern "C" int nic_train_fused_ng3(const void* x, const void* tgt,
                                    void* part, void* win_p, void* win_c1,
                                    int crops, int n, int f, int feat,
                                    int hidden, int bf16, int gelu_id,
-                                   int nblk, void* stream) {
+                                   int mma, int nblk, void* stream) {
   if (crops <= 0 || n <= 0 || f <= 0 ||
       bad_shape(crops * n * n * n, feat, hidden, nblk))
     return static_cast<int>(cudaErrorInvalidValue);
   const Shape s = make_shape(crops * n * n * n, feat, 0);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t e = dispatch(
-      hidden, bf16, gelu_id, static_cast<const float*>(x),
+      hidden, bf16, gelu_id, mma, static_cast<const float*>(x),
       static_cast<const float*>(tgt), static_cast<const float*>(w1),
       static_cast<const float*>(b1), static_cast<const float*>(w2),
       static_cast<const float*>(b2), static_cast<const float*>(w3),

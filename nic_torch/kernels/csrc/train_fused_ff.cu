@@ -241,14 +241,14 @@ NIC_UNROLL_H(H / 4)
 // and hands z1 to ff_tail_mma. The block's slice of dW2 stays in
 // registers over all its tiles and is written once at the end.
 //
-// Shared memory (bytes): h2b [64][132] fp32 33,792; dz3b, dz3, loss [7][132]
+// Shared memory (bytes): h2b [64][132] bf16 16,896; dz3b, dz3, loss [7][132]
 // 3,696; per-warp db2 [8][64] 2,048; W3, b2, bvec, b3 1,296; PE tables
 // [2][8][64] 4,096; h1b and dz2b [128][72] bf16 36,864; W2^T and W2 [64][72]
-// bf16 18,432: 100,224, plus with noise W1^T [64][pad16(F) + 8] bf16
-// (11,264 at F = 73): 111,488 at the flagship, so two blocks (16 warps) fit
+// bf16 18,432: 83,328, plus with noise W1^T [64][pad16(F) + 8] bf16
+// (11,264 at F = 73): 94,592 at the flagship, so two blocks (16 warps) fit
 // on an SM; __launch_bounds__(256, 2) holds a thread to 128 registers.
-// From F = 1025 on, W1 is read from device memory instead.
-constexpr size_t kMmaFixedSmem = 100224;
+// From F = 1153 on, W1 is read from device memory instead.
+constexpr size_t kMmaFixedSmem = 83328;
 
 size_t ff_mma_smem(int nfeat, bool w1_smem) {
   const size_t ldk = static_cast<size_t>((nfeat + 15) / 16 * 16 + 8);
@@ -267,10 +267,10 @@ ff_pixel_mma(const float* __restrict__ pp, const float* __restrict__ c1p,
              float* __restrict__ part, Geo g) {
   constexpr int H = 64;
   extern __shared__ float4 smem4[];
-  float* sB = reinterpret_cast<float*>(smem4);  // h2b [H][LDP]
-  float* sD = sB + H * LDP;                     // [7][LDP]
-  float* sDb2 = sD + 7 * LDP;                   // [8][H]
-  float* sW3 = sDb2 + 8 * H;                    // [H][3]
+  auto* sB = reinterpret_cast<__nv_bfloat16*>(smem4);  // h2b [H][LDP]
+  float* sD = reinterpret_cast<float*>(sB + H * LDP);  // [7][LDP]
+  float* sDb2 = sD + 7 * LDP;                          // [8][H]
+  float* sW3 = sDb2 + 8 * H;                           // [H][3]
   float* sb2 = sW3 + 3 * H;
   float* sbv = sb2 + H;
   float* sb3 = sbv + H;                         // [4]
@@ -487,7 +487,9 @@ cudaError_t launch_pixel(const Args& a) {
     kern<<<a.nblk_mlp, MT, smem, a.stream>>>(
         a.pp, a.c1p, a.w1, a.bvec, a.wpe0, a.wpe1, a.w2, a.b2, a.w3, a.b3,
         a.tgt, a.org, a.out, a.dz1, a.part_mlp, a.g);
-    return cudaGetLastError();
+    e = cudaGetLastError();
+    if (e == cudaSuccess) nic_note_body(reinterpret_cast<const void*>(kern));
+    return e;
   } else {
     const size_t smem = ff_smem<H>(a.g.nfeat, a.g.w1_smem);
     auto kern = ff_pixel<H, G>;
@@ -498,7 +500,9 @@ cudaError_t launch_pixel(const Args& a) {
     kern<<<a.nblk_mlp, TP, smem, a.stream>>>(
         a.pp, a.c1p, a.w1, a.bvec, a.wpe0, a.wpe1, a.w2, a.b2, a.w3, a.b3,
         a.tgt, a.org, a.out, a.dz1, a.part_mlp, a.g);
-    return cudaGetLastError();
+    e = cudaGetLastError();
+    if (e == cudaSuccess) nic_note_body(reinterpret_cast<const void*>(kern));
+    return e;
   }
 }
 
@@ -554,10 +558,12 @@ extern "C" int nic_train_fused_ff(
     void* win_c1, void* sums, void* pe_grads, void* part_eps, int crops,
     int n, int f, int p_rows, int p_cols, int c1_rows, int c1_cols,
     int hidden, int npe, int nfeat, int fslot, int bf16, int gelu_id,
-    int nbits, int s0, int s1, int pixel_base, int nblk_mlp, int nblk_eps,
-    void* stream) {
+    int mma, int nbits, int s0, int s1, int pixel_base, int nblk_mlp,
+    int nblk_eps, void* stream) {
+  // the caller names the body: ff_pixel_mma takes bf16 dots, ff_pixel fp32
   if (crops <= 0 || n <= 0 || f <= 0 || npe < 0 || npe > 8 || nfeat <= 0 ||
-      fslot < nfeat || nblk_mlp <= 0 || (nbits > 0) != (nblk_eps > 0))
+      fslot < nfeat || nblk_mlp <= 0 || (nbits > 0) != (nblk_eps > 0) ||
+      (mma != 0) != (bf16 != 0))
     return static_cast<int>(cudaErrorInvalidValue);
   Geo g;
   g.crops = crops;

@@ -50,7 +50,8 @@ import itertools
 import torch
 
 from nic_torch.grids.sample import EVEN_PARITY_CORNERS_3D
-from nic_torch.kernels._widths import kernel_width, pad_mlp, unpad_all
+from nic_torch.kernels._widths import (body_blocks, kernel_body,
+                                       kernel_width, pad_mlp, unpad_all)
 from nic_torch.kernels.decode_fused_v2 import _GELU_POLY_C, _erf
 
 __all__ = ["pick_block_rows", "fused_mlp_loss", "fused_mlp_loss_kernel",
@@ -366,11 +367,10 @@ def _prep(*tensors):
     return [t.clone() if t.data_ptr() % 16 else t for t in out]
 
 
-def _partials(npix: int, feat: int, hidden: int, device):
-    """(per-block partial rows [nblk, 4 + 5H + H² + F·H], nblk): one block
-    of 128-pixel tiles per SM (the kernel's shared memory allows one)."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    nblk = min(-(-npix // 128), sms)
+def _partials(npix: int, feat: int, hidden: int, body: str, device):
+    """(per-block partial rows [nblk, 4 + 5H + H² + F·H], nblk): as many
+    blocks of 128-pixel tiles per SM as ``body`` is built for."""
+    nblk = body_blocks(body, -(-npix // 128), device)
     part = torch.empty((nblk, 4 + 5 * hidden + hidden * hidden
                         + feat * hidden), dtype=torch.float32, device=device)
     return part, nblk
@@ -394,8 +394,10 @@ def fused_mlp_loss_kernel(x, tgt, w1, b1, w2, b2, w3, b3, *, cd=None,
     :func:`fused_mlp_loss_plain`.
 
     A CUDA tensor launches ``nic_train_fused_dx`` of ``csrc/
-    train_fused.cu`` (and raises if it does not build or launch), a hidden
-    width below an instantiated one (64, 128) zero-padded to it
+    train_fused.cu`` (and raises if it does not build or launch) with the
+    per-pixel body :func:`~nic_torch.kernels._widths.kernel_body` names
+    (``mlp_pixel_mma`` for bf16 dots at H = 64, else ``mlp_pixel``), a
+    hidden width below an instantiated one (64, 128) zero-padded to it
     (:func:`fused_mlp_loss_padded`); a CPU tensor runs
     :func:`fused_mlp_loss_plain`.
     ``fused_mlp_loss_kernel.launches`` counts kernel launches."""
@@ -412,10 +414,11 @@ def fused_mlp_loss_kernel(x, tgt, w1, b1, w2, b2, w3, b3, *, cd=None,
                                      *weights, cd=cd, gelu=gelu)
     out = torch.empty((npix, 3), dtype=torch.float32, device=device)
     dx = torch.empty((npix, feat), dtype=torch.float32, device=device)
-    part, nblk = _partials(npix, feat, hidden, device)
+    body = kernel_body("train_mlp", hidden, cd is not None)
+    part, nblk = _partials(npix, feat, hidden, body, device)
     _call("nic_train_fused_dx", (*_prep(x, tgt, *weights), out, dx, part),
-          (npix, feat, hidden, int(cd is not None), GELU_IDS[gelu], nblk),
-          device)
+          (npix, feat, hidden, int(cd is not None), GELU_IDS[gelu],
+           int(body.endswith("_mma")), nblk), device)
     fused_mlp_loss_kernel.launches += 1
     loss, *grads = _sum_partials(part, hidden, feat)
     return (loss, out, dx, *grads)
@@ -484,11 +487,12 @@ def _ng_kernel(wrapper, entry: str, x, tgt, origins, weights, *, n: int,
     win_p = empty(crops, *ext0, hidden)
     win_c1 = empty(crops, *ext1, hidden)
     org = origins.to(device=device, dtype=torch.int32).contiguous()
-    part, nblk = _partials(npix, feat, hidden, device)
+    body = kernel_body("train_mlp", hidden, cd is not None)
+    part, nblk = _partials(npix, feat, hidden, body, device)
     xs, tg, *ws = _prep(x, tgt, *weights)
     _call(entry, (xs, tg, org, *ws, out, dz1, part, win_p, win_c1),
           (crops, n, f, feat, hidden, int(cd is not None), GELU_IDS[gelu],
-           nblk), device)
+           int(body.endswith("_mma")), nblk), device)
     wrapper.launches += 1
     loss, *grads = _sum_partials(part, hidden, feat)
     planes = _accumulate_node_planes(win_p, win_c1, origins, f=f,

@@ -41,8 +41,9 @@ from __future__ import annotations
 
 import torch
 
-from nic_torch.kernels._widths import (kernel_width, pad_hidden, pad_mlp,
-                                      unpad_all)
+from nic_torch.kernels._widths import (body_blocks, kernel_body,
+                                       kernel_width, pad_hidden, pad_mlp,
+                                       unpad_all)
 from nic_torch.kernels.train_fused import (_CORNERS, GELU_IDS,
                                            _accumulate_node_planes, _cd,
                                            _CdDot, _Gelu, _pad8,
@@ -354,7 +355,8 @@ def fused_train_ff_kernel(p_plane, c1_plane, w1, b1, w2, b2, w3, b3, tgt,
 
     rows0, cols0, rows1, cols1 = _window_extents(n, f)
     tiles = -(-npix // 128)
-    nblk_mlp = min(tiles, 264)
+    body = kernel_body("train_ff", hidden, cd is not None)
+    nblk_mlp = body_blocks(body, tiles, device)
     nblk_eps = min(tiles, 264) if nbits is not None else 0
     part_len = 4 + 4 * hidden + hidden * hidden
     empty = lambda *s: torch.empty(s, dtype=f32, device=device)  # noqa: E731
@@ -377,7 +379,7 @@ def fused_train_ff_kernel(p_plane, c1_plane, w1, b1, w2, b2, w3, b3, tgt,
             pe_grads.data_ptr(), part_eps.data_ptr(),
             crops, n, f, p_c.shape[0], p_c.shape[1], c1_c.shape[0],
             c1_c.shape[1], hidden, npe, nfeat, _pad8(nfeat),
-            int(cd is not None), GELU_IDS[gelu],
+            int(cd is not None), GELU_IDS[gelu], int(body.endswith("_mma")),
             0 if nbits is None else int(nbits), s0, s1, pixel_base,
             nblk_mlp, nblk_eps, stream)
     if rc != 0:

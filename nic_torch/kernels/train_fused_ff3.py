@@ -40,8 +40,9 @@ from __future__ import annotations
 import torch
 
 from nic_torch.core.encodings import sinusoidal_pe, triangular_pe
-from nic_torch.kernels._widths import (kernel_width, pad_hidden, pad_mlp,
-                                      unpad_all)
+from nic_torch.kernels._widths import (body_blocks, kernel_body,
+                                       kernel_width, pad_hidden, pad_mlp,
+                                       unpad_all)
 from nic_torch.kernels.train_fused import (_CORNERS_3D_DENSE,
                                            _CORNERS_3D_SPARSE, GELU_IDS,
                                            _accumulate_node_planes, _cd,
@@ -343,7 +344,8 @@ def fused_train_ff3_kernel(p_vol, c1_vol, w1, b1, w2, b2, w3, b3, tgt,
     ext0, ext1 = _window_extents_3d(n, f)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     tiles = -(-npix // 128)
-    nblk_mlp = min(tiles, sms)
+    body = kernel_body("train_ff3", hidden, cd is not None)
+    nblk_mlp = body_blocks(body, tiles, device)
     nblk_eps = min(tiles, 2 * sms) if nbits is not None else 0
     empty = lambda *s: torch.empty(s, dtype=f32, device=device)  # noqa: E731
     out = empty(npix, 3)
@@ -362,7 +364,7 @@ def fused_train_ff3_kernel(p_vol, c1_vol, w1, b1, w2, b2, w3, b3, tgt,
             part_mlp.data_ptr(), win_p.data_ptr(), win_c1.data_ptr(),
             sums.data_ptr(), part_eps.data_ptr(), crops, n, f,
             p_c.shape[0], c1_c.shape[0], hidden, nfeat, _pad8(nfeat),
-            int(cd is not None), GELU_IDS[gelu],
+            int(cd is not None), GELU_IDS[gelu], int(body.endswith("_mma")),
             0 if nbits is None else int(nbits), s0, s1, pixel_base,
             nblk_mlp, nblk_eps, stream)
     if rc != 0:
