@@ -13,10 +13,12 @@ Phases (any failure exits non-zero):
    kernel3 train steps K11 (2D) and K12 (3D), and the dx (K6) and
    node-gradient (K7, kernel2; K9 in 3D) train kernels; one nvcc per
    source, all started together) for sm_90a, and print the build time
-   and the registers and spills of the tensor-core bodies (``ptxas -v``);
+   and the registers and spills of the tensor-core bodies (``ptxas -v``:
+   the train bodies, and K1/K5's ``decode_v2_mma`` by plane mode);
 3. each kernel against its plain PyTorch version on the card, on the
    committed trained artifact's column-stage outputs at mips 0-2, for every
-   plane mode x GELU;
+   plane mode x GELU; the launch log must name only ``decode_v2_mma``
+   (the tensor-core body K1 runs at H = 64 in every plane mode);
 4. serve: the decoder-only CLI (``nic_torch.cli.decode.run``) decodes the
    committed artifact at mips 0-9 and is held to the JAX fold's decode
    stored beside it (u8 within 2 LSB, mip-0 PSNR within 0.05 dB); the
@@ -135,17 +137,26 @@ Every hidden and feature width the gates admit (``nic_torch/kernels/
 _widths.py``: narrower widths zero-padded to an instantiated one):
 
 26. kernel vs plain (K11's tolerances, two runs bit-identical; the decode
-    tolerances): K11 at H = 16 and 32 in four modes; K7 and K6 at H = 16
-    and 128 (at 128 x in feature chunks, W1 from device memory); K12 m3
-    at PE 8 (F = 133) and F = 205 (C = 20), and at H = 128 with F = 133,
-    in four modes; K9 at F = 133 and 205; K6 at F = 413 (the tensor-core
-    body's two feature chunks), 200 rows; K1, K2, K3, K4 on random 512²
-    models and K5 on a 64³ m3 mip-mode model at H = 32 and 128 in their
-    plane modes; every counter must rise; the padding's cost timed (K11
-    at 8×256² and K1 at 2048² beside H = 64);
+    tolerances): K11 at H = 16 and 32 in four modes; K7 and K6 at H = 16,
+    128, 192 and 256 (at 128 x in feature chunks, W1 from device memory;
+    past 128 ``mlp_pixel_wide``); K12 m3 at PE 8 (F = 133) and F = 205
+    (C = 20), and at H = 128 with F = 133, in four modes; K9 at F = 133
+    and 205 and at H = 192 and 256; K6 at F = 413 (the tensor-core body's
+    two feature chunks), 200 rows; K1, K2, K3, K4 on random 512² models
+    and K5 on a 64³ m3 mip-mode model at H = 16, 32, 128, 192 and 256 in
+    their plane modes, the 192/256 cells' bodies (``decode_v2_mma`` and
+    the wide tails) and K1's and K5's at 16 (their CUDA-core body) by the
+    launch log and the profiler; every counter must rise; the padding's
+    cost timed (K11 at 8×256² and K1 at 2048² beside H = 64), and K1 at
+    H = 16 on its CUDA-core body beside the same model padded to 64 onto
+    ``decode_v2_mma``;
 27. the training CLI for 50 epochs at HIDDEN_LAYER_CHANNELS=16 and 32
     under TRAIN_FORWARD=auto: kernel3 in both phases and every step, then
-    the decode CLI at mips 0-9.
+    the decode CLI at mips 0-9; then at HIDDEN_LAYER_CHANNELS=256, where
+    kernel3's gate refuses: K7 at every step (exactly 50 launches), the
+    decode CLI at mips 0-9 through K1 (exactly 3 launches), every mip
+    within 1.0 dB of a TRAIN_FORWARD=gather run of the same
+    configuration, and the per-LOD engine log printed.
 
 ``--only a,b`` runs the build and the named phases (``PHASES``) and
 prints no kernels or result line; the driver's run takes no arguments.
@@ -160,7 +171,9 @@ phases 21-23), its time and its plain version's at the path's shape and
 mode, and its bound, the larger of its
 bytes (each input read once, each output written once) over 3.35 TB/s and
 its dot operations (the JAX cost model's count) over the published peak
-for their type (67 TFLOP/s fp32, 989 TFLOP/s bf16; H100 SXM, 700 W). No
+for their type (67 TFLOP/s fp32, 989 TFLOP/s bf16; H100 SXM, 700 W; K1
+and K5 take their fp32 dots as three TF32 tensor-core products, so theirs
+count at 495/3 TFLOP/s). No
 single PyTorch call computes any of these fused functions, so
 ``library_ms`` is null.
 """
@@ -204,7 +217,9 @@ K2_SOURCE = "nic_torch/kernels/csrc/decode_z1mm.cu"
 K2_REPLACES = "nic/kernels/decode_fused_v2.py:191"
 # published H100 SXM peaks at 700 W: memory bytes/s and dot FLOP/s by type
 PEAK_BYTES = 3.35e12
-PEAK_FLOPS = {"fp32": 67e12, "bf16": 989e12}
+# (tf32x3: fp32 dots as three TF32 tensor-core products each, 495 TFLOP/s
+# of TF32 over the three, as decode_v2_mma runs K1/K5's fp32 mode)
+PEAK_FLOPS = {"fp32": 67e12, "bf16": 989e12, "tf32x3": 495e12 / 3}
 
 # kernel vs plain tolerances on the [0, 1] output. fp32 planes and dots:
 # only the summation order, FMA contraction and the libm of exp/tanh
@@ -307,12 +322,17 @@ def u8(x):
 
 # the tensor-core bodies whose registers and spills phase 2 reports
 MMA_BODIES = ("ff_pixel_mma", "mlp_pixel_mma", "ff3_pixel_mma")
+# K1/K5's tensor-core body, by (plane mode, H = 64 with h1 in registers or
+# wider with h1 in slots); phase 2 reports its exact-erf and tanherf GELUs
+DECODE_MMA = "decode_v2_mma"
+PLANE_IDS = ("fp32", "bf16", "i16", "surgical")
 
 
 def ptxas_usage(log: str) -> dict:
     """{(body, gelu): (registers, spill stores, spill loads, stack bytes)}
     from the ``ptxas -v`` lines of an nvcc log, for the template kernels
-    MMA_BODIES (their one template argument: the GELU, 0 erf, 1 poly)."""
+    MMA_BODIES (their one template argument: the GELU, 0 erf, 1 poly) and
+    DECODE_MMA (keyed (DECODE_MMA, (plane mode, gelu id, H = 64))))."""
     import re
 
     out, cur, props = {}, None, None
@@ -321,6 +341,10 @@ def ptxas_usage(log: str) -> dict:
         if m:
             hit = [(b, int(g)) for b in MMA_BODIES for g in re.findall(
                 rf"\d{b}ILi(\d)E", m.group(1))]
+            hit += [(DECODE_MMA, (PLANE_IDS[int(md)], int(g), one == "1"))
+                    for md, g, one in re.findall(
+                        rf"\d{DECODE_MMA}ILi(\d)ELi(\d)ELb([01])E",
+                        m.group(1))]
             cur, props = (hit[0] if hit else None), None
             continue
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
@@ -349,13 +373,22 @@ def phase_build() -> float:
                               key=lambda kv: -kv[1]))
              or "already built"), flush=True)
     usage = ptxas_usage(_build.log_path().read_text())
-    if {b for b, _ in usage} != set(MMA_BODIES):
+    if {b for b, _ in usage} != set(MMA_BODIES) | {DECODE_MMA}:
         fail(f"ptxas reported {sorted(usage)}, not every one of "
-             f"{MMA_BODIES} (nvcc log {_build.log_path()})")
+             f"{MMA_BODIES + (DECODE_MMA,)} (nvcc log {_build.log_path()})")
+    train = {k: v for k, v in usage.items() if k[0] != DECODE_MMA}
     print("phase 2: tensor-core bodies (ptxas -v): " + "; ".join(
         f"{b}<{'poly' if g else 'erf'}> {r} registers, {ss} B spill stores, "
         f"{sl} B spill loads, {st} B stack"
-        for (b, g), (r, ss, sl, st) in sorted(usage.items())), flush=True)
+        for (b, g), (r, ss, sl, st) in sorted(train.items())), flush=True)
+    dec = {k[1]: v for k, v in usage.items() if k[0] == DECODE_MMA}
+    print(f"phase 2: {DECODE_MMA} (ptxas -v), by plane mode, GELU exact / "
+          "tanherf, H = 64 (h1 in registers) / wider (slots): " + "; ".join(
+              f"{md}·{'exact' if g == 0 else 'tanherf'}·"
+              f"{'H64' if one else 'wide'} {r} registers, {ss}/{sl} B spill "
+              f"stores/loads, {st} B stack"
+              for (md, g, one), (r, ss, sl, st) in sorted(dec.items())
+              if g in (0, 5)), flush=True)
     return secs
 
 
@@ -368,10 +401,13 @@ def phase_parity(device) -> float:
     from nic_torch.io.artifacts import load_compressed
     from nic_torch.kernels import decode_fused_v2 as k
 
+    from nic_torch.kernels._build import body_launches, clear_body_launches
+
     mlp, fp, meta = load_compressed(ART, device=device)
     m2l = pyramid_mip_levels(512, fp[0].shape[1] - 1, True)
     worst = {m: 0.0 for m in TOL}
     main_err = 0.0
+    clear_body_launches()
     with torch.inference_mode():
         for mip in (0, 1, 2):
             for mode, dtype in (("fp32", None), ("bf16", torch.bfloat16),
@@ -397,9 +433,15 @@ def phase_parity(device) -> float:
                     if err > TOL[mode]:
                         fail(f"kernel vs plain at mip {mip} {mode}·{gelu}: "
                              f"max|Δ| {err:.3e} > {TOL[mode]:.0e}")
+    logged = body_launches()
+    if _bodies_named(logged) != {"decode_v2_mma"}:
+        fail(f"phase 3: the launch log names {sorted(_bodies_named(logged))}"
+             " at H = 64, want decode_v2_mma in every plane mode")
     print("phase 3: kernel vs plain, mips 0-2 x 6 GELUs, worst max|Δ| per "
           "plane mode: " + ", ".join(f"{m} {e:.3e} (tol {TOL[m]:.0e})"
-                                     for m, e in worst.items()), flush=True)
+                                     for m, e in worst.items())
+          + f"; body launches {sum(logged.values())}, all decode_v2_mma",
+          flush=True)
     return main_err
 
 
@@ -635,27 +677,38 @@ BODY_REPS = 3
 
 
 def _bodies_named(names) -> set:
-    """The per-pixel bodies of any family that the kernel ``names`` hold."""
-    from nic_torch.kernels._widths import KERNEL_BODIES
+    """The per-pixel bodies of any family (train or decode) that the kernel
+    ``names`` hold."""
+    from nic_torch.kernels._widths import DECODE_BODIES, KERNEL_BODIES
 
-    return {b for fam in KERNEL_BODIES.values() for b in fam.values()
-            if any(_is_body(b, nm) for nm in names)}
+    return {b for fam in (*KERNEL_BODIES.values(), *DECODE_BODIES.values())
+            for b in fam.values() if any(_is_body(b, nm) for nm in names)}
+
+
+def _want_body(family: str, hidden: int, cd: str) -> str:
+    """The body ``nic_torch/kernels/_widths.py`` names: ``kernel_body`` for
+    a train family (``cd`` "fp32" or "bf16"), ``decode_body`` for a decode
+    family (``cd`` the plane mode)."""
+    from nic_torch.kernels._widths import decode_body, kernel_body
+
+    if family.startswith("decode"):
+        return decode_body(family, hidden, cd)
+    return kernel_body(family, hidden, cd == "bf16")
 
 
 def _check_body(tag, fn, family: str, hidden: int, cd: str):
     """Calls of ``fn`` under torch.profiler (:func:`_traced`): of all the
-    per-pixel bodies exactly the one ``kernel_body`` names for (family,
-    hidden, cd) must run (``nic_torch/kernels/_widths.py``), by the names
-    in the kernels' launch log and by those in the trace. Another body in
-    either fails at once; a trace with no body is taken again, up to
-    BODY_TRIES times, then the cell is counted as lost to the profiler
-    (:func:`_body_summary` judges). Returns the last call's result."""
+    per-pixel bodies exactly the one ``_widths`` names for (family, hidden,
+    cd) must run (:func:`_want_body`), by the names in the kernels' launch
+    log and by those in the trace. Another body in either fails at once; a
+    trace with no body is taken again, up to BODY_TRIES times, then the
+    cell is counted as lost to the profiler (:func:`_body_summary`
+    judges). Returns the last call's result."""
     import torch
 
     from nic_torch.kernels._build import body_launches, clear_body_launches
-    from nic_torch.kernels._widths import kernel_body
 
-    want = kernel_body(family, hidden, cd == "bf16")
+    want = _want_body(family, hidden, cd)
     BODY_WANTED.add(want)
     clear_body_launches()
     for _ in range(BODY_TRIES):
@@ -684,9 +737,7 @@ def _device_line(phase: int, tag: str, fn, family: str, hidden: int,
                  cd: str) -> None:
     """Print the device time per call of ``fn`` (torch.profiler) and its
     per-pixel body's share."""
-    from nic_torch.kernels._widths import kernel_body
-
-    body = kernel_body(family, hidden, cd == "bf16")
+    body = _want_body(family, hidden, cd)
     total, per = device_ms(fn)
     print(f"phase {phase}: {tag}: device {total:.4f} ms per call, of it "
           f"{body} {_body_ms(per, body):.4f} ms", flush=True)
@@ -1476,7 +1527,7 @@ def phase_scale3(device, size: int = 256) -> tuple:
         plain = cuda_ms(lambda: k.decode_kernel_3d_plain(*args, **g),
                         warmup=1, reps=3)
         work = _k5_work(args, nvox)
-        b_ms, b_by = bound(*work, "fp32")
+        b_ms, b_by = bound(*work, "tf32x3")
         print(f"phase 15: {size}³ K5 fp32·exact: kernel {ms:.4f} ms "
               f"({nvox / ms / 1e6:.3f} GVox/s) vs plain {plain:.4f} ms; "
               f"bound {b_ms:.4f} ms ({b_by})", flush=True)
@@ -2238,8 +2289,9 @@ def _width_counters() -> dict:
 
 
 def _widths_train(device) -> dict:
-    """K11 at H = 16, 32; K6, K7 at H = 16 and 128; K12 at m3 PE 8 (F =
-    133) and F = 205 and at H = 128; K9 at F = 133 and F = 205 (C = 20):
+    """K11 at H = 16, 32; K6, K7 at H = 16, 128, 192 and 256 (the last two
+    on mlp_pixel_wide); K12 at m3 PE 8 (F = 133) and F = 205 and at H =
+    128; K9 at F = 133 and F = 205 (C = 20) and at H = 192 and 256:
     kernel vs plain (two runs bit-identical) at K11's tolerances. Returns
     K11's padding cost: {H: ms} at 8×256² bf16·poly with noise."""
     import torch
@@ -2289,7 +2341,7 @@ def _widths_train(device) -> dict:
                    "P_acc", "C1_acc")
         names6 = ("loss", "out", "dx", "dw1", "db1", "dw2", "db2", "dw3",
                   "db3")
-        for hidden in (16, 128):
+        for hidden in (16, 128, 192, 256):
             fp, weights, x, tgt, origins = _gather_inputs(
                 gen, device, 64, 1.0, True, hidden=hidden)
             geo = dict(g0_nodes=tuple(fp[0].shape[1:]),
@@ -2356,15 +2408,35 @@ def _widths_train(device) -> dict:
                           lambda: k67.fused_mlp_loss_ng_plain(
                               x, tgt, origins, *weights, **kw9), cd,
                           "train_mlp", hidden)
+        # K9 past H = 128 (mlp_pixel_wide; K12's gate refuses these widths)
+        for hidden in (192, 256):
+            fp, weights, tgt, origins, _ = _inputs3(gen, device, n, f, False,
+                                                    hidden=hidden)
+            x = _gather3(fp, origins, n, f, False, device)
+            geo = dict(g0_nodes=tuple(fp[0].shape[1:]),
+                       g1_nodes=tuple(fp[1].shape[1:]))
+            for label, (cd, gelu) in K11_MODES.items():
+                cdt = None if cd == "fp32" else torch.bfloat16
+                kw9 = dict(n=n, f=f, gelu=gelu, cd=cdt, **geo)
+                check(f"K9 H={hidden} 8×{n}³ f={f} m3 {label}", names67,
+                      lambda: k67.fused_mlp_loss_ng3_kernel(
+                          x, tgt, origins, *weights, **kw9),
+                      lambda: k67.fused_mlp_loss_ng_plain(
+                          x, tgt, origins, *weights, **kw9), cd,
+                      "train_mlp", hidden)
     _body_summary(26)
     return pad_ms
 
 
 def _widths_decode(device) -> dict:
     """K1, K2, K3, K4 (2D, 512² random models) and K5 (a 64³ m3 mip-mode
-    model) at H = 32 (zero-padded to 64) and 128, against their plain
-    versions at the decode tolerances. Returns K1's padding cost at 2048²
-    fp32·exact: {H: ms}."""
+    model) at H = 16, 32 (zero-padded to 64), 128, 192 and 256, against
+    their plain versions at the decode tolerances; at 192 and 256 every
+    cell's body by the launch log and the profiler (the wide bodies, and
+    decode_v2_mma for K1/K5), and at 16 K1's and K5's (their CUDA-core
+    body). Returns K1's times at 2048²: fp32·exact by H (32 zero-padded to
+    64), and H = 16 on its CUDA-core body beside the same model
+    zero-padded to 64 onto decode_v2_mma, in fp32·exact and bf16·poly."""
     import torch
 
     from nic_torch.grids.fastdecode import first_layer_acc
@@ -2378,7 +2450,10 @@ def _widths_decode(device) -> dict:
              ("i16", "i16", "tanherf"), ("surgical", "surgical", "exact"))
     worst = {}
 
-    def hold(tag, mode, got, want):
+    def hold(tag, mode, fn, want, body=None):
+        """``fn()`` against ``want``; with ``body`` (family, hidden, mode)
+        under :func:`_check_body`."""
+        got = _check_body(tag, fn, *body) if body else fn()
         if got.shape != want.shape or not torch.isfinite(got).all():
             fail(f"{tag}: shape {tuple(got.shape)} or non-finite values")
         err = float((got - want).abs().max())
@@ -2389,7 +2464,9 @@ def _widths_decode(device) -> dict:
     gen3 = torch.Generator(device="cpu").manual_seed(27)
     m2l3 = pyramid_mip_levels(64, 16, False)
     with torch.inference_mode():
-        for hidden in (32, 128):
+        for hidden in (16, 32, 128, 192, 256):
+            wide = hidden > 128  # these cells' bodies are checked
+            v2 = wide or hidden == 16  # and K1's and K5's at H = 16
             fp, mlp, m2l = _random_flagship(device, 512, hidden)
             for mip in (0, 1, 2):
                 for mode, dtype, gelu in modes:
@@ -2399,19 +2476,25 @@ def _widths_decode(device) -> dict:
                     g = dict(f=geom["f"], f1=geom["f1"], gelu=gelu)
                     args = (pc, c1v, pe_u, w2, b2, w3, b3)
                     tag = f"H={hidden} mip {mip} {mode}·{gelu}"
-                    hold(f"K1 {tag}", mode, k1.decode_kernel_2d(*args, s, **g),
-                         k1.decode_kernel_2d_plain(*args, s, **g))
+                    hold(f"K1 {tag}", mode,
+                         lambda: k1.decode_kernel_2d(*args, s, **g),
+                         k1.decode_kernel_2d_plain(*args, s, **g),
+                         ("decode_v2", hidden, mode) if v2 else None)
                     if mode != "i16":
                         hold(f"K2 {tag}", mode,
-                             k1.decode_kernel_z1mm(*args, R=geom["R"], **g),
+                             lambda: k1.decode_kernel_z1mm(*args, R=geom["R"],
+                                                           **g),
                              k1.decode_kernel_z1mm_plain(*args, R=geom["R"],
-                                                         **g))
+                                                         **g),
+                             ("decode_z1mm", hidden, mode) if wide else None)
                 for mode, dtype in (("fp32", None), ("bf16", torch.bfloat16)):
                     vargs, vkw = _v1_args(fp, mlp, mip, m2l, 512, dtype)
                     hold(f"K3 H={hidden} mip {mip} {mode}", mode,
-                         k3.decode_kernel_v1(*vargs, use_tri_pe=True, **vkw),
+                         lambda: k3.decode_kernel_v1(*vargs, use_tri_pe=True,
+                                                     **vkw),
                          k3.decode_kernel_v1_plain(*vargs, use_tri_pe=True,
-                                                   **vkw))
+                                                   **vkw),
+                         ("decode_v1", hidden, mode) if wide else None)
             acc = first_layer_acc(fp, mlp, 0, image_size=512,
                                   mip_to_level=m2l, pe_channels=6,
                                   use_tri_pe=True).contiguous()
@@ -2419,8 +2502,9 @@ def _widths_decode(device) -> dict:
                                 ("bf16", torch.bfloat16)):
                 args = (acc.to(dtype), mlp["w2"].to(dtype), mlp["b2"],
                         mlp["w3"].to(dtype), mlp["b3"])
-                hold(f"K4 H={hidden} {mode}", mode, k4.mlp_tail(*args),
-                     k4.mlp_tail_plain(*args))
+                hold(f"K4 H={hidden} {mode}", mode,
+                     lambda: k4.mlp_tail(*args), k4.mlp_tail_plain(*args),
+                     ("decode_v3", hidden, mode) if wide else None)
             fp3, mlp3 = _pyramid3(gen3, device, 64, False, no_mip=False,
                                   hidden=hidden)
             for mip in (0, 1):
@@ -2432,12 +2516,14 @@ def _widths_decode(device) -> dict:
                     g = dict(f=geom["f"], f1=geom["f1"], gelu=gelu)
                     args = (pc, c1v, pe_u, w2, b2, w3, b3, s)
                     hold(f"K5 H={hidden} mip {mip} {mode}·{gelu}", mode,
-                         k5.decode_kernel_3d(*args, **g),
-                         k5.decode_kernel_3d_plain(*args, **g))
-        print("phase 26: decodes at H = 32 (padded to 64) and 128 vs plain, "
-              "worst max|Δ| (fp32 and reduced modes together): " + ", ".join(
-                  f"{nm} {e:.3e}" for nm, e in sorted(worst.items())),
+                         lambda: k5.decode_kernel_3d(*args, **g),
+                         k5.decode_kernel_3d_plain(*args, **g),
+                         ("decode_v2", hidden, mode) if v2 else None)
+        print("phase 26: decodes at H = 16, 32 (padded to 64), 128, 192 and "
+              "256 vs plain, worst max|Δ| (fp32 and reduced modes together): "
+              + ", ".join(f"{nm} {e:.3e}" for nm, e in sorted(worst.items())),
               flush=True)
+        _body_summary(26)
         pad_ms = {}
         for hidden in (32, 64):
             fp, mlp, m2l = _random_flagship(device, 2048, hidden)
@@ -2451,6 +2537,25 @@ def _widths_decode(device) -> dict:
               "zero-padded to 64, planes copied): " + ", ".join(
                   f"H={h} {ms:.4f} ms" for h, ms in pad_ms.items()),
               flush=True)
+        # H = 16 on its CUDA-core body, and the same model through the
+        # zero padding onto decode_v2_mma (the wrapper's path were 16 not
+        # a built width): what the second body saves
+        fp, mlp, m2l = _random_flagship(device, 2048, 16)
+        for mode, dtype, gelu in (("fp32", None, "exact"),
+                                  ("bf16", torch.bfloat16, "poly")):
+            pc, c1v, pe_u, w2, b2, w3, b3, s, geom = k1._prepare_2d(
+                fp, mlp, 0, image_size=2048, mip_to_level=m2l, pe_channels=6,
+                use_tri_pe=True, dtype=dtype)
+            args = (pc, c1v, pe_u, w2, b2, w3, b3, s)
+            g = dict(f=geom["f"], f1=geom["f1"], gelu=gelu)
+            own = cuda_ms(lambda: k1.decode_kernel_2d(*args, **g))
+            padded = cuda_ms(lambda: k1._padded_planes(
+                k1.decode_kernel_2d, 64, *args, **g))
+            pad_ms[(16, mode)] = (own, padded)
+            print(f"phase 26: K1 at 2048² H=16 {mode}·{gelu}: "
+                  f"{_want_body('decode_v2', 16, mode)} {own:.4f} ms, "
+                  f"zero-padded to 64 on {_want_body('decode_v2', 64, mode)} "
+                  f"{padded:.4f} ms (planes copied)", flush=True)
     return pad_ms
 
 
@@ -2469,13 +2574,70 @@ def phase_widths(device) -> dict:
 
 
 # HIDDEN_LAYER_CHANNELS=16 (the JAX suite's small model) trains on K11 at
-# every step; H = 32 also decodes through K1 zero-padded to 64
+# every step; H = 32 also decodes through K1 zero-padded to 64; at H = 256
+# kernel3's gate refuses (2H > 128), so every step runs K7 on
+# mlp_pixel_wide, and the decode runs decode_v2_mma's wide path
 SMALL_EPOCHS = 50
+WIDE_HIDDEN = 256
+
+
+def _wide_cli(args) -> None:
+    """The flagship CLI at H = WIDE_HIDDEN under TRAIN_FORWARD=auto: K7 on
+    every step (kernel2 at every LOD), the decode CLI at mips 0-9 with 3 K1
+    launches, each mip within TRAIN_PSNR_DB of a TRAIN_FORWARD=gather run
+    of the same configuration (PSNR of the decode against the image's
+    mip)."""
+    import numpy as np
+
+    from nic_torch.config import parse_overrides
+    from nic_torch.data.assets import load_image_mips
+
+    run = _cli_train(args)
+    gather = _cli_train(args + ["TRAIN_FORWARD=gather"])
+    cfg = parse_overrides(args)
+    ref = load_image_mips(cfg.image_path, cfg.image_size, 9)
+
+    def psnrs(recs):
+        out = []
+        for mip, rec in enumerate(recs):
+            want = np.moveaxis(np.asarray(ref[mip], np.float64), 0, -1)
+            mse = float(np.mean((np.asarray(rec, np.float64) - want) ** 2))
+            out.append(10.0 * np.log10(1.0 / max(mse, 1e-12)))
+        return out
+
+    got, base = psnrs(run["recs"]), psnrs(gather["recs"])
+    print(f"phase 27: training CLI at H={WIDE_HIDDEN}, {SMALL_EPOCHS} epochs "
+          f"in {run['wall']:.1f} s (gather {gather['wall']:.1f} s); launches "
+          f"{run['launches']}; loss {run['losses'][0]:.5f} → "
+          f"{run['losses'][-1]:.5f}; decode CLI mips 0-9, K1 launches "
+          f"{run['k1']}; PSNR by mip (dB) " + ", ".join(
+              f"{m}: {a:.3f} vs gather {b:.3f}"
+              for m, (a, b) in enumerate(zip(got, base))), flush=True)
+    for line in run["gates"]:
+        print(f"phase 27: H={WIDE_HIDDEN} {line}", flush=True)
+    if set(run["engine"].values()) != {"kernel2"}:
+        fail(f"H={WIDE_HIDDEN}: the gate log does not name kernel2 at every "
+             f"LOD: {run['engine']}")
+    if run["launches"] != {"K11": 0, "K6": 0, "K7": SMALL_EPOCHS, "K12": 0,
+                           "K9": 0}:
+        fail(f"H={WIDE_HIDDEN}: launches {run['launches']}, want K7 "
+             f"{SMALL_EPOCHS}")
+    if not np.isfinite(run["losses"]).all():
+        fail(f"H={WIDE_HIDDEN}: non-finite losses")
+    _check_decodes(f"H={WIDE_HIDDEN}", run, no_mip=True)
+    if run["k1"] != 3:
+        fail(f"H={WIDE_HIDDEN}: K1 launched {run['k1']} times, want 3")
+    far = [m for m, (a, b) in enumerate(zip(got, base))
+           if abs(a - b) > TRAIN_PSNR_DB]
+    if far:
+        fail(f"H={WIDE_HIDDEN}: mips {far} decode more than {TRAIN_PSNR_DB} "
+             f"dB from the gather run's")
 
 
 def phase_small_cli(device) -> None:
     """Short CLI runs at H = 16 and 32 under TRAIN_FORWARD=auto: kernel3 at
-    every step, then the decode CLI at mips 0-9."""
+    every step, then the decode CLI at mips 0-9; then H = WIDE_HIDDEN
+    (:func:`_wide_cli`)."""
     import numpy as np
 
     for hidden in (16, 32):
@@ -2497,6 +2659,8 @@ def phase_small_cli(device) -> None:
         if not np.isfinite(run["losses"]).all():
             fail(f"H={hidden}: non-finite losses")
         _check_decodes(f"H={hidden}", run, no_mip=True)
+    _wide_cli([f"NUM_EPOCHS={SMALL_EPOCHS}", "SDC_GUARD_TRAIN=False",
+               f"HIDDEN_LAYER_CHANNELS={WIDE_HIDDEN}"])
 
 
 # the phases by name, in the order a full run takes them
@@ -2596,7 +2760,7 @@ def main(argv=None) -> None:
     # fp32·exact, each with its fixture path's launches (mips 0-9)
     print(json.dumps({"kernels": [
         entry("decode_fused_v2", KERNEL_SOURCE, REPLACES, k1_launches,
-              main_err, *timings[2048][("fp32", "exact")], "fp32"),
+              main_err, *timings[2048][("fp32", "exact")], "tf32x3"),
         entry("train_fused_ff", K11_SOURCE, K11_REPLACES, k11_launches,
               k11["out_err"], k11_ms, k11_plain, k11_work, "bf16"),
         entry("train_fused_dx", K67_SOURCE, K6_REPLACES, k6_launches,
@@ -2604,7 +2768,7 @@ def main(argv=None) -> None:
         entry("train_fused_ng", K67_SOURCE, K7_REPLACES, k7_launches,
               k7["bf16·poly"][3], *k7["bf16·poly"][:3], "bf16"),
         entry("decode_fused_3d", K5_SOURCE, K5_REPLACES, k5_launches,
-              k5_err, k5_ms, k5_plain, k5_work, "fp32"),
+              k5_err, k5_ms, k5_plain, k5_work, "tf32x3"),
         entry("train_fused_ff3", K12_SOURCE, K12_REPLACES, launches3["K12"],
               k12[k12_cell][3], *k12[k12_cell][:3], "bf16"),
         entry("train_fused_ng3", K67_SOURCE, K9_REPLACES, launches3["K9"],

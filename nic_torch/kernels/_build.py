@@ -64,12 +64,10 @@ def _key(sources: list[Path]) -> str:
 def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     fn = lib.nic_decode_fused_v2
-    fn.argtypes = [p, p, p, p, p, p, p, ctypes.c_float, p,
-                   i, i, i, i, i, i, i, p]
+    fn.argtypes = [p, p, p, p, p, p, p, ctypes.c_float, p] + [i] * 8 + [p]
     fn.restype = i
     fn = lib.nic_decode_fused_3d
-    fn.argtypes = [p, p, p, p, p, p, p, ctypes.c_float, p,
-                   i, i, i, i, i, i, i, i, p]
+    fn.argtypes = [p, p, p, p, p, p, p, ctypes.c_float, p] + [i] * 9 + [p]
     fn.restype = i
     fn = lib.nic_decode_z1mm
     fn.argtypes = [p] * 9 + [i] * 10 + [p]
@@ -106,7 +104,7 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 
 def body_launches() -> dict[str, int]:
-    """The per-pixel training bodies launched since the last
+    """The per-pixel bodies (train and decode) launched since the last
     :func:`clear_body_launches`: {the CUDA runtime's name of the launched
     ``__global__``: launches} (``csrc/body_log.cu``)."""
     lib = load()

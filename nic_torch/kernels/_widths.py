@@ -22,12 +22,27 @@ and no launch (the flagship's H = 64). Feature counts F have no bound in
 any kernel (the ``.cu`` files stage what fits in shared memory and read
 the rest from device memory).
 
-The train families have two per-pixel bodies each, which compute the
-same step: one on the bf16 tensor cores (``*_mma``, built at H = 64 for
-bf16 dot inputs) and one on the fp32 CUDA cores (fp32 dots, and H = 128).
-:func:`kernel_body` is the one place that picks between them; the
-wrappers pass its choice to the ``.cu`` entry point, which runs that body
-or refuses the call, and size their grids by :data:`BODY_BLOCKS_PER_SM`.
+Past the widest built width, the families whose JAX gates check no
+hidden width (K6/K7/K9 ``train_mlp`` and every decode) take any H up to
+:data:`WIDEST`: it runs at the next multiple of 64, by the same padding,
+on a body that walks the hidden axis in 64-unit column blocks with H a
+runtime value (``mlp_pixel_wide``, ``decode_v2_mma``, ``decode_z1mm_wide``,
+``decode_v1_wide``, ``mlp_tail_wide``). Those bodies hold a tile of
+pixels' activations in shared memory as [rows][H] and shrink the tile as
+H grows; :data:`WIDEST` is the last multiple of 64 at which a 16-pixel
+tile still fits (the ``.cu`` files refuse past it). K11 (``train_ff``,
+2H ≤ 128) and K12 (``train_ff3``, H ≤ 128) keep their gates' bounds.
+
+The train families have two per-pixel bodies each at the built widths,
+which compute the same step: one on the bf16 tensor cores (``*_mma``,
+built at H = 64 for bf16 dot inputs) and one on the fp32 CUDA cores (fp32
+dots, and H = 128). :func:`kernel_body` is the one place that picks
+between them; the wrappers pass its choice to the ``.cu`` entry point,
+which runs that body or refuses the call, and size their grids by
+:data:`BODY_BLOCKS_PER_SM`. :func:`decode_body` does the same for the
+decodes by plane mode (:data:`DECODE_BODIES`): K1/K5 run ``decode_v2_mma``
+on the tensor cores at H ≥ 64 in every plane mode (fp32 through the
+three-product TF32 split) and their CUDA-core body at H = 16.
 """
 
 from __future__ import annotations
@@ -35,13 +50,14 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-__all__ = ["KERNEL_WIDTHS", "KERNEL_BODIES", "BODY_BLOCKS_PER_SM",
-           "kernel_width", "kernel_body", "body_blocks", "pad_hidden",
-           "pad_mlp", "unpad", "unpad_all"]
+__all__ = ["KERNEL_WIDTHS", "WIDEST", "WIDE", "KERNEL_BODIES",
+           "DECODE_BODIES", "PLANE_MODES", "BODY_BLOCKS_PER_SM",
+           "kernel_width", "kernel_body", "decode_body", "body_blocks",
+           "pad_hidden", "pad_mlp", "unpad", "unpad_all"]
 
 # hidden widths each CUDA source instantiates, by the wrapper family
 KERNEL_WIDTHS = {
-    "decode_v2": (16, 64, 128),   # K1 and K5, csrc/decode_fused_v2.cu
+    "decode_v2": (16, 64),        # K1 and K5, csrc/decode_fused_v2.cu
     "decode_z1mm": (64, 128),     # K2, csrc/decode_z1mm.cu
     "decode_v1": (16, 64, 128),   # K3, csrc/decode_fused.cu
     "decode_v3": (16, 64, 128),   # K4, csrc/decode_fused_v3.cu
@@ -51,14 +67,55 @@ KERNEL_WIDTHS = {
 }
 
 
-# the per-pixel CUDA body each train family runs, by (built width, bf16
-# dot inputs): the tensor-core bodies take bf16 dots at H = 64
+# the widest hidden width of the families whose gates check no width: the
+# last multiple of 64 at which the wide body's 16-pixel tile fits in the
+# 227 KB of shared memory a block may hold (each .cu states its layout)
+WIDEST = {
+    "train_mlp": 1344,    # mlp_pixel_wide: 4 (37 H + 6436) bytes
+    "decode_v2": 2432,    # decode_v2_mma, fp32, one warp: 80 H + 37,584 bytes
+    "decode_z1mm": 3264,  # decode_z1mm_wide: 4 (16 H + 5280) bytes
+    "decode_v1": 3264,    # decode_v1_wide: the same layout
+    "decode_v3": 3264,    # mlp_tail_wide: the same layout
+}
+WIDE = "wide"  # the width key of the bodies past the built widths
+
+# the per-pixel CUDA body each train family runs, by (built width or
+# WIDE, bf16 dot inputs): the tensor-core bodies take bf16 dots at H = 64
 KERNEL_BODIES = {
     "train_ff": {(64, True): "ff_pixel_mma", (64, False): "ff_pixel"},
     "train_ff3": {(64, True): "ff3_pixel_mma", (64, False): "ff3_pixel",
                   (128, True): "ff3_pixel", (128, False): "ff3_pixel"},
     "train_mlp": {(64, True): "mlp_pixel_mma", (64, False): "mlp_pixel",
-                  (128, True): "mlp_pixel", (128, False): "mlp_pixel"},
+                  (128, True): "mlp_pixel", (128, False): "mlp_pixel",
+                  (WIDE, True): "mlp_pixel_wide",
+                  (WIDE, False): "mlp_pixel_wide"},
+}
+
+# the plane modes of the folded decodes (the .cu's PlaneMode order); K3
+# and K4 take "fp32" and "bf16" (grid or accumulator and dot dtype)
+PLANE_MODES = ("fp32", "bf16", "i16", "surgical")
+
+# the per-pixel CUDA body each decode family runs, by (built width or
+# WIDE, plane mode). K1/K5 keep their CUDA-core body at H = 16: at 2048²
+# it took 0.3784 ms in fp32·exact and 0.2603 in bf16·poly, against 2.0245
+# and 1.2582 for the same model zero-padded to 64 onto decode_v2_mma
+# (chip_smoke.py phase 26; H100 80GB HBM3, 700 W)
+DECODE_BODIES = {
+    "decode_v2": {**{(16, m): "decode_fused_v2_kernel" for m in PLANE_MODES},
+                  **{(w, m): "decode_v2_mma" for w in (64, WIDE)
+                     for m in PLANE_MODES}},
+    "decode_z1mm": {**{(w, m): ("decode_z1mm_bf16_kernel" if m == "bf16"
+                                else "decode_z1mm_f32_kernel")
+                       for w in (64, 128) for m in PLANE_MODES
+                       if m != "i16"},
+                    **{(WIDE, m): "decode_z1mm_wide" for m in PLANE_MODES
+                       if m != "i16"}},
+    "decode_v1": {**{(w, m): "decode_fused_v1_kernel" for w in (16, 64, 128)
+                     for m in ("fp32", "bf16")},
+                  **{(WIDE, m): "decode_v1_wide" for m in ("fp32", "bf16")}},
+    "decode_v3": {**{(w, m): "mlp_tail_kernel" for w in (16, 64, 128)
+                     for m in ("fp32", "bf16")},
+                  **{(WIDE, m): "mlp_tail_wide" for m in ("fp32", "bf16")}},
 }
 
 # the blocks per SM each body is built for (its __launch_bounds__); a
@@ -66,27 +123,50 @@ KERNEL_BODIES = {
 # (mlp_pixel_mma at F > 80) the rest run as a second wave
 BODY_BLOCKS_PER_SM = {"ff_pixel": 2, "ff_pixel_mma": 2, "ff3_pixel": 1,
                       "ff3_pixel_mma": 2, "mlp_pixel": 1,
-                      "mlp_pixel_mma": 2}
+                      "mlp_pixel_mma": 2, "mlp_pixel_wide": 1}
 
 
 def kernel_width(family: str, hidden: int) -> int:
-    """The instantiated width that runs hidden width ``hidden`` for the
-    kernels of ``family`` (a key of :data:`KERNEL_WIDTHS`): the smallest
-    one ≥ ``hidden``. Raises ValueError past the widest."""
+    """The width that runs hidden width ``hidden`` for the kernels of
+    ``family`` (a key of :data:`KERNEL_WIDTHS`): the smallest instantiated
+    one ≥ ``hidden`` or, past them, for the families of :data:`WIDEST`,
+    the next multiple of 64. Raises ValueError past the widest."""
     widths = KERNEL_WIDTHS[family]
     fits = [w for w in widths if 1 <= hidden <= w]
     if fits:
         return fits[0]
+    top = WIDEST.get(family)
+    if top is not None and max(widths) < hidden <= top:
+        return -(-hidden // 64) * 64
+    if top is not None and hidden > top:
+        raise ValueError(f"the {family} CUDA kernels take hidden widths up "
+                         f"to {top} (their widest, where a 16-pixel tile "
+                         f"still fits in shared memory), not {hidden}")
     raise ValueError(f"the {family} CUDA kernels are built for hidden "
                      f"widths {widths} (narrower ones are zero-padded to "
                      f"the next), not {hidden}")
+
+
+def _width_key(family: str, hidden: int):
+    width = kernel_width(family, hidden)
+    return width if width in KERNEL_WIDTHS[family] else WIDE
 
 
 def kernel_body(family: str, hidden: int, bf16: bool) -> str:
     """The per-pixel CUDA body that runs hidden width ``hidden`` for the
     train kernels of ``family`` (a key of :data:`KERNEL_BODIES`) with bf16
     (True) or fp32 (False) dot inputs."""
-    return KERNEL_BODIES[family][(kernel_width(family, hidden), bool(bf16))]
+    return KERNEL_BODIES[family][(_width_key(family, hidden), bool(bf16))]
+
+
+def decode_body(family: str, hidden: int, mode: str) -> str:
+    """The per-pixel CUDA body that runs hidden width ``hidden`` for the
+    decode kernels of ``family`` (a key of :data:`DECODE_BODIES`) in plane
+    mode ``mode`` (:data:`PLANE_MODES`)."""
+    key = (_width_key(family, hidden), mode)
+    if key not in DECODE_BODIES[family]:
+        raise ValueError(f"the {family} CUDA kernels take no {mode} planes")
+    return DECODE_BODIES[family][key]
 
 
 def body_blocks(body: str, tiles: int, device) -> int:

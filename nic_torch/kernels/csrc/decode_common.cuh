@@ -6,13 +6,21 @@
 //   rgb = sigmoid(gelu(gelu(z1) . W2 + b2) . W3 + b3)
 //
 // on a pixel's first-layer preactivation z1 [H], held in registers, with
-// W2 (transposed), b2, W3 and b3 staged once per block in shared memory.
+// W2 (transposed), b2, W3 and b3 staged once per block in shared memory
+// (the built widths 16, 64, 128); and the wide tail (wide_tail), which
+// takes any H that is a multiple of 64 on a tile of 16 pixels whose z1
+// the kernel has written to shared memory as fp32 [16][H] (K2, K3 and K4
+// past H = 128).
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+// Notes a per-pixel body's launch in the launch log (body_log.cu): called
+// with the function pointer just launched, once the launch succeeded.
+extern "C" void nic_note_body(const void* kernel);
 
 // Loops over the hidden width unroll fully up to H = 64, where the arrays
 // they index stay in registers. At H = 128 they stay loops (those arrays
@@ -87,18 +95,28 @@ __device__ __forceinline__ float horner(const float (&c)[N], float v) {
 // The six GELUs of nic/kernels/decode_fused_v2.py:62-145 (and the A&S
 // 7.1.26 erf of nic/kernels/decode_fused.py:55-71), with the JAX package's
 // coefficients; double-precision constants are rounded to float once, as
-// JAX does when it multiplies them into float32.
-template <int G>
+// JAX does when it multiplies them into float32. kFast takes kExact's
+// exponential and reciprocal from the hardware (__expf, __fdividef), a few
+// ulp from expf and 1/x, and erf's sign by copysignf, one instruction (at
+// z = 0 the GELU is 0 either way): decode_v2_mma, where the precise ones
+// cost 0.9 of the 2048^2 kernel's 2.2 ms on an H100.
+template <int G, bool kFast = false>
 __device__ __forceinline__ float gelu(float x) {
   if (G == kExact) {
     const float z = x * static_cast<float>(0.7071067811865476);  // 1/sqrt2
     const float az = fabsf(z);
-    const float t = 1.0f / (1.0f + 0.3275911f * az);
+    const float t = kFast ? __fdividef(1.0f, 1.0f + 0.3275911f * az)
+                          : 1.0f / (1.0f + 0.3275911f * az);
     const float poly =
         ((((1.061405429f * t + -1.453152027f) * t + 1.421413741f) * t +
           -0.284496736f) * t + 0.254829592f) * t;
-    const float sign = z > 0.0f ? 1.0f : (z < 0.0f ? -1.0f : 0.0f);
-    const float erf = sign * (1.0f - poly * expf(-az * az));
+    float erf;
+    if (kFast) {
+      erf = copysignf(1.0f - poly * __expf(-az * az), z);
+    } else {
+      const float sign = z > 0.0f ? 1.0f : (z < 0.0f ? -1.0f : 0.0f);
+      erf = sign * (1.0f - poly * expf(-az * az));
+    }
     return 0.5f * x * (1.0f + erf);
   } else if (G == kTanh) {
     const float c = static_cast<float>(0.7978845608028654);
@@ -195,9 +213,9 @@ __device__ __forceinline__ float4 w2_quad(const TailSmem<H>& s, int j,
 
 // gelu of a first-layer preactivation, as the second dot's input: rounded
 // to bf16 with kDotBf16 (the weights already hold bf16 values)
-template <int G, bool kDotBf16>
+template <int G, bool kDotBf16, bool kFast = false>
 __device__ __forceinline__ float first_act(float z) {
-  const float g = gelu<G>(z);
+  const float g = gelu<G, kFast>(z);
   return kDotBf16 ? bf16_round(g) : g;
 }
 
@@ -242,6 +260,108 @@ NIC_UNROLL_H(H)
 
 // the largest shared memory a block may use (227 KB)
 constexpr size_t kMaxSmem = 232448;
+
+// ---- the wide tail: any H that is a multiple of 64 ------------------------
+//
+// A block of WT threads decodes a tile of WR = 16 pixels. The kernel writes
+// the tile's z1 into shared memory as fp32 [WR][H] (zero rows past the
+// valid pixels), then every thread calls wide_tail, which forms h1 =
+// first_act(z1) in place and walks the second product by 64-unit column
+// blocks: thread (c, pg) = (tid % 64, tid / 64) owns output unit c of the
+// block for the tile's rows pg + 4 i (i < 4), with W2 streamed through
+// shared memory in 64 x 64 tiles (w2[k][j], read conflict-free), then the
+// second GELU and its three products with W3, summed over the 64 columns
+// by warp shuffles in a fixed order. The plane modes' dot rounding (h1 and
+// h2 to bf16 with kDotBf16) and the GELUs are mlp_tail's. Shared memory,
+// in floats: 16 H + 5280 (wide_floats), so a tile fits up to H = 3264.
+constexpr int WT = 256;   // threads of a wide block
+constexpr int WR = 16;    // pixels of a wide tile
+constexpr int WCB = 64;   // columns of a block of the hidden axis
+constexpr int WLDW = 65;  // row stride of the staged W2 tile
+
+// the wide block's shared memory in floats: z1 [WR][H], the W2 tile, a
+// [WR][64] feature chunk (K3) and the output halves [6][WR]
+__host__ __device__ inline size_t wide_floats(int h) {
+  return static_cast<size_t>(WR) * h + WCB * WLDW + 70 * WR;
+}
+
+struct WideSmem {
+  float *z, *w, *x, *o;
+  __device__ WideSmem(float* base, int h)
+      : z(base), w(base + WR * h), x(w + WCB * WLDW), o(x + WCB * WR) {}
+};
+
+// rgb of the tile's first cnt pixels into out[p * 3 + c]; sm.z holds z1
+// (every thread's writes done: the caller synchronises before the call)
+template <int G, bool kDotBf16>
+__device__ void wide_tail(const WideSmem& sm, int H,
+                          const float* __restrict__ w2,
+                          const float* __restrict__ b2,
+                          const float* __restrict__ w3,
+                          const float* __restrict__ b3,
+                          float* __restrict__ out, int cnt) {
+  constexpr int RPT = WR / 4;
+  const int tid = threadIdx.x;
+  const int c = tid % WCB, pg = tid / WCB;
+  const int lane = tid % 32, half = (tid / 32) % 2;
+  for (int i = tid; i < WR * H; i += WT)
+    sm.z[i] = first_act<G, kDotBf16>(sm.z[i]);
+  float o[RPT][3];
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) o[i][0] = o[i][1] = o[i][2] = 0.0f;
+  const int nb = H / WCB;
+  for (int jb = 0; jb < nb; ++jb) {
+    float acc[RPT];
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) acc[i] = 0.0f;
+    for (int kb = 0; kb < nb; ++kb) {
+      __syncthreads();
+      for (int i = tid; i < WCB * WCB; i += WT) {
+        const int k = i / WCB, j = i % WCB;
+        sm.w[k * WLDW + j] =
+            __ldg(w2 + static_cast<size_t>(kb * WCB + k) * H + jb * WCB + j);
+      }
+      __syncthreads();
+      const float* zr = sm.z + kb * WCB;
+#pragma unroll 4
+      for (int k = 0; k < WCB; ++k) {
+        const float w = sm.w[k * WLDW + c];
+#pragma unroll
+        for (int i = 0; i < RPT; ++i)
+          acc[i] = fmaf(zr[(pg + 4 * i) * H + k], w, acc[i]);
+      }
+    }
+    const int j = jb * WCB + c;
+    const float bj = __ldg(b2 + j);
+    const float v0 = __ldg(w3 + 3 * j), v1 = __ldg(w3 + 3 * j + 1),
+                v2 = __ldg(w3 + 3 * j + 2);
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) {
+      float g = gelu<G>(acc[i] + bj);
+      if (kDotBf16) g = bf16_round(g);
+      o[i][0] = fmaf(g, v0, o[i][0]);
+      o[i][1] = fmaf(g, v1, o[i][1]);
+      o[i][2] = fmaf(g, v2, o[i][2]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < RPT; ++i)
+#pragma unroll
+    for (int cc = 0; cc < 3; ++cc) {
+      float a = o[i][cc];
+#pragma unroll
+      for (int off = 16; off > 0; off /= 2)
+        a += __shfl_xor_sync(0xffffffffu, a, off);
+      if (lane == 0) sm.o[(3 * half + cc) * WR + pg + 4 * i] = a;
+    }
+  __syncthreads();
+  if (tid < cnt)
+#pragma unroll
+    for (int cc = 0; cc < 3; ++cc) {
+      const float a = sm.o[cc * WR + tid] + sm.o[(3 + cc) * WR + tid];
+      out[tid * 3 + cc] = 1.0f / (1.0f + expf(-(a + __ldg(b3 + cc))));
+    }
+}
 
 // a kernel whose static and dynamic shared memory together pass 48 KB must
 // say so before its launch

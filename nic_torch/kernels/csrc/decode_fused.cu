@@ -26,7 +26,10 @@
 // once per block; any F runs: where F x H does not fit in shared memory
 // (F > 838 at H = 64), W1 rows are read from device memory through L1.
 // Built for H = 16, 64 and 128; the wrapper zero-pads other widths up to
-// the next of them (nic_torch/kernels/_widths.py). The feature row never exists: each feature is formed in
+// the next of them (nic_torch/kernels/_widths.py). Past 128, any multiple
+// of 64 runs decode_v1_wide: a block per 16 pixels of a row, whose
+// features go by 64-feature chunks into shared memory and z1 = x W1 + b1
+// into the wide tail's [16][H] tile (decode_common.cuh). The feature row never exists: each feature is formed in
 // a register and folded into the H first-layer sums at once, so neither x
 // nor the feature matrix reaches device memory (the whole point of v1).
 // The grids are read in their [C, S, S] layout through L2 (neighbouring
@@ -184,26 +187,151 @@ int launch(const void* g0, const void* g1, const float* w1, const float* b1,
            float* out, int n, int nch, int s0, int s1, int e, int pe,
            int tri, float pe_scale, float lod, int rows,
            cudaStream_t stream) {
-  const auto kernel = decode_fused_v1_kernel<H, T>;
+  auto kern = decode_fused_v1_kernel<H, T>;
   cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  cudaError_t err = cudaFuncGetAttributes(&attr, kern);
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t w1_bytes = static_cast<size_t>(5 * nch + 2 * pe + 1) * H * 4;
   const int w1_smem = w1_bytes + attr.sharedSizeBytes <= kMaxSmem;
   const size_t smem = w1_smem ? w1_bytes : 0;
-  err = allow_dynamic_smem(kernel, smem);
+  err = allow_dynamic_smem(kern, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((n + THREADS - 1) / THREADS, (n + rows - 1) / rows);
-  kernel<<<grid, THREADS, smem, stream>>>(
+  kern<<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(g0), static_cast<const T*>(g1), w1, b1, w2, b2,
       w3, b3, out, n, nch, s0, s1, e, pe, tri, pe_scale, lod, rows, w1_smem);
-  return static_cast<int>(cudaGetLastError());
+  const cudaError_t done = cudaGetLastError();
+  if (done == cudaSuccess) nic_note_body(reinterpret_cast<const void*>(kern));
+  return static_cast<int>(done);
+}
+
+// feature f of pixel (r, c), as decode_fused_v1_kernel feeds them: four
+// G0 corners x C, G1 (C), PE rows, PE columns, the LOD
+template <typename T>
+__device__ float v1_feature(int f, const T* __restrict__ g0,
+                            const T* __restrict__ g1, int r, int c, int nch,
+                            int s0, int s1, int e, int pe, int tri,
+                            float pe_scale, float lod) {
+  if (f < 4 * nch) {
+    const int k = f / nch, ch = f % nch;
+    const int y0 = e < 0 ? (r >> -e) : (r << e);
+    const int x0 = e < 0 ? (c >> -e) : (c << e);
+    return to_float(g0[static_cast<size_t>(ch) * s0 * s0 +
+                       static_cast<size_t>(y0 + (k >> 1)) * s0 + x0 +
+                       (k & 1)]);
+  }
+  f -= 4 * nch;
+  if (f < nch) {
+    const T* pl = g1 + static_cast<size_t>(f) * s1 * s1;
+    if (e <= 0) {
+      const int sh = 1 - e;
+      const float fu = ldexpf(static_cast<float>(r & ((1 << sh) - 1)), -sh);
+      const float fv = ldexpf(static_cast<float>(c & ((1 << sh) - 1)), -sh);
+      const T* p = pl + static_cast<size_t>(r >> sh) * s1 + (c >> sh);
+      float g = to_float(p[0]) * ((1.0f - fu) * (1.0f - fv));
+      g = g + to_float(p[1]) * ((1.0f - fu) * fv);
+      g = g + to_float(p[s1]) * (fu * (1.0f - fv));
+      g = g + to_float(p[s1 + 1]) * (fu * fv);
+      return g;
+    }
+    if (e == 1) {
+      const T* p = pl + static_cast<size_t>(r) * s1 + c;
+      return ((to_float(p[0]) + to_float(p[1])) + to_float(p[s1])) +
+             to_float(p[s1 + 1]);
+    }
+    return to_float(pl[static_cast<size_t>(r << (e - 1)) * s1 + (c << (e - 1))]);
+  }
+  f -= nch;
+  if (f < pe) return pe_value(ldexpf(static_cast<float>(r), e - 1), f, pe, tri,
+                              pe_scale);
+  f -= pe;
+  if (f < pe) return pe_value(ldexpf(static_cast<float>(c), e - 1), f, pe, tri,
+                              pe_scale);
+  return lod;
+}
+
+// past H = 128: a block per WR columns of one output row; the features go
+// in chunks of 64 into the wide tile's feature slab, and z1 = x W1 + b1 is
+// summed into the z1 tile by 64-unit column blocks (W1 read from device
+// memory, thread (c, pg) owning unit c for rows pg + 4 i); then the wide
+// tail (decode_common.cuh)
+template <typename T>
+__global__ void __launch_bounds__(WT)
+decode_v1_wide(const T* __restrict__ g0, const T* __restrict__ g1,
+               const float* __restrict__ w1, const float* __restrict__ b1,
+               const float* __restrict__ w2, const float* __restrict__ b2,
+               const float* __restrict__ w3, const float* __restrict__ b3,
+               float* __restrict__ out, int n, int nch, int s0, int s1,
+               int e, int pe, int tri, float pe_scale, float lod, int H) {
+  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
+  extern __shared__ float4 wide_smem[];
+  const WideSmem sm(reinterpret_cast<float*>(wide_smem), H);
+  const int r = blockIdx.y, c0 = blockIdx.x * WR;
+  const int cnt = min(WR, n - c0);
+  const int nfeat = 5 * nch + 2 * pe + 1;
+  const int tid = threadIdx.x, cu = tid % WCB, pg = tid / WCB;
+  for (int f0 = 0; f0 < nfeat; f0 += WCB) {
+    __syncthreads();
+    for (int i = tid; i < WR * WCB; i += WT) {
+      const int p = i / WCB, j = i % WCB;
+      float v = 0.0f;
+      if (p < cnt && f0 + j < nfeat) {
+        v = v1_feature<T>(f0 + j, g0, g1, r, c0 + p, nch, s0, s1, e, pe, tri,
+                          pe_scale, lod);
+        if (kBf16) v = bf16_round(v);
+      }
+      sm.x[i] = v;
+    }
+    __syncthreads();
+    const int nj = min(WCB, nfeat - f0);
+    for (int kb = 0; kb < H / WCB; ++kb) {
+      float acc[WR / 4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      for (int j = 0; j < nj; ++j) {
+        const float w =
+            __ldg(w1 + static_cast<size_t>(f0 + j) * H + kb * WCB + cu);
+#pragma unroll
+        for (int i = 0; i < WR / 4; ++i)
+          acc[i] = fmaf(sm.x[(pg + 4 * i) * WCB + j], w, acc[i]);
+      }
+#pragma unroll
+      for (int i = 0; i < WR / 4; ++i) {
+        float* z = sm.z + (pg + 4 * i) * H + kb * WCB + cu;
+        *z = (f0 == 0 ? acc[i] : *z + acc[i]) +
+             (f0 + WCB >= nfeat ? __ldg(b1 + kb * WCB + cu) : 0.0f);
+      }
+    }
+  }
+  __syncthreads();
+  wide_tail<kExact, kBf16>(sm, H, w2, b2, w3, b3,
+                           out + (static_cast<size_t>(r) * n + c0) * 3, cnt);
+}
+
+template <typename T>
+int launch_wide(const void* g0, const void* g1, const float* w1,
+                const float* b1, const float* w2, const float* b2,
+                const float* w3, const float* b3, float* out, int n, int nch,
+                int s0, int s1, int hidden, int e, int pe, int tri,
+                float pe_scale, float lod, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * wide_floats(hidden);
+  if (smem > kMaxSmem || n > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kern = decode_v1_wide<T>;
+  const cudaError_t err = allow_dynamic_smem(kern, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((n + WR - 1) / WR, n);
+  kern<<<grid, WT, smem, stream>>>(
+      static_cast<const T*>(g0), static_cast<const T*>(g1), w1, b1, w2, b2,
+      w3, b3, out, n, nch, s0, s1, e, pe, tri, pe_scale, lod, hidden);
+  const cudaError_t done = cudaGetLastError();
+  if (done == cudaSuccess) nic_note_body(reinterpret_cast<const void*>(kern));
+  return static_cast<int>(done);
 }
 
 }  // namespace
 
 // K3: g0 [C][s0][s0], g1 [C][s1][s1] (fp32, or bf16 with bf16 = 1), w1
-// [5C + 2pe + 1][H] fp32 -> out [n][n][3] fp32
+// [5C + 2pe + 1][H] fp32 -> out [n][n][3] fp32; H = 16, 64, 128 or a
+// multiple of 64 up to 3264 (the wide body)
 extern "C" int nic_decode_fused_v1(const void* g0, const void* g1,
                                    const void* w1, const void* b1,
                                    const void* w2, const void* b2,
@@ -233,5 +361,13 @@ extern "C" int nic_decode_fused_v1(const void* g0, const void* g1,
   if (hidden == 128 && !bf16) NIC_V1(128, float);
   if (hidden == 128 && bf16) NIC_V1(128, __nv_bfloat16);
 #undef NIC_V1
+  if (hidden > 128 && hidden % WCB == 0) {
+    if (bf16)
+      return launch_wide<__nv_bfloat16>(g0, g1, fw1, fb1, fw2, fb2, fw3, fb3,
+                                        o, n, nch, s0, s1, hidden, e, pe, tri,
+                                        pe_scale, lod, s);
+    return launch_wide<float>(g0, g1, fw1, fb1, fw2, fb2, fw3, fb3, o, n, nch,
+                              s0, s1, hidden, e, pe, tri, pe_scale, lod, s);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -13,35 +13,61 @@
 //         u = (r % f1)/f1; in i16 mode P and C1v are first scaled
 //   rgb = sigmoid(gelu(gelu(z1) . W2 + b2) . W3 + b3)    -> out[r, c, :]
 //
-// Design: one thread per output pixel; a block is TILE_R rows x 128
-// columns, its threads walking the TILE_R rows. W2 (transposed), b2, W3
-// and b3 are staged in shared memory once per block; z1 and gelu(z1) stay
-// in registers (H floats).
+// Two bodies, picked by the caller (`body`, from nic_torch/kernels/
+// _widths.py decode_body), which refuses any other pairing:
+//
+// decode_v2_mma (H = 64 and every wider multiple of 64, every plane mode)
+// puts both products on the tensor cores. Blocks of 8 warps (fewer where
+// a wide H leaves no room) walk tiles of 8 image rows x 16 columns, warp w
+// taking row w; a volume's frames follow one another. A warp builds its 16
+// pixels' z1 straight into the m16n8 accumulator layout (each lane two
+// pixels x two units per 8-unit n-tile), applies the first GELU on that
+// fragment, and uses it as the A operand of h1 W2 with no shared-memory
+// round trip at H = 64 (wider: h1 waits in per-lane slots in shared
+// memory). The output is walked in 64-column blocks; the second GELU runs
+// on each block's accumulators, which are then the A operand of the
+// product with W3 padded to n = 8, accumulated over the blocks; then the
+// sigmoid, and rgb staged per warp and written as consecutive floats. W2
+// is staged in shared memory once per block up to H = 128 and streamed by
+// 64 x 64 tiles past it. Modes with bf16 dot inputs (bf16, i16, surgical)
+// take m16n8k16 bf16 products, exact in fp32, so only the summation order
+// differs from the CUDA-core body. fp32 takes m16n8k8 tf32 products of
+// each operand's hi and lo parts (al bh + ah bl + ah bh; the dropped al bl
+// is ~2^-22 of a product), the W2 tiles staged as hi/lo pairs. The exact
+// GELU takes its exponential and reciprocal from the hardware (gelu's
+// kFast, decode_common.cuh): with the precise expf and 1/x it took 0.9 ms
+// of the 2048^2 kernel's 2.2 (H100), and its outputs move by a few ulp,
+// inside every fp32 limit (max|d| 4.2e-7 against the plain version, <= 1
+// u8 LSB against the JAX fold).
+// What bounds it: at 2048^2, H = 64, the dots are 36 GFLOP (0.04 ms of
+// bf16 or ~0.1 ms of tf32 x 3 tensor work), and 2 x 64 GELUs per pixel
+// (~20 instructions each) are ~0.35 ms of CUDA-core issue; the planes are
+// ~0.4 GB of fp32 (0.12 ms of HBM), but each pixel reads its P row and two
+// C1v rows (768 B in fp32) from L1 or L2. The measured 1.54 ms (fp32 exact)
+// and 0.91 ms (bf16 poly; H100 80GB HBM3 at 700 W, scripts/torch_ab_decode.py) sit at
+// ~2-3x those issue counts: the per-warp loads of a pixel tile are exposed
+// latency at 16 warps per SM (ptxas: 128 registers, up to 32 B of spills
+// in fp32 at H = 64; two blocks per SM; one block per SM with 178
+// registers was slower, three with 80 registers and spills no faster).
+// Staging the warp's h1 tile through shared memory with 512-byte loads
+// instead was slower (1.10 against 0.91 ms at bf16 poly), so the
+// fragments stay in registers.
+//
+// decode_fused_v2_kernel (H = 16) keeps the CUDA-core design: one thread
+// per output pixel, a block TILE_R rows x 128 columns, W2 (transposed), b2,
+// W3 and b3 in shared memory, z1 and gelu(z1) in registers.
+//
 // Rows are indexed directly: C1v already carries the nr/f1+1 rows a halo
 // window would fetch, and ragged edges are masked, so there is no padding.
 // A volume is a stack of such frames (the 3D frame stage, frame-PE
 // included, runs before the kernel in PyTorch, nic_torch/kernels/
-// decode_fused_3d.py `_prepare_3d`): blockIdx.z walks the frames, each
-// with its own P, C1v and output planes; the row-PE table and the weights
-// are shared, and one launch covers the whole volume.
-// The TPU-only devices of the JAX kernel (lane packing with block-diagonal
-// weights, per-step weight tiling, planar output, the column-block retile)
-// are not carried over.
-//
-// What bounds it: per pixel the two products are 2*(H*H + 3*H) = 8.6
-// kFLOP at H = 64 plus 2*H = 128 GELUs (~20 fp32 instructions each), while
-// it reads about H*(1/f + 2)*sizeof(plane) bytes of planes. At 2048^2 that
-// is ~36 GFLOP + ~11 G GELU instructions against ~0.4 GB of fp32 planes:
-// ~1 ms of fp32 CUDA-core issue against ~0.12 ms of HBM at 3.35 TB/s, so
-// the fp32 CUDA cores, not bandwidth, bound this kernel. A wgmma version
-// should move both 64-wide products onto the tensor cores (bf16 inputs,
-// fp32 accumulators, h1 as the register A operand of a 64-row warpgroup
-// tile), which leaves the GELUs and the plane reads as the bound, and then
-// stage the plane rows through shared memory with TMA.
-//
-// Built for H = 16, 64 and 128 (at 128 the tail reads W2 from device
-// memory, decode_common.cuh); the wrapper zero-pads other widths up to the
-// next of them (nic_torch/kernels/_widths.py).
+// decode_fused_3d.py `_prepare_3d`), each with its own P, C1v and output
+// planes; the row-PE table and the weights are shared, and one launch
+// covers the whole volume. The TPU-only devices of the JAX kernel (lane
+// packing with block-diagonal weights, per-step weight tiling, planar
+// output, the column-block retile) are not carried over. The wrapper
+// zero-pads a width between 16 and 64, or between multiples of 64, to the
+// next (nic_torch/kernels/_widths.py); a warp's tile fits up to H = 2432.
 //
 // The GELUs, the plane modes, the plane-row loads and the MLP tail live in
 // decode_common.cuh, shared with K2 (decode_z1mm.cu, this kernel with its
@@ -120,71 +146,542 @@ NIC_UNROLL_H(H)
   }
 }
 
+// ---- decode_v2_mma: the per-pixel stage on the tensor cores -------------
+
+constexpr int MT = 256;            // threads of a full block: 8 warps
+constexpr int kTileBf16 = 9216;    // bytes of a staged 64 x 64 bf16 W2 tile
+constexpr int kTileTf32 = 36864;   // bytes of a staged tf32 hi/lo W2 tile
+
+// two consecutive plane or PE elements as fp32 (4- or 8-byte loads through
+// the read-only path; the offsets are even and the rows 16-byte aligned)
+__device__ __forceinline__ float2 ld2(const float* p) {
+  return __ldg(reinterpret_cast<const float2*>(p));
+}
+__device__ __forceinline__ float2 ld2(const __nv_bfloat16* p) {
+  const unsigned int v = __ldg(reinterpret_cast<const unsigned int*>(p));
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
+}
+__device__ __forceinline__ float2 ld2(const int16_t* p) {
+  const int v = __ldg(reinterpret_cast<const int*>(p));
+  return make_float2(static_cast<float>(static_cast<int16_t>(v & 0xffff)),
+                     static_cast<float>(static_cast<int16_t>(v >> 16)));
+}
+
+// two bf16 values (already bf16, so the rounding is exact) as one word
+__device__ __forceinline__ uint32_t bf2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// x rounded to tf32 (round to nearest, ties away), as its fp32 bits
+__device__ __forceinline__ uint32_t tf32_of(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// d += a b: m16n8k16, bf16 inputs, fp32 accumulators
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a b: m16n8k8, tf32 inputs, fp32 accumulators
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// the fp32 A fragment of one k8 tile as tf32 hi and lo parts
+__device__ __forceinline__ void split4(const float (&a)[4], uint32_t (&hi)[4],
+                                       uint32_t (&lo)[4]) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    hi[e] = tf32_of(a[e]);
+    lo[e] = tf32_of(a[e] - __uint_as_float(hi[e]));
+  }
+}
+
+// d += a b in three tf32 products: al bh + ah bl + ah bh (al bl dropped)
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4],
+                                           const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4],
+                                           const float4 b) {
+  mma_tf32(d, al, __float_as_uint(b.x), __float_as_uint(b.y));
+  mma_tf32(d, ah, __float_as_uint(b.z), __float_as_uint(b.w));
+  mma_tf32(d, ah, __float_as_uint(b.x), __float_as_uint(b.y));
+}
+
+// W2 tile (kb, jb) of the [H][H] (in, out) matrix, B operand layout by
+// output unit n: bf16 as words [64 n][36] (k pairs, 4 pad words: the
+// fragment loads of a warp hit 32 banks); tf32 as float4 {hi(2p),
+// hi(2p + 1), lo(2p), lo(2p + 1)} per k pair p, rows of 144 floats (a
+// quarter warp's 16-byte loads hit 32 banks). All threads take part.
+template <bool kBf>
+__device__ __forceinline__ void stage_w2_tile(unsigned char* dst,
+                                              const float* __restrict__ w2,
+                                              int H, int kb, int jb) {
+  for (int i = threadIdx.x; i < 64 * 32; i += blockDim.x) {
+    const int kp = i / 64, n = i % 64;
+    const float* src = w2 + static_cast<size_t>(kb * 64 + 2 * kp) * H +
+                       jb * 64 + n;
+    const float w0 = src[0], w1 = src[H];
+    if (kBf) {
+      reinterpret_cast<uint32_t*>(dst)[n * 36 + kp] = bf2(w0, w1);
+    } else {
+      const uint32_t h0 = tf32_of(w0), h1 = tf32_of(w1);
+      reinterpret_cast<float4*>(dst)[n * 36 + kp] = make_float4(
+          __uint_as_float(h0), __uint_as_float(h1),
+          __uint_as_float(tf32_of(w0 - __uint_as_float(h0))),
+          __uint_as_float(tf32_of(w1 - __uint_as_float(h1))));
+    }
+  }
+}
+
+// bytes of a decode_v2_mma block of `warps` warps at H = 64 nb: the W2
+// tiles (all of W2 for nb <= 2, else one streamed tile), W3 [H][3] and b2,
+// b3, the warps' output rows, and past H = 64 the warps' h1 slots
+__host__ __device__ inline size_t mma_bytes(int warps, int nb, bool bf) {
+  const size_t tile = bf ? kTileBf16 : kTileTf32;
+  return (nb <= 2 ? nb * nb : 1) * tile + 16 * 64 * static_cast<size_t>(nb) +
+         16 + 192 * static_cast<size_t>(warps) +
+         (nb > 1 ? static_cast<size_t>(warps) * nb * (bf ? 2048 : 4096) : 0);
+}
+
+// a pixel's plane rows and its interpolation weight
+template <int MODE>
+struct PixRows {
+  const typename Types<MODE>::Plane *p, *a, *b;
+  const typename Types<MODE>::Pe* e;
+  float u, um;
+};
+
+// h1 = first_act(z1) of the warp's pixel rows g (px[0]) and g + 8 (px[1])
+// for units 64 kb + 8 nt + 2 q + {0, 1}: the m16n8 accumulator layout of
+// eight n-tiles, h[nt][2 s + i] = row g + 8 s, unit 8 nt + 2 q + i
+template <int MODE, int G>
+__device__ __forceinline__ void build_h1(float (&h)[8][4],
+                                         const PixRows<MODE> (&px)[2],
+                                         int kb, int q, float scale) {
+  constexpr bool kBf = MODE != kF32;
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+    const int k = kb * 64 + 8 * nt + 2 * q;
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      float2 p = ld2(px[s].p + k), a = ld2(px[s].a + k), b = ld2(px[s].b + k);
+      const float2 e = ld2(px[s].e + k);
+      if (MODE == kI16) {
+        p.x *= scale; p.y *= scale;
+        a.x *= scale; a.y *= scale;
+        b.x *= scale; b.y *= scale;
+      }
+      h[nt][2 * s] = first_act<G, kBf, true>(
+          (p.x + (px[s].um * a.x + px[s].u * b.x)) + e.x);
+      h[nt][2 * s + 1] = first_act<G, kBf, true>(
+          (p.y + (px[s].um * a.y + px[s].u * b.y)) + e.y);
+    }
+  }
+}
+
+// k16 tile kt of a [16][64] activation in the accumulator layout as the
+// bf16 A fragment
+__device__ __forceinline__ void pack_a(const float (&h)[8][4], int kt,
+                                       uint32_t (&a)[4]) {
+  a[0] = bf2(h[2 * kt][0], h[2 * kt][1]);
+  a[1] = bf2(h[2 * kt][2], h[2 * kt][3]);
+  a[2] = bf2(h[2 * kt + 1][0], h[2 * kt + 1][1]);
+  a[3] = bf2(h[2 * kt + 1][2], h[2 * kt + 1][3]);
+}
+
+// k8 tile t of it as the tf32 A fragment: logical columns q and q + 4 are
+// units 8 t + 2 q and 8 t + 2 q + 1 (the B tiles are laid out to match)
+__device__ __forceinline__ void perm_a(const float (&h)[8][4], int t,
+                                       float (&a)[4]) {
+  a[0] = h[t][0];
+  a[1] = h[t][2];
+  a[2] = h[t][1];
+  a[3] = h[t][3];
+}
+
+// d[nt] += h W2 over one 64 x 64 tile (kBf: bf16; else 3xTF32)
+template <bool kBf>
+__device__ __forceinline__ void tile_product(float (&d)[8][4],
+                                             const float (&h)[8][4],
+                                             const unsigned char* tile,
+                                             int g, int q) {
+  if (kBf) {
+    const uint32_t* w = reinterpret_cast<const uint32_t*>(tile);
+#pragma unroll
+    for (int kt = 0; kt < 4; ++kt) {
+      uint32_t a[4];
+      pack_a(h, kt, a);
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const uint32_t* row = w + (8 * nt + g) * 36 + 8 * kt + q;
+        mma_bf16(d[nt], a, row[0], row[4]);
+      }
+    }
+  } else {
+    const float4* w = reinterpret_cast<const float4*>(tile);
+#pragma unroll
+    for (int t = 0; t < 8; ++t) {
+      float a[4];
+      uint32_t ah[4], al[4];
+      perm_a(h, t, a);
+      split4(a, ah, al);
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+        mma_3xtf32(d[nt], ah, al, w[(8 * nt + g) * 36 + 4 * t + q]);
+    }
+  }
+}
+
+// o += h2 W3 for the 64 units of block jb: one n8 tile (outputs 0..2 real,
+// the rest zero), B built from W3 [H][3] in shared memory
+template <bool kBf>
+__device__ __forceinline__ void w3_product(float (&o)[4],
+                                           const float (&h)[8][4],
+                                           const float* sW3, int jb, int g,
+                                           int q) {
+  auto w3 = [&](int k) { return g < 3 ? sW3[(jb * 64 + k) * 3 + g] : 0.0f; };
+  if (kBf) {
+#pragma unroll
+    for (int kt = 0; kt < 4; ++kt) {
+      uint32_t a[4];
+      pack_a(h, kt, a);
+      const int k = 16 * kt + 2 * q;
+      mma_bf16(o, a, bf2(w3(k), w3(k + 1)), bf2(w3(k + 8), w3(k + 9)));
+    }
+  } else {
+#pragma unroll
+    for (int t = 0; t < 8; ++t) {
+      float a[4];
+      uint32_t ah[4], al[4];
+      perm_a(h, t, a);
+      split4(a, ah, al);
+      const float b0 = w3(8 * t + 2 * q), b1 = w3(8 * t + 2 * q + 1);
+      const uint32_t h0 = tf32_of(b0), h1 = tf32_of(b1);
+      mma_3xtf32(o, ah, al,
+                 make_float4(__uint_as_float(h0), __uint_as_float(h1),
+                             __uint_as_float(tf32_of(b0 - __uint_as_float(h0))),
+                             __uint_as_float(tf32_of(b1 - __uint_as_float(h1)))));
+    }
+  }
+}
+
+// The per-pixel stage on the tensor cores, for any H that is a multiple of
+// 64 (kOne: H = 64, whose h1 stays in registers). A block tile is `warps`
+// image rows x 16 columns of one frame (blocks walk the tiles; a volume's
+// frames follow one another), warp w taking row w: the tile's rows share
+// their C1v rows and, f at a time, their P rows, so the warps find them in
+// L1. A warp builds its 16 pixels' z1 straight into the m16n8 accumulator
+// layout and applies the first GELU there; h1 (kept per 64-unit block in
+// registers at H = 64, else in the warp's slots in shared memory, each
+// lane reading back only what it wrote) is the A operand of h1 W2, taken
+// one 64-column block jb at a time; the second GELU runs on that block's
+// accumulators, which are then the A operand of its product with W3
+// (n = 8, three real columns). bf16 modes: m16n8k16 bf16 products (exact)
+// with fp32 sums; fp32: m16n8k8 tf32 products of hi and lo parts (al bh +
+// ah bl + ah bh). rgb is staged per warp and written as the warp's
+// consecutive floats.
+template <int MODE, int G, bool kOne>
+__global__ void __launch_bounds__(MT, 2)
+decode_v2_mma(const typename Types<MODE>::Plane* __restrict__ pc,
+              const typename Types<MODE>::Plane* __restrict__ c1v,
+              const typename Types<MODE>::Pe* __restrict__ peu,
+              const float* __restrict__ w2, const float* __restrict__ b2,
+              const float* __restrict__ w3, const float* __restrict__ b3,
+              float scale, float* __restrict__ out, int nt, int nr, int ncl,
+              int f, int f1, int H) {
+  constexpr bool kBf = MODE != kF32;  // bf16 inputs to both dots
+  extern __shared__ float4 mma_smem[];
+  const int nb = kOne ? 1 : H / 64;
+  const int warps = blockDim.x / 32;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, q = lane % 4;
+  const bool whole = nb <= 2;
+  const size_t tile_bytes = kBf ? kTileBf16 : kTileTf32;
+  unsigned char* sW2 = reinterpret_cast<unsigned char*>(mma_smem);
+  float* sW3 = reinterpret_cast<float*>(sW2 + (whole ? nb * nb : 1) *
+                                                  tile_bytes);
+  float* sb2 = sW3 + 3 * H;
+  float* sb3 = sb2 + H;
+  float* sOut = sb3 + 4 + 48 * warp;
+  float* slot = sb3 + 4 + 48 * warps + warp * nb * (kBf ? 16 : 32) * 32;
+
+  for (int i = threadIdx.x; i < 3 * H; i += blockDim.x) sW3[i] = w3[i];
+  for (int i = threadIdx.x; i < H; i += blockDim.x) sb2[i] = b2[i];
+  if (threadIdx.x < 3) sb3[threadIdx.x] = b3[threadIdx.x];
+  if (whole)
+    for (int kb = 0; kb < nb; ++kb)
+      for (int jb = 0; jb < nb; ++jb)
+        stage_w2_tile<kBf>(sW2 + (kb * nb + jb) * tile_bytes, w2, H, kb, jb);
+  __syncthreads();
+
+  // a block tile is `warps` image rows x 16 columns of one frame, warp w
+  // taking row w: the tile's rows share their C1v rows and, f at a time,
+  // their P rows, which the warps then read from L1
+  const int bands = (nr + warps - 1) / warps, ctiles = (ncl + 15) / 16;
+  const int per_frame = bands * ctiles, tiles = per_frame * nt;
+  const size_t p_frame = static_cast<size_t>(nr / f) * ncl * H;
+  const size_t c_frame = static_cast<size_t>(nr / f1 + 1) * ncl * H;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int fr = tile / per_frame, rem = tile - fr * per_frame;
+    const int row = (rem / ctiles) * warps + warp, c0 = (rem % ctiles) * 16;
+    // this warp's pixels, stored if row < nr and c < ncl; the loads of the
+    // others are clamped inside the image
+    const int cnt = row < nr ? min(16, ncl - c0) : 0;
+    const int r = min(row, nr - 1);
+    PixRows<MODE> px[2];
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      const int c = min(c0 + g + 8 * s, ncl - 1);
+      px[s].p = pc + fr * p_frame + (static_cast<size_t>(r / f) * ncl + c) * H;
+      px[s].a = c1v + fr * c_frame +
+                (static_cast<size_t>(r / f1) * ncl + c) * H;
+      px[s].b = px[s].a + static_cast<size_t>(ncl) * H;
+      px[s].e = peu + static_cast<size_t>(r) * H;
+      px[s].u = static_cast<float>(r % f1) / static_cast<float>(f1);
+      px[s].um = 1.0f - px[s].u;
+    }
+
+    // layer 1: h1 per 64-unit block, in registers (H = 64) or slots
+    float h1[8][4];
+    if (!kOne) {
+      for (int kb = 0; kb < nb; ++kb) {
+        build_h1<MODE, G>(h1, px, kb, q, scale);
+        float* sl = slot + kb * 32 * 32 + lane;
+#pragma unroll
+        for (int nt8 = 0; nt8 < 8; ++nt8)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            if (kBf) {
+              if (e % 2 == 0)
+                reinterpret_cast<uint32_t*>(slot)[(kb * 16 + nt8 * 2 + e / 2) *
+                                                      32 + lane] =
+                    bf2(h1[nt8][e], h1[nt8][e + 1]);
+            } else {
+              sl[(nt8 * 4 + e) * 32] = h1[nt8][e];
+            }
+          }
+      }
+    } else {
+      build_h1<MODE, G>(h1, px, 0, q, scale);
+    }
+
+    // layer 2 by output blocks jb, then the second GELU and W3
+    float o[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    for (int jb = 0; jb < nb; ++jb) {
+      float d[8][4];
+#pragma unroll
+      for (int nt8 = 0; nt8 < 8; ++nt8)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) d[nt8][e] = 0.0f;
+      for (int kb = 0; kb < nb; ++kb) {
+        const unsigned char* tile_p = sW2;
+        if (whole) {
+          tile_p = sW2 + (kb * nb + jb) * tile_bytes;
+        } else {
+          __syncthreads();
+          stage_w2_tile<kBf>(sW2, w2, H, kb, jb);
+          __syncthreads();
+        }
+        if (!kOne) {  // h1 of block kb back from this lane's slots
+#pragma unroll
+          for (int nt8 = 0; nt8 < 8; ++nt8)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              if (kBf) {
+                if (e % 2 == 0) {
+                  const uint32_t v = reinterpret_cast<const uint32_t*>(
+                      slot)[(kb * 16 + nt8 * 2 + e / 2) * 32 + lane];
+                  const float2 fv = __bfloat1622float2(
+                      *reinterpret_cast<const __nv_bfloat162*>(&v));
+                  h1[nt8][e] = fv.x;
+                  h1[nt8][e + 1] = fv.y;
+                }
+              } else {
+                h1[nt8][e] = slot[kb * 32 * 32 + (nt8 * 4 + e) * 32 + lane];
+              }
+            }
+        }
+        tile_product<kBf>(d, h1, tile_p, g, q);
+      }
+      // h2 = first_act(z2 + b2) on the accumulators, then its W3 product
+#pragma unroll
+      for (int nt8 = 0; nt8 < 8; ++nt8)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          d[nt8][e] = first_act<G, kBf, true>(
+              d[nt8][e] + sb2[jb * 64 + 8 * nt8 + 2 * q + (e & 1)]);
+      w3_product<kBf>(o, d, sW3, jb, g, q);
+    }
+
+    // sigmoid of outputs 0..2 (lanes q = 0: 0, 1; q = 1: 2), staged per
+    // warp, then 48 consecutive floats
+    if (q < 2)
+#pragma unroll
+      for (int s = 0; s < 2; ++s)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int col = 2 * q + i;
+          if (col < 3)
+            sOut[(g + 8 * s) * 3 + col] =
+                1.0f / (1.0f + expf(-(o[2 * s + i] + sb3[col])));
+        }
+    __syncwarp();
+    float* orow = out + ((static_cast<size_t>(fr) * nr + r) * ncl + c0) * 3;
+    for (int i = lane; i < 3 * cnt; i += 32) orow[i] = sOut[i];
+    __syncwarp();
+  }
+}
+
 struct Args {
   const void *pc, *c1v, *peu;
   const float *w2, *b2, *w3, *b3;
   float scale;
   float* out;
-  int nr, ncl, f, f1, nt;
+  int nr, ncl, f, f1, nt, hidden;
   cudaStream_t stream;
 };
 
+// the CUDA-core body (H = 16)
 template <int H, int MODE, int G>
-void launch(const Args& a) {
+cudaError_t launch(const Args& a) {
   using T = Types<MODE>;
   const dim3 grid((a.ncl + TILE_C - 1) / TILE_C, (a.nr + TILE_R - 1) / TILE_R,
                   a.nt);
-  decode_fused_v2_kernel<H, MODE, G><<<grid, TILE_C, 0, a.stream>>>(
+  if (grid.y > 65535) return cudaErrorInvalidValue;
+  auto kern = decode_fused_v2_kernel<H, MODE, G>;
+  kern<<<grid, TILE_C, 0, a.stream>>>(
       static_cast<const typename T::Plane*>(a.pc),
       static_cast<const typename T::Plane*>(a.c1v),
       static_cast<const typename T::Pe*>(a.peu), a.w2, a.b2, a.w3, a.b3,
       a.scale, a.out, a.nr, a.ncl, a.f, a.f1);
+  const cudaError_t done = cudaGetLastError();
+  if (done == cudaSuccess) nic_note_body(reinterpret_cast<const void*>(kern));
+  return done;
 }
 
-template <int H, int MODE>
-bool dispatch_gelu(int gelu_id, const Args& a) {
+// the tensor-core body (kOne: H = 64, h1 in registers; else every wider
+// multiple of 64, h1 in slots), on as many warps per block (8, 4, 2, 1) as
+// fit in shared memory, as many blocks as stay resident, each walking
+// tiles
+template <int MODE, int G, bool kOne>
+cudaError_t launch_mma(const Args& a) {
+  using T = Types<MODE>;
+  constexpr bool kBf = MODE != kF32;
+  const int nb = a.hidden / 64;
+  int warps = 8;
+  while (warps > 1 && mma_bytes(warps, nb, kBf) > kMaxSmem) warps /= 2;
+  const size_t smem = mma_bytes(warps, nb, kBf);
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;  // past the widest
+  auto kern = decode_v2_mma<MODE, G, kOne>;
+  cudaError_t err = allow_dynamic_smem(kern, smem);
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0, per_sm = 0;
+  err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
+                                                        32 * warps, smem);
+  if (err != cudaSuccess) return err;
+  const long long tiles = static_cast<long long>(a.nt) *
+                          ((a.nr + warps - 1) / warps) * ((a.ncl + 15) / 16);
+  if (tiles > 2147483647LL) return cudaErrorInvalidValue;
+  const long long resident = static_cast<long long>(per_sm > 0 ? per_sm : 1) *
+                             sms;
+  const int grid = static_cast<int>(tiles < resident ? tiles : resident);
+  kern<<<grid, 32 * warps, smem, a.stream>>>(
+      static_cast<const typename T::Plane*>(a.pc),
+      static_cast<const typename T::Plane*>(a.c1v),
+      static_cast<const typename T::Pe*>(a.peu), a.w2, a.b2, a.w3, a.b3,
+      a.scale, a.out, a.nt, a.nr, a.ncl, a.f, a.f1, a.hidden);
+  const cudaError_t done = cudaGetLastError();
+  if (done == cudaSuccess) nic_note_body(reinterpret_cast<const void*>(kern));
+  return done;
+}
+
+// the per-pixel bodies by the caller's id (nic_torch/kernels/
+// decode_fused_v2.py _BODY_IDS): the CUDA-core body at its built width
+// (dispatch_mode), the tensor-core body at kMmaMin (H = kMmaMin: h1 in
+// registers) and every wider multiple of 64 (H = 0 here: h1 in slots)
+enum Body { kCudaCore = 0, kMma = 1 };
+constexpr int kMmaMin = 64;
+
+template <int H, int MODE, int G, int B>
+cudaError_t launch_body(const Args& a) {
+  if constexpr (B == kMma)
+    return launch_mma<MODE, G, H == kMmaMin>(a);
+  else
+    return launch<H, MODE, G>(a);
+}
+
+template <int H, int MODE, int B>
+cudaError_t dispatch_gelu(int gelu_id, const Args& a) {
   switch (gelu_id) {
-    case kExact: launch<H, MODE, kExact>(a); return true;
-    case kTanh: launch<H, MODE, kTanh>(a); return true;
-    case kQuick: launch<H, MODE, kQuick>(a); return true;
-    case kPoly: launch<H, MODE, kPoly>(a); return true;
-    case kErfPoly: launch<H, MODE, kErfPoly>(a); return true;
-    case kTanhErf: launch<H, MODE, kTanhErf>(a); return true;
+#define NIC_G(G) \
+    case G: return launch_body<H, MODE, G, B>(a)
+    NIC_G(kExact);
+    NIC_G(kTanh);
+    NIC_G(kQuick);
+    NIC_G(kPoly);
+    NIC_G(kErfPoly);
+    NIC_G(kTanhErf);
+#undef NIC_G
   }
-  return false;
+  return cudaErrorInvalidValue;
+}
+
+template <int H, int B>
+cudaError_t dispatch_planes(int mode, int gelu_id, const Args& a) {
+  switch (mode) {
+    case kF32: return dispatch_gelu<H, kF32, B>(gelu_id, a);
+    case kBF16: return dispatch_gelu<H, kBF16, B>(gelu_id, a);
+    case kI16: return dispatch_gelu<H, kI16, B>(gelu_id, a);
+    case kSurgical: return dispatch_gelu<H, kSurgical, B>(gelu_id, a);
+  }
+  return cudaErrorInvalidValue;
 }
 
 template <int H>
-bool dispatch_mode(int mode, int gelu_id, const Args& a) {
-  switch (mode) {
-    case kF32: return dispatch_gelu<H, kF32>(gelu_id, a);
-    case kBF16: return dispatch_gelu<H, kBF16>(gelu_id, a);
-    case kI16: return dispatch_gelu<H, kI16>(gelu_id, a);
-    case kSurgical: return dispatch_gelu<H, kSurgical>(gelu_id, a);
-  }
-  return false;
+cudaError_t dispatch_mode(int mode, int gelu_id, const Args& a) {
+  return dispatch_planes<H, kCudaCore>(mode, gelu_id, a);
 }
 
+// body kCudaCore runs H = 16, kMma H = 64 and every wider multiple of 64
+// (up to where a warp's tile still fits in shared memory); any other
+// pairing is refused
 int decode(const void* pc, const void* c1v, const void* peu, const void* w2,
            const void* b2, const void* w3, const void* b3, float scale,
            void* out, int nt, int nr, int ncl, int hidden, int f, int f1,
-           int mode, int gelu_id, void* stream) {
+           int mode, int gelu_id, int body, void* stream) {
   if (nt <= 0 || nt > 65535 || nr <= 0 || ncl <= 0 || f <= 0 || f1 <= 0 ||
-      nr % f || nr % f1 || (nr + TILE_R - 1) / TILE_R > 65535)
+      nr % f || nr % f1)
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a{pc, c1v, peu,
                static_cast<const float*>(w2), static_cast<const float*>(b2),
                static_cast<const float*>(w3), static_cast<const float*>(b3),
-               scale, static_cast<float*>(out), nr, ncl, f, f1, nt,
+               scale, static_cast<float*>(out), nr, ncl, f, f1, nt, hidden,
                static_cast<cudaStream_t>(stream)};
-  bool ok = false;
-  switch (hidden) {
-    case 16: ok = dispatch_mode<16>(mode, gelu_id, a); break;
-    case 64: ok = dispatch_mode<64>(mode, gelu_id, a); break;
-    case 128: ok = dispatch_mode<128>(mode, gelu_id, a); break;
-  }
-  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+  cudaError_t err = cudaErrorInvalidValue;
+  if (body == kCudaCore && hidden == 16)
+    err = dispatch_mode<16>(mode, gelu_id, a);
+  if (body == kMma && hidden == kMmaMin)
+    err = dispatch_planes<kMmaMin, kMma>(mode, gelu_id, a);
+  if (body == kMma && hidden > kMmaMin && hidden % 64 == 0)
+    err = dispatch_planes<0, kMma>(mode, gelu_id, a);
+  return static_cast<int>(err);
 }
 
 
@@ -197,9 +694,10 @@ extern "C" int nic_decode_fused_v2(const void* pc, const void* c1v,
                                    const void* b2, const void* w3,
                                    const void* b3, float scale, void* out,
                                    int nr, int ncl, int hidden, int f, int f1,
-                                   int mode, int gelu_id, void* stream) {
+                                   int mode, int gelu_id, int body,
+                                   void* stream) {
   return decode(pc, c1v, peu, w2, b2, w3, b3, scale, out, 1, nr, ncl, hidden,
-                f, f1, mode, gelu_id, stream);
+                f, f1, mode, gelu_id, body, stream);
 }
 
 // K5: nt frames of nr x ncl; pc [nt][nr/f][ncl][H], c1v [nt][nr/f1 + 1]
@@ -209,10 +707,10 @@ extern "C" int nic_decode_fused_3d(const void* pc, const void* c1v,
                                    const void* b2, const void* w3,
                                    const void* b3, float scale, void* out,
                                    int nt, int nr, int ncl, int hidden, int f,
-                                   int f1, int mode, int gelu_id,
+                                   int f1, int mode, int gelu_id, int body,
                                    void* stream) {
   return decode(pc, c1v, peu, w2, b2, w3, b3, scale, out, nt, nr, ncl, hidden,
-                f, f1, mode, gelu_id, stream);
+                f, f1, mode, gelu_id, body, stream);
 }
 
 extern "C" const char* nic_cuda_error_string(int code) {

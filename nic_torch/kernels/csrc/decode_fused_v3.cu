@@ -15,7 +15,10 @@
 // 16-byte loads (rows padded to H + 4 floats, so the per-thread reads
 // that follow are free of bank conflicts), then each thread runs the tail
 // on its row. The per-step weight tiling of the TPU kernel (Mosaic's
-// advancing-window rule) means nothing here and is not carried over.
+// advancing-window rule) means nothing here and is not carried over. Built
+// for H = 16, 64 and 128; past 128, any multiple of 64 runs mlp_tail_wide,
+// which loads 16 accumulator rows into the wide tail's tile
+// (decode_common.cuh).
 //
 // What bounds it: the tail is 2*(H*H + 3*H) = 8.6 kflop a pixel on fp32
 // CUDA cores against H*sizeof(acc) + 12 bytes moved: at 2048^2, fp32
@@ -80,19 +83,58 @@ int launch(const void* acc, const float* w2, const float* b2, const float* w3,
            const float* b3, float* out, long long npix, int block,
            cudaStream_t stream) {
   const size_t smem = static_cast<size_t>(THREADS) * (H + 4) * 4;
-  const auto kernel = mlp_tail_kernel<H, TA, kDotBf16>;
-  const cudaError_t err = allow_dynamic_smem(kernel, smem);
+  auto kern = mlp_tail_kernel<H, TA, kDotBf16>;
+  const cudaError_t err = allow_dynamic_smem(kern, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long blocks = (npix + block - 1) / block;
-  kernel<<<static_cast<unsigned>(blocks), THREADS, smem, stream>>>(
+  kern<<<static_cast<unsigned>(blocks), THREADS, smem, stream>>>(
       static_cast<const TA*>(acc), w2, b2, w3, b3, out, npix, block);
-  return static_cast<int>(cudaGetLastError());
+  const cudaError_t done = cudaGetLastError();
+  if (done == cudaSuccess) nic_note_body(reinterpret_cast<const void*>(kern));
+  return static_cast<int>(done);
+}
+
+// past H = 128: a block per tile of WR pixels, whose accumulator rows it
+// loads into the wide tail's z1 tile (decode_common.cuh); the pipeline
+// block does not change what is computed and is not used
+template <typename TA, bool kDotBf16>
+__global__ void __launch_bounds__(WT)
+mlp_tail_wide(const TA* __restrict__ acc, const float* __restrict__ w2,
+              const float* __restrict__ b2, const float* __restrict__ w3,
+              const float* __restrict__ b3, float* __restrict__ out,
+              long long npix, int H) {
+  extern __shared__ float4 wide_smem[];
+  const WideSmem sm(reinterpret_cast<float*>(wide_smem), H);
+  const long long q0 = static_cast<long long>(blockIdx.x) * WR;
+  const int cnt = static_cast<int>(npix - q0 < WR ? npix - q0 : WR);
+  for (int i = threadIdx.x; i < WR * H; i += WT)
+    sm.z[i] = i / H < cnt ? to_float(acc[q0 * H + i]) : 0.0f;
+  __syncthreads();
+  wide_tail<kExact, kDotBf16>(sm, H, w2, b2, w3, b3, out + q0 * 3, cnt);
+}
+
+template <typename TA, bool kDotBf16>
+int launch_wide(const void* acc, const float* w2, const float* b2,
+                const float* w3, const float* b3, float* out, long long npix,
+                int hidden, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * wide_floats(hidden);
+  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  auto kern = mlp_tail_wide<TA, kDotBf16>;
+  const cudaError_t err = allow_dynamic_smem(kern, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long blocks = (npix + WR - 1) / WR;
+  kern<<<static_cast<unsigned>(blocks), WT, smem, stream>>>(
+      static_cast<const TA*>(acc), w2, b2, w3, b3, out, npix, hidden);
+  const cudaError_t done = cudaGetLastError();
+  if (done == cudaSuccess) nic_note_body(reinterpret_cast<const void*>(kern));
+  return static_cast<int>(done);
 }
 
 }  // namespace
 
 // K4: acc [npix][H] (fp32, or bf16 with acc_bf16 = 1), dots on bf16 inputs
-// with dot_bf16 = 1 -> out [npix][3] fp32
+// with dot_bf16 = 1 -> out [npix][3] fp32; H = 16, 64, 128 or a multiple
+// of 64 up to 3264 (the wide tail)
 extern "C" int nic_mlp_tail(const void* acc, const void* w2, const void* b2,
                             const void* w3, const void* b3, void* out,
                             long long npix, int hidden, int block,
@@ -105,6 +147,18 @@ extern "C" int nic_mlp_tail(const void* acc, const void* w2, const void* b2,
   const auto* fb3 = static_cast<const float*>(b3);
   auto* o = static_cast<float*>(out);
   const auto s = static_cast<cudaStream_t>(stream);
+  if (hidden > 128) {
+    if (hidden % WCB) return static_cast<int>(cudaErrorInvalidValue);
+#define NIC_WIDE(TA, D)                                                  \
+  if (acc_bf16 == std::is_same<TA, __nv_bfloat16>::value && dot_bf16 == D) \
+    return launch_wide<TA, D>(acc, fw2, fb2, fw3, fb3, o, npix, hidden, s)
+    NIC_WIDE(float, false);
+    NIC_WIDE(float, true);
+    NIC_WIDE(__nv_bfloat16, false);
+    NIC_WIDE(__nv_bfloat16, true);
+#undef NIC_WIDE
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
 #define NIC_TAIL(H, TA, D)                                                 \
   if (hidden == H && acc_bf16 == std::is_same<TA, __nv_bfloat16>::value && \
       dot_bf16 == D)                                                       \

@@ -17,7 +17,10 @@
 // the tensor cores: a block owns min(R, 16) rows x (128 / that) columns,
 // stages its S rows (zero-padded to K = 16) in shared memory, and each warp
 // issues mma.sync m16n8k16 (bf16 in, fp32 out) over the flat (column,
-// hidden) axis, writing z1 to shared memory for the per-pixel tail.
+// hidden) axis, writing z1 to shared memory for the per-pixel tail. Past
+// H = 128, any multiple of 64 runs decode_z1mm_wide: the product as fp32
+// FMAs into the wide tail's [16][H] tile (decode_common.cuh), every plane
+// mode.
 //
 // What bounds it: the tail's work is K1's; the product adds 2*K*H flop a
 // pixel (K = 4 at the flagship's mip 0), done densely, zeros included.
@@ -232,43 +235,111 @@ struct Z1Args {
   cudaStream_t stream;
 };
 
+// past H = 128: a block per WR columns of one image row; z1 = the same
+// sum over the tile's S rows (fp32 FMAs, in the fp32 kernel's order) into
+// the wide tail's z1 tile (decode_common.cuh)
+template <int MODE, int G>
+__global__ void __launch_bounds__(WT)
+decode_z1mm_wide(const typename Types<MODE>::Plane* __restrict__ pc,
+                 const typename Types<MODE>::Plane* __restrict__ c1v,
+                 const typename Types<MODE>::Pe* __restrict__ peu,
+                 const float* __restrict__ amat,
+                 const float* __restrict__ w2, const float* __restrict__ b2,
+                 const float* __restrict__ w3, const float* __restrict__ b3,
+                 float* __restrict__ out, int ncl, int H, int R, int K,
+                 int kp, int m, int add_p) {
+  extern __shared__ float4 wide_smem[];
+  const WideSmem sm(reinterpret_cast<float*>(wide_smem), H);
+  const int r = blockIdx.y, c0 = blockIdx.x * WR;
+  const int t = r / R, rl = r % R;
+  const int cnt = min(WR, ncl - c0);
+  for (int i = threadIdx.x; i < WR * H; i += WT) {
+    const int p = i / H, k = i % H, c = c0 + p;
+    float h = 0.0f;
+    if (p < cnt) {
+      for (int j = 0; j < K; ++j) {
+        const auto* row =
+            j < kp ? pc + static_cast<size_t>(t * kp + j) * ncl * H
+                   : c1v + static_cast<size_t>(t * m + j - kp) * ncl * H;
+        h = fmaf(__ldg(amat + rl * K + j),
+                 to_float(row[static_cast<size_t>(c) * H + k]), h);
+      }
+      if (add_p) h += to_float(pc[(static_cast<size_t>(r) * ncl + c) * H + k]);
+      h += to_float(peu[static_cast<size_t>(r) * H + k]);
+    }
+    sm.z[i] = h;
+  }
+  __syncthreads();
+  wide_tail<G, MODE != kF32>(sm, H, w2, b2, w3, b3,
+                             out + (static_cast<size_t>(r) * ncl + c0) * 3,
+                             cnt);
+}
+
+template <int MODE, int G>
+cudaError_t launch_z1mm_wide(const Z1Args& a, int hidden) {
+  using T = Types<MODE>;
+  const size_t smem = sizeof(float) * wide_floats(hidden);
+  if (smem > kMaxSmem || a.nr > 65535) return cudaErrorInvalidValue;
+  auto kern = decode_z1mm_wide<MODE, G>;
+  const cudaError_t err = allow_dynamic_smem(kern, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.ncl + WR - 1) / WR, a.nr);
+  kern<<<grid, WT, smem, a.stream>>>(
+      static_cast<const typename T::Plane*>(a.pc),
+      static_cast<const typename T::Plane*>(a.c1v),
+      static_cast<const typename T::Pe*>(a.peu), a.amat, a.w2, a.b2, a.w3,
+      a.b3, a.out, a.ncl, hidden, a.R, a.K, a.kp, a.m, a.add_p);
+  const cudaError_t done = cudaGetLastError();
+  if (done == cudaSuccess) nic_note_body(reinterpret_cast<const void*>(kern));
+  return done;
+}
+
+// H = 64 or 128 (built), or kWideH: a runtime width past them (the wide
+// body)
+constexpr int kWideH = 0;
+
 template <int H, int MODE, int G>
-cudaError_t launch_z1mm(const Z1Args& a) {
-  if constexpr (MODE == kBF16) {
+cudaError_t launch_z1mm(const Z1Args& a, int hidden) {
+  if constexpr (H == kWideH) {
+    return launch_z1mm_wide<MODE, G>(a, hidden);
+  } else if constexpr (MODE == kBF16) {
     const Z1Layout L(a.R, H);
-    const auto kernel = decode_z1mm_bf16_kernel<H, G>;
-    const cudaError_t err = allow_dynamic_smem(kernel, L.bytes());
+    auto kern = decode_z1mm_bf16_kernel<H, G>;
+    const cudaError_t err = allow_dynamic_smem(kern, L.bytes());
     if (err != cudaSuccess) return err;
     const dim3 grid((a.ncl + L.cb - 1) / L.cb, a.nr / L.rg);
-    kernel<<<grid, Z_THREADS, L.bytes(), a.stream>>>(
+    kern<<<grid, Z_THREADS, L.bytes(), a.stream>>>(
         static_cast<const __nv_bfloat16*>(a.pc),
         static_cast<const __nv_bfloat16*>(a.c1v),
         static_cast<const __nv_bfloat16*>(a.peu), a.amat, a.w2, a.b2, a.w3,
         a.b3, a.out, a.ncl, a.R, a.K, a.kp, a.m, a.add_p);
+    const cudaError_t done = cudaGetLastError();
+    if (done == cudaSuccess) nic_note_body(reinterpret_cast<const void*>(kern));
+    return done;
   } else {
     const dim3 grid((a.ncl + TILE_C - 1) / TILE_C, a.nr / a.R);
-    decode_z1mm_f32_kernel<H, MODE, G><<<grid, TILE_C, 0, a.stream>>>(
+    auto kern = decode_z1mm_f32_kernel<H, MODE, G>;
+    kern<<<grid, TILE_C, 0, a.stream>>>(
         static_cast<const float*>(a.pc), static_cast<const float*>(a.c1v),
         static_cast<const float*>(a.peu), a.amat, a.w2, a.b2, a.w3, a.b3,
         a.out, a.ncl, a.R, a.K, a.kp, a.m, a.add_p);
+    const cudaError_t done = cudaGetLastError();
+    if (done == cudaSuccess) nic_note_body(reinterpret_cast<const void*>(kern));
+    return done;
   }
-  return cudaSuccess;
 }
 
 template <int H, int MODE>
-int dispatch_z1mm_gelu(int gelu_id, const Z1Args& a) {
-  cudaError_t err;
+int dispatch_z1mm_gelu(int gelu_id, const Z1Args& a, int hidden) {
   switch (gelu_id) {
-    case kExact: err = launch_z1mm<H, MODE, kExact>(a); break;
-    case kTanh: err = launch_z1mm<H, MODE, kTanh>(a); break;
-    case kQuick: err = launch_z1mm<H, MODE, kQuick>(a); break;
-    case kPoly: err = launch_z1mm<H, MODE, kPoly>(a); break;
-    case kErfPoly: err = launch_z1mm<H, MODE, kErfPoly>(a); break;
-    case kTanhErf: err = launch_z1mm<H, MODE, kTanhErf>(a); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    case kExact: return launch_z1mm<H, MODE, kExact>(a, hidden);
+    case kTanh: return launch_z1mm<H, MODE, kTanh>(a, hidden);
+    case kQuick: return launch_z1mm<H, MODE, kQuick>(a, hidden);
+    case kPoly: return launch_z1mm<H, MODE, kPoly>(a, hidden);
+    case kErfPoly: return launch_z1mm<H, MODE, kErfPoly>(a, hidden);
+    case kTanhErf: return launch_z1mm<H, MODE, kTanhErf>(a, hidden);
   }
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -276,7 +347,8 @@ int dispatch_z1mm_gelu(int gelu_id, const Z1Args& a) {
 // K2: one nr x ncl image; pc [nr/f][ncl][H], c1v [nr/f1 + 1][ncl][H],
 // peu [nr][H], amat [R][K] fp32 (kp of its columns over P rows, the rest
 // over C1v rows) -> out [nr][ncl][3]; H = 64 or 128 (a narrower model is
-// zero-padded to 64 by the wrapper), plane modes fp32, bf16 and surgical
+// zero-padded to 64 by the wrapper), or a multiple of 64 up to 3264 (the
+// wide body); plane modes fp32, bf16 and surgical
 extern "C" int nic_decode_z1mm(const void* pc, const void* c1v,
                                const void* peu, const void* amat,
                                const void* w2, const void* b2,
@@ -284,7 +356,9 @@ extern "C" int nic_decode_z1mm(const void* pc, const void* c1v,
                                int nr, int ncl, int hidden, int R, int K,
                                int kp, int m, int add_p, int mode,
                                int gelu_id, void* stream) {
-  if ((hidden != 64 && hidden != 128) || nr <= 0 || ncl <= 0 || R < 8 ||
+  const bool wide = hidden > 128 && hidden % WCB == 0;
+  if ((hidden != 64 && hidden != 128 && !wide) || nr <= 0 || ncl <= 0 ||
+      R < 8 ||
       (R & (R - 1)) || nr % R || K <= 0 || kp < 0 || kp > K || R * K > MAX_A ||
       (mode == kBF16 && K > 16) || nr / R > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -294,14 +368,16 @@ extern "C" int nic_decode_z1mm(const void* pc, const void* c1v,
                  static_cast<const float*>(w3), static_cast<const float*>(b3),
                  static_cast<float*>(out), nr, ncl, R, K, kp, m, add_p,
                  static_cast<cudaStream_t>(stream)};
-#define NIC_Z1MM(H)                                              \
-  switch (mode) {                                                \
-    case kF32: return dispatch_z1mm_gelu<H, kF32>(gelu_id, a);   \
-    case kBF16: return dispatch_z1mm_gelu<H, kBF16>(gelu_id, a); \
-    case kSurgical:                                              \
-      return dispatch_z1mm_gelu<H, kSurgical>(gelu_id, a);       \
+#define NIC_Z1MM(H)                                                      \
+  switch (mode) {                                                        \
+    case kF32: return dispatch_z1mm_gelu<H, kF32>(gelu_id, a, hidden);   \
+    case kBF16: return dispatch_z1mm_gelu<H, kBF16>(gelu_id, a, hidden); \
+    case kSurgical:                                                      \
+      return dispatch_z1mm_gelu<H, kSurgical>(gelu_id, a, hidden);       \
   }
-  if (hidden == 64) { NIC_Z1MM(64) } else { NIC_Z1MM(128) }
+  if (hidden == 64) { NIC_Z1MM(64) }
+  if (hidden == 128) { NIC_Z1MM(128) }
+  if (wide) { NIC_Z1MM(kWideH) }
 #undef NIC_Z1MM
   return static_cast<int>(cudaErrorInvalidValue);
 }

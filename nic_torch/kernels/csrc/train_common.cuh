@@ -817,14 +817,14 @@ struct WinGeo {
 // u(1-v), uv of its dz1 to its four C1 nodes (u, v the in-cell fractions
 // at the absolute coordinate's phase). Window node q of a crop at origin o
 // is the absolute cell o/f + q (o/f1 + q for C1). Thread = (window node,
-// h); block = (H, 256/H); each thread sums its own output in a fixed
-// order.
-template <int H>
+// h) for any H that is a multiple of 64; block = (64, 4) threads, the
+// grid's y walking the 64-unit column blocks of H; each thread sums its
+// own output in a fixed order.
 __global__ void node_windows(const float* __restrict__ dz1,
                              const int* __restrict__ org,
                              float* __restrict__ win_p,
-                             float* __restrict__ win_c1, WinGeo g) {
-  const int h = threadIdx.x;
+                             float* __restrict__ win_c1, WinGeo g, int H) {
+  const int h = blockIdx.y * blockDim.x + threadIdx.x;
   const int node = blockIdx.x * blockDim.y + threadIdx.y;
   const int rows0 = g.rows0, cols0 = g.cols0;
   const int rows1 = g.rows1, cols1 = g.cols1;
@@ -891,14 +891,14 @@ inline WinGeo win_geo(int crops, int n, int f) {
   return w;
 }
 
-template <int H>
+// the windows of dz1 [crops * n * n][H], H a multiple of 64
 cudaError_t launch_node_windows(const float* dz1, const int* org,
                                 float* win_p, float* win_c1, const WinGeo& w,
-                                cudaStream_t stream) {
-  const dim3 blk(H, 256 / H);
+                                int H, cudaStream_t stream) {
+  const dim3 blk(64, 4);
   const int nodes = w.crops * (w.rows0 * w.cols0 + w.rows1 * w.cols1);
-  node_windows<H><<<(nodes + blk.y - 1) / blk.y, blk, 0, stream>>>(
-      dz1, org, win_p, win_c1, w);
+  const dim3 grid((nodes + blk.y - 1) / blk.y, H / 64);
+  node_windows<<<grid, blk, 0, stream>>>(dz1, org, win_p, win_c1, w, H);
   return cudaGetLastError();
 }
 
@@ -924,14 +924,15 @@ __device__ __forceinline__ void cell_range(int q, int f, int ph, int n,
 // trilinear weights of its eight C1 nodes at period f1 (per axis 1-u to
 // its floor node and u to the next, u the in-cell fraction at the absolute
 // coordinate's phase). Window node q of a crop at origin o is the
-// absolute cell o/f + q (o/f1 + q for C1). Thread = (window node, h);
-// block = (H, 256/H); each thread sums its own output in a fixed order.
-template <int H>
+// absolute cell o/f + q (o/f1 + q for C1). Thread = (window node, h) for
+// any H that is a multiple of 64; block = (64, 4), the grid's y walking
+// the 64-unit column blocks; each thread sums its own output in a fixed
+// order.
 __global__ void node_volumes(const float* __restrict__ dz1,
                              const int* __restrict__ org,
                              float* __restrict__ win_p,
-                             float* __restrict__ win_c1, VolGeo g) {
-  const int h = threadIdx.x;
+                             float* __restrict__ win_c1, VolGeo g, int H) {
+  const int h = blockIdx.y * blockDim.x + threadIdx.x;
   const int node = blockIdx.x * blockDim.y + threadIdx.y;
   const int r0 = g.r0, r1 = g.r1, c1 = g.c1;
   const int np = g.crops * r0 * r0 * r0;
@@ -1009,14 +1010,14 @@ inline VolGeo vol_geo(int crops, int n, int f) {
   return v;
 }
 
-template <int H>
+// the volumes of dz1 [crops * n^3][H], H a multiple of 64
 cudaError_t launch_node_volumes(const float* dz1, const int* org,
                                 float* win_p, float* win_c1, const VolGeo& v,
-                                cudaStream_t stream) {
-  const dim3 blk(H, 256 / H);
+                                int H, cudaStream_t stream) {
+  const dim3 blk(64, 4);
   const int nodes = v.crops * (v.r0 * v.r0 * v.r0 + v.r1 * v.c1 * v.c1);
-  node_volumes<H><<<(nodes + blk.y - 1) / blk.y, blk, 0, stream>>>(
-      dz1, org, win_p, win_c1, v);
+  const dim3 grid((nodes + blk.y - 1) / blk.y, H / 64);
+  node_volumes<<<grid, blk, 0, stream>>>(dz1, org, win_p, win_c1, v, H);
   return cudaGetLastError();
 }
 

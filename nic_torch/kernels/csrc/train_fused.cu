@@ -18,12 +18,14 @@
 //   z1 = x W1 + b1,  out = sigmoid(gelu(gelu(z1) W2 + b2) W3 + b3),
 //   loss = mean((out - t)^2)
 //
-// and the full backward. Each entry point runs one of two per-pixel
+// and the full backward. Each entry point runs one of three per-pixel
 // bodies, which write the same outputs: in bf16-dot mode at H = 64
 // mlp_pixel_mma (train_fused_mma.cu) on the tensor cores, in fp32-dot mode
-// and at H = 128 mlp_pixel, below, on the CUDA cores. The caller names the
-// body (`mma`, from nic_torch/kernels/_widths.py kernel_body) and a body
-// that does not take the mode is refused. mlp_pixel: one thread per pixel,
+// and at H = 128 mlp_pixel, below, on the CUDA cores, and past H = 128
+// mlp_pixel_wide (train_fused_wide.cu, any multiple of 64 up to 1344, on
+// the CUDA cores). The caller names the body (`body`, from
+// nic_torch/kernels/_widths.py kernel_body) and a body that does not take
+// the mode or the width is refused. mlp_pixel: one thread per pixel,
 // 128-pixel tiles, each block walking a fixed set of tiles. It stages the
 // tile's x rows transposed in shared memory (coalesced reads of the
 // contiguous [128, F] slab), builds z1, runs the forward, the loss and the
@@ -67,7 +69,9 @@
 // features, so the wider F adds a pass, not registers.
 // Widths: H = 64 (fp32 dots; bf16 dots run mlp_pixel_mma) and H = 128
 // are built (a narrower model is zero-padded to 64 by the wrapper,
-// nic_torch/kernels/_widths.py), and any F runs. Where
+// nic_torch/kernels/_widths.py; a wider one to a multiple of 64 for
+// mlp_pixel_wide), and any F runs. The node reductions take any multiple
+// of 64 (train_common.cuh). Where
 // x's slab and W1 do not both fit in shared memory (F > 183 at H = 64, any
 // F > 24 at H = 128, whose W2 and staging tiles take 202 KB), W1 rows are
 // read from device memory through L1 and x is staged in chunks of as many
@@ -79,7 +83,8 @@
 
 #include "train_common.cuh"
 
-// the tensor-core body (train_fused_mma.cu)
+// the tensor-core body (train_fused_mma.cu) and the wide body
+// (train_fused_wide.cu)
 extern "C" int nic_mlp_pixel_mma(const float* x, const float* tgt,
                                  const float* w1, const float* b1,
                                  const float* w2, const float* b2,
@@ -87,6 +92,14 @@ extern "C" int nic_mlp_pixel_mma(const float* x, const float* tgt,
                                  float* grad_out, float* part, int npix,
                                  int feat, int write_dx, int gelu_id, int nblk,
                                  void* stream);
+extern "C" int nic_mlp_pixel_wide(const float* x, const float* tgt,
+                                  const float* w1, const float* b1,
+                                  const float* w2, const float* b2,
+                                  const float* w3, const float* b3,
+                                  float* out, float* grad_out, float* part,
+                                  int npix, int feat, int hidden,
+                                  int write_dx, int bf16, int gelu_id,
+                                  int nblk, void* stream);
 
 namespace {
 
@@ -520,20 +533,32 @@ cudaError_t launch_pixel(const float* x, const float* tgt, const float* w1,
   }
 }
 
-// mma: the tensor-core body (bf16 dots at H = 64 only), else mlp_pixel
-// (fp32 dots, and bf16 at H = 128)
-cudaError_t dispatch(int hidden, int bf16, int gelu_id, int mma,
+// the per-pixel bodies by the caller's id (nic_torch/kernels/
+// train_fused.py BODY_IDS)
+enum Body { kMlpPixel = 0, kMlpPixelMma = 1, kMlpPixelWide = 2 };
+
+// body kMlpPixelMma: the tensor-core body (bf16 dots at H = 64 only);
+// kMlpPixelWide: H > 128; kMlpPixel: fp32 dots at 64, and H = 128. Any
+// other pairing is refused.
+cudaError_t dispatch(int hidden, int bf16, int gelu_id, int body,
                      const float* x, const float* tgt,
                      const float* w1, const float* b1, const float* w2,
                      const float* b2, const float* w3, const float* b3,
                      float* out, float* grad_out, float* part, const Shape& s,
                      int nblk, cudaStream_t stream) {
-  if (mma) {
+  if (body == kMlpPixelMma) {
     if (hidden != 64 || !bf16) return cudaErrorInvalidValue;
     return static_cast<cudaError_t>(nic_mlp_pixel_mma(
         x, tgt, w1, b1, w2, b2, w3, b3, out, grad_out, part, s.npix, s.feat,
         s.write_dx, gelu_id, nblk, stream));
   }
+  if (body == kMlpPixelWide) {
+    if (hidden <= 128) return cudaErrorInvalidValue;
+    return static_cast<cudaError_t>(nic_mlp_pixel_wide(
+        x, tgt, w1, b1, w2, b2, w3, b3, out, grad_out, part, s.npix, s.feat,
+        hidden, s.write_dx, bf16, gelu_id, nblk, stream));
+  }
+  if (body != kMlpPixel) return cudaErrorInvalidValue;
 #define NIC_LAUNCH(H, BF, G)                                                 \
   return launch_pixel<H, BF, G>(x, tgt, w1, b1, w2, b2, w3, b3, out,        \
                                 grad_out, part, s, nblk, stream)
@@ -552,9 +577,9 @@ cudaError_t dispatch(int hidden, int bf16, int gelu_id, int mma,
   return cudaErrorInvalidValue;
 }
 
+// H: 64, 128, or a multiple of 64 above them (the wide body)
 bool bad_shape(int npix, int feat, int hidden, int nblk) {
-  return npix <= 0 || feat <= 0 || (hidden != 64 && hidden != 128) ||
-         nblk <= 0;
+  return npix <= 0 || feat <= 0 || hidden < 64 || hidden % 64 || nblk <= 0;
 }
 
 Shape make_shape(int npix, int feat, int write_dx) {
@@ -575,13 +600,13 @@ extern "C" int nic_train_fused_dx(const void* x, const void* tgt,
                                   const void* w2, const void* b2,
                                   const void* w3, const void* b3, void* out,
                                   void* dx, void* part, int npix, int feat,
-                                  int hidden, int bf16, int gelu_id, int mma,
+                                  int hidden, int bf16, int gelu_id, int body,
                                   int nblk, void* stream) {
   if (bad_shape(npix, feat, hidden, nblk))
     return static_cast<int>(cudaErrorInvalidValue);
   const Shape s = make_shape(npix, feat, 1);
   return static_cast<int>(dispatch(
-      hidden, bf16, gelu_id, mma, static_cast<const float*>(x),
+      hidden, bf16, gelu_id, body, static_cast<const float*>(x),
       static_cast<const float*>(tgt), static_cast<const float*>(w1),
       static_cast<const float*>(b1), static_cast<const float*>(w2),
       static_cast<const float*>(b2), static_cast<const float*>(w3),
@@ -602,7 +627,7 @@ extern "C" int nic_train_fused_ng(const void* x, const void* tgt,
                                   const void* b3, void* out, void* dz1,
                                   void* part, void* win_p, void* win_c1,
                                   int crops, int n, int f, int feat,
-                                  int hidden, int bf16, int gelu_id, int mma,
+                                  int hidden, int bf16, int gelu_id, int body,
                                   int nblk, void* stream) {
   if (crops <= 0 || n <= 0 || f <= 0 ||
       bad_shape(crops * n * n, feat, hidden, nblk))
@@ -610,7 +635,7 @@ extern "C" int nic_train_fused_ng(const void* x, const void* tgt,
   const Shape s = make_shape(crops * n * n, feat, 0);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t e = dispatch(
-      hidden, bf16, gelu_id, mma, static_cast<const float*>(x),
+      hidden, bf16, gelu_id, body, static_cast<const float*>(x),
       static_cast<const float*>(tgt), static_cast<const float*>(w1),
       static_cast<const float*>(b1), static_cast<const float*>(w2),
       static_cast<const float*>(b2), static_cast<const float*>(w3),
@@ -620,12 +645,9 @@ extern "C" int nic_train_fused_ng(const void* x, const void* tgt,
   const auto* d = static_cast<const float*>(dz1);
   const auto* o = static_cast<const int*>(origins);
   const WinGeo w = win_geo(crops, n, f);
-  return static_cast<int>(
-      hidden == 64
-          ? launch_node_windows<64>(d, o, static_cast<float*>(win_p),
-                                    static_cast<float*>(win_c1), w, st)
-          : launch_node_windows<128>(d, o, static_cast<float*>(win_p),
-                                     static_cast<float*>(win_c1), w, st));
+  return static_cast<int>(launch_node_windows(
+      d, o, static_cast<float*>(win_p), static_cast<float*>(win_c1), w,
+      hidden, st));
 }
 
 // K9 (3D kernel2): as K7 for crops of n^3 voxels (N = crops n^3,
@@ -640,14 +662,14 @@ extern "C" int nic_train_fused_ng3(const void* x, const void* tgt,
                                    void* part, void* win_p, void* win_c1,
                                    int crops, int n, int f, int feat,
                                    int hidden, int bf16, int gelu_id,
-                                   int mma, int nblk, void* stream) {
+                                   int body, int nblk, void* stream) {
   if (crops <= 0 || n <= 0 || f <= 0 ||
       bad_shape(crops * n * n * n, feat, hidden, nblk))
     return static_cast<int>(cudaErrorInvalidValue);
   const Shape s = make_shape(crops * n * n * n, feat, 0);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t e = dispatch(
-      hidden, bf16, gelu_id, mma, static_cast<const float*>(x),
+      hidden, bf16, gelu_id, body, static_cast<const float*>(x),
       static_cast<const float*>(tgt), static_cast<const float*>(w1),
       static_cast<const float*>(b1), static_cast<const float*>(w2),
       static_cast<const float*>(b2), static_cast<const float*>(w3),
@@ -657,10 +679,7 @@ extern "C" int nic_train_fused_ng3(const void* x, const void* tgt,
   const auto* d = static_cast<const float*>(dz1);
   const auto* o = static_cast<const int*>(origins);
   const VolGeo v = vol_geo(crops, n, f);
-  return static_cast<int>(
-      hidden == 64
-          ? launch_node_volumes<64>(d, o, static_cast<float*>(win_p),
-                                    static_cast<float*>(win_c1), v, st)
-          : launch_node_volumes<128>(d, o, static_cast<float*>(win_p),
-                                     static_cast<float*>(win_c1), v, st));
+  return static_cast<int>(launch_node_volumes(
+      d, o, static_cast<float*>(win_p), static_cast<float*>(win_c1), v,
+      hidden, st));
 }

@@ -509,8 +509,8 @@ cudaError_t launch_pixel(const Args& a) {
 template <int H, bool BF16>
 cudaError_t launch_rest(const Args& a) {
   const dim3 blk(H, 256 / H);
-  cudaError_t e = launch_node_windows<H>(a.dz1, a.org, a.win_p, a.win_c1,
-                                         a.win, a.stream);
+  cudaError_t e = launch_node_windows(a.dz1, a.org, a.win_p, a.win_c1,
+                                      a.win, H, a.stream);
   if (e != cudaSuccess) return e;
   const int lines = a.g.crops * a.g.n;
   ff_rowcol<H><<<(lines + blk.y - 1) / blk.y, blk, 0, a.stream>>>(

@@ -459,7 +459,8 @@ template <int H, bool BF16, int G>
 cudaError_t launch_all(const Args3& a) {
   cudaError_t e = launch_pixel<H, BF16, G>(a);
   if (e != cudaSuccess) return e;
-  e = launch_node_volumes<H>(a.dz1, a.org, a.win_p, a.win_c1, a.vol, a.stream);
+  e = launch_node_volumes(a.dz1, a.org, a.win_p, a.win_c1, a.vol, H,
+                          a.stream);
   if (e != cudaSuccess) return e;
   const dim3 blk(H, 256 / H);
   const int lines = 3 * a.g.crops * a.g.n;

@@ -38,8 +38,9 @@ import torch
 from nic_torch.core.encodings import sinusoidal_pe, triangular_pe
 from nic_torch.grids.fastdecode import (_axis_take_up, fast_decode,
                                         precompute_first_layer)
-from nic_torch.kernels._widths import kernel_width
-from nic_torch.kernels.decode_fused_v2 import (_GELU_IDS, _padded_planes,
+from nic_torch.kernels._widths import PLANE_MODES, decode_body, kernel_width
+from nic_torch.kernels.decode_fused_v2 import (_BODY_IDS, _GELU_IDS,
+                                               _padded_planes,
                                                _check, decode_kernel_2d_plain)
 
 __all__ = ["decode_volume_fused", "decode_kernel_3d", "decode_kernel_3d_plain",
@@ -183,9 +184,10 @@ def decode_kernel_3d(pc, c1v, pe_u, w2, b2, w3, b3, plane_scale=None, *,
     """The per-voxel stage → [T, nr, ncl, 3] fp32.
 
     A CUDA tensor launches ``nic_decode_fused_3d`` (and raises if it does
-    not build or launch), a hidden width between the instantiated 16, 64
-    and 128 zero-padded to the next; a CPU tensor runs
-    :func:`decode_kernel_3d_plain`.
+    not build or launch) with K1's body for the width
+    (:func:`~nic_torch.kernels._widths.decode_body`: ``decode_v2_mma`` at
+    H ≥ 64, a width between zero-padded to the next multiple of 64); a
+    CPU tensor runs :func:`decode_kernel_3d_plain`.
     ``decode_kernel_3d.launches`` counts kernel launches."""
     mode = _check3(pc, c1v, pe_u, w2, b2, w3, b3, plane_scale, f, f1, gelu)
     if pc.device.type == "cpu":
@@ -215,7 +217,9 @@ def decode_kernel_3d(pc, c1v, pe_u, w2, b2, w3, b3, plane_scale=None, *,
             pc.data_ptr(), c1v.data_ptr(), pe_u.data_ptr(), w2f.data_ptr(),
             b2.data_ptr(), w3f.data_ptr(), b3.data_ptr(),
             ctypes.c_float(scale), out.data_ptr(), nt, nr, ncl, hidden, f,
-            f1, mode, _GELU_IDS[gelu], stream)
+            f1, mode, _GELU_IDS[gelu],
+            _BODY_IDS[decode_body("decode_v2", hidden, PLANE_MODES[mode])],
+            stream)
     if rc != 0:
         raise RuntimeError("decode_fused_3d kernel launch failed: "
                            + lib.nic_cuda_error_string(rc).decode())

@@ -47,7 +47,8 @@ import torch
 from nic_torch.core.encodings import sinusoidal_pe, triangular_pe
 from nic_torch.grids.fastdecode import (_axis_take_up, fast_decode,
                                         precompute_first_layer)
-from nic_torch.kernels._widths import kernel_width, pad_hidden, pad_mlp
+from nic_torch.kernels._widths import (PLANE_MODES, decode_body,
+                                       kernel_width, pad_hidden, pad_mlp)
 
 __all__ = ["decode_image_fused_v2", "decode_kernel_2d",
            "decode_kernel_2d_plain", "decode_kernel_z1mm",
@@ -143,6 +144,9 @@ GELUS = {"exact": _gelu_exact, "tanh": _gelu_tanh, "quick": _gelu_quick,
          "poly": _gelu_poly, "erfpoly": _gelu_erfpoly,
          "tanherf": _gelu_tanherf}
 _GELU_IDS = {name: i for i, name in enumerate(GELUS)}  # order of the .cu
+# K1/K5's per-pixel bodies by their id in csrc/decode_fused_v2.cu (enum
+# Body)
+_BODY_IDS = {"decode_fused_v2_kernel": 0, "decode_v2_mma": 1}
 
 
 # ---- the per-pixel stage: plain version and CUDA wrapper ---------------
@@ -251,10 +255,12 @@ def decode_kernel_2d(pc, c1v, pe_u, w2, b2, w3, b3, plane_scale=None, *,
     """The per-pixel stage → [nr, ncl, 3] fp32.
 
     A CUDA tensor launches the hand-written kernel (and raises if it does
-    not build or launch), a hidden width between the instantiated 16, 64
-    and 128 zero-padded to the next; a CPU tensor runs
-    :func:`decode_kernel_2d_plain`. ``decode_kernel_2d.launches`` counts
-    kernel launches."""
+    not build or launch) with the body
+    :func:`~nic_torch.kernels._widths.decode_body` names: the tensor-core
+    ``decode_v2_mma`` at H = 64, 128 and any multiple of 64 past them
+    (another width zero-padded to the next of those), the CUDA-core body
+    at H = 16; a CPU tensor runs :func:`decode_kernel_2d_plain`.
+    ``decode_kernel_2d.launches`` counts kernel launches."""
     mode = _check(pc, c1v, pe_u, w2, b2, w3, b3, plane_scale, f, f1, gelu)
     if pc.device.type == "cpu":
         return decode_kernel_2d_plain(pc, c1v, pe_u, w2, b2, w3, b3,
@@ -284,7 +290,9 @@ def decode_kernel_2d(pc, c1v, pe_u, w2, b2, w3, b3, plane_scale=None, *,
             pc.data_ptr(), c1v.data_ptr(), pe_u.data_ptr(), w2f.data_ptr(),
             b2.data_ptr(), w3f.data_ptr(), b3.data_ptr(),
             ctypes.c_float(scale), out.data_ptr(), nr, ncl, hidden, f, f1,
-            mode, _GELU_IDS[gelu], stream)
+            mode, _GELU_IDS[gelu],
+            _BODY_IDS[decode_body("decode_v2", hidden, PLANE_MODES[mode])],
+            stream)
     if rc != 0:
         raise RuntimeError("decode_fused_v2 kernel launch failed: "
                            + lib.nic_cuda_error_string(rc).decode())
@@ -353,9 +361,10 @@ def decode_kernel_z1mm(pc, c1v, pe_u, w2, b2, w3, b3, *, f: int, f1: int,
     bf16 planes (int16 planes cannot feed its product).
 
     A CUDA tensor launches the hand-written kernel (fp32 FMAs for float
-    planes, ``mma.sync`` tensor-core tiles for bf16 planes) and raises if
-    it does not build or launch, a hidden width below the instantiated 64
-    or 128 zero-padded to it; a CPU tensor runs
+    planes, ``mma.sync`` tensor-core tiles for bf16 planes; past H = 128
+    the wide body, ``decode_z1mm_wide``) and raises if it does not build
+    or launch, a hidden width below the instantiated 64 or 128, or past
+    them below a multiple of 64, zero-padded to it; a CPU tensor runs
     :func:`decode_kernel_z1mm_plain`. ``decode_kernel_z1mm.launches``
     counts kernel launches."""
     mode = _check_z1mm(pc, c1v, pe_u, w2, b2, w3, b3, f, f1, R, gelu)

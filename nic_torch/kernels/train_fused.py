@@ -63,6 +63,8 @@ __all__ = ["pick_block_rows", "fused_mlp_loss", "fused_mlp_loss_kernel",
 _INV_SQRT2 = 0.7071067811865476
 _INV_SQRT2PI = 0.3989422804014327
 GELU_IDS = {"erf": 0, "poly": 1}
+# the per-pixel bodies by their id in csrc/train_fused.cu (enum Body)
+BODY_IDS = {"mlp_pixel": 0, "mlp_pixel_mma": 1, "mlp_pixel_wide": 2}
 _CORNERS = ((0, 0), (0, 1), (1, 0), (1, 1))
 # the 3D G0 corners: dense (method 3) and the sparse even-parity four
 # (method 4), in the gather's order
@@ -396,8 +398,9 @@ def fused_mlp_loss_kernel(x, tgt, w1, b1, w2, b2, w3, b3, *, cd=None,
     A CUDA tensor launches ``nic_train_fused_dx`` of ``csrc/
     train_fused.cu`` (and raises if it does not build or launch) with the
     per-pixel body :func:`~nic_torch.kernels._widths.kernel_body` names
-    (``mlp_pixel_mma`` for bf16 dots at H = 64, else ``mlp_pixel``), a
-    hidden width below an instantiated one (64, 128) zero-padded to it
+    (``mlp_pixel_mma`` for bf16 dots at H = 64, ``mlp_pixel_wide`` past
+    H = 128, else ``mlp_pixel``), a hidden width below an instantiated one
+    (64, 128) or, past them, below a multiple of 64 zero-padded to it
     (:func:`fused_mlp_loss_padded`); a CPU tensor runs
     :func:`fused_mlp_loss_plain`.
     ``fused_mlp_loss_kernel.launches`` counts kernel launches."""
@@ -418,7 +421,7 @@ def fused_mlp_loss_kernel(x, tgt, w1, b1, w2, b2, w3, b3, *, cd=None,
     part, nblk = _partials(npix, feat, hidden, body, device)
     _call("nic_train_fused_dx", (*_prep(x, tgt, *weights), out, dx, part),
           (npix, feat, hidden, int(cd is not None), GELU_IDS[gelu],
-           int(body.endswith("_mma")), nblk), device)
+           BODY_IDS[body], nblk), device)
     fused_mlp_loss_kernel.launches += 1
     loss, *grads = _sum_partials(part, hidden, feat)
     return (loss, out, dx, *grads)
@@ -492,7 +495,7 @@ def _ng_kernel(wrapper, entry: str, x, tgt, origins, weights, *, n: int,
     xs, tg, *ws = _prep(x, tgt, *weights)
     _call(entry, (xs, tg, org, *ws, out, dz1, part, win_p, win_c1),
           (crops, n, f, feat, hidden, int(cd is not None), GELU_IDS[gelu],
-           int(body.endswith("_mma")), nblk), device)
+           BODY_IDS[body], nblk), device)
     wrapper.launches += 1
     loss, *grads = _sum_partials(part, hidden, feat)
     planes = _accumulate_node_planes(win_p, win_c1, origins, f=f,

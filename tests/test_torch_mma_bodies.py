@@ -5,9 +5,15 @@ The body table (``nic_torch/kernels/_widths.py`` ``kernel_body``) is pure
 Python: for every train family (K11 ``train_ff``; K12 ``train_ff3``; K6,
 K7 and K9 ``train_mlp``), every hidden width 1..128 its kernels take and
 both dot types, bf16 dots at H ≤ 64 pick the tensor-core body (``*_mma``)
-and fp32 dots or 64 < H ≤ 128 the CUDA-core body; every body the table
+and fp32 dots or 64 < H ≤ 128 the CUDA-core body; past 128 ``train_mlp``
+runs ``mlp_pixel_wide`` up to its widest width; every body the table
 names is a ``__global__`` kernel of the family's ``.cu`` source, built
-for the blocks per SM that the wrappers launch.
+for the blocks per SM that the wrappers launch. The decode body table
+(``decode_body``, by plane mode) likewise: K1/K5 (``decode_v2``) run
+``decode_v2_mma`` at every width from 17 to the widest in every plane
+mode and their CUDA-core body at H ≤ 16; K2, K3 and K4 their wide body
+past 128. Every body's launcher, train or decode, notes its launch in
+the launch log.
 
 The tensor-core bodies take a warp's 16 pixels at a time and zero the
 rows past N, and pad k to a multiple of 16. So K7, K9 and K12 are held to
@@ -42,7 +48,12 @@ CSRC = Path(ttf.__file__).resolve().parent / "csrc"
 # the sources that define each family's bodies
 SOURCES = {"train_ff": ("train_fused_ff.cu",),
            "train_ff3": ("train_fused_ff3.cu",),
-           "train_mlp": ("train_fused.cu", "train_fused_mma.cu")}
+           "train_mlp": ("train_fused.cu", "train_fused_mma.cu",
+                         "train_fused_wide.cu"),
+           "decode_v2": ("decode_fused_v2.cu",),
+           "decode_z1mm": ("decode_z1mm.cu",),
+           "decode_v1": ("decode_fused.cu",),
+           "decode_v3": ("decode_fused_v3.cu",)}
 MODES = {"fp32-erf": (None, "erf"), "bf16-poly": ("bf16", "poly")}
 TOL = {None: dict(loss=1e-6, out=1e-5, grad=1e-5),
        "bf16": dict(loss=1e-4, out=1e-3, grad=1e-2)}
@@ -61,8 +72,37 @@ def test_body_table_picks_tensor_cores_for_bf16_up_to_64(family, bf16):
         assert body in _widths.KERNEL_BODIES[family].values()
         assert body.endswith("_mma") == (bf16 and hidden <= 64), \
             (family, hidden, bf16, body)
+    # past the built widths: the wide body up to the widest, then refused
+    widest = _widths.WIDEST.get(family, top)
+    for hidden in range(top + 1, widest + 1, 61):
+        assert _widths.kernel_body(family, hidden, bf16) == "mlp_pixel_wide"
     with pytest.raises(ValueError):
-        _widths.kernel_body(family, top + 1, bf16)
+        _widths.kernel_body(family, widest + 1, bf16)
+
+
+@pytest.mark.parametrize("mode", _widths.PLANE_MODES)
+@pytest.mark.parametrize("family", sorted(_widths.DECODE_BODIES))
+def test_decode_body_table(family, mode):
+    """K1/K5 on decode_v2_mma at every width from 17 to the widest in
+    every plane mode, on their CUDA-core body at H <= 16; K2, K3, K4 on
+    their built bodies up to 128 and their wide body past it; a plane
+    mode the family does not take is refused."""
+    table = _widths.DECODE_BODIES[family]
+    modes = {m for _, m in table}
+    if mode not in modes:
+        with pytest.raises(ValueError):
+            _widths.decode_body(family, 64, mode)
+        return
+    widest = _widths.WIDEST[family]
+    for hidden in list(range(1, 321)) + [widest]:
+        body = _widths.decode_body(family, hidden, mode)
+        if family == "decode_v2":
+            assert body == ("decode_fused_v2_kernel" if hidden <= 16
+                            else "decode_v2_mma"), (hidden, body)
+        else:
+            assert body.endswith("_wide") == (hidden > 128), (hidden, body)
+    with pytest.raises(ValueError, match=str(widest)):
+        _widths.decode_body(family, widest + 1, mode)
 
 
 @pytest.mark.parametrize("family", sorted(_widths.KERNEL_BODIES))
@@ -78,7 +118,19 @@ def test_bodies_are_the_sources_kernels(family):
         assert bounds[body] == _widths.BODY_BLOCKS_PER_SM[body]
 
 
-@pytest.mark.parametrize("family", sorted(_widths.KERNEL_BODIES))
+@pytest.mark.parametrize("family", sorted(_widths.DECODE_BODIES))
+def test_decode_bodies_are_the_sources_kernels(family):
+    """Each decode body is a __global__ kernel of the family's source,
+    with its __launch_bounds__."""
+    text = "".join((CSRC / src).read_text() for src in SOURCES[family])
+    kernels = set(re.findall(
+        r"__global__ void __launch_bounds__\([^)]*\)\s*\n(\w+)\(", text))
+    for body in set(_widths.DECODE_BODIES[family].values()):
+        assert body in kernels, (family, body, sorted(kernels))
+
+
+@pytest.mark.parametrize("family", sorted(_widths.KERNEL_BODIES)
+                         + sorted(_widths.DECODE_BODIES))
 def test_every_body_launch_is_logged(family):
     """Each body's launcher notes the kernel it launched in the launch log
     (csrc/body_log.cu) once the launch succeeded, so a check on the card
@@ -86,7 +138,8 @@ def test_every_body_launch_is_logged(family):
     then nic_note_body(kern) behind a cudaSuccess test, before the next
     launch."""
     text = "".join((CSRC / src).read_text() for src in SOURCES[family])
-    for body in set(_widths.KERNEL_BODIES[family].values()):
+    bodies = {**_widths.KERNEL_BODIES, **_widths.DECODE_BODIES}[family]
+    for body in set(bodies.values()):
         sites = re.findall(rf"auto kern = {body}<[^;]*;(.*?)(?=auto kern =|\Z)",
                            text, re.S)
         assert sites, (family, body)

@@ -2,14 +2,18 @@
 runs on an instantiated CUDA width, and the zero padding that takes it
 there leaves the step unchanged.
 
-The table test is pure Python: for every H in 1..128 (and, where a gate
+The table test is pure Python: for every H in 1..320 (and, where a gate
 reads it, a range of F) that a gate accepts, ``kernel_width`` names a
-width ≥ H that the family's ``.cu`` source dispatches on. The padding
-tests run the plain versions of K11, K7 and K12 at H = 16 (K12 also at
-F = 133, method 3 with C = 12 and PE 8), once directly and once through
-the wrapper's pad-to-64-and-slice helper: a padded unit has zero first-
-layer weights and zero outgoing weights, so loss, out and every grad
-agree to fp32 summation order (rel 1e-6).
+width ≥ H that the family's ``.cu`` source dispatches on, or, past the
+built widths of the families whose gates check no width, the next
+multiple of 64, up to the family's widest (``WIDEST``), past which it
+refuses. The padding tests run the plain versions of K11, K7 and K12 at
+H = 16 (K12 also at F = 133, method 3 with C = 12 and PE 8), and of K7
+and K1 at H = 130 (padded to 192, a wide body's width), once directly
+and once through the wrapper's pad-and-slice helper: a padded unit has
+zero first-layer weights and zero outgoing weights, so loss, out and
+every grad agree to fp32 summation order (rel 1e-6). No test here runs
+JAX: the plain versions are held to JAX at small H elsewhere.
 """
 
 import re
@@ -20,6 +24,7 @@ import pytest
 import torch
 
 from nic_torch.kernels import _widths
+from nic_torch.kernels import decode_fused_v2 as dv2
 from nic_torch.kernels import train_fused as tf
 from nic_torch.kernels import train_fused_ff as tff
 from nic_torch.kernels import train_fused_ff3 as tff3
@@ -27,7 +32,7 @@ from nic_torch.kernels import train_fused_ff3 as tff3
 CSRC = Path(tff.__file__).resolve().parent / "csrc"
 # where each family's .cu dispatches on its widths
 DISPATCH = {
-    "decode_v2": ("decode_fused_v2.cu", r"dispatch_mode<(\d+)>"),
+    "decode_v2": ("decode_fused_v2.cu", r"(?:dispatch_mode<|kMmaMin = )(\d+)"),
     "decode_z1mm": ("decode_z1mm.cu", r"NIC_Z1MM\((\d+)\)"),
     "decode_v1": ("decode_fused.cu", r"NIC_V1\((\d+),"),
     "decode_v3": ("decode_fused_v3.cu", r"NIC_TAIL\((\d+),"),
@@ -58,20 +63,31 @@ def test_every_admitted_width_maps_onto_a_built_width(family):
     src, pattern = DISPATCH[family]
     built = {int(w) for w in re.findall(pattern, (CSRC / src).read_text())}
     assert set(_widths.KERNEL_WIDTHS[family]) == built
+    widest = _widths.WIDEST.get(family)
     admitted = 0
-    for hidden in range(1, 129):
+    for hidden in range(1, 321):
         for nfeat in FEATURES:
             if not _admitted(family, hidden, nfeat):
                 continue
             admitted += 1
             width = _widths.kernel_width(family, hidden)
-            assert width in built and width >= hidden
-            # the narrowest built width that holds it
-            assert not [w for w in built if hidden <= w < width]
+            if hidden <= max(built):
+                assert width in built and width >= hidden
+                # the narrowest built width that holds it
+                assert not [w for w in built if hidden <= w < width]
+            else:  # a wide body's width: the next multiple of 64
+                assert widest is not None
+                assert width % 64 == 0 and 0 <= width - hidden < 64
     assert admitted >= 64 * len(FEATURES)
-    with pytest.raises(ValueError, match=re.escape(
-            str(_widths.KERNEL_WIDTHS[family]))):
-        _widths.kernel_width(family, max(built) + 1)
+    if widest is None:
+        with pytest.raises(ValueError, match=re.escape(
+                str(_widths.KERNEL_WIDTHS[family]))):
+            _widths.kernel_width(family, max(built) + 1)
+    else:  # the largest-H refusal, which names the widest width
+        assert widest >= 1024 and widest % 64 == 0
+        assert _widths.kernel_width(family, widest) == widest
+        with pytest.raises(ValueError, match=re.escape(str(widest))):
+            _widths.kernel_width(family, widest + 1)
 
 
 def test_pad_and_unpad_round_trip():
@@ -171,3 +187,50 @@ def test_k12_padding_is_exact(c, pe):
     padded = tff3.fused_train_ff3_padded(tff3.fused_train_ff3_plain, 64,
                                          *args, **kw)
     _assert_same(direct, padded)
+
+
+def test_k7_wide_padding_is_exact():
+    """K7's plain step at H = 130 directly and padded to 192 (the width
+    mlp_pixel_wide runs it at)."""
+    rng = np.random.default_rng(11)
+    n, f, crops, hidden, nfeat = 4, 2, 2, 130, 29
+    assert _widths.kernel_width("train_mlp", hidden) == 192
+    x = torch.tensor(rng.uniform(-1, 1, (crops * n * n, nfeat))
+                     .astype(np.float32))
+    tgt = torch.tensor(rng.uniform(0, 1, (crops * n * n, 3))
+                       .astype(np.float32))
+    origins = torch.tensor(rng.integers(0, 8, (crops, 2)).astype(np.int32))
+    mlp = _mlp(rng, nfeat, hidden)
+    kw = dict(n=n, f=f, g0_nodes=9, g1_nodes=5, cd=None, gelu="erf")
+    args = (x, tgt, origins, *(mlp[k] for k in NAMES))
+    direct = tf.fused_mlp_loss_ng_plain(*args, **kw)
+    padded = tf.fused_mlp_loss_padded(tf.fused_mlp_loss_ng_plain, 192, *args,
+                                      **kw)
+    _assert_same(direct, padded)
+
+
+@pytest.mark.parametrize("mode", ["fp32", "i16"])
+def test_k1_wide_padding_is_exact(mode):
+    """K1's plain per-pixel stage at H = 130 directly and with its planes
+    and tail weights padded to 192 (decode_v2_mma's width for it)."""
+    rng = np.random.default_rng(13)
+    nr, ncl, f, f1, hidden = 8, 6, 2, 4, 130
+    assert _widths.kernel_width("decode_v2", hidden) == 192
+    def arr(*shape, lo=-0.5, hi=0.5):
+        return torch.tensor(rng.uniform(lo, hi, shape).astype(np.float32))
+    pc, c1v = arr(nr // f, ncl, hidden), arr(nr // f1 + 1, ncl, hidden)
+    pe_u = arr(nr, hidden)
+    mlp = _mlp(rng, 4, hidden)
+    w2, b2, w3, b3 = (mlp[k] for k in ("w2", "b2", "w3", "b3"))
+    scale = None
+    if mode == "i16":
+        scale = torch.tensor(0.5 / 32767.0)
+        pc = torch.round(pc * 32767.0).to(torch.int16)
+        c1v = torch.round(c1v * 32767.0).to(torch.int16)
+        w2, w3 = w2.to(torch.bfloat16), w3.to(torch.bfloat16)
+    kw = dict(f=f, f1=f1, gelu="tanherf" if mode == "i16" else "exact")
+    direct = dv2.decode_kernel_2d_plain(pc, c1v, pe_u, w2, b2, w3, b3, scale,
+                                        **kw)
+    padded = dv2._padded_planes(dv2.decode_kernel_2d_plain, 192, pc, c1v,
+                                pe_u, w2, b2, w3, b3, scale, **kw)
+    _assert_same((direct,), (padded,))
