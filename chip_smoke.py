@@ -14,7 +14,9 @@ Phases (any failure exits non-zero):
    node-gradient (K7, kernel2; K9 in 3D) train kernels; one nvcc per
    source, all started together) for sm_90a, and print the build time
    and the registers and spills of the tensor-core bodies (``ptxas -v``:
-   the train bodies, and K1/K5's ``decode_v2_mma`` by plane mode);
+   the train bodies, K1/K5's ``decode_v2_mma`` by plane mode, K3's
+   ``decode_v1_mma`` by grid dtype and K4's ``mlp_tail_mma`` by
+   accumulator and dot dtype);
 3. each kernel against its plain PyTorch version on the card, on the
    committed trained artifact's column-stage outputs at mips 0-2, for every
    plane mode x GELU; the launch log must name only ``decode_v2_mma``
@@ -108,16 +110,22 @@ The alternate 2D decodes and the XLA alternates (phase 12 also times the
 ``TRAIN_FORWARD=folded`` step):
 
 21. K3, the v1 decode (``nic_torch.kernels.decode_fused``): the committed
-    artifact at mips 0-9 (exactly 10 launches), against its plain version
-    (the gather decode with the kernel's GELU) in fp32 and bf16 and held
-    to the JAX fold (fp32 within 2 u8 LSB at every mip and 0.05 dB at mip
-    0, bf16 within 8 LSB); a random sinusoidal-PE flagship-width model at
-    mips 0-2; 2048² against its plain version, timed;
+    artifact at mips 0-9 (exactly 10 launches, the launch log naming only
+    ``decode_v1_mma``, the tensor-core body ``_widths.decode_body`` names
+    at H = 64), against its plain version (the gather decode with the
+    kernel's GELU) in fp32 and bf16 and held to the JAX fold (fp32 within
+    2 u8 LSB at every mip and 0.05 dB at mip 0, bf16 within 8 LSB); a
+    random sinusoidal-PE flagship-width model at mips 0-2; 2048² in fp32
+    and bf16 against its plain version, timed, the body by the launch log
+    and the profiler;
 22. K4, the v3 MLP tail (``nic_torch.kernels.decode_fused_v3``): against
     its plain version on the 2048² random model's first-layer accumulator
-    in fp32 and bf16, timed; the v3 decode against ``fast_decode`` on the
-    artifact at mips 0-9 (exactly 10 launches); the whole v3 decode and
-    K1's at 2048², timed with their peak memory;
+    in all four accumulator × dot dtypes (fp32 and bf16 each), timed,
+    each call's body (``mlp_tail_mma``) by the launch log and the
+    profiler; the v3 decode against ``fast_decode`` on the artifact at
+    mips 0-9 (exactly 10 launches, the launch log naming only
+    ``mlp_tail_mma``); the whole v3 decode and K1's at 2048², timed with
+    their peak memory;
 23. K2, the z1-matmul decode: against its plain version and K1 on the
     artifact at mips 0-2 and at 2048², in fp32·exact, bf16·poly (tensor
     cores) and surgical·exact; ``z1_matmul="auto"`` serving mips 0-9 must
@@ -145,11 +153,12 @@ _widths.py``: narrower widths zero-padded to an instantiated one):
     two feature chunks), 200 rows; K1, K2, K3, K4 on random 512² models
     and K5 on a 64³ m3 mip-mode model at H = 16, 32, 128, 192 and 256 in
     their plane modes, the 192/256 cells' bodies (``decode_v2_mma`` and
-    the wide tails) and K1's and K5's at 16 (their CUDA-core body) by the
-    launch log and the profiler; every counter must rise; the padding's
-    cost timed (K11 at 8×256² and K1 at 2048² beside H = 64), and K1 at
-    H = 16 on its CUDA-core body beside the same model padded to 64 onto
-    ``decode_v2_mma``;
+    the wide tails), K1's and K5's at 16 (their CUDA-core body) and K3's
+    and K4's at every width (``decode_v1_mma`` and ``mlp_tail_mma`` from
+    32 to 128) by the launch log and the profiler; every counter must
+    rise; the padding's cost timed (K11 at 8×256² and K1 at 2048² beside
+    H = 64), and K1, K3 and K4 at H = 16 on their CUDA-core bodies beside
+    the same model padded to 64 onto their tensor-core bodies;
 27. the training CLI for 50 epochs at HIDDEN_LAYER_CHANNELS=16 and 32
     under TRAIN_FORWARD=auto: kernel3 in both phases and every step, then
     the decode CLI at mips 0-9; then at HIDDEN_LAYER_CHANNELS=256, where
@@ -171,9 +180,9 @@ phases 21-23), its time and its plain version's at the path's shape and
 mode, and its bound, the larger of its
 bytes (each input read once, each output written once) over 3.35 TB/s and
 its dot operations (the JAX cost model's count) over the published peak
-for their type (67 TFLOP/s fp32, 989 TFLOP/s bf16; H100 SXM, 700 W; K1
-and K5 take their fp32 dots as three TF32 tensor-core products, so theirs
-count at 495/3 TFLOP/s). No
+for their type (67 TFLOP/s fp32, 989 TFLOP/s bf16; H100 SXM, 700 W; K1,
+K5, K3 and K4 take their fp32 dots as three TF32 tensor-core products, so
+theirs count at 495/3 TFLOP/s). No
 single PyTorch call computes any of these fused functions, so
 ``library_ms`` is null.
 """
@@ -218,7 +227,8 @@ K2_REPLACES = "nic/kernels/decode_fused_v2.py:191"
 # published H100 SXM peaks at 700 W: memory bytes/s and dot FLOP/s by type
 PEAK_BYTES = 3.35e12
 # (tf32x3: fp32 dots as three TF32 tensor-core products each, 495 TFLOP/s
-# of TF32 over the three, as decode_v2_mma runs K1/K5's fp32 mode)
+# of TF32 over the three, as decode_v2_mma, decode_v1_mma and mlp_tail_mma
+# run K1/K5's, K3's and K4's fp32 dots)
 PEAK_FLOPS = {"fp32": 67e12, "bf16": 989e12, "tf32x3": 495e12 / 3}
 
 # kernel vs plain tolerances on the [0, 1] output. fp32 planes and dots:
@@ -326,13 +336,19 @@ MMA_BODIES = ("ff_pixel_mma", "mlp_pixel_mma", "ff3_pixel_mma")
 # wider with h1 in slots); phase 2 reports its exact-erf and tanherf GELUs
 DECODE_MMA = "decode_v2_mma"
 PLANE_IDS = ("fp32", "bf16", "i16", "surgical")
+# K3's and K4's tensor-core bodies, by (grid or accumulator dtype[, dot
+# dtype], H = 64 with h1 in registers or 128 with h1 in slots)
+V1_MMA, V3_MMA = "decode_v1_mma", "mlp_tail_mma"
+_DTYPE_IDS = {"f": "fp32", "13__nv_bfloat16": "bf16"}
 
 
 def ptxas_usage(log: str) -> dict:
     """{(body, gelu): (registers, spill stores, spill loads, stack bytes)}
     from the ``ptxas -v`` lines of an nvcc log, for the template kernels
-    MMA_BODIES (their one template argument: the GELU, 0 erf, 1 poly) and
-    DECODE_MMA (keyed (DECODE_MMA, (plane mode, gelu id, H = 64))))."""
+    MMA_BODIES (their one template argument: the GELU, 0 erf, 1 poly),
+    DECODE_MMA (keyed (DECODE_MMA, (plane mode, gelu id, H = 64))), V1_MMA
+    ((V1_MMA, (grid dtype, H = 64))) and V3_MMA ((V3_MMA, (accumulator
+    dtype, dot dtype, H = 64)))."""
     import re
 
     out, cur, props = {}, None, None
@@ -344,6 +360,15 @@ def ptxas_usage(log: str) -> dict:
             hit += [(DECODE_MMA, (PLANE_IDS[int(md)], int(g), one == "1"))
                     for md, g, one in re.findall(
                         rf"\d{DECODE_MMA}ILi(\d)ELi(\d)ELb([01])E",
+                        m.group(1))]
+            hit += [(V1_MMA, (_DTYPE_IDS[t], one == "1"))
+                    for t, one in re.findall(
+                        rf"\d{V1_MMA}I(f|13__nv_bfloat16)Lb([01])E",
+                        m.group(1))]
+            hit += [(V3_MMA, (_DTYPE_IDS[t], "bf16" if bf == "1" else "fp32",
+                              one == "1"))
+                    for t, bf, one in re.findall(
+                        rf"\d{V3_MMA}I(f|13__nv_bfloat16)Lb([01])ELb([01])E",
                         m.group(1))]
             cur, props = (hit[0] if hit else None), None
             continue
@@ -373,10 +398,11 @@ def phase_build() -> float:
                               key=lambda kv: -kv[1]))
              or "already built"), flush=True)
     usage = ptxas_usage(_build.log_path().read_text())
-    if {b for b, _ in usage} != set(MMA_BODIES) | {DECODE_MMA}:
-        fail(f"ptxas reported {sorted(usage)}, not every one of "
-             f"{MMA_BODIES + (DECODE_MMA,)} (nvcc log {_build.log_path()})")
-    train = {k: v for k, v in usage.items() if k[0] != DECODE_MMA}
+    bodies = MMA_BODIES + (DECODE_MMA, V1_MMA, V3_MMA)
+    if {b for b, _ in usage} != set(bodies):
+        fail(f"ptxas reported {sorted(usage)}, not every one of {bodies} "
+             f"(nvcc log {_build.log_path()})")
+    train = {k: v for k, v in usage.items() if k[0] in MMA_BODIES}
     print("phase 2: tensor-core bodies (ptxas -v): " + "; ".join(
         f"{b}<{'poly' if g else 'erf'}> {r} registers, {ss} B spill stores, "
         f"{sl} B spill loads, {st} B stack"
@@ -389,6 +415,15 @@ def phase_build() -> float:
               f"stores/loads, {st} B stack"
               for (md, g, one), (r, ss, sl, st) in sorted(dec.items())
               if g in (0, 5)), flush=True)
+    for body in (V1_MMA, V3_MMA):
+        print(f"phase 2: {body} (ptxas -v), by "
+              + ("grid dtype" if body == V1_MMA
+                 else "accumulator and dot dtype")
+              + ", H = 64 (h1 in registers) / 128 (slots): " + "; ".join(
+                  "·".join(key[:-1]) + f"·{'H64' if key[-1] else 'H128'} "
+                  f"{r} registers, {ss}/{sl} B spill stores/loads, {st} B "
+                  "stack" for (b, key), (r, ss, sl, st) in sorted(
+                      usage.items()) if b == body), flush=True)
     return secs
 
 
@@ -1971,10 +2006,14 @@ def _v1_args(fp, mlp, mip, m2l, size, dtype):
 def phase_k3(device) -> dict:
     """K3 (the v1 decode): the fixture at mips 0-9 (the counted path),
     kernel vs plain in fp32 and bf16 and held to the JAX fold; a random
-    sinusoidal-PE flagship-width model; 2048² timed."""
+    sinusoidal-PE flagship-width model; 2048² in fp32 and bf16 timed. The
+    launch log of the fixture's serve, and the launch log and the
+    profiler of the 2048² calls, must name only the body ``decode_body``
+    names (``decode_v1_mma`` at H = 64)."""
     import torch
 
     from nic_torch.kernels import decode_fused as k
+    from nic_torch.kernels._build import body_launches, clear_body_launches
 
     fp, mlp, m2l, ref = _fixture(device)
     kw = dict(image_size=512, mip_to_level=m2l, pe_channels=6,
@@ -1991,8 +2030,14 @@ def phase_k3(device) -> dict:
 
     with torch.inference_mode():
         k.decode_kernel_v1.launches = 0
+        clear_body_launches()
         recs = [k.decode_image_fused(fp, mlp, mip, **kw) for mip in range(10)]
         launches = k.decode_kernel_v1.launches
+        logged = body_launches()
+        want_body = _want_body("decode_v1", 64, "fp32")
+        if _bodies_named(logged) != {want_body}:
+            fail(f"phase 21: the fixture's serve launched the bodies "
+                 f"{sorted(_bodies_named(logged))}, want {want_body}")
         lsb = {}
         for mode, dtype in (("fp32", None), ("bf16", torch.bfloat16)):
             got_all = []
@@ -2017,41 +2062,62 @@ def phase_k3(device) -> dict:
                       k.decode_kernel_v1_plain(*args, use_tri_pe=False, **g),
                       mode)
         fp2, mlp2, m2l2 = _random_flagship(device, 2048)
-        args, g = _v1_args(fp2, mlp2, 0, m2l2, 2048, None)
-        check("2048² fp32", k.decode_kernel_v1(*args, use_tri_pe=True, **g),
-              k.decode_kernel_v1_plain(*args, use_tri_pe=True, **g), "fp32")
-        ms = cuda_ms(lambda: k.decode_kernel_v1(*args, use_tri_pe=True, **g))
-        plain = cuda_ms(lambda: k.decode_kernel_v1_plain(
-            *args, use_tri_pe=True, **g), warmup=1, reps=3)
-    npix = 2048 * 2048
-    nfeat, hidden = args[2].shape
-    work = (nbytes(*args) + npix * 3 * 4,
-            2 * npix * (nfeat * hidden + hidden * hidden + 3 * hidden))
-    b_ms, b_by = bound(*work, "fp32")
-    print(f"phase 21: K3 on the fixture, mips 0-9: {launches} launches; u8 "
+        timed = {}
+        for mode, dtype in (("fp32", None), ("bf16", torch.bfloat16)):
+            args, g = _v1_args(fp2, mlp2, 0, m2l2, 2048, dtype)
+
+            def call():
+                return k.decode_kernel_v1(*args, use_tri_pe=True, **g)
+
+            check(f"2048² {mode}",
+                  _check_body(f"phase 21: K3 2048² {mode}", call,
+                              "decode_v1", 64, mode),
+                  k.decode_kernel_v1_plain(*args, use_tri_pe=True, **g), mode)
+            ms = cuda_ms(call)
+            plain = cuda_ms(lambda: k.decode_kernel_v1_plain(
+                *args, use_tri_pe=True, **g), warmup=1, reps=3)
+            total, per = device_ms(call)
+            npix = 2048 * 2048
+            nfeat, hidden = args[2].shape
+            work = (nbytes(*args) + npix * 3 * 4,
+                    2 * npix * (nfeat * hidden + hidden * hidden
+                                + 3 * hidden))
+            b_ms, b_by = bound(*work, "tf32x3" if mode == "fp32" else "bf16")
+            timed[mode] = (ms, plain, work)
+            print(f"phase 21: K3 2048² {mode}: kernel {ms:.4f} ms "
+                  f"({npix / ms / 1e6:.3f} GPix/s; device {total:.4f} ms, "
+                  f"of it {want_body} {_body_ms(per, want_body):.4f}) vs "
+                  f"plain {plain:.4f} ms; bound {b_ms:.4f} ms ({b_by})",
+                  flush=True)
+    _body_summary(21)
+    print(f"phase 21: K3 on the fixture, mips 0-9: {launches} launches, "
+          f"body {want_body} by the launch log; u8 "
           f"LSB vs the JAX fold fp32 {lsb['fp32'][:10]} (mip-0 PSNR "
           f"{lsb['fp32'][10]:.4f} dB, JAX fold {float(ref['psnr'][0]):.4f}), "
           f"bf16 {lsb['bf16'][:10]}; kernel vs plain worst max|Δ| fp32 "
-          f"{worst['fp32']:.3e}, bf16 {worst['bf16']:.3e}; 2048² fp32: "
-          f"kernel {ms:.4f} ms ({npix / ms / 1e6:.3f} GPix/s) vs plain "
-          f"{plain:.4f} ms; bound {b_ms:.4f} ms ({b_by})", flush=True)
+          f"{worst['fp32']:.3e}, bf16 {worst['bf16']:.3e}", flush=True)
     if launches != 10:
         fail(f"K3 launched {launches} times over the fixture's mips 0-9; "
              "want 10")
+    ms, plain, work = timed["fp32"]
     return dict(launches=launches, err=worst["fp32"], ms=ms, plain=plain,
                 work=work)
 
 
 def phase_k4(device) -> dict:
     """K4 (the v3 MLP tail): vs plain on the 2048² random model's
-    first-layer accumulator in fp32 and bf16, timed; the v3 decode held to
-    fast_decode on the fixture at mips 0-9 (the counted path); the whole
-    v3 decode at 2048² timed with its peak memory, beside K1's."""
+    first-layer accumulator in all four accumulator × dot dtypes, timed,
+    each call's body by the launch log and the profiler
+    (``mlp_tail_mma`` at H = 64); the v3 decode held to fast_decode on the
+    fixture at mips 0-9 (the counted path, its launch log naming only
+    that body); the whole v3 decode at 2048² timed with its peak memory,
+    beside K1's."""
     import torch
 
     from nic_torch.grids.fastdecode import fast_decode, first_layer_acc
     from nic_torch.kernels import decode_fused_v2 as k1
     from nic_torch.kernels import decode_fused_v3 as k
+    from nic_torch.kernels._build import body_launches, clear_body_launches
 
     fp2, mlp2, m2l2 = _random_flagship(device, 2048)
     kw2 = dict(image_size=2048, mip_to_level=m2l2, pe_channels=6,
@@ -2060,37 +2126,56 @@ def phase_k4(device) -> dict:
     out = {}
     with torch.inference_mode():
         acc = first_layer_acc(fp2, mlp2, 0, **kw2).contiguous()
-        for mode, dtype in (("fp32", torch.float32),
-                            ("bf16", torch.bfloat16)):
-            args = (acc.to(dtype), mlp2["w2"].to(dtype), mlp2["b2"],
-                    mlp2["w3"].to(dtype), mlp2["b3"])
-            got = k.mlp_tail(*args)
-            want = k.mlp_tail_plain(*args)
-            if got.shape != (2048, 2048, 3) or not torch.isfinite(got).all():
-                fail(f"K4 {mode}: shape {tuple(got.shape)} or non-finite")
-            err = float((got - want).abs().max())
-            if err > TOL[mode]:
-                fail(f"K4 vs plain {mode}: max|Δ| {err:.3e} > "
-                     f"{TOL[mode]:.0e}")
-            del want
-            ms = cuda_ms(lambda: k.mlp_tail(*args))
-            plain = cuda_ms(lambda: k.mlp_tail_plain(*args), warmup=1,
-                            reps=3)
-            work = (nbytes(*args) + npix * 3 * 4, 2 * npix * (64 * 64 + 3 * 64))
-            out[mode] = (ms, plain, work, err)
-            b_ms, b_by = bound(*work, "fp32" if mode == "fp32" else "bf16")
-            print(f"phase 22: K4 2048² {mode} accumulator and dots: kernel "
-                  f"{ms:.4f} ms vs plain {plain:.4f} ms, max|Δ| {err:.3e} "
-                  f"(tol {TOL[mode]:.0e}); bound {b_ms:.4f} ms ({b_by})",
-                  flush=True)
+        for acc_mode, acc_dtype in (("fp32", torch.float32),
+                                    ("bf16", torch.bfloat16)):
+            for mode, dtype in (("fp32", torch.float32),
+                                ("bf16", torch.bfloat16)):
+                cell = f"{acc_mode} accumulator, {mode} dots"
+                args = (acc.to(acc_dtype), mlp2["w2"].to(dtype), mlp2["b2"],
+                        mlp2["w3"].to(dtype), mlp2["b3"])
+                got = _check_body(f"phase 22: K4 2048² {cell}",
+                                  lambda: k.mlp_tail(*args), "decode_v3", 64,
+                                  mode)
+                want = k.mlp_tail_plain(*args)
+                if (got.shape != (2048, 2048, 3)
+                        or not torch.isfinite(got).all()):
+                    fail(f"K4 {cell}: shape {tuple(got.shape)} or "
+                         "non-finite")
+                err = float((got - want).abs().max())
+                if err > TOL[mode]:
+                    fail(f"K4 vs plain {cell}: max|Δ| {err:.3e} > "
+                         f"{TOL[mode]:.0e}")
+                del want
+                ms = cuda_ms(lambda: k.mlp_tail(*args))
+                plain = cuda_ms(lambda: k.mlp_tail_plain(*args), warmup=1,
+                                reps=3)
+                total, per = device_ms(lambda: k.mlp_tail(*args))
+                body = _want_body("decode_v3", 64, mode)
+                work = (nbytes(*args) + npix * 3 * 4,
+                        2 * npix * (64 * 64 + 3 * 64))
+                out[(acc_mode, mode)] = (ms, plain, work, err)
+                b_ms, b_by = bound(*work,
+                                   "tf32x3" if mode == "fp32" else "bf16")
+                print(f"phase 22: K4 2048² {cell}: kernel {ms:.4f} ms "
+                      f"(device {total:.4f} ms, of it {body} "
+                      f"{_body_ms(per, body):.4f}) vs plain {plain:.4f} ms, "
+                      f"max|Δ| {err:.3e} (tol {TOL[mode]:.0e}); bound "
+                      f"{b_ms:.4f} ms ({b_by})", flush=True)
         del acc, args
+        _body_summary(22)
         fp, mlp, m2l, _ = _fixture(device)
         kw = dict(image_size=512, mip_to_level=m2l, pe_channels=6,
                   use_tri_pe=True)
         k.mlp_tail.launches = 0
+        clear_body_launches()
         recs = [k.decode_image_fused_v3(fp, mlp, mip, **kw)
                 for mip in range(10)]
         launches = k.mlp_tail.launches
+        logged = body_launches()
+        want_body = _want_body("decode_v3", 64, "fp32")
+        if _bodies_named(logged) != {want_body}:
+            fail(f"phase 22: the v3 serve launched the bodies "
+                 f"{sorted(_bodies_named(logged))}, want {want_body}")
         errs = [float((r - fast_decode(fp, mlp, mip, **kw)).abs().max())
                 for mip, r in enumerate(recs)]
         if max(errs) > TOL["fp32"]:
@@ -2109,11 +2194,12 @@ def phase_k4(device) -> dict:
                   f"({npix / t / 1e6:.3f} GPix/s), peak {peak:.0f} MiB above "
                   "the model", flush=True)
     print(f"phase 22: the v3 decode on the fixture, mips 0-9: {launches} K4 "
-          f"launches; max|Δ| vs fast_decode {max(errs):.3e}", flush=True)
+          f"launches, body {want_body} by the launch log; max|Δ| vs "
+          f"fast_decode {max(errs):.3e}", flush=True)
     if launches != 10:
         fail(f"K4 launched {launches} times over the fixture's mips 0-9; "
              "want 10")
-    return dict(launches=launches, fp32=out["fp32"], bf16=out["bf16"])
+    return dict(launches=launches, fp32=out[("fp32", "fp32")])
 
 
 def phase_k2(device) -> dict:
@@ -2433,10 +2519,14 @@ def _widths_decode(device) -> dict:
     model) at H = 16, 32 (zero-padded to 64), 128, 192 and 256, against
     their plain versions at the decode tolerances; at 192 and 256 every
     cell's body by the launch log and the profiler (the wide bodies, and
-    decode_v2_mma for K1/K5), and at 16 K1's and K5's (their CUDA-core
-    body). Returns K1's times at 2048²: fp32·exact by H (32 zero-padded to
-    64), and H = 16 on its CUDA-core body beside the same model
-    zero-padded to 64 onto decode_v2_mma, in fp32·exact and bf16·poly."""
+    decode_v2_mma for K1/K5), at 16 K1's and K5's (their CUDA-core
+    body), and K3's and K4's at every width (decode_v1_mma and
+    mlp_tail_mma from 32 to 128). Returns K1's times at 2048²: fp32·exact
+    by H (32 zero-padded to 64), and H = 16 on its CUDA-core body beside
+    the same model zero-padded to 64 onto decode_v2_mma, in fp32·exact and
+    bf16·poly; and K3's and K4's at H = 16 on their CUDA-core bodies
+    beside padding to 64 onto their tensor-core bodies, in fp32 and
+    bf16."""
     import torch
 
     from nic_torch.grids.fastdecode import first_layer_acc
@@ -2445,6 +2535,7 @@ def _widths_decode(device) -> dict:
     from nic_torch.kernels import decode_fused_3d as k5
     from nic_torch.kernels import decode_fused_v2 as k1
     from nic_torch.kernels import decode_fused_v3 as k4
+    from nic_torch.kernels._widths import pad_hidden, pad_mlp
 
     modes = (("fp32", None, "exact"), ("bf16", torch.bfloat16, "poly"),
              ("i16", "i16", "tanherf"), ("surgical", "surgical", "exact"))
@@ -2494,7 +2585,7 @@ def _widths_decode(device) -> dict:
                                                      **vkw),
                          k3.decode_kernel_v1_plain(*vargs, use_tri_pe=True,
                                                    **vkw),
-                         ("decode_v1", hidden, mode) if wide else None)
+                         ("decode_v1", hidden, mode))
             acc = first_layer_acc(fp, mlp, 0, image_size=512,
                                   mip_to_level=m2l, pe_channels=6,
                                   use_tri_pe=True).contiguous()
@@ -2504,7 +2595,7 @@ def _widths_decode(device) -> dict:
                         mlp["w3"].to(dtype), mlp["b3"])
                 hold(f"K4 H={hidden} {mode}", mode,
                      lambda: k4.mlp_tail(*args), k4.mlp_tail_plain(*args),
-                     ("decode_v3", hidden, mode) if wide else None)
+                     ("decode_v3", hidden, mode))
             fp3, mlp3 = _pyramid3(gen3, device, 64, False, no_mip=False,
                                   hidden=hidden)
             for mip in (0, 1):
@@ -2556,6 +2647,35 @@ def _widths_decode(device) -> dict:
                   f"{_want_body('decode_v2', 16, mode)} {own:.4f} ms, "
                   f"zero-padded to 64 on {_want_body('decode_v2', 64, mode)} "
                   f"{padded:.4f} ms (planes copied)", flush=True)
+        # K3 and K4 likewise: H = 16 on their CUDA-core bodies against the
+        # same model's weights (and K4's accumulator) zero-padded to 64
+        # ahead of the call, onto their tensor-core bodies
+        acc = first_layer_acc(fp, mlp, 0, image_size=2048, mip_to_level=m2l,
+                              pe_channels=6, use_tri_pe=True).contiguous()
+        for mode, dtype in (("fp32", torch.float32),
+                            ("bf16", torch.bfloat16)):
+            vargs, vkw = _v1_args(fp, mlp, 0, m2l, 2048,
+                                  None if mode == "fp32" else dtype)
+            padv = (*vargs[:2], *pad_mlp(*vargs[2:], 64))
+            k3_own = cuda_ms(lambda: k3.decode_kernel_v1(
+                *vargs, use_tri_pe=True, **vkw))
+            k3_pad = cuda_ms(lambda: k3.decode_kernel_v1(
+                *padv, use_tri_pe=True, **vkw))
+            targs = (acc.to(dtype), mlp["w2"].to(dtype), mlp["b2"],
+                     mlp["w3"].to(dtype), mlp["b3"])
+            padt = (pad_hidden(targs[0], 64),
+                    *pad_mlp(None, None, *targs[1:], 64)[2:])
+            k4_own = cuda_ms(lambda: k4.mlp_tail(*targs))
+            k4_pad = cuda_ms(lambda: k4.mlp_tail(*padt))
+            pad_ms[("K3", mode)] = (k3_own, k3_pad)
+            pad_ms[("K4", mode)] = (k4_own, k4_pad)
+            print(f"phase 26: at 2048² H=16 {mode}: K3 "
+                  f"{_want_body('decode_v1', 16, mode)} {k3_own:.4f} ms, "
+                  f"zero-padded to 64 on {_want_body('decode_v1', 64, mode)} "
+                  f"{k3_pad:.4f} ms; K4 ({mode} accumulator and dots) "
+                  f"{_want_body('decode_v3', 16, mode)} {k4_own:.4f} ms, "
+                  f"zero-padded to 64 on {_want_body('decode_v3', 64, mode)} "
+                  f"{k4_pad:.4f} ms", flush=True)
     return pad_ms
 
 
@@ -2757,7 +2877,8 @@ def main(argv=None) -> None:
     # 8×256² (path B), bf16·poly; K5 256³ fp32·exact (its max|Δ| the worst
     # fp32·exact of phase 13); K12 8×32³ bf16·poly with noise and K9 8×32³
     # bf16·poly (the 3D protocol's LOD 0); K2, K3 and K4 at 2048²
-    # fp32·exact, each with its fixture path's launches (mips 0-9)
+    # fp32·exact, each with its fixture path's launches (mips 0-9); K1, K5,
+    # K3 and K4 take their fp32 dots as three TF32 products each (tf32x3)
     print(json.dumps({"kernels": [
         entry("decode_fused_v2", KERNEL_SOURCE, REPLACES, k1_launches,
               main_err, *timings[2048][("fp32", "exact")], "tf32x3"),
@@ -2776,9 +2897,9 @@ def main(argv=None) -> None:
         entry("decode_z1mm", K2_SOURCE, K2_REPLACES, k2["launches"],
               k2["err"], *k2["fp32"][:3], "fp32"),
         entry("decode_fused", K3_SOURCE, K3_REPLACES, k3["launches"],
-              k3["err"], k3["ms"], k3["plain"], k3["work"], "fp32"),
+              k3["err"], k3["ms"], k3["plain"], k3["work"], "tf32x3"),
         entry("mlp_tail", K4_SOURCE, K4_REPLACES, k4["launches"],
-              k4["fp32"][3], *k4["fp32"][:3], "fp32")]}),
+              k4["fp32"][3], *k4["fp32"][:3], "tf32x3")]}),
         flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

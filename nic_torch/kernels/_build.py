@@ -73,10 +73,10 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     fn.argtypes = [p] * 9 + [i] * 10 + [p]
     fn.restype = i
     fn = lib.nic_decode_fused_v1
-    fn.argtypes = [p] * 9 + [i] * 8 + [ctypes.c_float] * 2 + [i, i, p]
+    fn.argtypes = [p] * 9 + [i] * 8 + [ctypes.c_float] * 2 + [i] * 3 + [p]
     fn.restype = i
     fn = lib.nic_mlp_tail
-    fn.argtypes = [p] * 6 + [ctypes.c_longlong] + [i] * 4 + [p]
+    fn.argtypes = [p] * 6 + [ctypes.c_longlong] + [i] * 5 + [p]
     fn.restype = i
     fn = lib.nic_train_fused_ff
     fn.argtypes = [p] * 20 + [i] * 20 + [p]

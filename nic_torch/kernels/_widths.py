@@ -42,7 +42,10 @@ which runs that body or refuses the call, and size their grids by
 :data:`BODY_BLOCKS_PER_SM`. :func:`decode_body` does the same for the
 decodes by plane mode (:data:`DECODE_BODIES`): K1/K5 run ``decode_v2_mma``
 on the tensor cores at H ≥ 64 in every plane mode (fp32 through the
-three-product TF32 split) and their CUDA-core body at H = 16.
+three-product TF32 split) and their CUDA-core body at H = 16; K3 and K4
+run ``decode_v1_mma`` and ``mlp_tail_mma`` (the same tensor-core tail,
+``csrc/decode_mma.cuh``) at H = 64 and 128, their CUDA-core bodies at
+H = 16 and their wide bodies past 128.
 """
 
 from __future__ import annotations
@@ -99,7 +102,10 @@ PLANE_MODES = ("fp32", "bf16", "i16", "surgical")
 # WIDE, plane mode). K1/K5 keep their CUDA-core body at H = 16: at 2048²
 # it took 0.3784 ms in fp32·exact and 0.2603 in bf16·poly, against 2.0245
 # and 1.2582 for the same model zero-padded to 64 onto decode_v2_mma
-# (chip_smoke.py phase 26; H100 80GB HBM3, 700 W)
+# (chip_smoke.py phase 26; H100 80GB HBM3, 700 W). K3 and K4 run their
+# tensor-core bodies (on K1's tail, csrc/decode_mma.cuh) at H = 64 and 128
+# in fp32 (3xTF32) and bf16, their CUDA-core bodies at H = 16 and their
+# wide bodies past 128
 DECODE_BODIES = {
     "decode_v2": {**{(16, m): "decode_fused_v2_kernel" for m in PLANE_MODES},
                   **{(w, m): "decode_v2_mma" for w in (64, WIDE)
@@ -110,10 +116,13 @@ DECODE_BODIES = {
                        if m != "i16"},
                     **{(WIDE, m): "decode_z1mm_wide" for m in PLANE_MODES
                        if m != "i16"}},
-    "decode_v1": {**{(w, m): "decode_fused_v1_kernel" for w in (16, 64, 128)
+    "decode_v1": {**{(16, m): "decode_fused_v1_kernel" for m in ("fp32",
+                                                                 "bf16")},
+                  **{(w, m): "decode_v1_mma" for w in (64, 128)
                      for m in ("fp32", "bf16")},
                   **{(WIDE, m): "decode_v1_wide" for m in ("fp32", "bf16")}},
-    "decode_v3": {**{(w, m): "mlp_tail_kernel" for w in (16, 64, 128)
+    "decode_v3": {**{(16, m): "mlp_tail_kernel" for m in ("fp32", "bf16")},
+                  **{(w, m): "mlp_tail_mma" for w in (64, 128)
                      for m in ("fp32", "bf16")},
                   **{(WIDE, m): "mlp_tail_wide" for m in ("fp32", "bf16")}},
 }

@@ -1,16 +1,17 @@
 // Device code shared by the decode kernels (K1/K5 in decode_fused_v2.cu, K2
 // in decode_z1mm.cu, K3 in decode_fused.cu, K4 in decode_fused_v3.cu):
-// the six GELUs, the plane modes, vector loads of plane rows, and the MLP
-// tail
+// the six GELUs, the plane modes, vector loads of plane rows, and the
+// CUDA-core MLP tail
 //
 //   rgb = sigmoid(gelu(gelu(z1) . W2 + b2) . W3 + b3)
 //
 // on a pixel's first-layer preactivation z1 [H], held in registers, with
 // W2 (transposed), b2, W3 and b3 staged once per block in shared memory
-// (the built widths 16, 64, 128); and the wide tail (wide_tail), which
-// takes any H that is a multiple of 64 on a tile of 16 pixels whose z1
-// the kernel has written to shared memory as fp32 [16][H] (K2, K3 and K4
-// past H = 128).
+// (K2 at H = 64 and 128; the CUDA-core bodies of K1/K5, K3 and K4 at
+// H = 16); and the wide tail (wide_tail), which takes any H that is a
+// multiple of 64 on a tile of 16 pixels whose z1 the kernel has written
+// to shared memory as fp32 [16][H] (K2, K3 and K4 past H = 128). The
+// tensor-core tail of K1/K5, K3 and K4 is decode_mma.cuh's.
 
 #pragma once
 
@@ -98,8 +99,8 @@ __device__ __forceinline__ float horner(const float (&c)[N], float v) {
 // JAX does when it multiplies them into float32. kFast takes kExact's
 // exponential and reciprocal from the hardware (__expf, __fdividef), a few
 // ulp from expf and 1/x, and erf's sign by copysignf, one instruction (at
-// z = 0 the GELU is 0 either way): decode_v2_mma, where the precise ones
-// cost 0.9 of the 2048^2 kernel's 2.2 ms on an H100.
+// z = 0 the GELU is 0 either way): the tensor-core bodies (decode_mma.cuh),
+// where the precise ones cost 0.9 of K1's 2.2 ms at 2048^2 on an H100.
 template <int G, bool kFast = false>
 __device__ __forceinline__ float gelu(float x) {
   if (G == kExact) {

@@ -69,16 +69,19 @@
 // zero-pads a width between 16 and 64, or between multiples of 64, to the
 // next (nic_torch/kernels/_widths.py); a warp's tile fits up to H = 2432.
 //
-// The GELUs, the plane modes, the plane-row loads and the MLP tail live in
+// decode_v2_mma's layers 2 and 3 and its tensor-core helpers live in
+// decode_mma.cuh (mma_tail), shared with K3's decode_v1_mma
+// (decode_fused.cu) and K4's mlp_tail_mma (decode_fused_v3.cu). The
+// GELUs, the plane modes and the CUDA-core tail live in
 // decode_common.cuh, shared with K2 (decode_z1mm.cu, this kernel with its
-// z1 build replaced), K3 (decode_fused.cu) and K4 (decode_fused_v3.cu).
+// z1 build replaced) and the CUDA-core bodies of K3 and K4.
 //
 // Entry points: nic_decode_fused_v2 (K1) and nic_decode_fused_3d (K5),
 // plain C, loaded with ctypes. Each launches on the
 // given stream, does not synchronise, allocates nothing, and returns
 // cudaGetLastError().
 
-#include "decode_common.cuh"
+#include "decode_mma.cuh"
 
 namespace {
 
@@ -149,103 +152,6 @@ NIC_UNROLL_H(H)
 // ---- decode_v2_mma: the per-pixel stage on the tensor cores -------------
 
 constexpr int MT = 256;            // threads of a full block: 8 warps
-constexpr int kTileBf16 = 9216;    // bytes of a staged 64 x 64 bf16 W2 tile
-constexpr int kTileTf32 = 36864;   // bytes of a staged tf32 hi/lo W2 tile
-
-// two consecutive plane or PE elements as fp32 (4- or 8-byte loads through
-// the read-only path; the offsets are even and the rows 16-byte aligned)
-__device__ __forceinline__ float2 ld2(const float* p) {
-  return __ldg(reinterpret_cast<const float2*>(p));
-}
-__device__ __forceinline__ float2 ld2(const __nv_bfloat16* p) {
-  const unsigned int v = __ldg(reinterpret_cast<const unsigned int*>(p));
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
-}
-__device__ __forceinline__ float2 ld2(const int16_t* p) {
-  const int v = __ldg(reinterpret_cast<const int*>(p));
-  return make_float2(static_cast<float>(static_cast<int16_t>(v & 0xffff)),
-                     static_cast<float>(static_cast<int16_t>(v >> 16)));
-}
-
-// two bf16 values (already bf16, so the rounding is exact) as one word
-__device__ __forceinline__ uint32_t bf2(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// x rounded to tf32 (round to nearest, ties away), as its fp32 bits
-__device__ __forceinline__ uint32_t tf32_of(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// d += a b: m16n8k16, bf16 inputs, fp32 accumulators
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// d += a b: m16n8k8, tf32 inputs, fp32 accumulators
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// the fp32 A fragment of one k8 tile as tf32 hi and lo parts
-__device__ __forceinline__ void split4(const float (&a)[4], uint32_t (&hi)[4],
-                                       uint32_t (&lo)[4]) {
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    hi[e] = tf32_of(a[e]);
-    lo[e] = tf32_of(a[e] - __uint_as_float(hi[e]));
-  }
-}
-
-// d += a b in three tf32 products: al bh + ah bl + ah bh (al bl dropped)
-__device__ __forceinline__ void mma_3xtf32(float (&d)[4],
-                                           const uint32_t (&ah)[4],
-                                           const uint32_t (&al)[4],
-                                           const float4 b) {
-  mma_tf32(d, al, __float_as_uint(b.x), __float_as_uint(b.y));
-  mma_tf32(d, ah, __float_as_uint(b.z), __float_as_uint(b.w));
-  mma_tf32(d, ah, __float_as_uint(b.x), __float_as_uint(b.y));
-}
-
-// W2 tile (kb, jb) of the [H][H] (in, out) matrix, B operand layout by
-// output unit n: bf16 as words [64 n][36] (k pairs, 4 pad words: the
-// fragment loads of a warp hit 32 banks); tf32 as float4 {hi(2p),
-// hi(2p + 1), lo(2p), lo(2p + 1)} per k pair p, rows of 144 floats (a
-// quarter warp's 16-byte loads hit 32 banks). All threads take part.
-template <bool kBf>
-__device__ __forceinline__ void stage_w2_tile(unsigned char* dst,
-                                              const float* __restrict__ w2,
-                                              int H, int kb, int jb) {
-  for (int i = threadIdx.x; i < 64 * 32; i += blockDim.x) {
-    const int kp = i / 64, n = i % 64;
-    const float* src = w2 + static_cast<size_t>(kb * 64 + 2 * kp) * H +
-                       jb * 64 + n;
-    const float w0 = src[0], w1 = src[H];
-    if (kBf) {
-      reinterpret_cast<uint32_t*>(dst)[n * 36 + kp] = bf2(w0, w1);
-    } else {
-      const uint32_t h0 = tf32_of(w0), h1 = tf32_of(w1);
-      reinterpret_cast<float4*>(dst)[n * 36 + kp] = make_float4(
-          __uint_as_float(h0), __uint_as_float(h1),
-          __uint_as_float(tf32_of(w0 - __uint_as_float(h0))),
-          __uint_as_float(tf32_of(w1 - __uint_as_float(h1))));
-    }
-  }
-}
-
 // bytes of a decode_v2_mma block of `warps` warps at H = 64 nb: the W2
 // tiles (all of W2 for nb <= 2, else one streamed tile), W3 [H][3] and b2,
 // b3, the warps' output rows, and past H = 64 the warps' h1 slots
@@ -288,92 +194,6 @@ __device__ __forceinline__ void build_h1(float (&h)[8][4],
           (p.x + (px[s].um * a.x + px[s].u * b.x)) + e.x);
       h[nt][2 * s + 1] = first_act<G, kBf, true>(
           (p.y + (px[s].um * a.y + px[s].u * b.y)) + e.y);
-    }
-  }
-}
-
-// k16 tile kt of a [16][64] activation in the accumulator layout as the
-// bf16 A fragment
-__device__ __forceinline__ void pack_a(const float (&h)[8][4], int kt,
-                                       uint32_t (&a)[4]) {
-  a[0] = bf2(h[2 * kt][0], h[2 * kt][1]);
-  a[1] = bf2(h[2 * kt][2], h[2 * kt][3]);
-  a[2] = bf2(h[2 * kt + 1][0], h[2 * kt + 1][1]);
-  a[3] = bf2(h[2 * kt + 1][2], h[2 * kt + 1][3]);
-}
-
-// k8 tile t of it as the tf32 A fragment: logical columns q and q + 4 are
-// units 8 t + 2 q and 8 t + 2 q + 1 (the B tiles are laid out to match)
-__device__ __forceinline__ void perm_a(const float (&h)[8][4], int t,
-                                       float (&a)[4]) {
-  a[0] = h[t][0];
-  a[1] = h[t][2];
-  a[2] = h[t][1];
-  a[3] = h[t][3];
-}
-
-// d[nt] += h W2 over one 64 x 64 tile (kBf: bf16; else 3xTF32)
-template <bool kBf>
-__device__ __forceinline__ void tile_product(float (&d)[8][4],
-                                             const float (&h)[8][4],
-                                             const unsigned char* tile,
-                                             int g, int q) {
-  if (kBf) {
-    const uint32_t* w = reinterpret_cast<const uint32_t*>(tile);
-#pragma unroll
-    for (int kt = 0; kt < 4; ++kt) {
-      uint32_t a[4];
-      pack_a(h, kt, a);
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        const uint32_t* row = w + (8 * nt + g) * 36 + 8 * kt + q;
-        mma_bf16(d[nt], a, row[0], row[4]);
-      }
-    }
-  } else {
-    const float4* w = reinterpret_cast<const float4*>(tile);
-#pragma unroll
-    for (int t = 0; t < 8; ++t) {
-      float a[4];
-      uint32_t ah[4], al[4];
-      perm_a(h, t, a);
-      split4(a, ah, al);
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-        mma_3xtf32(d[nt], ah, al, w[(8 * nt + g) * 36 + 4 * t + q]);
-    }
-  }
-}
-
-// o += h2 W3 for the 64 units of block jb: one n8 tile (outputs 0..2 real,
-// the rest zero), B built from W3 [H][3] in shared memory
-template <bool kBf>
-__device__ __forceinline__ void w3_product(float (&o)[4],
-                                           const float (&h)[8][4],
-                                           const float* sW3, int jb, int g,
-                                           int q) {
-  auto w3 = [&](int k) { return g < 3 ? sW3[(jb * 64 + k) * 3 + g] : 0.0f; };
-  if (kBf) {
-#pragma unroll
-    for (int kt = 0; kt < 4; ++kt) {
-      uint32_t a[4];
-      pack_a(h, kt, a);
-      const int k = 16 * kt + 2 * q;
-      mma_bf16(o, a, bf2(w3(k), w3(k + 1)), bf2(w3(k + 8), w3(k + 9)));
-    }
-  } else {
-#pragma unroll
-    for (int t = 0; t < 8; ++t) {
-      float a[4];
-      uint32_t ah[4], al[4];
-      perm_a(h, t, a);
-      split4(a, ah, al);
-      const float b0 = w3(8 * t + 2 * q), b1 = w3(8 * t + 2 * q + 1);
-      const uint32_t h0 = tf32_of(b0), h1 = tf32_of(b1);
-      mma_3xtf32(o, ah, al,
-                 make_float4(__uint_as_float(h0), __uint_as_float(h1),
-                             __uint_as_float(tf32_of(b0 - __uint_as_float(h0))),
-                             __uint_as_float(tf32_of(b1 - __uint_as_float(h1)))));
     }
   }
 }
@@ -454,7 +274,9 @@ decode_v2_mma(const typename Types<MODE>::Plane* __restrict__ pc,
       px[s].um = 1.0f - px[s].u;
     }
 
-    // layer 1: h1 per 64-unit block, in registers (H = 64) or slots
+    // layer 1: h1 per 64-unit block, in registers (H = 64) or slots (as
+    // park_h1 parks them; written out here, where ptxas then allocates
+    // the registers it did before the tail moved to decode_mma.cuh)
     float h1[8][4];
     if (!kOne) {
       for (int kb = 0; kb < nb; ++kb) {
@@ -477,71 +299,11 @@ decode_v2_mma(const typename Types<MODE>::Plane* __restrict__ pc,
     } else {
       build_h1<MODE, G>(h1, px, 0, q, scale);
     }
-
-    // layer 2 by output blocks jb, then the second GELU and W3
-    float o[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    for (int jb = 0; jb < nb; ++jb) {
-      float d[8][4];
-#pragma unroll
-      for (int nt8 = 0; nt8 < 8; ++nt8)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) d[nt8][e] = 0.0f;
-      for (int kb = 0; kb < nb; ++kb) {
-        const unsigned char* tile_p = sW2;
-        if (whole) {
-          tile_p = sW2 + (kb * nb + jb) * tile_bytes;
-        } else {
-          __syncthreads();
-          stage_w2_tile<kBf>(sW2, w2, H, kb, jb);
-          __syncthreads();
-        }
-        if (!kOne) {  // h1 of block kb back from this lane's slots
-#pragma unroll
-          for (int nt8 = 0; nt8 < 8; ++nt8)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              if (kBf) {
-                if (e % 2 == 0) {
-                  const uint32_t v = reinterpret_cast<const uint32_t*>(
-                      slot)[(kb * 16 + nt8 * 2 + e / 2) * 32 + lane];
-                  const float2 fv = __bfloat1622float2(
-                      *reinterpret_cast<const __nv_bfloat162*>(&v));
-                  h1[nt8][e] = fv.x;
-                  h1[nt8][e + 1] = fv.y;
-                }
-              } else {
-                h1[nt8][e] = slot[kb * 32 * 32 + (nt8 * 4 + e) * 32 + lane];
-              }
-            }
-        }
-        tile_product<kBf>(d, h1, tile_p, g, q);
-      }
-      // h2 = first_act(z2 + b2) on the accumulators, then its W3 product
-#pragma unroll
-      for (int nt8 = 0; nt8 < 8; ++nt8)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          d[nt8][e] = first_act<G, kBf, true>(
-              d[nt8][e] + sb2[jb * 64 + 8 * nt8 + 2 * q + (e & 1)]);
-      w3_product<kBf>(o, d, sW3, jb, g, q);
-    }
-
-    // sigmoid of outputs 0..2 (lanes q = 0: 0, 1; q = 1: 2), staged per
-    // warp, then 48 consecutive floats
-    if (q < 2)
-#pragma unroll
-      for (int s = 0; s < 2; ++s)
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const int col = 2 * q + i;
-          if (col < 3)
-            sOut[(g + 8 * s) * 3 + col] =
-                1.0f / (1.0f + expf(-(o[2 * s + i] + sb3[col])));
-        }
-    __syncwarp();
-    float* orow = out + ((static_cast<size_t>(fr) * nr + r) * ncl + c0) * 3;
-    for (int i = lane; i < 3 * cnt; i += 32) orow[i] = sOut[i];
-    __syncwarp();
+    // layers 2 and 3 (decode_mma.cuh)
+    mma_tail<kBf, G, kOne>(
+        h1, nb, whole, sW2, w2, H, sW3, sb2, sb3, sOut, slot,
+        [&] { return out + ((static_cast<size_t>(fr) * nr + r) * ncl + c0) * 3; },
+        cnt, g, q, lane);
   }
 }
 
@@ -581,27 +343,20 @@ cudaError_t launch_mma(const Args& a) {
   using T = Types<MODE>;
   constexpr bool kBf = MODE != kF32;
   const int nb = a.hidden / 64;
-  int warps = 8;
-  while (warps > 1 && mma_bytes(warps, nb, kBf) > kMaxSmem) warps /= 2;
+  const int warps = fit_warps(MT / 32, 1, [&](int w) {
+    return mma_bytes(w, nb, kBf);
+  });
+  if (!warps) return cudaErrorInvalidValue;  // past the widest
   const size_t smem = mma_bytes(warps, nb, kBf);
-  if (smem > kMaxSmem) return cudaErrorInvalidValue;  // past the widest
   auto kern = decode_v2_mma<MODE, G, kOne>;
   cudaError_t err = allow_dynamic_smem(kern, smem);
-  if (err != cudaSuccess) return err;
-  int dev = 0, sms = 0, per_sm = 0;
-  err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
-                                                        32 * warps, smem);
   if (err != cudaSuccess) return err;
   const long long tiles = static_cast<long long>(a.nt) *
                           ((a.nr + warps - 1) / warps) * ((a.ncl + 15) / 16);
   if (tiles > 2147483647LL) return cudaErrorInvalidValue;
-  const long long resident = static_cast<long long>(per_sm > 0 ? per_sm : 1) *
-                             sms;
-  const int grid = static_cast<int>(tiles < resident ? tiles : resident);
+  int grid = 0;
+  err = resident_grid(kern, 32 * warps, smem, tiles, &grid);
+  if (err != cudaSuccess) return err;
   kern<<<grid, 32 * warps, smem, a.stream>>>(
       static_cast<const typename T::Plane*>(a.pc),
       static_cast<const typename T::Plane*>(a.c1v),

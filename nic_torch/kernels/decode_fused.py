@@ -15,8 +15,12 @@ never reaches device memory.
 Its plain version is the gather decode (``decoder_input``, the JAX
 package's XLA decode, :func:`nic_torch.grids.sample.gather_decode`) with
 the kernel's arithmetic: the feature matrix rounded to the grid dtype and
-the A&S erf GELU of ``_gelu_exact``, so the two differ only in summation
-order. A CUDA tensor launches ``csrc/decode_fused.cu``; a CPU tensor runs
+the A&S erf GELU of ``_gelu_exact``. A CUDA tensor launches
+``csrc/decode_fused.cu``: at H = 64 and 128 its tensor-core body
+``decode_v1_mma`` (the first layer as m16n8 products from a per-warp
+feature tile, then K1's tail, ``csrc/decode_mma.cuh``; fp32 dots as three
+TF32 products, the GELU's exponential and reciprocal from the hardware),
+so the two differ in summation order and by a few ulp; a CPU tensor runs
 the plain version.
 """
 
@@ -29,13 +33,16 @@ import torch
 
 from nic_torch.grids.pyramid import pyramid_mip_levels
 from nic_torch.grids.sample import decoder_input
-from nic_torch.kernels._widths import kernel_width, pad_mlp
+from nic_torch.kernels._widths import decode_body, kernel_width, pad_mlp
 from nic_torch.kernels.decode_fused_v2 import GELUS, _dot
 from nic_torch.models.mlp import PARAM_NAMES
 
 __all__ = ["decode_image_fused", "fused_rows_per_block", "decode_kernel_v1",
            "decode_kernel_v1_plain"]
 
+# the per-pixel bodies by their id in csrc/decode_fused.cu (enum Body)
+_BODY_IDS = {"decode_fused_v1_kernel": 0, "decode_v1_mma": 1,
+             "decode_v1_wide": 2}
 
 
 def fused_rows_per_block(decode_size: int, e: int, channels: int) -> int:
@@ -121,9 +128,13 @@ def decode_kernel_v1(g0, g1, w1, b1, w2, b2, w3, b3, *, e: int, n: int,
     weights in one dtype (fp32 or bf16), ``rows`` rows per CUDA block.
 
     A CUDA tensor launches the hand-written kernel (and raises if it does
-    not build or launch), a hidden width between the instantiated 16, 64
-    and 128 zero-padded to the next, any F; a CPU tensor runs
-    :func:`decode_kernel_v1_plain`.
+    not build or launch) with the body
+    :func:`~nic_torch.kernels._widths.decode_body` names: the tensor-core
+    ``decode_v1_mma`` at H = 64 and 128, the CUDA-core body at H = 16,
+    ``decode_v1_wide`` at the multiples of 64 past 128 (another width
+    zero-padded to the next of those), any F; a CPU tensor runs
+    :func:`decode_kernel_v1_plain`. ``rows`` sizes the CUDA-core body's
+    blocks.
     ``decode_kernel_v1.launches`` counts kernel launches."""
     kw = dict(e=e, n=n, pe_channels=pe_channels)
     _check(g0, g1, w1, b1, w2, b2, w3, b3, **kw)
@@ -149,6 +160,8 @@ def decode_kernel_v1(g0, g1, w1, b1, w2, b2, w3, b3, *, e: int, n: int,
     # fp32 weights for the kernel; bf16 values upcast exactly
     w = [t.float().contiguous() for t in (w1, b1, w2, b2, w3, b3)]
     out = torch.empty((n, n, 3), dtype=torch.float32, device=g0.device)
+    bf16 = g0.dtype == torch.bfloat16
+    body = decode_body("decode_v1", hidden, "bf16" if bf16 else "fp32")
     pe_scale = -math.log(10000.0) / pe_channels if pe_channels else 0.0
     with torch.cuda.device(g0.device):
         stream = torch.cuda.current_stream(g0.device).cuda_stream
@@ -156,8 +169,8 @@ def decode_kernel_v1(g0, g1, w1, b1, w2, b2, w3, b3, *, e: int, n: int,
             g0.data_ptr(), g1.data_ptr(), *(t.data_ptr() for t in w),
             out.data_ptr(), n, g0.shape[0], g0.shape[1], g1.shape[1],
             hidden, e, pe_channels, int(use_tri_pe), ctypes.c_float(pe_scale),
-            ctypes.c_float(float(mip_level)), rows,
-            int(g0.dtype == torch.bfloat16), stream)
+            ctypes.c_float(float(mip_level)), rows, int(bf16),
+            _BODY_IDS[body], stream)
     if rc != 0:
         raise RuntimeError("decode_fused kernel launch failed: "
                            + lib.nic_cuda_error_string(rc).decode())

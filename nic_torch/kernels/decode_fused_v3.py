@@ -9,10 +9,13 @@ GELU → W3 → sigmoid over it: dots on ``w2.dtype`` inputs with fp32 sums,
 the A&S erf GELU. The accumulator makes the trade explicit: at 2048² in
 fp32 it is 1.07 GB written and read back, which K1 keeps in registers.
 
-A CUDA tensor launches ``csrc/decode_fused_v3.cu``; a CPU tensor runs
-:func:`mlp_tail_plain`, the same tail in torch ops (the port's A&S
-``_gelu_exact``, as K1's plain version), so the two differ only in
-summation order.
+A CUDA tensor launches ``csrc/decode_fused_v3.cu`` (at H = 64 and 128
+``mlp_tail_mma``: K1's tensor-core tail, ``csrc/decode_mma.cuh``, on
+accumulator rows streamed by asynchronous copies; fp32 dots as three TF32
+products, the GELU's exponential and reciprocal from the hardware); a CPU
+tensor runs :func:`mlp_tail_plain`, the same tail in torch ops (the
+port's A&S ``_gelu_exact``, as K1's plain version), so the two differ in
+summation order and by a few ulp.
 """
 
 from __future__ import annotations
@@ -20,13 +23,16 @@ from __future__ import annotations
 import torch
 
 from nic_torch.grids.fastdecode import first_layer_acc
-from nic_torch.kernels._widths import kernel_width, pad_hidden, pad_mlp
+from nic_torch.kernels._widths import (decode_body, kernel_width,
+                                       pad_hidden, pad_mlp)
 from nic_torch.kernels.decode_fused_v2 import GELUS, _dot
 from nic_torch.models.mlp import PARAM_NAMES
 
 __all__ = ["decode_image_fused_v3", "mlp_tail", "mlp_tail_plain"]
 
 _FLOATS = (torch.float32, torch.bfloat16)
+# the per-pixel bodies by their id in csrc/decode_fused_v3.cu (enum Body)
+_BODY_IDS = {"mlp_tail_kernel": 0, "mlp_tail_mma": 1, "mlp_tail_wide": 2}
 
 
 def _check(acc, w2, b2, w3, b3) -> None:
@@ -66,9 +72,13 @@ def mlp_tail(acc, w2, b2, w3, b3, *, block: int = 4096,
     divides S²).
 
     A CUDA tensor launches the hand-written kernel (and raises if it does
-    not build or launch), a hidden width between the instantiated 16, 64
-    and 128 zero-padded to the next (the accumulator too: a copy); a CPU
-    tensor runs :func:`mlp_tail_plain`. ``mlp_tail.launches`` counts
+    not build or launch) with the body
+    :func:`~nic_torch.kernels._widths.decode_body` names: the tensor-core
+    ``mlp_tail_mma`` at H = 64 and 128 (dots by ``w2.dtype``: bf16, or
+    fp32 as three TF32 products), the CUDA-core body at H = 16 (which
+    alone reads ``block``), ``mlp_tail_wide`` at the multiples of 64 past
+    128; another width is zero-padded to the next of those (the
+    accumulator too: a copy). A CPU tensor runs :func:`mlp_tail_plain`. ``mlp_tail.launches`` counts
     kernel launches."""
     if acc.dim() != 3:
         raise ValueError(f"acc must be [S, S, H], not {tuple(acc.shape)}")
@@ -94,12 +104,14 @@ def mlp_tail(acc, w2, b2, w3, b3, *, block: int = 4096,
     # fp32 weights for the kernel; bf16 values upcast exactly
     w = [t.float().contiguous() for t in (w2, b2, w3, b3)]
     out = torch.empty((s, cols, 3), dtype=torch.float32, device=acc.device)
+    dot_bf16 = w2.dtype == torch.bfloat16
+    body = decode_body("decode_v3", hidden, "bf16" if dot_bf16 else "fp32")
     with torch.cuda.device(acc.device):
         stream = torch.cuda.current_stream(acc.device).cuda_stream
         rc = lib.nic_mlp_tail(
             acc.data_ptr(), *(t.data_ptr() for t in w), out.data_ptr(),
             npix, hidden, block, int(acc.dtype == torch.bfloat16),
-            int(w2.dtype == torch.bfloat16), stream)
+            int(dot_bf16), _BODY_IDS[body], stream)
     if rc != 0:
         raise RuntimeError("decode_fused_v3 kernel launch failed: "
                            + lib.nic_cuda_error_string(rc).decode())

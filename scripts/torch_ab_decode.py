@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time the folded decode kernels K1 (2D) and K5 (3D) of one checkout of
-the port, for A/B comparisons of two checkouts on one card.
+"""Time the decode kernels K1 (2D), K5 (3D), K3 (the v1 decode) and K4
+(the v3 MLP tail) of one checkout of the port, for A/B comparisons of two
+checkouts on one card.
 
     python3 scripts/torch_ab_decode.py ROOT
 
@@ -10,17 +11,25 @@ kernels under ROOT/build) and times it with the helpers of the
 by the same code. On a machine with one NVIDIA GPU it prints, for
 ``decode_kernel_2d`` on the column stage of ``chip_smoke``'s 2048² random
 flagship-width model at mip 0, in fp32·exact, fp32·poly, bf16·exact,
-bf16·poly and i16·tanherf, and for ``decode_kernel_3d`` on the frame and
+bf16·poly and i16·tanherf; for ``decode_kernel_3d`` on the frame and
 column stage of its 256³ random m3 model at mip 0 in fp32·exact and
-bf16·exact, the median of 50 CUDA-event timings of the wrapper and, by
-``torch.profiler``, the device time per call of all its kernels and of
-the longest by name (the body: ``decode_fused_v2_kernel`` or
-``decode_v2_mma``).
+bf16·exact; for ``decode_kernel_v1`` (K3) on the 2048² model at mip 0 in
+fp32 and bf16; and for ``mlp_tail`` (K4) on that model's mip-0
+first-layer accumulator in all four accumulator × dot dtypes, and the
+whole v3 decode of that model (accumulator and K4) in fp32: the median
+of 50 CUDA-event timings of the wrapper, by ``torch.profiler`` the device
+time per call of all its kernels and of the longest by name (the body,
+e.g. ``decode_v2_mma``, ``decode_v1_mma``, ``mlp_tail_mma``), and the
+first 16 hex digits of the SHA-256 of the output's bytes: two checkouts
+whose kernels compute the same bits print the same digest. It first
+prints the registers and spills ``ptxas -v`` reported for the checkout's
+decode tensor-core bodies (``chip_smoke.ptxas_usage``).
 
 Compare two checkouts only inside one call, in turns (parent, change,
 change, parent).
 """
 
+import hashlib
 import importlib.util
 import os
 import sys
@@ -36,9 +45,21 @@ _spec = importlib.util.spec_from_file_location(
 ab = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(ab)
 
+from nic_torch.grids.fastdecode import first_layer_acc  # noqa: E402
 from nic_torch.grids.pyramid import pyramid_mip_levels  # noqa: E402
+from nic_torch.kernels import decode_fused as k3  # noqa: E402
 from nic_torch.kernels import decode_fused_3d as k5  # noqa: E402
 from nic_torch.kernels import decode_fused_v2 as k  # noqa: E402
+from nic_torch.kernels import decode_fused_v3 as k4  # noqa: E402
+from nic_torch.kernels import _build  # noqa: E402
+
+
+def report(tag: str, fn) -> None:
+    """ab.report's timings of ``fn``, with the digest of its output."""
+    out = fn()
+    torch.cuda.synchronize()
+    digest = hashlib.sha256(out.float().cpu().numpy().tobytes()).hexdigest()
+    ab.report(f"{tag} sha256 {digest[:16]}", fn)
 
 
 def main() -> None:
@@ -47,6 +68,13 @@ def main() -> None:
     if not k.__file__.startswith(ab.ROOT):
         sys.exit(f"nic_torch came from {k.__file__}, not {ab.ROOT}")
     print(f"AB {sys.argv[1]}: {ab.chip_smoke.smi_line()}", flush=True)
+    _build.load()
+    usage = ab.chip_smoke.ptxas_usage(_build.log_path().read_text())
+    print(f"AB {sys.argv[1]}: ptxas -v of the decode tensor-core bodies "
+          "(registers, spill stores/loads B): " + "; ".join(
+              f"{body}{key} {r}, {ss}/{sl}"
+              for (body, key), (r, ss, sl, _) in sorted(usage.items())
+              if body.startswith(("decode", "mlp_tail"))), flush=True)
     fp, mlp, m2l = ab.chip_smoke._random_flagship("cuda", 2048)
     with torch.inference_mode():
         for mode, dtype, gelu in (("fp32", None, "exact"),
@@ -59,9 +87,29 @@ def main() -> None:
                 pe_channels=6, use_tri_pe=True, dtype=dtype)
             args = (pc, c1v, pe_u, w2, b2, w3, b3, s)
             kw = dict(f=geom["f"], f1=geom["f1"], gelu=gelu)
-            ab.report(f"K1 2048² {mode}·{gelu}",
-                      lambda: k.decode_kernel_2d(*args, **kw))
-        del fp, mlp, pc, c1v, pe_u, args
+            report(f"K1 2048² {mode}·{gelu}",
+                   lambda: k.decode_kernel_2d(*args, **kw))
+        del pc, c1v, pe_u, args
+        for mode, dtype in (("fp32", None), ("bf16", torch.bfloat16)):
+            args, kw = ab.chip_smoke._v1_args(fp, mlp, 0, m2l, 2048, dtype)
+            report(f"K3 2048² {mode}",
+                   lambda: k3.decode_kernel_v1(*args, use_tri_pe=True, **kw))
+        acc = first_layer_acc(fp, mlp, 0, image_size=2048, mip_to_level=m2l,
+                              pe_channels=6, use_tri_pe=True).contiguous()
+        for acc_dtype in (torch.float32, torch.bfloat16):
+            a = acc.to(acc_dtype)
+            for dot in (torch.float32, torch.bfloat16):
+                w = (a, mlp["w2"].to(dot), mlp["b2"], mlp["w3"].to(dot),
+                     mlp["b3"])
+                report(f"K4 2048² {str(acc_dtype)[6:]} accumulator, "
+                       f"{str(dot)[6:]} dots", lambda: k4.mlp_tail(*w))
+            del a, w
+        del acc
+        report("v3 decode 2048² fp32 (accumulator + K4)",
+               lambda: k4.decode_image_fused_v3(
+                   fp, mlp, 0, image_size=2048, mip_to_level=m2l,
+                   pe_channels=6, use_tri_pe=True))
+        del fp, mlp
         gen = torch.Generator(device="cpu").manual_seed(256)
         fp3, mlp3 = ab.chip_smoke._pyramid3(gen, "cuda", 256, False,
                                             no_mip=True)
@@ -72,8 +120,8 @@ def main() -> None:
                 pe_channels=6, use_tri_pe=True, sparse_g0=False, dtype=dtype)
             args = (pc, c1v, pe_u, w2, b2, w3, b3, s)
             kw = dict(f=geom["f"], f1=geom["f1"], gelu="exact")
-            ab.report(f"K5 256³ {mode}·exact",
-                      lambda: k5.decode_kernel_3d(*args, **kw))
+            report(f"K5 256³ {mode}·exact",
+                   lambda: k5.decode_kernel_3d(*args, **kw))
             del pc, c1v, pe_u, args
 
 

@@ -11,8 +11,9 @@ names is a ``__global__`` kernel of the family's ``.cu`` source, built
 for the blocks per SM that the wrappers launch. The decode body table
 (``decode_body``, by plane mode) likewise: K1/K5 (``decode_v2``) run
 ``decode_v2_mma`` at every width from 17 to the widest in every plane
-mode and their CUDA-core body at H ≤ 16; K2, K3 and K4 their wide body
-past 128. Every body's launcher, train or decode, notes its launch in
+mode and their CUDA-core body at H ≤ 16; K3 and K4 their tensor-core
+bodies (``decode_v1_mma``, ``mlp_tail_mma``) from 17 to 128; K2, K3 and
+K4 their wide body past 128. Every body's launcher, train or decode, notes its launch in
 the launch log.
 
 The tensor-core bodies take a warp's 16 pixels at a time and zero the
@@ -54,6 +55,11 @@ SOURCES = {"train_ff": ("train_fused_ff.cu",),
            "decode_z1mm": ("decode_z1mm.cu",),
            "decode_v1": ("decode_fused.cu",),
            "decode_v3": ("decode_fused_v3.cu",)}
+# K3's and K4's bodies: (H <= 16, 17..128, past 128)
+TENSOR_CORE_DECODES = {
+    "decode_v1": ("decode_fused_v1_kernel", "decode_v1_mma",
+                  "decode_v1_wide"),
+    "decode_v3": ("mlp_tail_kernel", "mlp_tail_mma", "mlp_tail_wide")}
 MODES = {"fp32-erf": (None, "erf"), "bf16-poly": ("bf16", "poly")}
 TOL = {None: dict(loss=1e-6, out=1e-5, grad=1e-5),
        "bf16": dict(loss=1e-4, out=1e-3, grad=1e-2)}
@@ -84,9 +90,11 @@ def test_body_table_picks_tensor_cores_for_bf16_up_to_64(family, bf16):
 @pytest.mark.parametrize("family", sorted(_widths.DECODE_BODIES))
 def test_decode_body_table(family, mode):
     """K1/K5 on decode_v2_mma at every width from 17 to the widest in
-    every plane mode, on their CUDA-core body at H <= 16; K2, K3, K4 on
-    their built bodies up to 128 and their wide body past it; a plane
-    mode the family does not take is refused."""
+    every plane mode, on their CUDA-core body at H <= 16; K3 and K4 on
+    their tensor-core bodies (decode_v1_mma, mlp_tail_mma) from 17 to
+    128, their CUDA-core bodies at H <= 16 and their wide bodies past 128
+    up to the widest; K2 on its built bodies up to 128 and its wide body
+    past it; a plane mode the family does not take is refused."""
     table = _widths.DECODE_BODIES[family]
     modes = {m for _, m in table}
     if mode not in modes:
@@ -99,6 +107,10 @@ def test_decode_body_table(family, mode):
         if family == "decode_v2":
             assert body == ("decode_fused_v2_kernel" if hidden <= 16
                             else "decode_v2_mma"), (hidden, body)
+        elif family in TENSOR_CORE_DECODES:
+            core, mma, wide = TENSOR_CORE_DECODES[family]
+            assert body == (core if hidden <= 16 else mma if hidden <= 128
+                            else wide), (hidden, body)
         else:
             assert body.endswith("_wide") == (hidden > 128), (hidden, body)
     with pytest.raises(ValueError, match=str(widest)):
