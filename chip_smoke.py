@@ -14,9 +14,9 @@ Phases (any failure exits non-zero):
    node-gradient (K7, kernel2; K9 in 3D) train kernels; one nvcc per
    source, all started together) for sm_90a, and print the build time
    and the registers and spills of the tensor-core bodies (``ptxas -v``:
-   the train bodies, K1/K5's ``decode_v2_mma`` by plane mode, K3's
-   ``decode_v1_mma`` by grid dtype and K4's ``mlp_tail_mma`` by
-   accumulator and dot dtype);
+   the train bodies, K1/K5's ``decode_v2_mma`` and K2's
+   ``decode_z1mm_mma`` by plane mode, K3's ``decode_v1_mma`` by grid
+   dtype and K4's ``mlp_tail_mma`` by accumulator and dot dtype);
 3. each kernel against its plain PyTorch version on the card, on the
    committed trained artifact's column-stage outputs at mips 0-2, for every
    plane mode x GELU; the launch log must name only ``decode_v2_mma``
@@ -126,11 +126,17 @@ The alternate 2D decodes and the XLA alternates (phase 12 also times the
     mips 0-9 (exactly 10 launches, the launch log naming only
     ``mlp_tail_mma``); the whole v3 decode and K1's at 2048², timed with
     their peak memory;
-23. K2, the z1-matmul decode: against its plain version and K1 on the
-    artifact at mips 0-2 and at 2048², in fp32·exact, bf16·poly (tensor
-    cores) and surgical·exact; ``z1_matmul="auto"`` serving mips 0-9 must
-    launch K2 exactly 3 times (mips 0-2) and K1 never, within 2 u8 LSB of
-    the JAX fold, and K1 under int16 planes; K2 timed beside K1;
+23. K2, the z1-matmul decode (its tensor-core body ``decode_z1mm_mma``
+    at H = 64): against its plain version and K1 on the artifact at mips
+    0-2 and at 2048², in fp32·exact, bf16·poly and surgical·exact, and
+    against its plain version at three contract corners outside JAX's
+    gate (R = 8 with f = f1 = 2; R = 32 with f = 4, f1 = 8; R = 512 with
+    f = 1, f1 = 512, where bf16 planes split A in two products);
+    ``z1_matmul="auto"`` serving mips 0-9 must launch K2 exactly 3 times
+    (mips 0-2) and K1 never, within 2 u8 LSB of the JAX fold, and K1
+    under int16 planes; the launch log of the serve, of the corners and
+    of each 2048² cell, and the profiler of the serve and of each 2048²
+    cell, must name only ``decode_z1mm_mma``; K2 timed beside K1;
 24. the decode CLI's ``--backend xla`` (the gather decode) at mips 0-9,
     held to the JAX fold as in phase 4;
 25. a 200-epoch CLI run with TRAIN_FORWARD=folded, DECODE_BACKEND=xla and
@@ -153,9 +159,10 @@ _widths.py``: narrower widths zero-padded to an instantiated one):
     two feature chunks), 200 rows; K1, K2, K3, K4 on random 512² models
     and K5 on a 64³ m3 mip-mode model at H = 16, 32, 128, 192 and 256 in
     their plane modes, the 192/256 cells' bodies (``decode_v2_mma`` and
-    the wide tails), K1's and K5's at 16 (their CUDA-core body) and K3's
-    and K4's at every width (``decode_v1_mma`` and ``mlp_tail_mma`` from
-    32 to 128) by the launch log and the profiler; every counter must
+    the wide tails), K1's and K5's at 16 (their CUDA-core body) and K2's,
+    K3's and K4's at every width (``decode_z1mm_mma``, ``decode_v1_mma``
+    and ``mlp_tail_mma`` from 16 or 32 to 128) by the launch log and the
+    profiler; every counter must
     rise; the padding's cost timed (K11 at 8×256² and K1 at 2048² beside
     H = 64), and K1, K3 and K4 at H = 16 on their CUDA-core bodies beside
     the same model padded to 64 onto their tensor-core bodies;
@@ -181,8 +188,8 @@ mode, and its bound, the larger of its
 bytes (each input read once, each output written once) over 3.35 TB/s and
 its dot operations (the JAX cost model's count) over the published peak
 for their type (67 TFLOP/s fp32, 989 TFLOP/s bf16; H100 SXM, 700 W; K1,
-K5, K3 and K4 take their fp32 dots as three TF32 tensor-core products, so
-theirs count at 495/3 TFLOP/s). No
+K5, K2, K3 and K4 take their fp32 dots as three TF32 tensor-core
+products, so theirs count at 495/3 TFLOP/s). No
 single PyTorch call computes any of these fused functions, so
 ``library_ms`` is null.
 """
@@ -227,8 +234,8 @@ K2_REPLACES = "nic/kernels/decode_fused_v2.py:191"
 # published H100 SXM peaks at 700 W: memory bytes/s and dot FLOP/s by type
 PEAK_BYTES = 3.35e12
 # (tf32x3: fp32 dots as three TF32 tensor-core products each, 495 TFLOP/s
-# of TF32 over the three, as decode_v2_mma, decode_v1_mma and mlp_tail_mma
-# run K1/K5's, K3's and K4's fp32 dots)
+# of TF32 over the three, as decode_v2_mma, decode_z1mm_mma, decode_v1_mma
+# and mlp_tail_mma run K1/K5's, K2's, K3's and K4's fp32 dots)
 PEAK_FLOPS = {"fp32": 67e12, "bf16": 989e12, "tf32x3": 495e12 / 3}
 
 # kernel vs plain tolerances on the [0, 1] output. fp32 planes and dots:
@@ -335,6 +342,8 @@ MMA_BODIES = ("ff_pixel_mma", "mlp_pixel_mma", "ff3_pixel_mma")
 # K1/K5's tensor-core body, by (plane mode, H = 64 with h1 in registers or
 # wider with h1 in slots); phase 2 reports its exact-erf and tanherf GELUs
 DECODE_MMA = "decode_v2_mma"
+# K2's tensor-core body, keyed like K1's (fp32, bf16 and surgical planes)
+Z1MM_MMA = "decode_z1mm_mma"
 PLANE_IDS = ("fp32", "bf16", "i16", "surgical")
 # K3's and K4's tensor-core bodies, by (grid or accumulator dtype[, dot
 # dtype], H = 64 with h1 in registers or 128 with h1 in slots)
@@ -346,7 +355,8 @@ def ptxas_usage(log: str) -> dict:
     """{(body, gelu): (registers, spill stores, spill loads, stack bytes)}
     from the ``ptxas -v`` lines of an nvcc log, for the template kernels
     MMA_BODIES (their one template argument: the GELU, 0 erf, 1 poly),
-    DECODE_MMA (keyed (DECODE_MMA, (plane mode, gelu id, H = 64))), V1_MMA
+    DECODE_MMA and Z1MM_MMA (keyed (body, (plane mode, gelu id, H = 64))),
+    V1_MMA
     ((V1_MMA, (grid dtype, H = 64))) and V3_MMA ((V3_MMA, (accumulator
     dtype, dot dtype, H = 64)))."""
     import re
@@ -357,10 +367,10 @@ def ptxas_usage(log: str) -> dict:
         if m:
             hit = [(b, int(g)) for b in MMA_BODIES for g in re.findall(
                 rf"\d{b}ILi(\d)E", m.group(1))]
-            hit += [(DECODE_MMA, (PLANE_IDS[int(md)], int(g), one == "1"))
+            hit += [(b, (PLANE_IDS[int(md)], int(g), one == "1"))
+                    for b in (DECODE_MMA, Z1MM_MMA)
                     for md, g, one in re.findall(
-                        rf"\d{DECODE_MMA}ILi(\d)ELi(\d)ELb([01])E",
-                        m.group(1))]
+                        rf"\d{b}ILi(\d)ELi(\d)ELb([01])E", m.group(1))]
             hit += [(V1_MMA, (_DTYPE_IDS[t], one == "1"))
                     for t, one in re.findall(
                         rf"\d{V1_MMA}I(f|13__nv_bfloat16)Lb([01])E",
@@ -398,7 +408,7 @@ def phase_build() -> float:
                               key=lambda kv: -kv[1]))
              or "already built"), flush=True)
     usage = ptxas_usage(_build.log_path().read_text())
-    bodies = MMA_BODIES + (DECODE_MMA, V1_MMA, V3_MMA)
+    bodies = MMA_BODIES + (DECODE_MMA, Z1MM_MMA, V1_MMA, V3_MMA)
     if {b for b, _ in usage} != set(bodies):
         fail(f"ptxas reported {sorted(usage)}, not every one of {bodies} "
              f"(nvcc log {_build.log_path()})")
@@ -407,14 +417,16 @@ def phase_build() -> float:
         f"{b}<{'poly' if g else 'erf'}> {r} registers, {ss} B spill stores, "
         f"{sl} B spill loads, {st} B stack"
         for (b, g), (r, ss, sl, st) in sorted(train.items())), flush=True)
-    dec = {k[1]: v for k, v in usage.items() if k[0] == DECODE_MMA}
-    print(f"phase 2: {DECODE_MMA} (ptxas -v), by plane mode, GELU exact / "
-          "tanherf, H = 64 (h1 in registers) / wider (slots): " + "; ".join(
-              f"{md}·{'exact' if g == 0 else 'tanherf'}·"
-              f"{'H64' if one else 'wide'} {r} registers, {ss}/{sl} B spill "
-              f"stores/loads, {st} B stack"
-              for (md, g, one), (r, ss, sl, st) in sorted(dec.items())
-              if g in (0, 5)), flush=True)
+    for body, past in ((DECODE_MMA, "wider"), (Z1MM_MMA, "H = 128")):
+        dec = {k[1]: v for k, v in usage.items() if k[0] == body}
+        print(f"phase 2: {body} (ptxas -v), by plane mode, GELU exact / "
+              f"tanherf, H = 64 (h1 in registers) / {past} (slots): "
+              + "; ".join(
+                  f"{md}·{'exact' if g == 0 else 'tanherf'}·"
+                  f"{'H64' if one else past.replace(' = ', '')} {r} "
+                  f"registers, {ss}/{sl} B spill stores/loads, {st} B stack"
+                  for (md, g, one), (r, ss, sl, st) in sorted(dec.items())
+                  if g in (0, 5)), flush=True)
     for body in (V1_MMA, V3_MMA):
         print(f"phase 2: {body} (ptxas -v), by "
               + ("grid dtype" if body == V1_MMA
@@ -2202,21 +2214,61 @@ def phase_k4(device) -> dict:
     return dict(launches=launches, fp32=out[("fp32", "fp32")])
 
 
+# K2's contract corners outside JAX's gate, (R, f, f1, image rows): a
+# window over two tiles with 18 band rows (and a last window half past the
+# image), two windows a tile, and the one geometry whose A splits in bf16
+K2_CORNERS = ((8, 2, 2, 72), (32, 4, 8, 96), (512, 1, 512, 512))
+
+
+def _k2_corner(device, R, f, f1, nr, mode, mlp):
+    """K2's operands at a corner: seeded planes and row PE of nr rows x 44
+    columns (ragged against a block's 8), the tail of ``mlp``, in a plane
+    mode's dtypes."""
+    import torch
+
+    gen = torch.Generator(device="cpu").manual_seed(R + f + f1)
+    plane = torch.bfloat16 if mode == "bf16" else torch.float32
+    dot = torch.float32 if mode == "fp32" else torch.bfloat16
+
+    def draw(*shape, dt):
+        return (torch.rand(shape, generator=gen) * 2 - 1).to(dt).to(device)
+
+    hidden = mlp["w2"].shape[0]
+    return (draw(nr // f, 44, hidden, dt=plane),
+            draw(nr // f1 + 1, 44, hidden, dt=plane),
+            draw(nr, hidden, dt=plane), mlp["w2"].to(dot), mlp["b2"],
+            mlp["w3"].to(dot), mlp["b3"])
+
+
 def phase_k2(device) -> dict:
     """K2 (the z1-matmul decode): vs its plain version and K1 on the
     fixture at mips 0-2 and at 2048² in fp32·exact, bf16·poly and
-    surgical·exact; ``"auto"`` serving the fixture at mips 0-9 (the counted
+    surgical·exact, and vs its plain version at the contract corners
+    K2_CORNERS; ``"auto"`` serving the fixture at mips 0-9 (the counted
     path: K2 at mips 0-2) held to the JAX fold, and K1 under int16 planes;
-    K2 timed beside K1 at 2048²."""
+    K2 timed beside K1 at 2048². The launch log of the serve, the corners
+    and each 2048² cell, and the profiler of the serve and each 2048²
+    cell, must name only the body ``decode_body`` names
+    (``decode_z1mm_mma`` at H = 64)."""
     import torch
 
     from nic_torch.kernels import decode_fused_v2 as k
+    from nic_torch.kernels._build import body_launches, clear_body_launches
 
     fp, mlp, m2l, ref = _fixture(device)
     fp2, mlp2, m2l2 = _random_flagship(device, 2048)
     modes = (("fp32", None, "exact"), ("bf16", torch.bfloat16, "poly"),
              ("surgical", "surgical", "exact"))
-    worst, timings = {}, {}
+    want_body = _want_body("decode_z1mm", 64, "fp32")
+    worst, corners, timings = {}, {}, {}
+
+    def hold_logged(tag):
+        logged = body_launches()
+        if _bodies_named(logged) != {want_body}:
+            fail(f"phase 23: {tag} launched the bodies "
+                 f"{sorted(_bodies_named(logged))}, want {want_body}")
+        clear_body_launches()
+
     with torch.inference_mode():
         for label, (fpx, mlpx, m2lx, size, mips) in (
                 ("fixture", (fp, mlp, m2l, 512, (0, 1, 2))),
@@ -2231,7 +2283,14 @@ def phase_k2(device) -> dict:
                              "take the z1-matmul kernel here")
                     args = (pc, c1v, pe_u, w2, b2, w3, b3)
                     g = dict(f=geom["f"], f1=geom["f1"], gelu=gelu)
-                    got = k.decode_kernel_z1mm(*args, R=geom["R"], **g)
+                    key = f"{mode}·{gelu}"
+
+                    def call():
+                        return k.decode_kernel_z1mm(*args, R=geom["R"], **g)
+
+                    got = (_check_body(f"phase 23: K2 2048² {key}", call,
+                                       "decode_z1mm", 64, mode)
+                           if size == 2048 else call())
                     want = k.decode_kernel_z1mm_plain(*args, R=geom["R"], **g)
                     k1 = k.decode_kernel_2d(*args, s, **g)
                     if got.shape != want.shape or \
@@ -2240,7 +2299,6 @@ def phase_k2(device) -> dict:
                              "non-finite")
                     errs = (float((got - want).abs().max()),
                             float((got - k1).abs().max()))
-                    key = f"{mode}·{gelu}"
                     prev = worst.get(key, (0.0, 0.0))
                     worst[key] = (max(prev[0], errs[0]),
                                   max(prev[1], errs[1]))
@@ -2249,23 +2307,41 @@ def phase_k2(device) -> dict:
                              f"{errs[0]:.3e}, vs K1 {errs[1]:.3e} > "
                              f"{TOL[mode]:.0e}")
                     if size == 2048:
-                        ms = cuda_ms(lambda: k.decode_kernel_z1mm(
-                            *args, R=geom["R"], **g))
+                        ms = cuda_ms(call)
                         k1_ms = cuda_ms(lambda: k.decode_kernel_2d(
                             *args, s, **g))
                         plain = cuda_ms(lambda: k.decode_kernel_z1mm_plain(
                             *args, R=geom["R"], **g), warmup=1, reps=3)
+                        total, per = device_ms(call)
                         kk = geom["R"] // geom["f"] + geom["R"] // geom["f1"] + 1
                         npix = size * size
                         work = (nbytes(*args) + npix * 3 * 4,
                                 2 * npix * (64 * 64 + 3 * 64 + kk * 64))
                         timings[key] = (ms, plain, work, k1_ms)
-                        b_ms, b_by = bound(*work, "fp32" if mode == "fp32"
+                        b_ms, b_by = bound(*work, "tf32x3" if mode == "fp32"
                                            else "bf16")
-                        print(f"phase 23: 2048² {key}: K2 {ms:.4f} ms, K1 "
+                        print(f"phase 23: 2048² {key}: K2 {ms:.4f} ms "
+                              f"(device {total:.4f} ms, of it {want_body} "
+                              f"{_body_ms(per, want_body):.4f}), K1 "
                               f"{k1_ms:.4f} ms (K2/K1 {ms / k1_ms:.3f}), plain "
                               f"{plain:.4f} ms; K2 bound {b_ms:.4f} ms "
                               f"({b_by}, K = {kk})", flush=True)
+        clear_body_launches()
+        for R, f, f1, nr in K2_CORNERS:
+            for mode, _, gelu in modes:
+                args = _k2_corner(device, R, f, f1, nr, mode, mlp2)
+                g = dict(f=f, f1=f1, R=R, gelu=gelu)
+                got = k.decode_kernel_z1mm(*args, **g)
+                want = k.decode_kernel_z1mm_plain(*args, **g)
+                if got.shape != want.shape or not torch.isfinite(got).all():
+                    fail(f"K2 corner R={R} f={f} f1={f1} {mode}: shape or "
+                         "non-finite")
+                err = float((got - want).abs().max())
+                corners[mode] = max(corners.get(mode, 0.0), err)
+                if err > TOL[mode]:
+                    fail(f"K2 corner R={R} f={f} f1={f1} {mode}·{gelu}: "
+                         f"max|Δ| vs plain {err:.3e} > {TOL[mode]:.0e}")
+        hold_logged("the corners")
         kw = dict(image_size=512, mip_to_level=m2l, pe_channels=6,
                   use_tri_pe=True)
         k.decode_kernel_z1mm.launches = k.decode_kernel_2d.launches = 0
@@ -2273,16 +2349,27 @@ def phase_k2(device) -> dict:
                 for mip in range(10)]
         launches = k.decode_kernel_z1mm.launches
         k1_launches = k.decode_kernel_2d.launches
+        hold_logged("the fixture's 'auto' serve")
+        _check_body("phase 23: K2 'auto' serve of mips 0-2",
+                    lambda: [k.decode_image_fused_v2(
+                        fp, mlp, mip, z1_matmul="auto", **kw)
+                        for mip in (0, 1, 2)], "decode_z1mm", 64, "fp32")
         k.decode_kernel_z1mm.launches = k.decode_kernel_2d.launches = 0
         k.decode_image_fused_v2(fp, mlp, 0, dtype="i16", z1_matmul="auto",
                                 **kw)
         i16 = (k.decode_kernel_z1mm.launches, k.decode_kernel_2d.launches)
+    _body_summary(23)
     lsb = _fold_lsb("K2 auto", recs, ref, LSB_FP32)
     print(f"phase 23: z1_matmul='auto' on the fixture, mips 0-9: K2 "
-          f"{launches} launches, K1 {k1_launches}; u8 LSB vs the JAX fold "
-          f"{lsb[:10]}, mip-0 PSNR {lsb[10]:.4f} dB; under i16 planes K2 "
-          f"{i16[0]}, K1 {i16[1]}; K2 vs plain / vs K1 worst max|Δ|: "
-          + ", ".join(f"{m} {a:.3e} / {b:.3e}" for m, (a, b) in worst.items()),
+          f"{launches} launches, K1 {k1_launches}, body {want_body} by the "
+          f"launch log; u8 LSB vs the JAX fold {lsb[:10]}, mip-0 PSNR "
+          f"{lsb[10]:.4f} dB; under i16 planes K2 {i16[0]}, K1 {i16[1]}; K2 "
+          "vs plain / vs K1 worst max|Δ|: "
+          + ", ".join(f"{m} {a:.3e} / {b:.3e}" for m, (a, b) in worst.items())
+          + "; at the corners "
+          + ", ".join(f"(R, f, f1, rows) = {c}" for c in K2_CORNERS)
+          + " vs plain worst max|Δ|: "
+          + ", ".join(f"{m} {e:.3e}" for m, e in corners.items()),
           flush=True)
     if (launches, k1_launches) != (3, 0):
         fail(f"'auto' launched K2 {launches} and K1 {k1_launches} times over "
@@ -2520,8 +2607,9 @@ def _widths_decode(device) -> dict:
     their plain versions at the decode tolerances; at 192 and 256 every
     cell's body by the launch log and the profiler (the wide bodies, and
     decode_v2_mma for K1/K5), at 16 K1's and K5's (their CUDA-core
-    body), and K3's and K4's at every width (decode_v1_mma and
-    mlp_tail_mma from 32 to 128). Returns K1's times at 2048²: fp32·exact
+    body), and K2's, K3's and K4's at every width (decode_z1mm_mma from
+    16 and decode_v1_mma and mlp_tail_mma from 32 to 128). Returns K1's
+    times at 2048²: fp32·exact
     by H (32 zero-padded to 64), and H = 16 on its CUDA-core body beside
     the same model zero-padded to 64 onto decode_v2_mma, in fp32·exact and
     bf16·poly; and K3's and K4's at H = 16 on their CUDA-core bodies
@@ -2577,7 +2665,7 @@ def _widths_decode(device) -> dict:
                                                            **g),
                              k1.decode_kernel_z1mm_plain(*args, R=geom["R"],
                                                          **g),
-                             ("decode_z1mm", hidden, mode) if wide else None)
+                             ("decode_z1mm", hidden, mode))
                 for mode, dtype in (("fp32", None), ("bf16", torch.bfloat16)):
                     vargs, vkw = _v1_args(fp, mlp, mip, m2l, 512, dtype)
                     hold(f"K3 H={hidden} mip {mip} {mode}", mode,
@@ -2878,7 +2966,8 @@ def main(argv=None) -> None:
     # fp32·exact of phase 13); K12 8×32³ bf16·poly with noise and K9 8×32³
     # bf16·poly (the 3D protocol's LOD 0); K2, K3 and K4 at 2048²
     # fp32·exact, each with its fixture path's launches (mips 0-9); K1, K5,
-    # K3 and K4 take their fp32 dots as three TF32 products each (tf32x3)
+    # K2, K3 and K4 take their fp32 dots as three TF32 products each
+    # (tf32x3)
     print(json.dumps({"kernels": [
         entry("decode_fused_v2", KERNEL_SOURCE, REPLACES, k1_launches,
               main_err, *timings[2048][("fp32", "exact")], "tf32x3"),
@@ -2895,7 +2984,7 @@ def main(argv=None) -> None:
         entry("train_fused_ng3", K67_SOURCE, K9_REPLACES, launches3["K9"],
               k9["bf16·poly"][3], *k9["bf16·poly"][:3], "bf16"),
         entry("decode_z1mm", K2_SOURCE, K2_REPLACES, k2["launches"],
-              k2["err"], *k2["fp32"][:3], "fp32"),
+              k2["err"], *k2["fp32"][:3], "tf32x3"),
         entry("decode_fused", K3_SOURCE, K3_REPLACES, k3["launches"],
               k3["err"], k3["ms"], k3["plain"], k3["work"], "tf32x3"),
         entry("mlp_tail", K4_SOURCE, K4_REPLACES, k4["launches"],

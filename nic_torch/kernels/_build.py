@@ -70,7 +70,7 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     fn.argtypes = [p, p, p, p, p, p, p, ctypes.c_float, p] + [i] * 9 + [p]
     fn.restype = i
     fn = lib.nic_decode_z1mm
-    fn.argtypes = [p] * 9 + [i] * 10 + [p]
+    fn.argtypes = [p] * 9 + [i] * 11 + [p]
     fn.restype = i
     fn = lib.nic_decode_fused_v1
     fn.argtypes = [p] * 9 + [i] * 8 + [ctypes.c_float] * 2 + [i] * 3 + [p]

@@ -45,7 +45,12 @@ on the tensor cores at H ≥ 64 in every plane mode (fp32 through the
 three-product TF32 split) and their CUDA-core body at H = 16; K3 and K4
 run ``decode_v1_mma`` and ``mlp_tail_mma`` (the same tensor-core tail,
 ``csrc/decode_mma.cuh``) at H = 64 and 128, their CUDA-core bodies at
-H = 16 and their wide bodies past 128.
+H = 16 and their wide bodies past 128; K2 runs ``decode_z1mm_mma`` (its
+z1 product, a warp's 16 image rows of one column against the S rows
+they read, and that tail, on the tensor cores) at H = 64 and 128 in its
+three plane modes, a narrower model zero-padded to 64, and its wide body
+past 128. Each decode wrapper passes the body's id (its ``_BODY_IDS``)
+as the entry point's ``body`` argument.
 """
 
 from __future__ import annotations
@@ -105,15 +110,15 @@ PLANE_MODES = ("fp32", "bf16", "i16", "surgical")
 # (chip_smoke.py phase 26; H100 80GB HBM3, 700 W). K3 and K4 run their
 # tensor-core bodies (on K1's tail, csrc/decode_mma.cuh) at H = 64 and 128
 # in fp32 (3xTF32) and bf16, their CUDA-core bodies at H = 16 and their
-# wide bodies past 128
+# wide bodies past 128. K2 runs decode_z1mm_mma at H = 64 and 128 (fp32
+# planes by two TF32 products and a 3xTF32 tail, bf16 and surgical with
+# bf16 dots) and its wide body past 128
 DECODE_BODIES = {
     "decode_v2": {**{(16, m): "decode_fused_v2_kernel" for m in PLANE_MODES},
                   **{(w, m): "decode_v2_mma" for w in (64, WIDE)
                      for m in PLANE_MODES}},
-    "decode_z1mm": {**{(w, m): ("decode_z1mm_bf16_kernel" if m == "bf16"
-                                else "decode_z1mm_f32_kernel")
-                       for w in (64, 128) for m in PLANE_MODES
-                       if m != "i16"},
+    "decode_z1mm": {**{(w, m): "decode_z1mm_mma" for w in (64, 128)
+                       for m in PLANE_MODES if m != "i16"},
                     **{(WIDE, m): "decode_z1mm_wide" for m in PLANE_MODES
                        if m != "i16"}},
     "decode_v1": {**{(16, m): "decode_fused_v1_kernel" for m in ("fp32",

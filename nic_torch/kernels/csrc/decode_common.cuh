@@ -7,11 +7,11 @@
 //
 // on a pixel's first-layer preactivation z1 [H], held in registers, with
 // W2 (transposed), b2, W3 and b3 staged once per block in shared memory
-// (K2 at H = 64 and 128; the CUDA-core bodies of K1/K5, K3 and K4 at
-// H = 16); and the wide tail (wide_tail), which takes any H that is a
-// multiple of 64 on a tile of 16 pixels whose z1 the kernel has written
-// to shared memory as fp32 [16][H] (K2, K3 and K4 past H = 128). The
-// tensor-core tail of K1/K5, K3 and K4 is decode_mma.cuh's.
+// (the CUDA-core bodies of K1/K5, K3 and K4 at H = 16); and the wide
+// tail (wide_tail), which takes any H that is a multiple of 64 on a tile
+// of 16 pixels whose z1 the kernel has written to shared memory as fp32
+// [16][H] (K2, K3 and K4 past H = 128). The tensor-core tail of K1/K5,
+// K2, K3 and K4 is decode_mma.cuh's.
 
 #pragma once
 

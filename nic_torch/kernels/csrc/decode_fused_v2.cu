@@ -70,11 +70,12 @@
 // next (nic_torch/kernels/_widths.py); a warp's tile fits up to H = 2432.
 //
 // decode_v2_mma's layers 2 and 3 and its tensor-core helpers live in
-// decode_mma.cuh (mma_tail), shared with K3's decode_v1_mma
-// (decode_fused.cu) and K4's mlp_tail_mma (decode_fused_v3.cu). The
-// GELUs, the plane modes and the CUDA-core tail live in
-// decode_common.cuh, shared with K2 (decode_z1mm.cu, this kernel with its
-// z1 build replaced) and the CUDA-core bodies of K3 and K4.
+// decode_mma.cuh (mma_tail), shared with K2's decode_z1mm_mma
+// (decode_z1mm.cu, this kernel with its z1 build replaced by a product),
+// K3's decode_v1_mma (decode_fused.cu) and K4's mlp_tail_mma
+// (decode_fused_v3.cu). The GELUs, the plane modes and the CUDA-core tail
+// live in decode_common.cuh, shared with the CUDA-core bodies of K3 and
+// K4.
 //
 // Entry points: nic_decode_fused_v2 (K1) and nic_decode_fused_3d (K5),
 // plain C, loaded with ctypes. Each launches on the

@@ -1,7 +1,7 @@
 // The decodes' MLP tail on the tensor cores (sm_90a), shared by the
 // per-pixel bodies decode_v2_mma (K1/K5, decode_fused_v2.cu),
-// decode_v1_mma (K3, decode_fused.cu) and mlp_tail_mma (K4,
-// decode_fused_v3.cu):
+// decode_z1mm_mma (K2, decode_z1mm.cu), decode_v1_mma (K3,
+// decode_fused.cu) and mlp_tail_mma (K4, decode_fused_v3.cu):
 //
 //   rgb = sigmoid(gelu(h1 . W2 + b2) . W3 + b3),  h1 = gelu(z1)
 //

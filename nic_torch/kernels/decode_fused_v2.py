@@ -40,6 +40,7 @@ a geometric gate, not a device fallback.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -147,6 +148,8 @@ _GELU_IDS = {name: i for i, name in enumerate(GELUS)}  # order of the .cu
 # K1/K5's per-pixel bodies by their id in csrc/decode_fused_v2.cu (enum
 # Body)
 _BODY_IDS = {"decode_fused_v2_kernel": 0, "decode_v2_mma": 1}
+# K2's per-pixel bodies by their id in csrc/decode_z1mm.cu (enum Body)
+_Z1MM_BODY_IDS = {"decode_z1mm_mma": 1, "decode_z1mm_wide": 2}
 
 
 # ---- the per-pixel stage: plain version and CUDA wrapper ---------------
@@ -320,6 +323,18 @@ def z1_matrix(R: int, f: int, f1: int, device=None) -> torch.Tensor:
     return a.to(device)
 
 
+@functools.lru_cache(maxsize=None)
+def _z1mm_operand(R: int, f: int, f1: int, device: torch.device) -> tuple:
+    """K2's static matrix as its entry point takes it, on ``device``, and
+    the count of its columns over P rows: ``z1_matrix`` with A0 dropped
+    when f == 1 (P is then added as it is). Built once per geometry and
+    device, so that a call copies nothing from the host."""
+    a = z1_matrix(R, f, f1, device)
+    if f == 1:
+        return a[:, R:].contiguous(), 0
+    return a, R // f
+
+
 def _check_z1mm(pc, c1v, pe_u, w2, b2, w3, b3, f, f1, R, gelu) -> int:
     mode = _check(pc, c1v, pe_u, w2, b2, w3, b3, None, f, f1, gelu)
     nr = pe_u.shape[0]
@@ -330,29 +345,35 @@ def _check_z1mm(pc, c1v, pe_u, w2, b2, w3, b3, f, f1, R, gelu) -> int:
     return mode
 
 
+def _z1mm_sums(pc, c1v, *, f: int, f1: int, R: int) -> torch.Tensor:
+    """K2's first-layer sums z1 [nr, ncl, H], in fp32 (float64 for float64
+    planes): per tile t of R rows, A0·P[t·R/f : (t+1)·R/f] + A1·C1v[t·m :
+    t·m + m + 1] (A0 is the identity for f == 1 and P is added as it is,
+    as in JAX)."""
+    dtype = torch.promote_types(pc.dtype, torch.float32)
+    nr, ncl, hidden = pc.shape[0] * f, pc.shape[1], pc.shape[2]
+    k0, m, nt = R // f, R // f1, nr // R
+    a = z1_matrix(R, f, f1, pc.device).to(dtype)
+    rows = (torch.arange(nt, device=pc.device)[:, None] * m
+            + torch.arange(m + 1, device=pc.device)[None, :])
+    c1t = c1v.to(dtype)[rows]                              # [nt, m+1, ncl, H]
+    z1 = torch.einsum("rj,tjch->trch", a[:, k0:], c1t)
+    if f == 1:
+        z1 = z1 + pc.to(dtype).reshape(nt, R, ncl, hidden)
+    else:
+        pt = pc.to(dtype).reshape(nt, k0, ncl, hidden)
+        z1 = torch.einsum("rj,tjch->trch", a[:, :k0], pt) + z1
+    return z1.reshape(nr, ncl, hidden)
+
+
 def decode_kernel_z1mm_plain(pc, c1v, pe_u, w2, b2, w3, b3, *, f: int,
                              f1: int, R: int,
                              gelu: str = "exact") -> torch.Tensor:
-    """K2's formula in torch ops → [nr, ncl, 3] fp32: per tile t of R
-    rows, z1 = A0·P[t·R/f : (t+1)·R/f] + A1·C1v[t·m : t·m + m + 1] (A0 is
-    the identity for f == 1 and P is added as it is, as in JAX), then the
-    tail."""
+    """K2's formula in torch ops → [nr, ncl, 3] fp32: the first-layer sums
+    of :func:`_z1mm_sums` in fp32, then the tail."""
     _check_z1mm(pc, c1v, pe_u, w2, b2, w3, b3, f, f1, R, gelu)
-    nr, hidden = pe_u.shape
-    ncl = pc.shape[1]
-    k0, m, nt = R // f, R // f1, nr // R
-    a = z1_matrix(R, f, f1, pc.device)
-    rows = (torch.arange(nt, device=pc.device)[:, None] * m
-            + torch.arange(m + 1, device=pc.device)[None, :])
-    c1t = c1v.float()[rows]                                # [nt, m+1, ncl, H]
-    z1 = torch.einsum("rj,tjch->trch", a[:, k0:], c1t)
-    if f == 1:
-        z1 = z1 + pc.float().reshape(nt, R, ncl, hidden)
-    else:
-        pt = pc.float().reshape(nt, k0, ncl, hidden)
-        z1 = torch.einsum("rj,tjch->trch", a[:, :k0], pt) + z1
-    return _tail_plain(z1.reshape(nr, ncl, hidden), pe_u, w2, b2, w3, b3,
-                       gelu)
+    return _tail_plain(_z1mm_sums(pc, c1v, f=f, f1=f1, R=R), pe_u, w2, b2,
+                       w3, b3, gelu)
 
 
 def decode_kernel_z1mm(pc, c1v, pe_u, w2, b2, w3, b3, *, f: int, f1: int,
@@ -360,13 +381,14 @@ def decode_kernel_z1mm(pc, c1v, pe_u, w2, b2, w3, b3, *, f: int, f1: int,
     """The z1-matmul per-pixel stage (K2) → [nr, ncl, 3] fp32; float or
     bf16 planes (int16 planes cannot feed its product).
 
-    A CUDA tensor launches the hand-written kernel (fp32 FMAs for float
-    planes, ``mma.sync`` tensor-core tiles for bf16 planes; past H = 128
-    the wide body, ``decode_z1mm_wide``) and raises if it does not build
-    or launch, a hidden width below the instantiated 64 or 128, or past
-    them below a multiple of 64, zero-padded to it; a CPU tensor runs
-    :func:`decode_kernel_z1mm_plain`. ``decode_kernel_z1mm.launches``
-    counts kernel launches."""
+    A CUDA tensor launches the hand-written kernel (and raises if it does
+    not build or launch) with the body
+    :func:`~nic_torch.kernels._widths.decode_body` names: at H = 64 and
+    128 ``decode_z1mm_mma``, the product and K1's tail on the tensor
+    cores (a narrower width zero-padded to 64), past 128 the wide body
+    ``decode_z1mm_wide`` (a width between multiples of 64 zero-padded to
+    the next); a CPU tensor runs :func:`decode_kernel_z1mm_plain`.
+    ``decode_kernel_z1mm.launches`` counts kernel launches."""
     mode = _check_z1mm(pc, c1v, pe_u, w2, b2, w3, b3, f, f1, R, gelu)
     if pc.device.type == "cpu":
         return decode_kernel_z1mm_plain(pc, c1v, pe_u, w2, b2, w3, b3, f=f,
@@ -385,11 +407,7 @@ def decode_kernel_z1mm(pc, c1v, pe_u, w2, b2, w3, b3, *, f: int, f1: int,
     from nic_torch.kernels import _build
 
     lib = _build.load()
-    k0, m = R // f, R // f1
-    a = z1_matrix(R, f, f1, pc.device)
-    add_p = f == 1  # A0 is the identity: P is added as it is
-    if add_p:
-        a = a[:, k0:].contiguous()
+    a, kp = _z1mm_operand(R, f, f1, pc.device)
     w2f, w3f = w2.float().contiguous(), w3.float().contiguous()
     out = torch.empty((nr, ncl, 3), dtype=torch.float32, device=pc.device)
     with torch.cuda.device(pc.device):
@@ -397,8 +415,10 @@ def decode_kernel_z1mm(pc, c1v, pe_u, w2, b2, w3, b3, *, f: int, f1: int,
         rc = lib.nic_decode_z1mm(
             pc.data_ptr(), c1v.data_ptr(), pe_u.data_ptr(), a.data_ptr(),
             w2f.data_ptr(), b2.data_ptr(), w3f.data_ptr(), b3.data_ptr(),
-            out.data_ptr(), nr, ncl, hidden, R, a.shape[1],
-            0 if add_p else k0, m, int(add_p), mode, _GELU_IDS[gelu], stream)
+            out.data_ptr(), nr, ncl, hidden, R, a.shape[1], kp, R // f1,
+            int(f == 1), mode, _GELU_IDS[gelu],
+            _Z1MM_BODY_IDS[decode_body("decode_z1mm", hidden,
+                                       PLANE_MODES[mode])], stream)
     if rc != 0:
         raise RuntimeError("decode_fused_v2 z1-matmul kernel launch failed: "
                            + lib.nic_cuda_error_string(rc).decode())

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""Time the decode kernels K1 (2D), K5 (3D), K3 (the v1 decode) and K4
-(the v3 MLP tail) of one checkout of the port, for A/B comparisons of two
-checkouts on one card.
+"""Time the decode kernels K1 (2D), K2 (the z1-matmul decode), K5 (3D),
+K3 (the v1 decode) and K4 (the v3 MLP tail) of one checkout of the port,
+for A/B comparisons of two checkouts on one card.
 
-    python3 scripts/torch_ab_decode.py ROOT
+    python3 scripts/torch_ab_decode.py ROOT [PARTS]
 
 imports ``nic_torch`` from the checkout at ROOT (which builds its own
 kernels under ROOT/build) and times it with the helpers of the
@@ -11,7 +11,10 @@ kernels under ROOT/build) and times it with the helpers of the
 by the same code. On a machine with one NVIDIA GPU it prints, for
 ``decode_kernel_2d`` on the column stage of ``chip_smoke``'s 2048² random
 flagship-width model at mip 0, in fp32·exact, fp32·poly, bf16·exact,
-bf16·poly and i16·tanherf; for ``decode_kernel_3d`` on the frame and
+bf16·poly, i16·tanherf and surgical·exact; for ``decode_kernel_z1mm``
+(K2) on the same column stage in fp32·exact, bf16·poly and
+surgical·exact, each beside K1 in its mode; for ``decode_kernel_3d`` on
+the frame and
 column stage of its 256³ random m3 model at mip 0 in fp32·exact and
 bf16·exact; for ``decode_kernel_v1`` (K3) on the 2048² model at mip 0 in
 fp32 and bf16; and for ``mlp_tail`` (K4) on that model's mip-0
@@ -19,11 +22,13 @@ first-layer accumulator in all four accumulator × dot dtypes, and the
 whole v3 decode of that model (accumulator and K4) in fp32: the median
 of 50 CUDA-event timings of the wrapper, by ``torch.profiler`` the device
 time per call of all its kernels and of the longest by name (the body,
-e.g. ``decode_v2_mma``, ``decode_v1_mma``, ``mlp_tail_mma``), and the
-first 16 hex digits of the SHA-256 of the output's bytes: two checkouts
-whose kernels compute the same bits print the same digest. It first
-prints the registers and spills ``ptxas -v`` reported for the checkout's
-decode tensor-core bodies (``chip_smoke.ptxas_usage``).
+e.g. ``decode_v2_mma``, ``decode_z1mm_mma``, ``decode_v1_mma``,
+``mlp_tail_mma``), and the first 16 hex digits of the SHA-256 of the
+output's bytes: two checkouts whose kernels compute the same bits print
+the same digest. It first prints the registers and spills ``ptxas -v``
+reported for the checkout's decode tensor-core bodies
+(``chip_smoke.ptxas_usage``). PARTS (comma-separated, of k1, k2, k3, k4,
+v3, k5; all by default) times only those.
 
 Compare two checkouts only inside one call, in turns (parent, change,
 change, parent).
@@ -67,6 +72,8 @@ def main() -> None:
         sys.exit("torch.cuda.is_available() is false: this needs a GPU")
     if not k.__file__.startswith(ab.ROOT):
         sys.exit(f"nic_torch came from {k.__file__}, not {ab.ROOT}")
+    parts = (sys.argv[2].split(",") if len(sys.argv) > 2 else
+             ["k1", "k2", "k3", "k4", "v3", "k5"])
     print(f"AB {sys.argv[1]}: {ab.chip_smoke.smi_line()}", flush=True)
     _build.load()
     usage = ab.chip_smoke.ptxas_usage(_build.log_path().read_text())
@@ -81,35 +88,51 @@ def main() -> None:
                                   ("fp32", None, "poly"),
                                   ("bf16", torch.bfloat16, "exact"),
                                   ("bf16", torch.bfloat16, "poly"),
-                                  ("i16", "i16", "tanherf")):
+                                  ("i16", "i16", "tanherf"),
+                                  ("surgical", "surgical", "exact")):
+            if not {"k1", "k2"} & set(parts):
+                break
             pc, c1v, pe_u, w2, b2, w3, b3, s, geom = k._prepare_2d(
                 fp, mlp, 0, image_size=2048, mip_to_level=m2l,
                 pe_channels=6, use_tri_pe=True, dtype=dtype)
-            args = (pc, c1v, pe_u, w2, b2, w3, b3, s)
+            args = (pc, c1v, pe_u, w2, b2, w3, b3)
             kw = dict(f=geom["f"], f1=geom["f1"], gelu=gelu)
-            report(f"K1 2048² {mode}·{gelu}",
-                   lambda: k.decode_kernel_2d(*args, **kw))
-        del pc, c1v, pe_u, args
+            k2_cell = f"{mode}·{gelu}" in ("fp32·exact", "bf16·poly",
+                                           "surgical·exact")
+            if "k2" in parts and k2_cell:
+                report(f"K2 2048² {mode}·{gelu}",
+                       lambda: k.decode_kernel_z1mm(*args, R=geom["R"], **kw))
+            if "k1" in parts or k2_cell:
+                report(f"K1 2048² {mode}·{gelu}",
+                       lambda: k.decode_kernel_2d(*args, s, **kw))
+            del pc, c1v, pe_u, args
         for mode, dtype in (("fp32", None), ("bf16", torch.bfloat16)):
+            if "k3" not in parts:
+                break
             args, kw = ab.chip_smoke._v1_args(fp, mlp, 0, m2l, 2048, dtype)
             report(f"K3 2048² {mode}",
                    lambda: k3.decode_kernel_v1(*args, use_tri_pe=True, **kw))
-        acc = first_layer_acc(fp, mlp, 0, image_size=2048, mip_to_level=m2l,
-                              pe_channels=6, use_tri_pe=True).contiguous()
-        for acc_dtype in (torch.float32, torch.bfloat16):
-            a = acc.to(acc_dtype)
-            for dot in (torch.float32, torch.bfloat16):
-                w = (a, mlp["w2"].to(dot), mlp["b2"], mlp["w3"].to(dot),
-                     mlp["b3"])
-                report(f"K4 2048² {str(acc_dtype)[6:]} accumulator, "
-                       f"{str(dot)[6:]} dots", lambda: k4.mlp_tail(*w))
-            del a, w
-        del acc
-        report("v3 decode 2048² fp32 (accumulator + K4)",
-               lambda: k4.decode_image_fused_v3(
-                   fp, mlp, 0, image_size=2048, mip_to_level=m2l,
-                   pe_channels=6, use_tri_pe=True))
+        if "k4" in parts:
+            acc = first_layer_acc(fp, mlp, 0, image_size=2048,
+                                  mip_to_level=m2l, pe_channels=6,
+                                  use_tri_pe=True).contiguous()
+            for acc_dtype in (torch.float32, torch.bfloat16):
+                a = acc.to(acc_dtype)
+                for dot in (torch.float32, torch.bfloat16):
+                    w = (a, mlp["w2"].to(dot), mlp["b2"], mlp["w3"].to(dot),
+                         mlp["b3"])
+                    report(f"K4 2048² {str(acc_dtype)[6:]} accumulator, "
+                           f"{str(dot)[6:]} dots", lambda: k4.mlp_tail(*w))
+                del a, w
+            del acc
+        if "v3" in parts:
+            report("v3 decode 2048² fp32 (accumulator + K4)",
+                   lambda: k4.decode_image_fused_v3(
+                       fp, mlp, 0, image_size=2048, mip_to_level=m2l,
+                       pe_channels=6, use_tri_pe=True))
         del fp, mlp
+        if "k5" not in parts:
+            return
         gen = torch.Generator(device="cpu").manual_seed(256)
         fp3, mlp3 = ab.chip_smoke._pyramid3(gen, "cuda", 256, False,
                                             no_mip=True)

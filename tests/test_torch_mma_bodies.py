@@ -12,8 +12,8 @@ for the blocks per SM that the wrappers launch. The decode body table
 (``decode_body``, by plane mode) likewise: K1/K5 (``decode_v2``) run
 ``decode_v2_mma`` at every width from 17 to the widest in every plane
 mode and their CUDA-core body at H ≤ 16; K3 and K4 their tensor-core
-bodies (``decode_v1_mma``, ``mlp_tail_mma``) from 17 to 128; K2, K3 and
-K4 their wide body past 128. Every body's launcher, train or decode, notes its launch in
+bodies (``decode_v1_mma``, ``mlp_tail_mma``) from 17 to 128; K2
+``decode_z1mm_mma`` up to 128; K2, K3 and K4 their wide body past 128. Every body's launcher, train or decode, notes its launch in
 the launch log.
 
 The tensor-core bodies take a warp's 16 pixels at a time and zero the
@@ -29,6 +29,7 @@ packages sum in different orders, and a last-bit difference can flip a
 bf16 rounding).
 """
 
+import importlib
 import re
 from pathlib import Path
 
@@ -93,8 +94,10 @@ def test_decode_body_table(family, mode):
     every plane mode, on their CUDA-core body at H <= 16; K3 and K4 on
     their tensor-core bodies (decode_v1_mma, mlp_tail_mma) from 17 to
     128, their CUDA-core bodies at H <= 16 and their wide bodies past 128
-    up to the widest; K2 on its built bodies up to 128 and its wide body
-    past it; a plane mode the family does not take is refused."""
+    up to the widest; K2 on decode_z1mm_mma at every width up to 128
+    (narrower ones zero-padded to 64) in its three plane modes and its
+    wide body past it; a plane mode the family does not take is
+    refused."""
     table = _widths.DECODE_BODIES[family]
     modes = {m for _, m in table}
     if mode not in modes:
@@ -111,8 +114,9 @@ def test_decode_body_table(family, mode):
             core, mma, wide = TENSOR_CORE_DECODES[family]
             assert body == (core if hidden <= 16 else mma if hidden <= 128
                             else wide), (hidden, body)
-        else:
-            assert body.endswith("_wide") == (hidden > 128), (hidden, body)
+        else:  # K2: its tensor-core body up to 128, the wide one past it
+            assert body == ("decode_z1mm_mma" if hidden <= 128
+                            else "decode_z1mm_wide"), (hidden, body)
     with pytest.raises(ValueError, match=str(widest)):
         _widths.decode_body(family, widest + 1, mode)
 
@@ -139,6 +143,33 @@ def test_decode_bodies_are_the_sources_kernels(family):
         r"__global__ void __launch_bounds__\([^)]*\)\s*\n(\w+)\(", text))
     for body in set(_widths.DECODE_BODIES[family].values()):
         assert body in kernels, (family, body, sorted(kernels))
+
+
+# each decode wrapper's body ids (its module and table) and the entry
+# point's enum Body in the family's source
+BODY_IDS = {"decode_v2": ("decode_fused_v2", "_BODY_IDS"),
+            "decode_z1mm": ("decode_fused_v2", "_Z1MM_BODY_IDS"),
+            "decode_v1": ("decode_fused", "_BODY_IDS"),
+            "decode_v3": ("decode_fused_v3", "_BODY_IDS")}
+
+
+@pytest.mark.parametrize("family", sorted(_widths.DECODE_BODIES))
+def test_decode_body_ids_match_the_sources_enum(family):
+    """The id a wrapper passes for each body of ``decode_body``'s table is
+    the entry point's enum value for that body: kMma for ``*_mma``,
+    kWide for ``*_wide``, kCudaCore for the CUDA-core body; the entry
+    point refuses any other pairing of body and width."""
+    module, table = BODY_IDS[family]
+    ids = getattr(importlib.import_module(f"nic_torch.kernels.{module}"),
+                  table)
+    assert set(ids) == set(_widths.DECODE_BODIES[family].values())
+    text = (CSRC / SOURCES[family][0]).read_text()
+    enum = dict(re.findall(r"(k\w+) = (\d+)",
+                           re.search(r"enum Body \{([^}]*)\}", text)[1]))
+    for body, i in ids.items():
+        name = ("kMma" if body.endswith("_mma") else
+                "kWide" if body.endswith("_wide") else "kCudaCore")
+        assert int(enum[name]) == i, (family, body, enum)
 
 
 @pytest.mark.parametrize("family", sorted(_widths.KERNEL_BODIES)
