@@ -172,7 +172,29 @@ _widths.py``: narrower widths zero-padded to an instantiated one):
     kernel3's gate refuses: K7 at every step (exactly 50 launches), the
     decode CLI at mips 0-9 through K1 (exactly 3 launches), every mip
     within 1.0 dB of a TRAIN_FORWARD=gather run of the same
-    configuration, and the per-LOD engine log printed.
+    configuration, and the per-LOD engine log printed; then a 20-epoch
+    flagship run with PROFILE_DIR (two chunks of INTERVAL_PRINT=10): the
+    trace of the second chunk must be written, named by the log, and
+    hold K11's body ``ff_pixel_mma`` among its device kernels.
+
+Rectangular images, the Kodak geometry (IMAGE_SIZE=512, IMAGE_SIZE_W=768,
+``data/sancho_512.png`` resized; full width):
+
+28. K11 and K7 against their plain versions on random 512×768 planes at
+    8 crops of 256² with crops on the last row and the last column
+    (phases 6 and 7's limits, fp32·erf and bf16·poly); the training CLI's
+    flagship for 200 epochs (kernel3 in both phases, 200 K11 launches,
+    mip-0 PSNR within 1.0 dB of a TRAIN_FORWARD=gather run), its artifact
+    through the decode CLI at mips 0-9 (K1 at the mips its gate covers,
+    u8 within 2 LSB of the fold ``fast_decode(n=(H, W))``, mip-0 PSNR
+    within 0.05 dB of the fold's) and K2 (``z1_matmul=True`` against its
+    plain version at mips 0-2 in three plane modes, ``"auto"`` serving
+    mips 0-9 with 3 launches, K1 none); path A (TF_NO_MIP=0: K11 and K6 as
+    the replayed LOD sequence) and path B (TF_USE_TRI_PE=0: K7 every
+    step), 50 epochs each; the portrait 768×512, 50 kernel3 epochs and a
+    mip-0 K1 decode against the fold; ``eval_rd --native-geometry`` over
+    both orientations; the 512×768 mip-0 decode end to end and K1's
+    wrapper (fp32·exact) and the kernel3 step timed.
 
 ``--only a,b`` runs the build and the named phases (``PHASES``) and
 prints no kernels or result line; the driver's run takes no arguments.
@@ -1140,10 +1162,12 @@ def _train_counters() -> dict:
             "K9": fused_mlp_loss_ng3_kernel}
 
 
-def _cli_train(args, decode: bool = True, mips=range(10)) -> dict:
+def _cli_train(args, decode: bool = True, mips=range(10), keep=None) -> dict:
     """The training CLI in a fresh output root, every train kernel's
     counter set to 0 just before it and read just after; then (``decode``)
-    the decode CLI at ``mips`` with K1's and K5's counters likewise."""
+    the decode CLI at ``mips`` with K1's and K5's counters likewise; then
+    ``keep(run)``, whose result goes to ``run["kept"]``, while the run's
+    files are still there."""
     import glob
     import re
 
@@ -1168,6 +1192,8 @@ def _cli_train(args, decode: bool = True, mips=range(10)) -> dict:
         run["gates"] = [ln for ln in lines if "train forward gate" in ln]
         run["decode_gates"] = [ln for ln in lines
                                if "decode backend gate" in ln]
+        run["trace_lines"] = [ln for ln in lines
+                              if "torch.profiler trace" in ln]
         run["engine"] = {}
         for ln in run["gates"]:
             m = re.search(r"lod=(\d+), frozen=(\w+)\): (\w+)", ln)
@@ -1178,6 +1204,8 @@ def _cli_train(args, decode: bool = True, mips=range(10)) -> dict:
                                      str(mip)]) for mip in mips]
             run["k1"] = decode_kernel_2d.launches
             run["k5"] = decode_kernel_3d.launches
+        if keep is not None:
+            run["kept"] = keep(run)
     return run
 
 
@@ -2869,13 +2897,454 @@ def phase_small_cli(device) -> None:
         _check_decodes(f"H={hidden}", run, no_mip=True)
     _wide_cli([f"NUM_EPOCHS={SMALL_EPOCHS}", "SDC_GUARD_TRAIN=False",
                f"HIDDEN_LAYER_CHANNELS={WIDE_HIDDEN}"])
+    _profile_dir_run()
+
+
+def _profile_dir_run() -> None:
+    """A 20-epoch flagship CLI run with PROFILE_DIR (two chunks of
+    INTERVAL_PRINT=10): the trace of the second chunk must be written, its
+    log line name the directory, and its device kernels name K11's body
+    ``ff_pixel_mma``. A trace that holds no K11 body (the card's profiler
+    now and then loses a window's kernels) is taken again, up to
+    BODY_TRIES runs."""
+    import glob
+
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        for attempt in range(BODY_TRIES):
+            prof = os.path.join(tmp, str(attempt))
+            run = _cli_train(["NUM_EPOCHS=20", "SDC_GUARD_TRAIN=False",
+                              "INTERVAL_PRINT=10", f"PROFILE_DIR={prof}"],
+                             decode=False)
+            files = glob.glob(os.path.join(prof, "*.pt.trace.json"))
+            if len(files) != 1 or run["launches"]["K11"] != 20:
+                fail(f"PROFILE_DIR: traces {files}, K11 launches "
+                     f"{run['launches']['K11']} (want one trace, 20)")
+            if not any(prof in ln for ln in run["trace_lines"]):
+                fail(f"PROFILE_DIR: no log line names {prof}: "
+                     f"{run['trace_lines']}")
+            with open(files[0]) as fh:
+                events = json.load(fh)["traceEvents"]
+            kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+            mma = sum(_is_body("ff_pixel_mma", nm) for nm in kernels)
+            print(f"phase 27: PROFILE_DIR run {attempt + 1}: "
+                  f"{run['trace_lines'][0]}; {os.path.getsize(files[0])} "
+                  f"bytes, {len(kernels)} device kernels, ff_pixel_mma "
+                  f"{mma} times", flush=True)
+            if mma:
+                return
+    fail(f"PROFILE_DIR: no trace of {BODY_TRIES} runs named ff_pixel_mma")
+
+
+# the Kodak geometry: 512 rows × 768 columns (sancho resized), the
+# flagship's widths; the portrait case 768 × 512; the rectangular paths'
+# short runs
+RECT_HW = (512, 768)
+RECT = ["IMAGE_SIZE=512", "IMAGE_SIZE_W=768"]
+RECT_EPOCHS = 50
+RECT_SHORT = [f"NUM_EPOCHS={RECT_EPOCHS}", "SDC_GUARD_TRAIN=False"]
+RECT_ARGS = TRAIN_ARGS + RECT
+
+
+def _rect_inputs(gen, device, n, f, tri_pe, hw=RECT_HW, crops=8):
+    """A random flagship-width no-mip pyramid on an (H, W) image (G0 [12,
+    H/4 + 1, W/4 + 1]) and MLP, and crops of n² on the LOD image of
+    (H·f/4, W·f/4): crop 0 at the last row and last column, crop 1 at the
+    last row and column 0, crop 2 at row 0 and the last column, the rest
+    random. → (fp, weights, planes by dot type (K11's folds), x (the
+    gather, ``tri_pe``), tgt, origins, seed words)."""
+    import torch
+
+    from nic_torch.grids.pyramid import create_pyramid
+    from nic_torch.grids.sample import decoder_input
+    from nic_torch.kernels.train_fused_ff import fold_planes
+    from nic_torch.models.mlp import init_mlp
+
+    fp, _ = create_pyramid(gen, tuple(s // 4 for s in hw), 12, 8,
+                           device=device, no_mip=True)
+    mlp = init_mlp(gen, 12 * 5 + 2 * 6 + 1, 64, 3, device=device)
+    img = [s * f // 4 for s in hw]
+    origins = torch.stack([torch.randint(0, d - n + 1, (crops,),
+                                         generator=gen) for d in img], 1)
+    origins[:3] = torch.tensor([[img[0] - n, img[1] - n], [img[0] - n, 0],
+                                [0, img[1] - n]])
+    tgt = torch.rand(crops * n * n, 3, generator=gen).to(device)
+    words = torch.randint(-2**31, 2**31, (2,), generator=gen)
+    seed = torch.cat([words, torch.zeros(2, dtype=torch.int64)]).to(
+        torch.int32)
+    planes = {cd: fold_planes(fp[0], fp[1], mlp["w1"],
+                              None if cd == "fp32" else torch.bfloat16)
+              for cd in ("fp32", "bf16")}
+    x = decoder_input(fp, 0, origins.to(device), 1.0 / f, n, pe_channels=6,
+                      mip_level=0, use_tri_pe=tri_pe).reshape(crops * n * n,
+                                                              -1)
+    weights = [mlp[k].detach() for k in NAMES]
+    return fp, weights, planes, x.contiguous(), tgt, origins, seed
+
+
+def _rect_kernels(device) -> None:
+    """(a) K11 and K7 on 512×768 planes at 8 crops of 256² (f = 4), crops
+    on the last row and the last column, against their plain versions at
+    phases 6 and 7's limits, fp32·erf and bf16·poly (K11 with QAT noise
+    off and on)."""
+    import torch
+
+    from nic_torch.kernels import train_fused as k7
+    from nic_torch.kernels import train_fused_ff as k11
+
+    n, f = 256, 4
+    gen = torch.Generator(device="cpu").manual_seed(28)
+    k11_names = ("loss", "out", "dw2", "db2", "dw3", "db3", "dpe0", "dpe1",
+                 "db1", "P_acc", "C1_acc", "dw1e")
+    k7_names = ("loss", "out", "dw1", "db1", "dw2", "db2", "dw3", "db3",
+                "dG0", "dG1")
+    with torch.no_grad():
+        _, weights, planes, _, tgt, origins, seed = _rect_inputs(
+            gen, device, n, f, True)
+        for label, (cd, gelu) in K11_MODES.items():
+            for nbits in (None, 8):
+                args = (*planes[cd], *weights, tgt, origins, seed)
+                kw = dict(n=n, f=f, npe=6, lodf=0.0, gelu=gelu, nbits=nbits,
+                          cd=None if cd == "fp32" else torch.bfloat16)
+                cell = (f"K11 512×768 8×256² {label} noise="
+                        f"{'on' if nbits else 'off'}")
+                got = k11.fused_train_ff_kernel(*args, **kw)
+                want = k11.fused_train_ff_plain(*args, **kw)
+                errs = _compare(cell, k11_names, got, want, K11_TOL[cd])
+                worst = max(e for m, e in errs.items()
+                            if m not in ("loss", "out"))
+                print(f"phase 28: {cell} vs plain: loss rel "
+                      f"{errs['loss']:.2e}, out max|Δ| {errs['out']:.2e}, "
+                      f"worst grad/plane rel {worst:.2e} (origins "
+                      f"{origins[:3].tolist()} among 8)", flush=True)
+        fp, weights, _, x, tgt, origins, _ = _rect_inputs(gen, device, n, f,
+                                                          False)
+        geo = dict(g0_nodes=tuple(fp[0].shape[1:]),
+                   g1_nodes=tuple(fp[1].shape[1:]))
+
+        def unfolded(res):
+            dg = k7._unfold_node_grads(res[8], res[9], weights[0],
+                                       channels=12, **geo)
+            return tuple(res[:8]) + dg
+
+        for label, (cd, gelu) in K11_MODES.items():
+            kw = dict(n=n, f=f, gelu=gelu,
+                      cd=None if cd == "fp32" else torch.bfloat16, **geo)
+            args = (x, tgt, origins, *weights)
+            cell = f"K7 512×768 8×256² {label}"
+            got = k7.fused_mlp_loss_ng_kernel(*args, **kw)
+            want = k7.fused_mlp_loss_ng_plain(*args, **kw)
+            errs = _compare(cell, k7_names, unfolded(got), unfolded(want),
+                            K11_TOL[cd])
+            print(f"phase 28: {cell} vs plain: loss rel {errs['loss']:.2e}, "
+                  f"out max|Δ| {errs['out']:.2e}, MLP grads rel ≤ "
+                  f"{max(errs[m] for m in k7_names[2:8]):.2e}, dG0 "
+                  f"{errs['dG0']:.2e}, dG1 {errs['dG1']:.2e} (nodes "
+                  f"{geo['g0_nodes']}, {geo['g1_nodes']})", flush=True)
+
+
+def _rect_fold(hw, with_k2: bool, device):
+    """``keep`` for :func:`_cli_train`: the run's artifact decoded by the
+    plain fold (``fast_decode(n=(H, W))``) at each mip the decode CLI
+    decoded, held to those decodes (u8 LSB ≤ LSB_FP32; mip-0 PSNR against
+    the mip-0 image within PSNR_DB of the fold's); then (``with_k2``) K2
+    (``z1_matmul`` True) against its plain version at mips 0-2 in three
+    plane modes, and ``"auto"`` serving mips 0-9 (K2 launches counted, K1
+    none) against the fold. → (LSB per mip, PSNR, fold PSNR, K2 worst
+    errors, K2 and K1 launches of the "auto" serve)."""
+    import numpy as np
+    import torch
+
+    from nic_torch.core.metrics import psnr
+    from nic_torch.data.assets import load_image_mips
+    from nic_torch.grids.fastdecode import fast_decode
+    from nic_torch.grids.pyramid import pyramid_mip_levels
+    from nic_torch.io.artifacts import load_compressed
+    from nic_torch.kernels import decode_fused_v2 as k
+
+    def hold(run):
+        mlp, fp, meta = load_compressed(run["res"]["artifact"],
+                                        device=device)
+        if meta["config"]["image_size_w"] != hw[1]:
+            fail(f"{hw}: the artifact's image_size_w is "
+                 f"{meta['config']['image_size_w']}")
+        mlp = {name: mlp[name].detach() for name in NAMES}
+        m2l = pyramid_mip_levels(hw[0], fp[0].shape[1] - 1,
+                                 meta["config"]["tf_no_mip"])
+        kw = dict(mip_to_level=m2l, pe_channels=6)
+        with torch.inference_mode():
+            folds = [fast_decode(fp, mlp, mip, image_size=hw[0],
+                                 n=tuple(s >> mip for s in hw),
+                                 **kw).cpu().numpy()
+                     for mip in range(len(run["recs"]))]
+        lsb = []
+        for mip, (rec, fold) in enumerate(zip(run["recs"], folds)):
+            if rec.shape != (hw[0] >> mip, hw[1] >> mip, 3) or \
+                    not np.isfinite(rec).all():
+                fail(f"{hw}: decode CLI mip {mip}: shape {rec.shape} or "
+                     "non-finite")
+            lsb.append(int(np.abs(u8(rec) - u8(fold)).max()))
+        orig = torch.from_numpy(np.moveaxis(load_image_mips(
+            os.path.join(ROOT, "data", "sancho_512.png"), hw[0], 0,
+            image_size_w=hw[1])[0], 0, -1) * 255.0).double()
+        p0, pf = (float(psnr(orig, torch.from_numpy(u8(r)).double()))
+                  for r in (run["recs"][0], folds[0]))
+        if max(lsb) > LSB_FP32 or abs(p0 - pf) > PSNR_DB:
+            fail(f"{hw}: decode CLI vs the fold: u8 LSB {lsb} (bar "
+                 f"{LSB_FP32}), mip-0 PSNR {p0:.4f} vs {pf:.4f} dB")
+        if not with_k2:
+            return lsb, p0, pf, None, None
+        worst = {}
+        with torch.inference_mode():
+            for mip in (0, 1, 2):
+                for mode, dtype, gelu in (
+                        ("fp32", None, "exact"),
+                        ("bf16", torch.bfloat16, "poly"),
+                        ("surgical", "surgical", "exact")):
+                    pc, c1v, pe_u, w2, b2, w3, b3, _, geom = k._prepare_2d(
+                        fp, mlp, mip, image_size=hw, use_tri_pe=True,
+                        dtype=dtype, **kw)
+                    if not geom["packed"]:
+                        fail(f"{hw} mip {mip}: JAX's auto would not take K2")
+                    args = (pc, c1v, pe_u, w2, b2, w3, b3)
+                    g = dict(f=geom["f"], f1=geom["f1"], R=geom["R"],
+                             gelu=gelu)
+                    got = k.decode_kernel_z1mm(*args, **g)
+                    want = k.decode_kernel_z1mm_plain(*args, **g)
+                    if got.shape != (hw[0] >> mip, hw[1] >> mip, 3) or \
+                            not torch.isfinite(got).all():
+                        fail(f"K2 {hw} mip {mip} {mode}: shape "
+                             f"{tuple(got.shape)} or non-finite")
+                    err = float((got - want).abs().max())
+                    worst[mode] = max(worst.get(mode, 0.0), err)
+                    if err > TOL[mode]:
+                        fail(f"K2 {hw} mip {mip} {mode}·{gelu}: max|Δ| vs "
+                             f"plain {err:.3e} > {TOL[mode]:.0e}")
+            k.decode_kernel_z1mm.launches = k.decode_kernel_2d.launches = 0
+            auto = [k.decode_image_fused_v2(
+                fp, mlp, mip, image_size=hw, z1_matmul="auto",
+                **kw).cpu().numpy() for mip in range(len(folds))]
+            served = (k.decode_kernel_z1mm.launches,
+                      k.decode_kernel_2d.launches)
+        auto_lsb = [int(np.abs(u8(a) - u8(b)).max())
+                    for a, b in zip(auto, folds)]
+        if served != (3, 0) or max(auto_lsb) > LSB_FP32:
+            fail(f"{hw} z1_matmul='auto' over mips 0-9: K2 {served[0]}, K1 "
+                 f"{served[1]} launches (want 3, 0); u8 LSB vs the fold "
+                 f"{auto_lsb}")
+        return lsb, p0, pf, worst, served
+
+    return hold
+
+
+def _rect_covered(hw, no_mip: bool) -> int:
+    """The mips 0-9 that K1's gate covers for an (H, W) artifact."""
+    from nic_torch.grids.pyramid import pyramid_mip_levels
+    from nic_torch.kernels.decode_fused_v2 import kernel_covers_2d
+
+    # the decode CLI's map: its base is G0's axis 0, as in JAX's runtime
+    m2l = pyramid_mip_levels(hw[0], hw[0] // 4, no_mip)
+    return sum(kernel_covers_2d(mip, hw, m2l, 64) for mip in range(10))
+
+
+def _rect_runs(device) -> dict:
+    """(b)-(d): the training CLI at 512×768, flagship 200 epochs (K11 at
+    every step, mip-0 PSNR within TRAIN_PSNR_DB of a gather run), its
+    artifact through the decode CLI at mips 0-9 (K1 where covered, held to
+    the fold) and K2; path A and path B, RECT_EPOCHS epochs each; the
+    portrait 768×512, RECT_EPOCHS kernel3 epochs and a mip-0 K1 decode
+    against the fold; then ``eval_rd --native-geometry``
+    (:func:`_rect_eval_rd`)."""
+    import numpy as np
+
+    flag = _cli_train(RECT_ARGS, keep=_rect_fold(RECT_HW, True, device))
+    gather = _cli_train(RECT_ARGS + ["TRAIN_FORWARD=gather"], decode=False)
+    lsb, p0, pf, k2_worst, k2_served = flag["kept"]
+    res = flag["res"]
+    print(f"phase 28: 512×768 flagship, 200 epochs in {flag['wall']:.1f} s "
+          f"(gather {gather['wall']:.1f} s); gates "
+          f"{sorted(flag['engine'].items())}; launches {flag['launches']}; "
+          f"loss {flag['losses'][0]:.5f} → {flag['losses'][-1]:.5f}; mip-0 "
+          f"PSNR {res['psnr'][0]:.4f} dB vs gather "
+          f"{gather['res']['psnr'][0]:.4f}; bpp {res['bpp']:.4f}; decode CLI "
+          f"mips 0-9 shapes {[r.shape[:2] for r in flag['recs']]}, K1 "
+          f"launches {flag['k1']}; u8 LSB vs the fold {lsb}, mip-0 PSNR "
+          f"{p0:.4f} dB (fold {pf:.4f}); K2 vs plain at mips 0-2 worst "
+          + ", ".join(f"{m} {e:.3e}" for m, e in k2_worst.items())
+          + f"; 'auto' serve K2 {k2_served[0]}, K1 {k2_served[1]} launches",
+          flush=True)
+    if flag["engine"] != {(0, False): "kernel3", (0, True): "kernel3"}:
+        fail(f"512×768 flagship: gates {flag['gates']}")
+    if flag["launches"] != {"K11": 200, "K6": 0, "K7": 0, "K12": 0, "K9": 0}:
+        fail(f"512×768 flagship: launches {flag['launches']}, want K11 200")
+    if len(flag["losses"]) != 200 or not np.isfinite(flag["losses"]).all():
+        fail("512×768 flagship: the losses are not 200 finite values")
+    if abs(res["psnr"][0] - gather["res"]["psnr"][0]) > TRAIN_PSNR_DB:
+        fail(f"512×768 flagship: mip-0 PSNR {res['psnr'][0]:.4f} dB is not "
+             f"within {TRAIN_PSNR_DB} dB of the gather run's "
+             f"{gather['res']['psnr'][0]:.4f}")
+    if flag["k1"] != _rect_covered(RECT_HW, True):
+        fail(f"512×768: the decode CLI launched K1 {flag['k1']} times; it "
+             f"covers {_rect_covered(RECT_HW, True)} of mips 0-9")
+
+    args_a = RECT_SHORT + RECT + ["TF_NO_MIP=0"]
+    run_a = _cli_train(args_a, keep=_rect_fold(RECT_HW, False, device))
+    lods = _lod_sequence(args_a)
+    want = {lod: "kernel3" if lod in KERNEL3_LODS else "kernel"
+            for lod in set(lods)}
+    want_k11 = sum(want[lod] == "kernel3" for lod in lods)
+    covered_a = _rect_covered(RECT_HW, False)
+    print(f"phase 28: 512×768 path A (TF_NO_MIP=0), {RECT_EPOCHS} epochs in "
+          f"{run_a['wall']:.1f} s; gates {sorted(run_a['engine'].items())}; "
+          f"launches {run_a['launches']} (want K11 {want_k11}, K6 "
+          f"{len(lods) - want_k11}); decode CLI mips 0-9, K1 launches "
+          f"{run_a['k1']} (covers {covered_a}), u8 LSB vs the fold "
+          f"{run_a['kept'][0]}; mip-0 PSNR {run_a['res']['psnr'][0]:.4f} dB",
+          flush=True)
+    for (lod, _), engine in run_a["engine"].items():
+        if engine != want[lod]:
+            fail(f"512×768 path A: LOD {lod} ran {engine}, JAX runs "
+                 f"{want[lod]}")
+    if run_a["launches"] != {"K11": want_k11, "K6": len(lods) - want_k11,
+                             "K7": 0, "K12": 0, "K9": 0} or \
+            not 0 < want_k11 < len(lods):
+        fail(f"512×768 path A: launches {run_a['launches']}")
+    if run_a["k1"] != covered_a or not np.isfinite(run_a["losses"]).all():
+        fail(f"512×768 path A: K1 launches {run_a['k1']} (covers "
+             f"{covered_a}) or non-finite losses")
+
+    run_b = _cli_train(RECT_SHORT + RECT + ["TF_USE_TRI_PE=0"], mips=(0,))
+    print(f"phase 28: 512×768 path B (TF_USE_TRI_PE=0), {RECT_EPOCHS} epochs "
+          f"in {run_b['wall']:.1f} s; gates {sorted(run_b['engine'].items())}"
+          f"; launches {run_b['launches']}; mip-0 PSNR "
+          f"{run_b['res']['psnr'][0]:.4f} dB; K1 launches {run_b['k1']}",
+          flush=True)
+    if run_b["engine"] != {(0, False): "kernel2", (0, True): "kernel2"} or \
+            run_b["launches"] != {"K11": 0, "K6": 0, "K7": RECT_EPOCHS,
+                                  "K12": 0, "K9": 0} or \
+            run_b["k1"] != 1 or not np.isfinite(run_b["losses"]).all():
+        fail(f"512×768 path B: gates {run_b['engine']}, launches "
+             f"{run_b['launches']}, K1 {run_b['k1']}")
+
+    portrait = (RECT_HW[1], RECT_HW[0])
+    run_p = _cli_train(RECT_SHORT + ["IMAGE_SIZE=768", "IMAGE_SIZE_W=512"],
+                       mips=(0,), keep=_rect_fold(portrait, False, device))
+    print(f"phase 28: 768×512 portrait, {RECT_EPOCHS} epochs in "
+          f"{run_p['wall']:.1f} s; gates {sorted(run_p['engine'].items())}; "
+          f"launches {run_p['launches']}; mip-0 PSNR "
+          f"{run_p['res']['psnr'][0]:.4f} dB; decode CLI mip 0 "
+          f"{run_p['recs'][0].shape}, K1 launches {run_p['k1']}, u8 LSB vs "
+          f"the fold {run_p['kept'][0]}, PSNR {run_p['kept'][1]:.4f} dB "
+          f"(fold {run_p['kept'][2]:.4f})", flush=True)
+    if run_p["engine"] != {(0, False): "kernel3", (0, True): "kernel3"} or \
+            run_p["launches"]["K11"] != RECT_EPOCHS or run_p["k1"] != 1:
+        fail(f"768×512: gates {run_p['engine']}, launches "
+             f"{run_p['launches']}, K1 {run_p['k1']}")
+    _rect_eval_rd(device, res["bpp"])
+    return dict(k11=flag["launches"]["K11"], k6=run_a["launches"]["K6"],
+                k7=run_b["launches"]["K7"], k1=flag["k1"],
+                k1_path_a=run_a["k1"])
+
+
+def _rect_eval_rd(device, want_bpp: float) -> None:
+    """``python -m nic_torch.cli.eval_rd --native-geometry`` on the card
+    over the two Kodak orientations (sancho resized to 512×768 and
+    768×512), RECT_EPOCHS epochs each: K11 at every step, the JAX
+    harness's JSON keys, each image's bpp that of the flagship's artifact
+    (the same grids and MLP, 8.3575 at FP_BITS 8), finite PSNR."""
+    import math
+
+    from PIL import Image
+
+    from nic_torch.cli import eval_rd
+    from nic_torch.kernels.train_fused_ff import fused_train_ff_kernel
+
+    src = Image.open(os.path.join(ROOT, "data", "sancho_512.png")).convert(
+        "RGB")
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        images = os.path.join(tmp, "kodak")
+        os.makedirs(images)
+        for name, (h, w) in (("landscape.png", RECT_HW),
+                             ("portrait.png", RECT_HW[::-1])):
+            src.resize((w, h), Image.BILINEAR).save(os.path.join(images,
+                                                                 name))
+        out = os.path.join(tmp, "rd.json")
+        fused_train_ff_kernel.launches = 0
+        res = eval_rd.run(["--dir", images, "--native-geometry", "--out", out,
+                           "--output_root", tmp, *RECT_SHORT])
+        launches = fused_train_ff_kernel.launches
+        with open(out) as fh:
+            written = json.load(fh)
+    rows = res["images"]
+    print(f"phase 28: eval_rd --native-geometry on 512×768 and 768×512, "
+          f"{RECT_EPOCHS} epochs each: K11 launches {launches}; "
+          + "; ".join(f"{r['image']} PSNR {r['psnr']:.4f} dB, bpp "
+                      f"{r['bpp']:.4f}" for r in rows)
+          + f" (flagship artifact bpp {want_bpp:.4f})", flush=True)
+    keys = {"codec", "protocol", "images", "mean_psnr", "mean_bpp", "dir"}
+    if written != res or set(res) != keys or \
+            res["protocol"]["geometry"] != "native (per-image rectangular)":
+        fail(f"eval_rd: keys {sorted(res)}, protocol {res['protocol']}")
+    if launches != 2 * RECT_EPOCHS or len(rows) != 2 or any(
+            r["bpp"] != want_bpp or not math.isfinite(r["psnr"])
+            for r in rows):
+        fail(f"eval_rd: K11 launches {launches}, rows {rows}")
+
+
+def _rect_times(device) -> dict:
+    """(e) The 512×768 mip-0 decode end to end and K1's wrapper alone,
+    fp32·exact (CUDA events), on a random flagship-width model; the
+    LOD-0 kernel3 step (:func:`step_timing`)."""
+    import torch
+
+    from nic_torch.grids.pyramid import (create_pyramid, pyramid_mip_levels,
+                                         pyramid_quantize_all)
+    from nic_torch.kernels import decode_fused_v2 as k
+    from nic_torch.models.mlp import init_mlp
+
+    gen = torch.Generator(device="cpu").manual_seed(768)
+    fp, _ = create_pyramid(gen, (128, 192), 12, 8, device=device,
+                           no_mip=True)
+    fp = pyramid_quantize_all(fp, 8)
+    mlp = init_mlp(gen, 12 * 5 + 2 * 6 + 1, 64, 3, device=device)
+    mlp = {name: mlp[name].detach() for name in NAMES}
+    kw = dict(image_size=RECT_HW, mip_to_level=pyramid_mip_levels(
+        512, 128, True), pe_channels=6, use_tri_pe=True)
+    npix = RECT_HW[0] * RECT_HW[1]
+    with torch.inference_mode():
+        pc, c1v, pe_u, w2, b2, w3, b3, s, geom = k._prepare_2d(
+            fp, mlp, 0, dtype=None, **kw)
+        args = (pc, c1v, pe_u, w2, b2, w3, b3, s)
+        g = dict(f=geom["f"], f1=geom["f1"], gelu="exact")
+        end = cuda_ms(lambda: k.decode_image_fused_v2(fp, mlp, 0, **kw))
+        k1 = cuda_ms(lambda: k.decode_kernel_2d(*args, **g))
+        plain = cuda_ms(lambda: k.decode_kernel_2d_plain(*args, **g),
+                        warmup=1, reps=3)
+    work = (nbytes(*args) + npix * 3 * 4, 2 * npix * (64 * 64 + 3 * 64))
+    b_ms, b_by = bound(*work, "tf32x3")
+    step_ms, line = step_timing("kernel3", RECT_ARGS, device,
+                                label="512×768 flagship")
+    print(f"phase 28: 512×768 mip-0 decode fp32·exact: end to end "
+          f"{end:.4f} ms ({npix / end / 1e6:.3f} GPix/s); K1 wrapper "
+          f"{k1:.4f} ms vs plain {plain:.4f} ms; K1 bound {b_ms:.4f} ms "
+          f"({b_by})", flush=True)
+    print(f"phase 28: {line}", flush=True)
+    return dict(decode=end, k1=k1, plain=plain, step=step_ms)
+
+
+def phase_rect(device) -> dict:
+    """The Kodak geometry end to end (:func:`_rect_kernels`,
+    :func:`_rect_runs`, :func:`_rect_times`)."""
+    _rect_kernels(device)
+    out = _rect_runs(device)
+    out.update(_rect_times(device))
+    return out
 
 
 # the phases by name, in the order a full run takes them
 PHASES = ("parity", "serve", "scale", "k11", "k7", "k6", "train", "path_a",
           "path_b", "step_time", "k5", "serve3", "scale3", "k12", "k9",
           "k6_3d", "train3", "step_time3", "k3", "k4", "k2", "xla_cli",
-          "folded", "widths", "small_cli")
+          "folded", "widths", "small_cli", "rect")
 
 
 def main(argv=None) -> None:
@@ -2939,6 +3408,7 @@ def main(argv=None) -> None:
     phase_folded("cuda")
     phase_widths("cuda")
     phase_small_cli("cuda")
+    phase_rect("cuda")
     k11_ms, k11_plain, k11_work = k11["timings"]["f=4 bf16·poly noise=on"]
     print(f"K11 share of the kernel3 step: {k11_ms / steps['kernel3']:.3f} "
           f"({k11_ms:.4f} of {steps['kernel3']:.4f} ms); K7 share of the "

@@ -11,7 +11,10 @@ Run:
 nothing falls back to the CPU. ``--backend auto`` is the CUDA kernel on a
 CUDA device and the folded ``fast`` decode on the CPU; ``--backend xla``
 is the gather decode (``decoder_input`` + ``apply_mlp`` at full size, the
-JAX runtime's XLA graph) on the chosen device. A 3D artifact
+JAX runtime's XLA graph) on the chosen device. A rectangular 2D artifact
+(``image_size_w`` in its config) decodes to [H, W, 3]: through K1 at the
+mips its gate covers and the fold elsewhere, and under ``--backend xla``
+through the fold, as the JAX runtime routes it. A 3D artifact
 (methods 3 and 4) decodes through the 3D kernel (K5) at the mips its gate
 covers and through the folded path at the others, with a note; ``--out``
 writes a volume as an uncompressed DIB AVI (the JAX runtime writes mp4v
@@ -104,6 +107,9 @@ def run(argv=None) -> np.ndarray:
     backend = args.backend
     if backend == "auto":
         backend = "cuda" if device.type == "cuda" else "fast"
+    if rect and backend == "xla":
+        # the gather decode is square; the fold takes (H, W) (JAX's rule)
+        backend = "fast"
     # never drop a requested plane dtype silently
     if args.dtype != "fp32" and backend != "cuda":
         print(f"note: --dtype {args.dtype} applies to the cuda backend "

@@ -116,6 +116,14 @@ def first_layer_acc(fp, mlp, mip_level: int, *, image_size: int,
         t1s.append(t)
         i1s.append(i1)
         f1s.append(t - i1.to(torch.float32))
+    # a rectangular image's coarsest G1 can end on its last sample's
+    # coordinate (512×768 at mip 8: 3 columns on 2 nodes); the corner past
+    # it, of weight 0, reads a zero node (JAX's gather reads NaN there)
+    pad = []
+    for d in reversed(range(ndim)):
+        pad += [0, max(int(i1s[d].max()) + 2 - c1_plane.shape[d], 0)]
+    if any(pad):
+        c1_plane = F.pad(c1_plane, [0, 0] + pad)
     weights_on = _g1_weights_active(step, g1_quirk)
     for off in itertools.product((0, 1), repeat=ndim):
         g = c1_plane

@@ -124,8 +124,9 @@ def decoder_input(fp, fl: int, origins: torch.Tensor, step: float, n: int, *,
     [ndim]) → [B, n^ndim, F] (or [n^ndim, F]) float32, F = C·(corners + 1)
     + pe·ndim + 1; rows are row-major per crop (axis 0 outermost), on the
     grids' device. A corner past a grid's last node raises (the JAX
-    gather reads NaN there; the 3D trainer pads the grids of a LOD whose
-    crops reach that far, ``nic_torch.train.ntc.pad_to_reach``)."""
+    gather reads NaN there; the trainer pads the grids of a LOD whose
+    crops reach that far, ``nic_torch.train.ntc.pad_to_reach``: 3D mip
+    mode, and a rectangular 2D image's coarsest G1)."""
     if ndim not in (2, 3):
         raise ValueError(f"decoder_input: ndim must be 2 or 3, not {ndim}")
     if sparse_g0 and ndim != 3:

@@ -134,7 +134,8 @@ def test_port_imports_no_jax_and_no_nic():
             "nic_torch.kernels.train_fused_ff3, "
             "nic_torch.kernels.decode_fused_3d, nic_torch.data.assets, "
             "nic_torch.kernels.decode_fused, nic_torch.kernels.decode_fused_v3, "
-            "nic_torch.grids.sample, nic_torch.cli.image_compression\n"
+            "nic_torch.grids.sample, nic_torch.cli.image_compression, "
+            "nic_torch.cli.eval_rd, nic_torch.obs.trace\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'nic'))\n"
             "print(','.join(bad)); sys.exit(1 if bad else 0)\n")

@@ -55,10 +55,8 @@ def test_cuda_device_without_cuda_raises(tmp_path):
 
 
 @pytest.mark.parametrize("extra,item", [
-    ("IMAGE_SIZE_W=96", "item 9"),
     ("ENTROPY_CODE_GRIDS=True", "item 12"),
     ("DATA_PARALLEL=True", "item 13"),
-    ("PROFILE_DIR=prof", "item 14"),
 ])
 def test_unported_options_refuse(tmp_path, extra, item):
     with pytest.raises(NotImplementedError, match=item):
