@@ -196,6 +196,40 @@ Rectangular images, the Kodak geometry (IMAGE_SIZE=512, IMAGE_SIZE_W=768,
     both orientations; the 512×768 mip-0 decode end to end and K1's
     wrapper (fp32·exact) and the kernel3 step timed.
 
+The scale-hyperprior codec and entropy-coded grids (phase 2 also builds
+``hs_bins.cu`` with the rest and ``nic_torch/native/rans.cpp`` with g++,
+and prints which format-3 rANS decode path the host takes):
+
+29. K13 (``nic_torch.kernels.hs_bins``, the hyper-synthesis and σ → bin
+    in a fixed order of fp32 operations) against its plain version on
+    this machine's CPU, on seeded ẑ of a random n = 96, m = 128 model and
+    on the trained model's ẑ of 512×768: every σ bit and every bin
+    equal; the trainer at n = 96, m = 128, λ = 0.018, patch 256, batch 8
+    on ``data/*.png`` for whole chunks of 100 steps within 45 s (the mean
+    loss of the last 100 steps below the first 100's); the codec on
+    sancho 512², mandrill 480² (padded) and sancho resized to 512×768:
+    the card's decompress equal to ``evaluate`` bit for bit, the card's
+    streams decoded on the CPU and the CPU's on the card to the same ŷ/ẑ
+    and x̂ within 1e-5, the coded symbols' bpp (the streams less their
+    fixed framing) within 0.5% of the estimate and the real bpp at most
+    that plus 457 B of framing, K13 once per
+    compress and once per decompress, the bf16 synthesis leaving the
+    streams unchanged; compress, decompress and the decode's stage split
+    (rANS, glue, K13, synthesis) timed at 512×768, and K13 beside its
+    plain version and the cuDNN composition it replaces (a reference, not
+    the same bits); the flagship 200-epoch CLI run with
+    ``ENTROPY_CODE_GRIDS=True``, its artifact through the decode CLI at
+    mips 0-2 (3 K1 launches, the launch log naming only
+    ``decode_v2_mma``) equal to the same codes saved fixed-length; then
+    one training step on the card against the same step on the CPU: from
+    the initial weights within the CPU tests' limits (loss rel 1e-5,
+    each leaf's grad max|Δ|/max|g| 1e-4, params 1e-6), from the trained
+    state the loss and params within them; from both, each device's
+    gradients against the same step in float64 on the CPU (the card's
+    worst leaf within HP_GRAD64_TOL, 1e-4 from the initial weights and
+    2e-3 from the trained state, and a control with TF32 convolutions on
+    the card beyond it).
+
 ``--only a,b`` runs the build and the named phases (``PHASES``) and
 prints no kernels or result line; the driver's run takes no arguments.
 
@@ -205,15 +239,17 @@ power limit, and before that the ``{"kernels": [...]}`` record: for each
 kernel its launches on its main path (K1 the serve phase, K11 the
 flagship training run, K6 path A, K7 path B, K5 the 3D serve, K12 the m3
 flag-free run, K9 the kernel2 run, K2, K3 and K4 their artifact serves of
-phases 21-23), its time and its plain version's at the path's shape and
-mode, and its bound, the larger of its
+phases 21-23, K13 the codec's card serves of phase 29), its time and its
+plain version's at the path's shape and mode, and its bound, the larger of its
 bytes (each input read once, each output written once) over 3.35 TB/s and
 its dot operations (the JAX cost model's count) over the published peak
 for their type (67 TFLOP/s fp32, 989 TFLOP/s bf16; H100 SXM, 700 W; K1,
 K5, K2, K3 and K4 take their fp32 dots as three TF32 tensor-core
-products, so theirs count at 495/3 TFLOP/s). No
-single PyTorch call computes any of these fused functions, so
-``library_ms`` is null.
+products, so theirs count at 495/3 TFLOP/s; K13 issues its fp32
+multiplies and adds as separate instructions, so its count at 33.5, half
+the FMA peak). No single PyTorch call computes any of these
+fused functions (K13's cuDNN composition sums in another order and is
+printed as a reference), so ``library_ms`` is null.
 """
 
 from __future__ import annotations
@@ -258,7 +294,10 @@ PEAK_BYTES = 3.35e12
 # (tf32x3: fp32 dots as three TF32 tensor-core products each, 495 TFLOP/s
 # of TF32 over the three, as decode_v2_mma, decode_z1mm_mma, decode_v1_mma
 # and mlp_tail_mma run K1/K5's, K2's, K3's and K4's fp32 dots)
-PEAK_FLOPS = {"fp32": 67e12, "bf16": 989e12, "tf32x3": 495e12 / 3}
+# fp32_nofma: a kernel that issues every multiply and add as its own
+# instruction (no contraction, as K13 by design) reaches half the FMA peak
+PEAK_FLOPS = {"fp32": 67e12, "fp32_nofma": 67e12 / 2, "bf16": 989e12,
+              "tf32x3": 495e12 / 3}
 
 # kernel vs plain tolerances on the [0, 1] output. fp32 planes and dots:
 # only the summation order, FMA contraction and the libm of exp/tanh
@@ -429,6 +468,13 @@ def phase_build() -> float:
                        sorted(_build.source_seconds.items(),
                               key=lambda kv: -kv[1]))
              or "already built"), flush=True)
+    from nic_torch import native
+
+    t1 = time.perf_counter()
+    native.load()
+    print(f"phase 2: rANS coder (nic_torch/native/rans.cpp, g++) loaded in "
+          f"{time.perf_counter() - t1:.1f} s; format-3 decode path: "
+          f"{native.decode_path()}", flush=True)
     usage = ptxas_usage(_build.log_path().read_text())
     bodies = MMA_BODIES + (DECODE_MMA, Z1MM_MMA, V1_MMA, V3_MMA)
     if {b for b, _ in usage} != set(bodies):
@@ -3340,11 +3386,486 @@ def phase_rect(device) -> dict:
     return out
 
 
+# ---- phase 29: the scale-hyperprior codec and entropy-coded grids ---------
+
+K13_SOURCE = "nic_torch/kernels/csrc/hs_bins.cu"
+# no pallas_call: JAX computes σ → bin in XLA (``h_s_bins``)
+K13_REPLACES = "nic/train/hyperprior.py:284"
+# the JAX trainer's and CLI's defaults and the r5 checkpoint's config
+HP_N, HP_M, HP_LAM, HP_PATCH, HP_BATCH = 96, 128, 0.018, 256, 8
+HP_TRAIN_S = 45.0  # training wall budget (whole chunks of HP_CHUNK steps)
+HP_CHUNK = 100
+# the CPU tests' tolerances for one step: loss rel, grads max|Δ|/max|g|,
+# params after clip + Adam; x̂ between devices; the coded symbols' bpp
+# (the streams without their fixed framing, ``_framing_bytes``) against
+# the model's estimate
+HP_STEP_TOL = dict(loss=1e-5, grad=1e-4, param=1e-6)
+# the card's fp32 gradients against float64 on the CPU, worst leaf's
+# max|Δ|/max|g64|, by state. Read on the H100: card 6.2e-6 and 6.2e-4
+# (h_s/MatmulConv_0/kernel, where the CPU's fp32 reads 9.1e-5), a TF32
+# control 1.0e-3 and 7.7e-3; the initial weights take the CPU tests' grad
+# limit, the trained state ~3× the card's reading
+HP_GRAD64_TOL = {"initial weights": 1e-4, "trained": 2e-3}
+HP_XHAT_TOL = 1e-5
+# the coded symbols' bpp (the streams less their fixed framing) against
+# the estimate: 0.13-0.25% read on the H100 at 45 s of training
+HP_CODED_REL = 0.005
+# the framing of one format-3 y stream (magic, 64 lane states, 128 B load
+# pad) and one 8-lane format-2 z stream (magic, lane count, lengths,
+# final states), whatever the symbols: 388 + 69 B
+HP_FRAMING_B = (4 + 64 * 4 + 128) + (5 + 8 * 4 + 8 * 4)
+
+
+def _hp_images() -> dict:
+    """The codec's images: sancho 512², mandrill 480² (padded to 512²) and
+    sancho resized to 512×768 (Kodak's geometry)."""
+    import numpy as np
+    from PIL import Image
+
+    from nic_torch.data.assets import load_rgb
+
+    sancho = os.path.join(ROOT, "data", "sancho_512.png")
+    wide = Image.open(sancho).convert("RGB").resize((768, 512),
+                                                    Image.BILINEAR)
+    return {"sancho 512²": load_rgb(sancho),
+            "mandrill 480²": load_rgb(os.path.join(ROOT, "data",
+                                                   "mandrill.png")),
+            "sancho 512×768": np.asarray(wide, np.float32) / 255.0}
+
+
+def _framing_bytes(stream: bytes) -> int:
+    """A rANS stream's fixed framing, whatever its symbols: format 3 its
+    magic, 64 lane states and 128-byte load pad (388 B); format 2 its
+    magic, lane count, lane lengths and the lanes' final states."""
+    if stream[:4] == b"NR3\x01":
+        return 4 + 64 * 4 + 128
+    lanes = stream[4]
+    return 5 + 4 * lanes + 4 * lanes
+
+
+def _hs_bits_equal(tag, z, hs_card, hs_cpu) -> dict:
+    """K13 on the card against its plain version on this machine's CPU:
+    every σ bit and every bin; returns the timings' inputs."""
+    import torch
+
+    from nic_torch.kernels.hs_bins import hs_bins_kernel, hs_bins_plain
+
+    s_card, b_card = hs_bins_kernel(z.cuda(), hs_card)
+    torch.cuda.synchronize()
+    s_cpu, b_cpu = hs_bins_plain(z.cpu(), hs_cpu)
+    s_card, b_card = s_card.cpu(), b_card.cpu()
+    sigma_bits = int((s_card.view(torch.int32)
+                      != s_cpu.view(torch.int32)).sum())
+    bins = int((b_card != b_cpu).sum())
+    err = float((s_card - s_cpu).abs().max())
+    print(f"phase 29: K13 {tag}: z {tuple(z.shape)} → σ "
+          f"{tuple(s_card.shape)}; card vs CPU plain: σ bits differing "
+          f"{sigma_bits}, bins differing {bins} (bins used "
+          f"{int(b_cpu.min())}..{int(b_cpu.max())})", flush=True)
+    if sigma_bits or bins:
+        fail(f"K13 {tag}: {sigma_bits} σ bits and {bins} bins differ from "
+             "the plain version on the CPU")
+    return err
+
+
+def _hs_times(z, hs, model) -> tuple:
+    """K13, its plain version on the card and the cuDNN composition it
+    replaces (a reference: not the same bits), CUDA events; the work for
+    the bound (2·multiply-adds of the three layers; bytes of ẑ, the
+    weights, σ and the bins)."""
+    import torch
+    import torch.nn.functional as F
+
+    from nic_torch.kernels.hs_bins import hs_bins_kernel, hs_bins_plain
+
+    z = z.cuda()
+    k13 = cuda_ms(lambda: hs_bins_kernel(z, hs))
+    plain = cuda_ms(lambda: hs_bins_plain(z, hs), warmup=1, reps=3)
+    c1, c2, c3 = model.h_s.convs
+
+    def composition():
+        s = F.gelu(F.conv_transpose2d(z, c1.weight, c1.bias, 2, 1),
+                   approximate="tanh")
+        s = F.gelu(F.conv_transpose2d(s, c2.weight, c2.bias, 2, 1),
+                   approximate="tanh")
+        s = torch.exp(F.conv2d(s, c3.weight, c3.bias, 1, 1))
+        return torch.ceil((torch.log(s) + 2.207274913787842)
+                          * 9.896079063415527).clamp(0, 63).int()
+
+    from nic_torch.train.hyperprior import conv_flags
+
+    with torch.no_grad(), conv_flags():
+        lib = cuda_ms(composition)
+    b, n, h4, w4 = z.shape
+    m = hs.w3.shape[0]
+    macs = b * n * n * (4 * h4 * w4 * 4 + 16 * h4 * w4 * 4) \
+        + b * 16 * h4 * w4 * m * 9 * n
+    out = b * m * 16 * h4 * w4
+    work = (nbytes(z, *hs) + out * 8, 2 * macs)
+    return k13, plain, lib, work
+
+
+def _hp_train(device):
+    """The full-width trainer on data/*.png for whole chunks within
+    HP_TRAIN_S; the loss must fall (last 100 steps against the first
+    100)."""
+    import glob
+
+    import numpy as np
+
+    from nic_torch.data.assets import load_rgb
+    from nic_torch.train.hyperprior import HyperpriorTrainer
+
+    paths = sorted(glob.glob(os.path.join(ROOT, "data", "*.png")))
+    trainer = HyperpriorTrainer(n=HP_N, m=HP_M, lam=HP_LAM, patch=HP_PATCH,
+                                batch=HP_BATCH, seed=0, device=device)
+    staged = trainer.stage_images([load_rgb(p) for p in paths])
+    trainer.train_chunk(staged, 5)  # cuDNN plans and allocator warm-up
+    losses = []
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < HP_TRAIN_S or len(losses) < 2 * HP_CHUNK:
+        losses.extend(trainer.train_chunk(staged, HP_CHUNK)[0].tolist())
+    wall = time.perf_counter() - t0
+    first, last = np.mean(losses[:HP_CHUNK]), np.mean(losses[-HP_CHUNK:])
+    print(f"phase 29: hyperprior trainer n={HP_N} m={HP_M} λ={HP_LAM} patch "
+          f"{HP_PATCH} batch {HP_BATCH} on {len(paths)} images: "
+          f"{len(losses)} steps in {wall:.1f} s ({len(losses) / wall:.2f} "
+          f"steps/s); mean loss of the first 100 {first:.4f}, of the last "
+          f"100 {last:.4f}", flush=True)
+    if not np.isfinite(losses).all() or not last < first:
+        fail(f"the hyperprior loss did not fall: {first:.4f} → {last:.4f}")
+    return trainer, staged, len(losses) / wall
+
+
+def _hp_grads(model, x, noise, tf32: bool = False) -> dict:
+    """The RD loss's gradients at HP_LAM of one batch and noise on the
+    model's device and dtype, under the JAX leaf names; ``tf32`` lets
+    cuDNN's convolutions take TF32."""
+    import torch
+
+    from nic_torch.io.convert import hyperprior_leaves, hyperprior_to_jax
+    from nic_torch.models.hyperprior import rd_loss
+
+    p = next(model.parameters())
+    x = x.to(p.device, p.dtype)
+    noise = tuple(u.to(p.device, p.dtype) for u in noise)
+    model.zero_grad(set_to_none=True)
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                    deterministic=True, allow_tf32=tf32):
+        x_hat, y_bits, z_bits = model(x, noise)
+        rd_loss(x_hat, x, y_bits, z_bits, HP_LAM)[0].backward()
+    return hyperprior_to_jax(model, {
+        k: q.grad for k, (q, _, _) in hyperprior_leaves(model).items()})
+
+
+def _worst_leaf(grads: dict, ref: dict) -> tuple:
+    """(max|Δ|/max|g_ref| of the worst leaf, its name)."""
+    return max((float(abs(grads[k] - ref[k]).max())
+                / max(float(abs(ref[k]).max()), 1e-30), k) for k in ref)
+
+
+def _hp_step_card_vs_cpu(trainer, staged, tag) -> dict:
+    """One step on the card against the same step on the CPU (fp32 convs,
+    no TF32): the same params, Adam state, crops and noise → {loss, grad,
+    param, card64, cpu64, tf32_64}: the loss's relative difference, the
+    worst leaf's gradient max|Δ|/max|g| and the params' max|Δ| after
+    clip + Adam; then the worst leaf's max|Δ|/max|g| of the card's, the
+    CPU's and a TF32 control's gradients (TF32 convolutions on the card)
+    against the same gradients in float64 on the CPU."""
+    import copy
+
+    import torch
+
+    from nic_torch.io.convert import hyperprior_leaves, hyperprior_to_jax
+    from nic_torch.train.hyperprior import HyperpriorTrainer
+
+    cpu = HyperpriorTrainer(n=HP_N, m=HP_M, lam=HP_LAM, patch=HP_PATCH,
+                            batch=HP_BATCH, device="cpu")
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        path = os.path.join(tmp, "ckpt.npz")
+        trainer.save_checkpoint(path)
+        cpu.load_checkpoint(path)
+    ref64 = copy.deepcopy(cpu.model).double()
+    ctl = copy.deepcopy(trainer.model)
+    x = trainer.sample_crops(staged)
+    with torch.no_grad():
+        y = trainer.model.analysis(x[:1])
+        z = trainer.model.hyper_analysis(y)
+    gen = torch.Generator().manual_seed(29)
+    noise = tuple(torch.rand((HP_BATCH,) + tuple(t.shape[1:]),
+                             generator=gen) - 0.5 for t in (y, z))
+    got = {}
+    for side, tr in (("card", trainer), ("cpu", cpu)):
+        loss = tr.loss_and_grads(x.to(tr.device),
+                                 tuple(u.to(tr.device) for u in noise))
+        grads = hyperprior_to_jax(tr.model, {
+            k: p.grad for k, (p, _, _) in
+            hyperprior_leaves(tr.model).items()})
+        tr.apply_grads()
+        got[side] = (float(loss[0]), grads, hyperprior_to_jax(tr.model))
+    (l_card, g_card, p_card), (l_cpu, g_cpu, p_cpu) = got["card"], got["cpu"]
+    loss_rel = abs(l_card - l_cpu) / abs(l_cpu)
+    rels = sorted(((float(abs(g_card[k] - g_cpu[k]).max())
+                    / max(float(abs(g_cpu[k]).max()), 1e-30), k)
+                   for k in g_cpu), reverse=True)
+    grad_rel = rels[0][0]
+    param = max(float(abs(p_card[k] - p_cpu[k]).max()) for k in p_cpu)
+    print(f"phase 29: one step ({tag}), card vs CPU (fp32 convs): loss "
+          f"{l_card:.6f} vs {l_cpu:.6f} (rel {loss_rel:.2e}); worst grad "
+          f"max|Δ|/max|g| {grad_rel:.2e} ("
+          + "; ".join(f"{k} {r:.2e}, max|g| {float(abs(g_cpu[k]).max()):.3e}"
+                      f" vs {float(abs(g_card[k]).max()):.3e}"
+                      for r, k in rels[:3])
+          + f"); params after clip + Adam max|Δ| {param:.2e}", flush=True)
+    g64 = _hp_grads(ref64, x, noise)
+    g_tf32 = _hp_grads(ctl, x, noise, tf32=True)
+    worst = {side: _worst_leaf(g, g64) for side, g in
+             (("card", g_card), ("cpu", g_cpu), ("tf32", g_tf32))}
+    leaf = rels[0][1]
+    print(f"phase 29: one step ({tag}), grads against float64 on the CPU, "
+          f"worst leaf max|Δ|/max|g64|: card {worst['card'][0]:.2e} "
+          f"({worst['card'][1]}), CPU {worst['cpu'][0]:.2e} "
+          f"({worst['cpu'][1]}), TF32 control {worst['tf32'][0]:.2e} "
+          f"({worst['tf32'][1]}); on {leaf}: card "
+          f"{_worst_leaf({leaf: g_card[leaf]}, {leaf: g64[leaf]})[0]:.2e}, "
+          f"CPU {_worst_leaf({leaf: g_cpu[leaf]}, {leaf: g64[leaf]})[0]:.2e}",
+          flush=True)
+    return dict(loss=loss_rel, grad=grad_rel, param=param,
+                card64=worst["card"][0], cpu64=worst["cpu"][0],
+                tf32_64=worst["tf32"][0])
+
+
+def _hp_codec(trainer) -> dict:
+    """Compress the three images on the card; decompress on the card
+    (equal to ``evaluate`` bit for bit), the card's streams on the CPU and
+    the CPU's on the card (identical ŷ/ẑ, x̂ within HP_XHAT_TOL); real bpp
+    without the streams' framing within HP_CODED_REL of the estimate, with
+    it at most HP_FRAMING_B more; K13 once per compress and once per
+    decompress; times at 512×768."""
+    import numpy as np
+    import torch
+
+    from nic_torch.kernels.hs_bins import hs_bins_kernel
+    from nic_torch.train.hyperprior import (HyperpriorCodec,
+                                            bench_decode_stages)
+
+    card = HyperpriorCodec(trainer)
+    cpu = HyperpriorCodec(trainer, device="cpu")
+    out = {"launches": 0}
+    for tag, img in _hp_images().items():
+        psnr, est, x_eval = trainer.evaluate(img)
+        hs_bins_kernel.launches = 0
+        blob = card.compress(img)
+        c_launch = hs_bins_kernel.launches
+        hs_bins_kernel.launches = 0
+        x_card = card.decompress(blob)
+        d_launch = hs_bins_kernel.launches
+        out["launches"] += c_launch + d_launch
+        if c_launch != 1 or d_launch != 1:
+            fail(f"{tag}: K13 launched {c_launch} times in compress and "
+                 f"{d_launch} in decompress; want 1 and 1")
+        y_card, z_card, _ = card.encode_latents(img)
+        y_on_cpu, z_on_cpu = cpu.decode_latents(blob)
+        x_on_cpu = cpu.decompress(blob)
+        blob_cpu = cpu.compress(img)
+        y_cpu, z_cpu, _ = cpu.encode_latents(img)
+        y_back, z_back = card.decode_latents(blob_cpu)
+        x_cpu_on_card = card.decompress(blob_cpu)
+        x_cpu = cpu.decompress(blob_cpu)
+        px = img.shape[0] * img.shape[1]
+        real = card.num_bits(blob) / px
+        framing = _framing_bytes(blob["y"]) + _framing_bytes(blob["z"])
+        coded = real - framing * 8 / px
+        rel = abs(coded - est) / est
+        d_cross = float(np.abs(x_on_cpu - x_card).max())
+        d_back = float(np.abs(x_cpu_on_card - x_cpu).max())
+        moved = int((y_card != y_cpu).sum() + (z_card != z_cpu).sum())
+        print(f"phase 29: codec {tag}: PSNR {psnr:.4f} dB; bpp estimated "
+              f"{est:.4f}, real {real:.4f} (rel {(real - est) / est:.4f}; "
+              f"without the streams' {framing} B of fixed framing "
+              f"{coded:.4f}, rel {rel:.4f}; y "
+              f"{len(blob['y'])} B format {blob['y'][:3].decode()}, z "
+              f"{len(blob['z'])} B); card decompress vs evaluate max|Δ| "
+              f"{float(np.abs(x_card - x_eval).max()):.3e}; card stream on "
+              f"the CPU: ŷ/ẑ equal "
+              f"{np.array_equal(y_on_cpu, y_card) and np.array_equal(z_on_cpu, z_card)}, "
+              f"x̂ max|Δ| {d_cross:.3e}; CPU stream on the card: ŷ/ẑ equal "
+              f"{np.array_equal(y_back, y_cpu) and np.array_equal(z_back, z_cpu)}, "
+              f"x̂ max|Δ| {d_back:.3e}; latents the two devices' analyses "
+              f"round differently: {moved}", flush=True)
+        if not np.array_equal(x_card, x_eval):
+            fail(f"{tag}: the card's decompress is not evaluate's x̂")
+        if not (np.array_equal(y_on_cpu, y_card)
+                and np.array_equal(z_on_cpu, z_card)
+                and np.array_equal(y_back, y_cpu)
+                and np.array_equal(z_back, z_cpu)):
+            fail(f"{tag}: a stream decoded on the other device gave other "
+                 "latents")
+        if max(d_cross, d_back) > HP_XHAT_TOL:
+            fail(f"{tag}: x̂ between devices {max(d_cross, d_back):.3e} > "
+                 f"{HP_XHAT_TOL}")
+        if rel > HP_CODED_REL:
+            fail(f"{tag}: the coded symbols' bpp {coded:.4f} (real "
+                 f"{real:.4f}) is not within {HP_CODED_REL:.1%} of the "
+                 f"estimate {est:.4f}")
+        if (framing > HP_FRAMING_B
+                or real > est * (1 + HP_CODED_REL) + HP_FRAMING_B * 8 / px):
+            fail(f"{tag}: real bpp {real:.4f} above the estimate {est:.4f} "
+                 f"+ {HP_CODED_REL:.1%} + {HP_FRAMING_B} B of framing "
+                 f"(this stream's framing {framing} B)")
+        out[tag] = (blob, y_card, z_card)
+
+    img = _hp_images()["sancho 512×768"]
+    blob = out["sancho 512×768"][0]
+    torch.cuda.synchronize()
+
+    def host_ms(fn, reps=5):
+        fn()
+        ts = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(ts)
+
+    out["compress_ms"] = host_ms(lambda: card.compress(img))
+    out["decompress_ms"] = host_ms(lambda: card.decompress(blob))
+    stages = bench_decode_stages(card, blob, img.shape[0] * img.shape[1])
+    bf16 = HyperpriorCodec(trainer, synthesis_dtype=torch.bfloat16)
+    x16 = bf16.decompress(blob)
+    d16 = float(np.abs(x16 - card.decompress(blob)).max())
+    same = bf16.compress(img)
+    if same["y"] != blob["y"] or same["z"] != blob["z"]:
+        fail("synthesis_dtype=bf16 changed the bitstream")
+    from nic_torch import native
+
+    print(f"phase 29: 512×768 compress {out['compress_ms']:.3f} ms, "
+          f"decompress {out['decompress_ms']:.3f} ms (host clock, median "
+          f"of 5); decode stages: rANS {stages['rans_ms']:.3f} ms "
+          f"({native.decode_path()} format-3 decode), glue "
+          f"{stages['host_glue_ms']:.3f} ms, K13 device "
+          f"{stages['hs_bins_device_ms']:.4f} ms, synthesis device "
+          f"{stages['synthesis_device_ms']:.3f} ms; bf16 synthesis: "
+          f"streams unchanged, x̂ max|Δ| {d16:.3e}", flush=True)
+    return out
+
+
+def _hp_entropy_flagship(device) -> None:
+    """The flagship 200-epoch run with ENTROPY_CODE_GRIDS=True; its
+    rANS-coded artifact through the decode CLI at mips 0-2 (K1 3 launches,
+    the launch log naming only ``decode_v2_mma``), equal to the decode of
+    the same codes saved fixed-length."""
+    import numpy as np
+
+    from nic_torch.cli import decode as dcli
+    from nic_torch.io.artifacts import (compressed_num_bits, load_compressed,
+                                        save_compressed)
+    from nic_torch.kernels import _build
+    from nic_torch.kernels.decode_fused_v2 import decode_kernel_2d
+
+    def keep(run):
+        art = run["res"]["artifact"]
+        mlp, fp, meta = load_compressed(art, device=device)
+        fixed = os.path.join(os.path.dirname(art), "fixed.npz")
+        save_compressed(fixed, mlp, fp, meta["fp_bits"],
+                        {k: meta[k] for k in ("save_name", "config")})
+        _build.clear_body_launches()
+        decode_kernel_2d.launches = 0
+        ent = [dcli.run([art, "--mip", str(m)]) for m in range(3)]
+        log = _build.body_launches()
+        k1 = decode_kernel_2d.launches
+        fix = [dcli.run([fixed, "--mip", str(m)]) for m in range(3)]
+        return (ent, fix, k1, log, meta.get("rans_format"),
+                compressed_num_bits(art), compressed_num_bits(fixed))
+
+    run = _cli_train(TRAIN_ARGS + ["ENTROPY_CODE_GRIDS=True"], decode=False,
+                     keep=keep)
+    ent, fix, k1, log, fmt, bits_e, bits_f = run["kept"]
+    npix = ent[0].shape[0] * ent[0].shape[1]
+    same = all(np.array_equal(a, b) for a, b in zip(ent, fix))
+    print(f"phase 29: flagship ENTROPY_CODE_GRIDS=True, 200 epochs in "
+          f"{run['wall']:.1f} s (K11 {run['launches']['K11']}); rANS format "
+          f"{fmt}; bpp {bits_e / npix:.4f} entropy-coded vs "
+          f"{bits_f / npix:.4f} fixed-length (CLI bpp "
+          f"{run['res']['bpp']:.4f}); decode CLI mips 0-2: K1 {k1} launches, "
+          f"launch log {_bodies_named(log)} {sum(log.values())} times; "
+          f"equal to the fixed-length decode: {same}",
+          flush=True)
+    if (k1 != 3 or not all(_is_body(DECODE_MMA, name) for name in log)
+            or sum(log.values()) != 3):
+        fail(f"entropy-coded artifact: K1 {k1} launches, log {log}")
+    if not same:
+        fail("the entropy-coded artifact decodes differently from the "
+             "fixed-length one")
+    if abs(run["res"]["bpp"] - bits_e / npix) > 1e-9:
+        fail("the CLI's bpp is not the entropy-coded artifact's")
+
+
+def phase_hyperprior(device) -> dict:
+    """The scale-hyperprior codec (K13, the trainer, the codec between the
+    card and the CPU) and the entropy-coded flagship artifact."""
+    import torch
+
+    from nic_torch.kernels.hs_bins import hs_weights
+    from nic_torch.models.hyperprior import HyperpriorModel
+
+    gen = torch.Generator().manual_seed(13)
+    rand = HyperpriorModel(HP_N, HP_M, generator=gen)
+    z = torch.round(torch.randn(1, HP_N, 8, 12, generator=gen) * 3.0)
+    err = _hs_bits_equal("seeded ẑ, random model", z,
+                         hs_weights(rand.to(device).h_s),
+                         hs_weights(rand.cpu().h_s))
+    trainer, staged, steps_s = _hp_train(device)
+    codec = _hp_codec(trainer)
+    z_tr = torch.from_numpy(codec["sancho 512×768"][2].transpose(
+        0, 3, 1, 2).astype("float32"))
+    hs_card = hs_weights(trainer.model.h_s)
+    err = max(err, _hs_bits_equal("trained model, sancho 512×768 ẑ", z_tr,
+                                  hs_card,
+                                  hs_weights(trainer.model.cpu().h_s)))
+    trainer.model.to(device)
+    k13, plain, lib, work = _hs_times(z_tr, hs_card, trainer.model)
+    b_ms, b_by = bound(*work, "fp32_nofma")
+    print(f"phase 29: K13 at 512×768 (z 8×12×{HP_N} → σ 32×48×{HP_M}): "
+          f"{k13:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.4f} ms "
+          f"({b_by}, no-FMA fp32 rate; {bound(*work, 'fp32')[0]:.4f} ms at "
+          f"the FMA peak); the cuDNN composition it replaces (convT, convT, "
+          f"conv, exp, log; another order, not the same bits; a "
+          f"reference) {lib:.4f} ms; train {steps_s:.2f} steps/s",
+          flush=True)
+    _hp_entropy_flagship(device)
+    from nic_torch.train.hyperprior import HyperpriorTrainer
+
+    fresh = HyperpriorTrainer(n=HP_N, m=HP_M, lam=HP_LAM, patch=HP_PATCH,
+                              batch=HP_BATCH, seed=1, device=device)
+    # from the initial weights, as the CPU tests step against JAX, every
+    # limit card vs CPU; from the trained state the loss and the updated
+    # params card vs CPU, and from both the card's gradients against
+    # float64, where a TF32 control must land beyond the limit
+    bad = []
+    for tag, tr, keys in (("initial weights", fresh, ("loss", "grad", "param")),
+                          ("trained", trainer, ("loss", "param"))):
+        got = _hp_step_card_vs_cpu(tr, staged, tag)
+        bad += [f"{tag} {k}" for k in keys if got[k] > HP_STEP_TOL[k]]
+        tol = HP_GRAD64_TOL[tag]
+        if got["card64"] > tol:
+            bad.append(f"{tag} card grads vs float64 {got['card64']:.2e}")
+        if not got["tf32_64"] > tol:
+            bad.append(f"{tag}: the TF32 control {got['tf32_64']:.2e} "
+                       f"passes {tol}, so the check sees nothing")
+    if bad:
+        fail(f"the card's step disagrees beyond {HP_STEP_TOL}, "
+             f"grads vs float64 {HP_GRAD64_TOL}: {bad}")
+    return dict(launches=codec["launches"], err=err, ms=k13, plain=plain,
+                work=work)
+
+
 # the phases by name, in the order a full run takes them
 PHASES = ("parity", "serve", "scale", "k11", "k7", "k6", "train", "path_a",
           "path_b", "step_time", "k5", "serve3", "scale3", "k12", "k9",
           "k6_3d", "train3", "step_time3", "k3", "k4", "k2", "xla_cli",
-          "folded", "widths", "small_cli", "rect")
+          "folded", "widths", "small_cli", "rect", "hyperprior")
 
 
 def main(argv=None) -> None:
@@ -3409,6 +3930,7 @@ def main(argv=None) -> None:
     phase_widths("cuda")
     phase_small_cli("cuda")
     phase_rect("cuda")
+    hp = phase_hyperprior("cuda")
     k11_ms, k11_plain, k11_work = k11["timings"]["f=4 bf16·poly noise=on"]
     print(f"K11 share of the kernel3 step: {k11_ms / steps['kernel3']:.3f} "
           f"({k11_ms:.4f} of {steps['kernel3']:.4f} ms); K7 share of the "
@@ -3458,7 +3980,10 @@ def main(argv=None) -> None:
         entry("decode_fused", K3_SOURCE, K3_REPLACES, k3["launches"],
               k3["err"], k3["ms"], k3["plain"], k3["work"], "tf32x3"),
         entry("mlp_tail", K4_SOURCE, K4_REPLACES, k4["launches"],
-              k4["fp32"][3], *k4["fp32"][:3], "tf32x3")]}),
+              k4["fp32"][3], *k4["fp32"][:3], "tf32x3"),
+        entry("hs_bins", K13_SOURCE, K13_REPLACES, hp["launches"],
+              hp["err"], hp["ms"], hp["plain"], hp["work"],
+              "fp32_nofma")]}),
         flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -21,7 +21,8 @@ import zlib
 
 import numpy as np
 
-__all__ = ["asset_kind", "load_image_mips", "read_clip", "write_timelaps",
+__all__ = ["asset_kind", "load_image_mips", "load_rgb", "read_clip",
+           "write_timelaps",
            "load_volume", "flatten_3d_to_2d", "unflatten_2d_to_3d",
            "save_png", "save_lut_csv"]
 
@@ -55,6 +56,14 @@ def load_image_mips(path: str, image_size: int, max_mip_level: int,
         arr = np.asarray(resized, dtype=np.float32) / 255.0  # [H, W, 3]
         mips.append(arr.transpose(2, 0, 1))
     return mips
+
+
+def load_rgb(path: str) -> np.ndarray:
+    """An image file → [H, W, 3] float32 in [0, 1] at its own size (the
+    hyperprior workload's loader)."""
+    from PIL import Image
+
+    return np.asarray(Image.open(path).convert("RGB"), np.float32) / 255.0
 
 
 def _chunk(kind: bytes, data: bytes) -> bytes:

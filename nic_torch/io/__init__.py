@@ -1,1 +1,2 @@
-"""Artifact I/O and parameter conversion (port of ``nic.io``)."""
+"""Artifact I/O, parameter conversion, the hyperprior bitstream and the
+entropy tables (port of ``nic.io``)."""

@@ -10,9 +10,12 @@ One ``.npz`` holds the decoder MLP (keys ``mlp/w1`` … ``mlp/b3``, weights
 codes) and a ``__meta__`` JSON blob. The format is the JAX package's, so
 an artifact written by either package decodes in the other.
 
-Entropy-coded (rANS) artifacts are refused on both save and load: the
-rANS coder comes to the port with the hyperprior codec (ROADMAP.md,
-queue 1, item 12).
+With ``entropy_coded=True`` each grid's codes are rANS-coded against
+their own histogram instead (``grid{i}`` the stream, ``hist{i}`` the
+2^bits counts, one CDF row, every bin 0; ``nic_torch.native``), with
+``meta["rans_format"]`` (3 or 2, informational: the decoder reads the
+magic; 1, or no key, means a legacy format-1 stream). The bytes are the
+JAX package's for the same codes.
 """
 
 from __future__ import annotations
@@ -29,9 +32,11 @@ from nic_torch.models.mlp import PARAM_NAMES, MLPDecoder
 __all__ = ["save_compressed", "load_compressed", "compressed_num_bits",
            "save_checkpoint", "load_checkpoint", "CheckpointManager"]
 
-_NO_RANS = ("entropy-coded (rANS) artifacts are not supported by nic_torch "
-            "yet: the rANS coder is ported with the hyperprior codec "
-            "(ROADMAP.md, queue 1, item 12)")
+def _grid_cdf(hist: np.ndarray) -> np.ndarray:
+    """One CDF row from a grid's code histogram (the JAX package's)."""
+    from nic_torch.io.entropy import quantize_pmf
+
+    return quantize_pmf(hist / max(1, hist.sum()))[None, :]
 
 
 def _atomic_savez(path: str, **arrays) -> None:
@@ -52,25 +57,43 @@ def save_compressed(path: str, mlp_params, pyramid, fp_bits: int, meta: dict,
                     entropy_coded: bool = False) -> int:
     """Write the single-file artifact; returns payload bits (pyramid codes
     plus MLP params at their stored width) for bpp accounting.
-    ``mlp_store_bits=16`` stores the decoder weights as float16."""
-    if entropy_coded:
-        raise NotImplementedError(_NO_RANS)
+    ``mlp_store_bits=16`` stores the decoder weights as float16;
+    ``entropy_coded=True`` rANS-codes each grid against its histogram."""
+    from nic_torch.native import rans_encode
+
     arrays: dict = {}
     shapes = []
     for i, g in enumerate(pyramid):
         codes = pack_grid(g, fp_bits).cpu().numpy()
         shapes.append(list(codes.shape))
-        arrays[f"grid{i}"] = pack_bits(codes, fp_bits)
+        if entropy_coded:
+            flat = codes.reshape(-1)
+            hist = np.bincount(flat, minlength=2**fp_bits).astype(np.int64)
+            blob = rans_encode(flat.astype(np.int32),
+                               np.zeros(flat.size, np.int32),
+                               _grid_cdf(hist))
+            arrays[f"grid{i}"] = np.frombuffer(blob, np.uint8)
+            arrays[f"hist{i}"] = hist
+        else:
+            arrays[f"grid{i}"] = pack_bits(codes, fp_bits)
     store = np.float16 if mlp_store_bits == 16 else np.float32
     mlp = {k: mlp_params[k].detach().cpu().numpy().astype(store)
            for k in PARAM_NAMES}
     arrays.update({f"mlp/{k}": v for k, v in mlp.items()})
     meta = dict(meta, fp_bits=fp_bits, grid_shapes=shapes,
-                entropy_coded=False)
+                entropy_coded=entropy_coded)
+    if entropy_coded:
+        meta["rans_format"] = (3 if arrays["grid0"][:4].tobytes()
+                               == b"NR3\x01" else 2)
+        code_bits = sum(arrays[f"grid{i}"].size * 8
+                        + arrays[f"hist{i}"].size * 32
+                        for i in range(len(shapes)))
+    else:
+        code_bits = sum(int(np.prod(s)) for s in shapes) * fp_bits
     arrays["__meta__"] = np.frombuffer(json.dumps(meta).encode(), np.uint8)
     _atomic_savez(path, **arrays)
-    return (sum(int(np.prod(s)) for s in shapes) * fp_bits
-            + sum(v.size * v.dtype.itemsize * 8 for v in mlp.values()))
+    return code_bits + sum(v.size * v.dtype.itemsize * 8
+                           for v in mlp.values())
 
 
 def load_compressed(path: str, *, device) -> tuple[MLPDecoder, tuple, dict]:
@@ -79,12 +102,19 @@ def load_compressed(path: str, *, device) -> tuple[MLPDecoder, tuple, dict]:
     decode path)."""
     with np.load(path) as z:
         meta = json.loads(bytes(z["__meta__"]).decode())
-        if meta.get("entropy_coded"):
-            raise NotImplementedError(_NO_RANS)
         fp_bits = meta["fp_bits"]
         pyramid = []
         for i, shape in enumerate(meta["grid_shapes"]):
-            codes = unpack_bits(z[f"grid{i}"], fp_bits, int(np.prod(shape)))
+            count = int(np.prod(shape))
+            if meta.get("entropy_coded"):
+                from nic_torch.native import rans_decode
+
+                codes = rans_decode(
+                    z[f"grid{i}"].tobytes(), np.zeros(count, np.int32),
+                    _grid_cdf(z[f"hist{i}"]),
+                    legacy=meta.get("rans_format", 1) == 1).astype(np.uint8)
+            else:
+                codes = unpack_bits(z[f"grid{i}"], fp_bits, count)
             codes = torch.from_numpy(codes.reshape(shape)).to(device)
             pyramid.append(unpack_grid(codes, fp_bits))
         params = {k: torch.from_numpy(z[f"mlp/{k}"]).to(device=device,

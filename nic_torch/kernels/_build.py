@@ -93,6 +93,9 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     fn = lib.nic_train_fused_ff3
     fn.argtypes = [p] * 17 + [i] * 17 + [p]
     fn.restype = i
+    fn = lib.nic_hs_bins
+    fn.argtypes = [p] * 11 + [i] * 5 + [p]
+    fn.restype = i
     lib.nic_cuda_error_string.argtypes = [i]
     lib.nic_cuda_error_string.restype = ctypes.c_char_p
     lib.nic_body_log.argtypes = [i, ctypes.c_char_p, i,

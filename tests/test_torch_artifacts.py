@@ -119,15 +119,68 @@ def test_params_round_trip():
     np.testing.assert_allclose(got, want, atol=2e-6, rtol=0)
 
 
-def test_entropy_coded_is_refused(tmp_path):
-    fp, mlp = _quantized_model(8)
+def _entropy_pair(tmp_path, fp, mlp, bits):
+    """The same codes saved entropy-coded by JAX and by the port."""
     tfp, tmlp = params_from_jax(fp, mlp, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tart.save_compressed(str(tmp_path / "e.npz"), tmlp, tfp, 8, META,
-                             entropy_coded=True)
-    path = str(tmp_path / "jax_e.npz")
-    jart.save_compressed(path, mlp, tuple(jnp.asarray(g) for g in fp), 8,
-                         META, entropy_coded=True)
-    with pytest.raises(NotImplementedError, match="rANS"):
-        tart.load_compressed(path, device="cpu")
-    assert tart.compressed_num_bits(path) == jart.compressed_num_bits(path)
+    tpath, jpath = str(tmp_path / "t.npz"), str(tmp_path / "j.npz")
+    tbits = tart.save_compressed(tpath, tmlp, tfp, bits, META,
+                                 entropy_coded=True)
+    jbits = jart.save_compressed(jpath, {k: jnp.asarray(v) for k, v in
+                                         mlp.items()},
+                                 tuple(jnp.asarray(g) for g in fp), bits,
+                                 META, entropy_coded=True)
+    return tpath, jpath, tbits, jbits
+
+
+def _assert_entropy_pair(tpath, jpath, tbits, jbits):
+    """Grid blobs and histograms byte-identical, the same rans_format, each
+    package loads the other's artifact, and the bit counts agree."""
+    with np.load(tpath) as t, np.load(jpath) as j:
+        for key in j.files:
+            if key.startswith(("grid", "hist")):
+                np.testing.assert_array_equal(t[key], j[key])
+                assert t[key].dtype == j[key].dtype
+        import json
+
+        tmeta = json.loads(bytes(t["__meta__"]).decode())
+        jmeta = json.loads(bytes(j["__meta__"]).decode())
+    assert tmeta == jmeta and tmeta["entropy_coded"]
+    assert tbits == jbits
+    for path in (tpath, jpath):
+        assert tart.compressed_num_bits(path) == jart.compressed_num_bits(
+            path) == tbits
+    _assert_same(jart.load_compressed(tpath),
+                 tart.load_compressed(jpath, device="cpu"))
+    _assert_same(jart.load_compressed(jpath),
+                 tart.load_compressed(tpath, device="cpu"))
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+def test_entropy_coded_interchanges_with_jax(tmp_path, bits):
+    """ENTROPY_CODE_GRIDS artifacts (each grid rANS-coded against its own
+    histogram) are the JAX package's bytes, both ways."""
+    fp, mlp = _quantized_model(bits)
+    tpath, *rest = _entropy_pair(tmp_path, fp, mlp, bits)
+    _assert_entropy_pair(tpath, *rest)
+    with np.load(tpath) as t:
+        assert b"NR2" in {bytes(t[k][:3]) for k in t.files
+                          if k.startswith("grid")}
+
+
+def test_entropy_coded_trained_fixture_interchanges_with_jax(tmp_path):
+    """The trained sancho fixture's codes entropy-coded by either package
+    (its grids take stream format 3; the small models' above, format
+    2)."""
+    import os
+
+    fixture = os.path.join(os.path.dirname(__file__), "fixtures",
+                           "ntc_sancho512_fp8.npz")
+    mlp, fp, meta = jart.load_compressed(fixture)
+    fp = tuple(np.asarray(g) for g in fp)
+    mlp = {k: np.asarray(v) for k, v in mlp.items()}
+    tpath, jpath, tbits, jbits = _entropy_pair(tmp_path, fp, mlp,
+                                               meta["fp_bits"])
+    _assert_entropy_pair(tpath, jpath, tbits, jbits)
+    with np.load(tpath) as t:
+        formats = {bytes(t[k][:3]) for k in t.files if k.startswith("grid")}
+    assert formats == {b"NR3"}

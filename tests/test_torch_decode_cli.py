@@ -135,7 +135,11 @@ def test_port_imports_no_jax_and_no_nic():
             "nic_torch.kernels.decode_fused_3d, nic_torch.data.assets, "
             "nic_torch.kernels.decode_fused, nic_torch.kernels.decode_fused_v3, "
             "nic_torch.grids.sample, nic_torch.cli.image_compression, "
-            "nic_torch.cli.eval_rd, nic_torch.obs.trace\n"
+            "nic_torch.cli.eval_rd, nic_torch.obs.trace, "
+            "nic_torch.cli.hyperprior_comp, nic_torch.cli.hyperprior_codec, "
+            "nic_torch.train.hyperprior, nic_torch.models.hyperprior, "
+            "nic_torch.kernels.hs_bins, nic_torch.io.bitstream, "
+            "nic_torch.io.entropy, nic_torch.io.artifacts, nic_torch.native\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'nic'))\n"
             "print(','.join(bad)); sys.exit(1 if bad else 0)\n")

@@ -55,12 +55,36 @@ def test_cuda_device_without_cuda_raises(tmp_path):
 
 
 @pytest.mark.parametrize("extra,item", [
-    ("ENTROPY_CODE_GRIDS=True", "item 12"),
     ("DATA_PARALLEL=True", "item 13"),
 ])
 def test_unported_options_refuse(tmp_path, extra, item):
     with pytest.raises(NotImplementedError, match=item):
         tcli.run(ARGS + [extra, f"OUTPUT_ROOT={tmp_path}"])
+
+
+def test_entropy_code_grids_decodes_as_fixed_length(tmp_path):
+    """ENTROPY_CODE_GRIDS=True runs: the CLI writes a rANS-coded artifact,
+    its bpp is that artifact's, and the decode CLI reads it at every mip
+    to the decode of the same codes saved fixed-length."""
+    from nic.io.artifacts import compressed_num_bits as jax_bits
+    from nic_torch.cli import decode as dcli
+    from nic_torch.io import artifacts as tart
+
+    res = tcli.run(ARGS + ["ENTROPY_CODE_GRIDS=True", "MAX_MIP_LEVEL=3",
+                           f"OUTPUT_ROOT={tmp_path}"])
+    art = res["artifact"]
+    mlp, fp, meta = tart.load_compressed(art, device="cpu")
+    assert meta["entropy_coded"] and meta["rans_format"] in (2, 3)
+    assert res["bpp"] == tart.compressed_num_bits(art) / 64**2
+    assert jax_bits(art) == tart.compressed_num_bits(art)
+    fixed = str(tmp_path / "fixed.npz")
+    tart.save_compressed(fixed, mlp, fp, meta["fp_bits"],
+                         {"save_name": "fixed", "config": meta["config"]})
+    for mip in range(4):
+        got = dcli.run([art, "--mip", str(mip), "--device", "cpu"])
+        want = dcli.run([fixed, "--mip", str(mip), "--device", "cpu"])
+        assert got.shape == want.shape == (64 >> mip, 64 >> mip, 3)
+        np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.parametrize("forward,extra", [

@@ -436,8 +436,9 @@ def test_eval_rd_native_geometry_matches_jax(tmp_path):
 
 def test_eval_rd_square_protocol_and_refusals(tmp_path):
     """Without --native-geometry each image is center-cropped and resized
-    to IMAGE_SIZE; the hyperprior codec and ENTROPY_CODE_GRIDS refuse
-    with their ROADMAP item."""
+    to IMAGE_SIZE; ENTROPY_CODE_GRIDS=True counts each image's bits with
+    its grids rANS-coded (JAX's harness's bpp for the same codes); the
+    hyperprior codec refuses without a checkpoint."""
     from nic_torch.cli.eval_rd import run as teval
 
     d = str(tmp_path / "imgs")
@@ -449,6 +450,13 @@ def test_eval_rd_square_protocol_and_refusals(tmp_path):
     assert [r["bpp"] for r in res["images"]] == [res["images"][0]["bpp"]] * 2
     assert os.path.exists(os.path.join(
         tmp_path, "eval_rd_ntc_imgs_fp8.json"))
-    for extra in (["--codec", "hyperprior"], ["ENTROPY_CODE_GRIDS=True"]):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            teval(common + extra)
+    ent = teval(common + ["IMAGE_SIZE=32", "CROP_MIP_LEVEL=4",
+                          "NUM_EPOCHS=4", "ENTROPY_CODE_GRIDS=True",
+                          "--out", str(tmp_path / "e.json")])
+    assert ent["protocol"]["entropy_code_grids"] is True
+    assert [r["psnr"] for r in ent["images"]] == [r["psnr"]
+                                                  for r in res["images"]]
+    assert all(e["bpp"] != r["bpp"] for e, r in zip(ent["images"],
+                                                    res["images"]))
+    with pytest.raises(SystemExit, match="--ckpt"):
+        teval(common + ["--codec", "hyperprior"])
