@@ -230,8 +230,33 @@ and prints which format-3 rANS decode path the host takes):
     2e-3 from the trained state, and a control with TF32 convolutions on
     the card beyond it).
 
+The conv-AE and per-pixel family (image_comp, pixel_comp,
+pixel_pos_comp, movie_frame_comp, movie_2d_comp, movie_3d_comp,
+movie_lavel_comp in both modes); no kernel of the port's: cuDNN's
+convolutions and cuBLAS's products in fp32 with no TF32, deterministic:
+
+30. serve: each committed fixture (``tests/fixtures/convae_*.npz``, made
+    by ``scripts/make_torch_convae_fixture.py`` with JAX on a CPU:
+    image_comp sancho 512² 4-bit, pixel_comp sancho 512² 8-bit H = 64,
+    movie_3d_comp misty 64³ 8-bit) decodes its JAX latent with its JAX
+    weights on the card and on the host CPU: fp32 max|Δ| ≤ 1e-5, u8 ≤ 1
+    LSB, PSNR within 0.05 dB of the fixture's JAX run; one step of each
+    trainer (ConvAE 2D 512², ConvAE 3D 64³, pixel without and with the
+    PE at 512², movie-label on misty's 64 frames) in the noise and the
+    quantize phase on the card against the same step on the CPU from the
+    same state and draws (phase 29's limits; the encoder's quantize-phase
+    grads zero), and two card runs from one seed giving the same 20
+    losses; the CLIs on the card at full width: the fixture workloads at
+    their fixture's flags and epochs within ``CONVAE_BAND_DB`` of the
+    fixture's JAX PSNR, the others 200 epochs (a falling loss, the latent's
+    shape, dtype and code range, the PNG or AVI read back); then CUDA-event
+    times: each trainer's step, the conv-AE encode and decode at 512² and
+    64³, the pixel decode at 512².
+
 ``--only a,b`` runs the build and the named phases (``PHASES``) and
-prints no kernels or result line; the driver's run takes no arguments.
+prints no kernels or result line; the build is skipped when every named
+phase is kernel-free (``NO_KERNEL_PHASES``); the driver's run takes no
+arguments.
 
 The last line of standard output is one JSON object
 ``{"ok": true, "device": {...}}``; the line before it the card's name and
@@ -3861,11 +3886,351 @@ def phase_hyperprior(device) -> dict:
                 work=work)
 
 
+# ---- phase 30: the conv-AE and per-pixel family (no kernel of its own) ----
+
+CONVAE_FIXTURES = ("image_comp", "pixel_comp", "movie_3d_comp")
+SANCHO = os.path.join(ROOT, "data", "sancho_512.png")
+# the card's run of each fixture workload (its flags and epochs, the port's
+# own initial weights, seed 0) against the fixture's JAX run, |ΔPSNR| in
+# dB: |mean − JAX| + 3·std of the port's PSNR over seeds 0-4 on the CPU,
+# rounded up to 0.05 dB (scripts/torch_convae_seed_band.py; PERF.md §2),
+# set before any card run
+CONVAE_BAND_DB = {"image_comp": 0.55, "pixel_comp": 0.35,
+                  "movie_3d_comp": 3.95}
+CONVAE_STEP_TOL = HP_STEP_TOL  # the CPU tests' limits, as phase 29's
+CONVAE_SERVE_TOL = 1e-5  # fp32 max|Δ| card vs CPU; u8 ≤ 1 LSB
+CONVAE_SHORT = 200  # epochs of the CLIs without a fixture
+CONVAE_WARM = 10  # card steps before the card-vs-CPU step
+
+
+def _convae_meta(workload: str):
+    import numpy as np
+
+    with np.load(os.path.join(ROOT, "tests", "fixtures",
+                              f"convae_{workload}.npz")) as z:
+        return (json.loads(bytes(z["__meta__"]).decode()),
+                {k: z[k] for k in z.files if k != "__meta__"})
+
+
+def _convae_assets() -> dict:
+    """The family's host assets: sancho 512² [H, W, 3], misty [T, H, W, 3]
+    in [0, 1], and misty's 512² frame sheet."""
+    import numpy as np
+
+    from nic_torch.data.assets import (flatten_3d_to_2d, load_image_mips,
+                                       read_clip)
+
+    clip = read_clip(CLIP)
+    return {"sancho": load_image_mips(SANCHO, 512, 0)[0].transpose(1, 2, 0),
+            "misty": clip.astype(np.float32) / 255.0,
+            "sheet": flatten_3d_to_2d(clip, 512).astype(np.float32) / 255.0}
+
+
+def _convae_trainers(assets, device, seed: int = 0) -> dict:
+    """Each trainer at its CLI's full width: ConvAE 2D on sancho 512²
+    (image_comp, 4-bit 8/16), ConvAE 3D on misty 64³ (movie_3d_comp,
+    8-bit 16/32), the pixel trainer without and with the PE on sancho 512²
+    (8-bit, H = 64, 256 pixels a step), the movie-label trainer on misty's
+    64 frames (8-bit 8/16)."""
+    from nic_torch.train.conv_ae import ConvAETrainer
+    from nic_torch.train.movie_label import MovieLabelTrainer
+    from nic_torch.train.pixel import PixelTrainer
+
+    return {
+        "ConvAE 2D 512²": lambda: ConvAETrainer(
+            assets["sancho"], num_bits=4, num_epochs=1000, seed=seed,
+            device=device),
+        "ConvAE 3D 64³": lambda: ConvAETrainer(
+            assets["misty"], num_bits=8, latent_channels=16,
+            hidden_channels=32, num_epochs=1000, seed=seed, device=device),
+        "Pixel 512²": lambda: PixelTrainer(
+            assets["sancho"], num_bits=8, num_epochs=1000, seed=seed,
+            device=device),
+        "Pixel+PE 512²": lambda: PixelTrainer(
+            assets["sancho"], num_bits=8, num_epochs=1000, use_pe=True,
+            seed=seed, device=device),
+        "MovieLabel 64×64²": lambda: MovieLabelTrainer(
+            assets["misty"], num_bits=8, num_epochs=1000, seed=seed,
+            device=device),
+    }
+
+
+def _convae_serve(assets) -> dict:
+    """(a) Each fixture's JAX latent through its JAX weights on the card and
+    on the host CPU: fp32 max|Δ| and u8 LSB card vs CPU, PSNR against the
+    fixture's JAX PSNR; returns {workload: card decode ms (CUDA events)}."""
+    import numpy as np
+
+    from nic_torch.cli.common import report_image, report_video
+    from nic_torch.train.conv_ae import ConvAETrainer
+    from nic_torch.train.pixel import PixelTrainer
+
+    ms = {}
+    for w in CONVAE_FIXTURES:
+        meta, arrays = _convae_meta(w)
+        recs = {}
+        for dev in ("cuda", "cpu"):
+            if w == "image_comp":
+                tr = ConvAETrainer(assets["sancho"], num_bits=4, device=dev)
+            elif w == "pixel_comp":
+                tr = PixelTrainer(assets["sancho"], num_bits=8, hidden=64,
+                                  device=dev)
+            else:
+                tr = ConvAETrainer(assets["misty"], num_bits=8,
+                                   latent_channels=16, hidden_channels=32,
+                                   device=dev)
+            tr.load_state_arrays(arrays)
+            recs[dev] = tr.decode(arrays["latent"])
+            if dev == "cuda":
+                ms[w] = cuda_ms(lambda: tr.decode(arrays["latent"]))
+        asset = assets["misty" if w == "movie_3d_comp" else "sancho"]
+        report = report_video if w == "movie_3d_comp" else report_image
+        err = float(np.abs(recs["cuda"] - recs["cpu"]).max())
+
+        def q(x):
+            return np.clip(x * 255.0, 0, 255).astype(np.int64)
+
+        lsb = int(np.abs(q(recs["cuda"]) - q(recs["cpu"])).max())
+        p_card = report(lambda *_: None, asset, recs["cuda"], None)
+        p_cpu = report(lambda *_: None, asset, recs["cpu"], None)
+        print(f"phase 30: serve {w} (latent {arrays['latent'].shape}): card "
+              f"vs CPU max|Δ| {err:.2e}, {lsb} u8 LSB; PSNR card "
+              f"{p_card:.4f}, CPU {p_cpu:.4f}, JAX {meta['psnr']:.4f} dB; "
+              f"decode {ms[w]:.3f} ms (card, CUDA events)", flush=True)
+        if (err > CONVAE_SERVE_TOL or lsb > 1
+                or abs(p_card - meta["psnr"]) > 0.05):
+            fail(f"phase 30 serve {w}: max|Δ| {err:.2e} (≤ "
+                 f"{CONVAE_SERVE_TOL}), {lsb} LSB (≤ 1), PSNR {p_card:.4f} "
+                 f"vs JAX {meta['psnr']:.4f} (≤ 0.05 dB)")
+    return ms
+
+
+def _convae_step(assets) -> None:
+    """(b) One step on the card against the same step on the CPU, each
+    trainer, each phase, from the same state (the card's after CONVAE_WARM
+    steps, Adam's moments included) and draws; plus two card runs from one
+    seed giving the same loss trace."""
+    import numpy as np
+    import torch
+
+    bad = []
+    cards = _convae_trainers(assets, "cuda")
+    cpus = _convae_trainers(assets, "cpu")
+    for name, make in cards.items():
+        runs = [make().train_many(20) for _ in range(2)]
+        if not np.array_equal(runs[0], runs[1]):
+            bad.append(f"{name}: two runs from one seed differ "
+                       f"({runs[0][-1]} vs {runs[1][-1]})")
+        card = make()
+        card.train_many(CONVAE_WARM)
+        state = card.state_arrays()
+        for phase in ("noise", "quantize"):
+            draws = card._draws(phase)  # the card's, copied to the CPU
+            got = {}
+            for side, tr in (("card", card), ("cpu", cpus[name]())):
+                tr.load_state_arrays(state)
+                loss = tr.step_core(phase, *[
+                    None if d is None else d.to(tr.device) for d in draws])
+                got[side] = (float(loss), tr.grads_to_jax(),
+                             tr.params_to_jax())
+            (l1, g1, p1), (l0, g0, p0) = got["card"], got["cpu"]
+            loss_rel = abs(l1 - l0) / abs(l0)
+            grad, leaf = max(
+                (float(np.abs(g1[k] - g0[k]).max())
+                 / max(float(np.abs(g0[k]).max()), 1e-30), k) for k in g0)
+            param = max(float(np.abs(p1[k] - p0[k]).max()) for k in p0)
+            zero = phase == "quantize" and all(
+                not np.any(g1[k]) for k in g1 if k.startswith("enc/"))
+            print(f"phase 30: step {name} {phase}, card vs CPU: loss "
+                  f"{l1:.6f} vs {l0:.6f} (rel {loss_rel:.2e}); worst grad "
+                  f"max|Δ|/max|g| {grad:.2e} ({leaf}); params after Adam "
+                  f"max|Δ| {param:.2e}"
+                  + ("; encoder grads zero" if zero else ""), flush=True)
+            for key, val in (("loss", loss_rel), ("grad", grad),
+                             ("param", param)):
+                if not val <= CONVAE_STEP_TOL[key]:
+                    bad.append(f"{name} {phase} {key} {val:.2e}")
+            if phase == "quantize" and not zero:
+                bad.append(f"{name}: encoder grads not zero in the quantize "
+                           "phase")
+        card = None
+        torch.cuda.empty_cache()
+    if bad:
+        fail(f"phase 30 steps (limits {CONVAE_STEP_TOL}): {bad}")
+
+
+def _csv_loss_fell(root: str) -> tuple:
+    """(mean loss of the first 20 epochs, of the last 20) in a CLI run's
+    scalars CSV."""
+    import csv
+
+    import numpy as np
+
+    (path,) = [os.path.join(root, "log", f) for f in
+               os.listdir(os.path.join(root, "log"))
+               if f.endswith("_scalars.csv")]
+    with open(path) as fh:
+        loss = [float(r["value"]) for r in csv.DictReader(fh)
+                if r["tag"] == "Loss/train_epoch_label"]
+    return float(np.mean(loss[:20])), float(np.mean(loss[-20:])), len(loss)
+
+
+def _check_outputs(tag, root, shape, bits, ext) -> None:
+    """The run's latent (uint8, ``shape``, codes < 2^bits) and its PNG or
+    AVI (read back at the asset's size)."""
+    import numpy as np
+
+    from nic_torch.data.assets import read_clip
+
+    (npy,) = os.listdir(os.path.join(root, "comp"))
+    codes = np.load(os.path.join(root, "comp", npy))
+    (img,) = os.listdir(os.path.join(root, "image"))
+    path = os.path.join(root, "image", img)
+    if ext == ".avi":
+        back = read_clip(path).shape
+    else:
+        from PIL import Image
+
+        back = np.asarray(Image.open(path)).shape
+    print(f"phase 30: {tag}: latent {codes.shape} {codes.dtype} (codes "
+          f"{int(codes.min())}-{int(codes.max())}), {img} {back}", flush=True)
+    if (codes.shape != shape or codes.dtype != np.uint8
+            or int(codes.max()) >= 2**bits or not img.endswith(ext)):
+        fail(f"phase 30 {tag}: latent {codes.shape} {codes.dtype} max "
+             f"{int(codes.max())} (want {shape} uint8 < {2**bits}), output "
+             f"{img} (want {ext})")
+
+
+def _convae_cli() -> dict:
+    """(c) The CLIs on the card at full width: the fixture workloads at
+    their fixture's flags and epochs (PSNR within CONVAE_BAND_DB of the JAX
+    run), the others CONVAE_SHORT epochs (a falling loss, the latent, the
+    PNG or AVI). Returns {cli: (PSNR, epochs, wall s)}."""
+    import importlib
+
+    res = {}
+    short = ["--num_epochs", str(CONVAE_SHORT), "--interval_print", "100"]
+    runs = [(w, [os.path.join(ROOT, a) if a.startswith("data/") else a
+                 for a in _convae_meta(w)[0]["argv"]])
+            for w in CONVAE_FIXTURES] + [
+        ("pixel_pos_comp", short),
+        ("movie_frame_comp", short + ["--image_path", CLIP]),
+        ("movie_2d_comp", short + ["--image_path", CLIP]),
+        ("movie_lavel_comp", short),
+        ("movie_lavel_comp --label_embedding", short + [
+            "--label_embedding", "true", "--image_path", CLIP])]
+    want = {"image_comp": ((1, 128, 128, 8), 4, ".png"),
+            "pixel_comp": ((129, 129, 8), 8, ".png"),
+            "movie_3d_comp": ((1, 16, 16, 16, 16), 8, ".avi"),
+            "pixel_pos_comp": ((129, 129, 8), 8, ".png"),
+            "movie_frame_comp": ((1, 128, 128, 16), 8, ".avi"),
+            "movie_2d_comp": ((1, 128, 128, 16), 8, ".avi"),
+            "movie_lavel_comp": ((1, 128, 128, 8), 4, ".png"),
+            "movie_lavel_comp --label_embedding": ((64, 16, 16, 8), 8,
+                                                   ".avi")}
+    for tag, argv in runs:
+        mod = importlib.import_module(f"nic_torch.cli.{tag.split()[0]}")
+        with tempfile.TemporaryDirectory(dir=os.path.join(ROOT,
+                                                          "build")) as tmp:
+            t0 = time.perf_counter()
+            p = float(mod.run(list(argv) + ["--output_root", tmp]))
+            wall = time.perf_counter() - t0
+            epochs = int(argv[argv.index("--num_epochs") + 1])
+            _check_outputs(tag, tmp, *want[tag])
+            if tag.endswith("--label_embedding"):
+                (log,) = os.listdir(os.path.join(tmp, "printlog"))
+                with open(os.path.join(tmp, "printlog", log)) as fh:
+                    line = [x for x in fh if x.startswith("loss: first")][0]
+                first, last = (float(x.split()[-1]) for x in
+                               line.strip().split(","))
+                n = epochs
+            else:
+                first, last, n = _csv_loss_fell(tmp)
+        res[tag] = (p, epochs, wall)
+        print(f"phase 30: CLI {tag}: {epochs} epochs in {wall:.1f} s "
+              f"({epochs / wall:.1f} epochs/s, host clock, decode and "
+              f"outputs included); loss {first:.6f} → {last:.6f}; PSNR "
+              f"{p:.4f} dB", flush=True)
+        if n != epochs or not last < first:
+            fail(f"phase 30 CLI {tag}: the loss did not fall over {n} "
+                 f"epochs ({first:.6f} → {last:.6f})")
+        if tag in CONVAE_BAND_DB:
+            jax_p = _convae_meta(tag)[0]["psnr"]
+            if not abs(p - jax_p) <= CONVAE_BAND_DB[tag]:
+                fail(f"phase 30 CLI {tag}: PSNR {p:.4f} dB vs the fixture's "
+                     f"JAX run {jax_p:.4f} (band {CONVAE_BAND_DB[tag]} dB)")
+    return res
+
+
+def _convae_times(assets) -> dict:
+    """(d) CUDA-event times: ms per train step of each trainer (median of
+    50 after 5; its device time and idle share by torch.profiler), the
+    conv-AE encode and decode (the public calls: upload, convs, codes to
+    the host; and the module forwards alone) at 512² and 64³, the pixel
+    decode at 512²."""
+    import torch
+
+    from nic_torch.train.hyperprior import conv_flags
+
+    out = {}
+    for name, make in _convae_trainers(assets, "cuda").items():
+        tr = make()
+        step = out[f"{name} step"] = cuda_ms(tr.train_step, warmup=5,
+                                             reps=50)
+        dev, per = device_ms(tr.train_step, reps=10)
+        top = sorted(per.items(), key=lambda kv: -kv[1])[:3]
+        print(f"phase 30: {name} step: {step:.4f} ms, device {dev:.4f} ms "
+              f"in {len(per)} kernels (torch.profiler, 10 steps), idle "
+              f"{1 - dev / step:.3f}; largest: " + "; ".join(
+                  f"{k[:60]} {v:.4f}" for k, v in top), flush=True)
+        if name.startswith("ConvAE"):
+            codes = tr.encode()
+            z = tr._latent_of(codes).movedim(-1, 1).contiguous()
+            with torch.no_grad(), conv_flags():
+                out[f"{name} encoder forward"] = cuda_ms(
+                    lambda: tr.encoder(tr.image))
+                out[f"{name} decoder forward"] = cuda_ms(
+                    lambda: tr.decoder(z))
+            out[f"{name} encode"] = cuda_ms(tr.encode)
+            out[f"{name} decode"] = cuda_ms(lambda: tr.decode(codes))
+        elif name == "Pixel 512²":
+            codes = tr.encode()
+            lat = tr._latent_of(codes)
+            with torch.no_grad():
+                out[f"{name} folded decode"] = cuda_ms(
+                    lambda: tr.decode_latent(lat))
+            out[f"{name} decode"] = cuda_ms(lambda: tr.decode(codes))
+    print("phase 30: times (ms, CUDA events, median): " + "; ".join(
+        f"{k} {v:.4f}" + (f" ({1e3 / v:.1f} steps/s)"
+                          if k.endswith("step") else "")
+        for k, v in out.items()), flush=True)
+    return out
+
+
+def phase_conv_ae(device) -> dict:
+    """The conv-AE and per-pixel family: serve, one step card vs CPU, the
+    CLIs, times. No kernel of the port's: cuDNN's convolutions and
+    cuBLAS's products, fp32 with no TF32, deterministic."""
+    t0 = time.perf_counter()
+    assets = _convae_assets()
+    decode_ms = _convae_serve(assets)
+    _convae_step(assets)
+    cli = _convae_cli()
+    times = _convae_times(assets)
+    print(f"phase 30: conv-AE family passed in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return dict(decode_ms=decode_ms, cli=cli, times=times)
+
+
 # the phases by name, in the order a full run takes them
 PHASES = ("parity", "serve", "scale", "k11", "k7", "k6", "train", "path_a",
           "path_b", "step_time", "k5", "serve3", "scale3", "k12", "k9",
           "k6_3d", "train3", "step_time3", "k3", "k4", "k2", "xla_cli",
-          "folded", "widths", "small_cli", "rect", "hyperprior")
+          "folded", "widths", "small_cli", "rect", "hyperprior", "conv_ae")
+
+
+# phases that launch no kernel of the port's
+NO_KERNEL_PHASES = ("conv_ae",)
 
 
 def main(argv=None) -> None:
@@ -3897,7 +4262,8 @@ def main(argv=None) -> None:
           f"torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     t0 = time.perf_counter()
-    phase_build()
+    if not only or set(only) - set(NO_KERNEL_PHASES):
+        phase_build()
     if only:
         for name in only:
             globals()[f"phase_{name}"]("cuda")
@@ -3931,6 +4297,7 @@ def main(argv=None) -> None:
     phase_small_cli("cuda")
     phase_rect("cuda")
     hp = phase_hyperprior("cuda")
+    phase_conv_ae("cuda")
     k11_ms, k11_plain, k11_work = k11["timings"]["f=4 bf16·poly noise=on"]
     print(f"K11 share of the kernel3 step: {k11_ms / steps['kernel3']:.3f} "
           f"({k11_ms:.4f} of {steps['kernel3']:.4f} ms); K7 share of the "

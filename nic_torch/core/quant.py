@@ -18,6 +18,7 @@ __all__ = [
     "scale_to_bit",
     "normalize_from_bit",
     "quantize",
+    "quantize_ste",
     "quantize_to_bit",
     "quantize_from_bit_to_bit",
     "quant_range",
@@ -44,6 +45,12 @@ def quantize(x: torch.Tensor, bits: int) -> torch.Tensor:
     """Round-half-up onto the (2^b − 1)-level code book; in/out in [0,1]."""
     s = 2.0**bits - 1.0
     return torch.floor(x * s + 0.5) / s
+
+
+def quantize_ste(x: torch.Tensor, bits: int) -> torch.Tensor:
+    """:func:`quantize` forward with a straight-through (identity) gradient:
+    ``x + (quantize(x) − x).detach()``, the JAX package's form."""
+    return x + (quantize(x, bits) - x).detach()
 
 
 def quantize_to_bit(x: torch.Tensor, bits: int = 8) -> torch.Tensor:

@@ -10,6 +10,9 @@ One ``.npz`` holds the decoder MLP (keys ``mlp/w1`` … ``mlp/b3``, weights
 codes) and a ``__meta__`` JSON blob. The format is the JAX package's, so
 an artifact written by either package decodes in the other.
 
+The conv-AE family's latent is a uint8 ``.npy`` of its codes
+(:func:`save_latent`), the JAX package's bytes.
+
 With ``entropy_coded=True`` each grid's codes are rANS-coded against
 their own histogram instead (``grid{i}`` the stream, ``hist{i}`` the
 2^bits counts, one CDF row, every bin 0; ``nic_torch.native``), with
@@ -30,7 +33,8 @@ from nic_torch.core.quant import pack_bits, pack_grid, unpack_bits, unpack_grid
 from nic_torch.models.mlp import PARAM_NAMES, MLPDecoder
 
 __all__ = ["save_compressed", "load_compressed", "compressed_num_bits",
-           "save_checkpoint", "load_checkpoint", "CheckpointManager"]
+           "save_latent", "load_latent", "save_checkpoint",
+           "load_checkpoint", "CheckpointManager"]
 
 def _grid_cdf(hist: np.ndarray) -> np.ndarray:
     """One CDF row from a grid's code histogram (the JAX package's)."""
@@ -140,6 +144,21 @@ def compressed_num_bits(path: str) -> int:
             if key.startswith("mlp/"):
                 bits += z[key].size * z[key].dtype.itemsize * 8
     return bits
+
+
+def save_latent(path: str, latent_codes, num_bits: int) -> None:
+    """Conv-AE / pixel latent codes (0..2^b − 1) → a uint8 ``.npy``, the
+    JAX package's bytes."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    np.save(path, np.asarray(latent_codes).astype(np.uint8))
+
+
+def load_latent(path: str, num_bits: int, *, device="cpu",
+                dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """uint8 ``.npy`` → the dequantized latent in [0, 1], in the file's
+    (the JAX package's, channels-last) layout."""
+    codes = torch.from_numpy(np.load(path)).to(device=device, dtype=dtype)
+    return codes / (2.0**num_bits - 1.0)
 
 
 def save_checkpoint(path: str, step: int, arrays: dict,

@@ -22,7 +22,17 @@ offset-major (rows in ``itertools.product`` order, blocks of Cin):
 ``Conv2d`` takes ``W[co, ci, ky, kx] = w[(ky·k + kx)·Cin + ci, co]``; a
 transposed conv's ``w`` is the kernel of JAX's zero-inserted stride-1
 conv, which ``ConvTranspose2d`` flips: ``W[ci, co, ky, kx] =
-w[((k−1−ky)·k + (k−1−kx))·Cin + ci, co]``.
+w[((k−1−ky)·k + (k−1−kx))·Cin + ci, co]``; 3D kernels likewise over
+(kz, ky, kx).
+
+The conv-AE family (``nic_torch.train.conv_ae``, ``pixel``,
+``movie_label``) crosses the same way: a trainer's leaves are
+:func:`conv_leaves` of its convs (``enc/params/MatmulConv_0`` … in the
+``conv_impl="matmul"`` trees the JAX CLIs write, ``enc/params/Conv_0`` …
+in flax's ``"xla"`` trees), plus :func:`plain_leaves` (the pixel MLP)
+and the movie-label embedding; optax ``adam``'s state is
+``opt/0/.count``, ``opt/0/.mu/<leaf>``, ``opt/0/.nu/<leaf>``
+(:func:`adam_to_arrays`).
 """
 
 from __future__ import annotations
@@ -35,6 +45,8 @@ from nic_torch.models.mlp import PARAM_NAMES, MLPDecoder
 __all__ = ["params_from_jax", "params_to_jax", "trainer_state_to_arrays",
            "trainer_state_from_arrays", "conv_to_jax", "conv_from_jax",
            "conv_transpose_to_jax", "conv_transpose_from_jax",
+           "conv_leaves", "plain_leaves", "conv_impl_of", "leaves_to_jax",
+           "leaves_from_jax", "adam_to_arrays", "adam_from_arrays",
            "hyperprior_leaves", "hyperprior_to_jax", "hyperprior_from_jax",
            "hyperprior_state_to_arrays", "hyperprior_state_from_arrays"]
 
@@ -127,76 +139,106 @@ def trainer_state_from_arrays(arrays: dict, fp, mlp, opt_fp,
                 }
 
 
-# ---- the scale-hyperprior model ------------------------------------------
+# ---- conv models: the scale-hyperprior and the conv-AE family ------------
 
 def conv_to_jax(w: torch.Tensor) -> torch.Tensor:
-    """``Conv2d`` weight [Cout, Cin, k, k] → JAX kernel [k²·Cin, Cout]."""
-    co, ci, k, _ = w.shape
-    return w.permute(2, 3, 1, 0).reshape(k * k * ci, co)
+    """``Conv{2,3}d`` weight [Cout, Cin, k, …] → JAX kernel [kⁿ·Cin, Cout]."""
+    nd = w.dim() - 2
+    return w.permute(*range(2, 2 + nd), 1, 0).reshape(-1, w.shape[0])
 
 
-def conv_from_jax(w: torch.Tensor, k: int) -> torch.Tensor:
+def conv_from_jax(w: torch.Tensor, k: int, ndim: int = 2) -> torch.Tensor:
     """Inverse of :func:`conv_to_jax`."""
-    ci = w.shape[0] // (k * k)
-    return w.reshape(k, k, ci, w.shape[1]).permute(3, 2, 0, 1)
+    ci = w.shape[0] // k**ndim
+    return w.reshape(*(k,) * ndim, ci, w.shape[1]).permute(
+        ndim + 1, ndim, *range(ndim))
 
 
 def conv_transpose_to_jax(w: torch.Tensor) -> torch.Tensor:
-    """``ConvTranspose2d`` weight [Cin, Cout, k, k] → JAX kernel
-    [k²·Cin, Cout] (the zero-inserted conv's, flipped)."""
-    ci, co, k, _ = w.shape
-    return w.flip(2, 3).permute(2, 3, 0, 1).reshape(k * k * ci, co)
+    """``ConvTranspose{2,3}d`` weight [Cin, Cout, k, …] → JAX kernel
+    [kⁿ·Cin, Cout] (the zero-inserted conv's, flipped)."""
+    nd = w.dim() - 2
+    sp = tuple(range(2, 2 + nd))
+    return w.flip(sp).permute(*sp, 0, 1).reshape(-1, w.shape[1])
 
 
-def conv_transpose_from_jax(w: torch.Tensor, k: int) -> torch.Tensor:
+def conv_transpose_from_jax(w: torch.Tensor, k: int,
+                            ndim: int = 2) -> torch.Tensor:
     """Inverse of :func:`conv_transpose_to_jax`."""
-    ci = w.shape[0] // (k * k)
-    return w.reshape(k, k, ci, w.shape[1]).flip(0, 1).permute(2, 3, 0, 1)
+    ci = w.shape[0] // k**ndim
+    return w.reshape(*(k,) * ndim, ci, w.shape[1]).flip(
+        tuple(range(ndim))).permute(ndim, ndim + 1, *range(ndim))
 
 
-def hyperprior_leaves(model) -> dict:
-    """{JAX leaf path under ``params/``: (torch parameter, to JAX's layout,
-    back)} of a ``nic_torch.models.hyperprior.HyperpriorModel``, in the
-    model's order; flax names each submodule by class and count
-    (``h_s/MatmulConvTranspose_1``, ``h_s/MatmulConv_0``)."""
-    def ident(t):
-        return t
+def _ident(t):
+    return t
 
-    leaves = {}
-    for part in ("g_a", "g_s", "h_a", "h_s"):
-        counts: dict = {}
-        for conv in getattr(model, part).convs:
-            k = conv.kernel_size[0]
-            if isinstance(conv, torch.nn.ConvTranspose2d):
-                cls, to, back = ("MatmulConvTranspose", conv_transpose_to_jax,
-                                 conv_transpose_from_jax)
-            else:
-                cls, to, back = "MatmulConv", conv_to_jax, conv_from_jax
-            i = counts.get(cls, 0)
-            counts[cls] = i + 1
-            path = f"{part}/{cls}_{i}"
-            leaves[f"{path}/kernel"] = (conv.weight, to,
-                                        lambda t, k=k, back=back: back(t, k))
-            leaves[f"{path}/bias"] = (conv.bias, ident, ident)
-    leaves["z_mu"] = (model.z_mu, ident, ident)
-    leaves["z_log_s"] = (model.z_log_s, ident, ident)
+
+def conv_leaves(convs, prefix: str, impl: str = "matmul") -> dict:
+    """{JAX leaf path: (torch parameter, to JAX's layout, back)} of a list
+    of convs under ``prefix``, as flax names them: each class counted on
+    its own. ``impl="matmul"``: ``MatmulConv_i`` / ``MatmulConvTranspose_i``,
+    kernels [kⁿ·Cin, Cout]; ``impl="xla"``: flax's ``Conv_i`` (kernel
+    [k, …, Cin, Cout]) / ``ConvTranspose_i`` with ``transpose_kernel=True``
+    (kernel [k, …, Cout, Cin], the forward conv's, unflipped)."""
+    if impl not in ("matmul", "xla"):
+        raise ValueError(f"conv_impl must be matmul or xla, not {impl!r}")
+    leaves, counts = {}, {}
+    for conv in convs:
+        k, nd = conv.kernel_size[0], len(conv.kernel_size)
+        sp = tuple(range(nd))
+        if conv.transposed and impl == "matmul":
+            cls, to, back = ("MatmulConvTranspose", conv_transpose_to_jax,
+                             lambda t, k=k, nd=nd: conv_transpose_from_jax(
+                                 t, k, nd))
+        elif impl == "matmul":
+            cls, to, back = ("MatmulConv", conv_to_jax,
+                             lambda t, k=k, nd=nd: conv_from_jax(t, k, nd))
+        else:
+            cls = "ConvTranspose" if conv.transposed else "Conv"
+
+            def to(t, nd=nd):
+                return t.permute(*range(2, 2 + nd), 1, 0)
+
+            def back(t, sp=sp, nd=nd):
+                return t.permute(nd + 1, nd, *sp)
+        i = counts.get(cls, 0)
+        counts[cls] = i + 1
+        path = f"{prefix}/{cls}_{i}"
+        leaves[f"{path}/kernel"] = (conv.weight, to, back)
+        leaves[f"{path}/bias"] = (conv.bias, _ident, _ident)
     return leaves
 
 
-def hyperprior_to_jax(model, tensors: dict | None = None) -> dict:
-    """{JAX leaf path: float32 numpy array in JAX's layout} of the model's
+def plain_leaves(tensors: dict, prefix: str) -> dict:
+    """Leaves that keep JAX's layout ({name: tensor} under ``prefix``)."""
+    return {f"{prefix}/{k}": (t, _ident, _ident) for k, t in tensors.items()}
+
+
+def conv_impl_of(arrays: dict, prefix: str) -> str:
+    """``"matmul"`` or ``"xla"``: which JAX tree a checkpoint's convs under
+    ``prefix`` (e.g. ``params/enc/params/``) hold."""
+    if any(k.startswith(prefix + "MatmulConv") for k in arrays):
+        return "matmul"
+    if any(k.startswith(prefix + "Conv") for k in arrays):
+        return "xla"
+    raise KeyError(f"no conv parameters under {prefix!r}")
+
+
+def leaves_to_jax(leaves: dict, tensors: dict | None = None) -> dict:
+    """{JAX leaf path: float32 numpy array in JAX's layout} of the leaves'
     parameters, or of ``tensors`` ({path: tensor shaped like its
     parameter}, e.g. gradients); copies, never views of the tensors."""
     return {path: np.array(_numpy(to(p if tensors is None
                                      else tensors[path])))
-            for path, (p, to, _) in hyperprior_leaves(model).items()}
+            for path, (p, to, _) in leaves.items()}
 
 
-def hyperprior_from_jax(model, arrays: dict, prefix: str = "") -> None:
-    """Load {``prefix`` + JAX leaf path: array} into the model (in place),
-    checking every shape."""
+def leaves_from_jax(leaves: dict, arrays: dict, prefix: str = "") -> None:
+    """Load {``prefix`` + JAX leaf path: array} into the leaves' parameters
+    (in place), checking every shape."""
     with torch.no_grad():
-        for path, (p, to, back) in hyperprior_leaves(model).items():
+        for path, (p, to, back) in leaves.items():
             key = prefix + path
             arr = np.array(arrays[key], np.float32)
             want = tuple(to(p).shape)
@@ -207,22 +249,81 @@ def hyperprior_from_jax(model, arrays: dict, prefix: str = "") -> None:
             p.copy_(back(torch.from_numpy(arr)).to(p.device))
 
 
-def hyperprior_state_to_arrays(model, opt) -> dict:
-    """Params and the Adam state (``torch.optim.Adam``) → {npz key: array}
-    under the JAX trainer's checkpoint keys."""
-    arrays = {f"params/params/{k}": v
-              for k, v in hyperprior_to_jax(model).items()}
-    count = 0
-    for path, (p, to, _) in hyperprior_leaves(model).items():
+def adam_to_arrays(leaves: dict, opt, prefix: str) -> dict:
+    """optax ``scale_by_adam``'s state of a ``torch.optim.Adam`` over the
+    leaves: ``{prefix}/.count``, ``{prefix}/.mu/<path>``,
+    ``{prefix}/.nu/<path>`` (zeros for a parameter not stepped yet)."""
+    arrays, count = {}, 0
+    for path, (p, to, _) in leaves.items():
         st = opt.state.get(p)
         if st:
             count = int(st["step"])
             mu, nu = _numpy(to(st["exp_avg"])), _numpy(to(st["exp_avg_sq"]))
         else:
             mu = nu = np.zeros(tuple(to(p).shape), np.float32)
-        arrays[f"opt/1/0/.mu/params/{path}"] = mu
-        arrays[f"opt/1/0/.nu/params/{path}"] = nu
-    arrays["opt/1/0/.count"] = np.asarray(count, np.int32)
+        arrays[f"{prefix}/.mu/{path}"] = mu
+        arrays[f"{prefix}/.nu/{path}"] = nu
+    arrays[f"{prefix}/.count"] = np.asarray(count, np.int32)
+    return arrays
+
+
+def adam_from_arrays(arrays: dict, leaves: dict, opt, prefix: str) -> bool:
+    """Load :func:`adam_to_arrays`'s layout into ``opt``; returns whether
+    the arrays held it (else ``opt`` is left as it was)."""
+    if f"{prefix}/.count" not in arrays or any(
+            f"{prefix}/.mu/{path}" not in arrays for path in leaves):
+        return False
+    count = int(np.asarray(arrays[f"{prefix}/.count"]))
+    with torch.no_grad():
+        for path, (p, _, back) in leaves.items():
+            if count == 0:
+                opt.state.pop(p, None)
+                continue
+
+            def moment(name):
+                arr = np.array(arrays[f"{prefix}/.{name}/{path}"],
+                               np.float32)
+                return back(torch.from_numpy(arr)).contiguous().to(p.device)
+
+            opt.state[p] = {
+                "step": torch.tensor(float(count), dtype=torch.float32),
+                "exp_avg": moment("mu"), "exp_avg_sq": moment("nu")}
+    return True
+
+
+def hyperprior_leaves(model) -> dict:
+    """{JAX leaf path under ``params/``: (torch parameter, to JAX's layout,
+    back)} of a ``nic_torch.models.hyperprior.HyperpriorModel``, in the
+    model's order; flax names each submodule by class and count
+    (``h_s/MatmulConvTranspose_1``, ``h_s/MatmulConv_0``)."""
+    leaves = {}
+    for part in ("g_a", "g_s", "h_a", "h_s"):
+        leaves.update(conv_leaves(getattr(model, part).convs, part))
+    leaves["z_mu"] = (model.z_mu, _ident, _ident)
+    leaves["z_log_s"] = (model.z_log_s, _ident, _ident)
+    return leaves
+
+
+def hyperprior_to_jax(model, tensors: dict | None = None) -> dict:
+    """:func:`leaves_to_jax` of the model's :func:`hyperprior_leaves`."""
+    return leaves_to_jax(hyperprior_leaves(model), tensors)
+
+
+def hyperprior_from_jax(model, arrays: dict, prefix: str = "") -> None:
+    """:func:`leaves_from_jax` of the model's :func:`hyperprior_leaves`."""
+    leaves_from_jax(hyperprior_leaves(model), arrays, prefix)
+
+
+# optax.chain(clip_by_global_norm, adam): adam's state is the chain's 1st
+_HP_ADAM = "opt/1/0"
+
+
+def hyperprior_state_to_arrays(model, opt) -> dict:
+    """Params and the Adam state (``torch.optim.Adam``) → {npz key: array}
+    under the JAX trainer's checkpoint keys."""
+    leaves = {f"params/{k}": v for k, v in hyperprior_leaves(model).items()}
+    arrays = {f"params/{k}": v for k, v in leaves_to_jax(leaves).items()}
+    arrays.update(adam_to_arrays(leaves, opt, _HP_ADAM))
     return arrays
 
 
@@ -231,24 +332,6 @@ def hyperprior_state_from_arrays(arrays: dict, model, opt) -> bool:
     holds one, the Adam state; returns whether it did (a checkpoint of
     params alone, or another optimizer's layout, leaves Adam fresh, as
     the JAX trainer's loader does)."""
-    hyperprior_from_jax(model, arrays, "params/params/")
-    leaves = hyperprior_leaves(model)
-    if "opt/1/0/.count" not in arrays or any(
-            f"opt/1/0/.mu/params/{path}" not in arrays for path in leaves):
-        return False
-    count = int(np.asarray(arrays["opt/1/0/.count"]))
-    with torch.no_grad():
-        for path, (p, _, back) in leaves.items():
-            if count == 0:
-                opt.state.pop(p, None)
-                continue
-
-            def moment(name):
-                arr = np.array(arrays[f"opt/1/0/.{name}/params/{path}"],
-                                 np.float32)
-                return back(torch.from_numpy(arr)).contiguous().to(p.device)
-
-            opt.state[p] = {
-                "step": torch.tensor(float(count), dtype=torch.float32),
-                "exp_avg": moment("mu"), "exp_avg_sq": moment("nu")}
-    return True
+    leaves = {f"params/{k}": v for k, v in hyperprior_leaves(model).items()}
+    leaves_from_jax(leaves, arrays, "params/")
+    return adam_from_arrays(arrays, leaves, opt, _HP_ADAM)

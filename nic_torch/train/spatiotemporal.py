@@ -1,0 +1,39 @@
+"""The one batched spatiotemporal decode of the movie family (port of
+``nic.train.spatiotemporal``, single device).
+
+Every conv-AE variant decodes through :func:`make_batched_decode`: a
+latent laid out as the host's ``[B, *spatial, C]`` through a conv
+decoder, with the natural batch axis as the batch:
+
+- movie_label: B = T frames (one decoder, one batched pass over all
+  frames);
+- image_comp / movie_frame / movie_2d: B = 1, the image or the √T·S
+  sheet;
+- movie_3d: B = 1, spatial = (T, H, W).
+
+The JAX package's mesh and sharding specs (``movie_spec``,
+``put_sharded``) are multi-device, queue 1 item 13, and not ported.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from nic_torch.train.hyperprior import conv_flags
+
+__all__ = ["make_batched_decode"]
+
+
+def make_batched_decode(apply_fn):
+    """``decode(z)``: the host's channels-last latent ``[B, *spatial, C]``
+    → ``apply_fn`` on it channels-first (NCHW / NCDHW, one move each way)
+    → ``[B, *spatial, 3]``; no autograd, fp32 convolutions (no TF32) on
+    deterministic cuDNN. ``apply_fn(z)`` is the variant's decoder (for
+    movie_label it concatenates the per-frame embedding plane first)."""
+
+    def decode(z: torch.Tensor) -> torch.Tensor:
+        with torch.no_grad(), conv_flags():
+            out = apply_fn(z.movedim(-1, 1).contiguous())
+        return out.movedim(1, -1)
+
+    return decode
