@@ -200,35 +200,39 @@ The scale-hyperprior codec and entropy-coded grids (phase 2 also builds
 ``hs_bins.cu`` with the rest and ``nic_torch/native/rans.cpp`` with g++,
 and prints which format-3 rANS decode path the host takes):
 
-29. K13 (``nic_torch.kernels.hs_bins``, the hyper-synthesis and σ → bin
-    in a fixed order of fp32 operations) against its plain version on
-    this machine's CPU, on seeded ẑ of a random n = 96, m = 128 model and
-    on the trained model's ẑ of 512×768: every σ bit and every bin
-    equal; the trainer at n = 96, m = 128, λ = 0.018, patch 256, batch 8
-    on ``data/*.png`` for whole chunks of 100 steps within 45 s (the mean
-    loss of the last 100 steps below the first 100's); the codec on
-    sancho 512², mandrill 480² (padded) and sancho resized to 512×768:
-    the card's decompress equal to ``evaluate`` bit for bit, the card's
-    streams decoded on the CPU and the CPU's on the card to the same ŷ/ẑ
-    and x̂ within 1e-5, the coded symbols' bpp (the streams less their
-    fixed framing) within 0.5% of the estimate and the real bpp at most
-    that plus 457 B of framing, K13 once per
-    compress and once per decompress, the bf16 synthesis leaving the
-    streams unchanged; compress, decompress and the decode's stage split
-    (rANS, glue, K13, synthesis) timed at 512×768, and K13 beside its
-    plain version and the cuDNN composition it replaces (a reference, not
-    the same bits); the flagship 200-epoch CLI run with
+29. K13 (``nic_torch.kernels.hs_bins``, the hyper-synthesis and σ → bin in
+    a fixed order of fp32 operations; register-tiled from shared memory
+    that tensor copies fill, a thread 4 channels × 1 or 4 pixels) against
+    its plain version on this machine's CPU, on seeded ẑ of a random n =
+    96, m = 128 model at 8×12 (512×768), the edge tiles 1×1, 3×5 and 8×8
+    (480² padded), B = 2 and 32×32 (2048²), of a random model at the
+    model's default n = 128, m = 192, on seeded weights of odd widths (n =
+    13, m = 20) and past n = 668 (n = 700: 8-column tiles), and on the
+    trained model's ẑ of 512×768: every σ bit and every bin equal; the
+    trainer at n = 96, m = 128, λ = 0.018, patch 256, batch 8 on
+    ``data/*.png`` for whole chunks of 100 steps within 45 s (the mean
+    loss of the last 100 steps below the first 100's); the codec on sancho
+    512², mandrill 480² (padded) and sancho resized to 512×768: the card's
+    decompress equal to ``evaluate`` bit for bit, the card's streams
+    decoded on the CPU and the CPU's on the card to the same ŷ/ẑ and x̂
+    within 1e-5, the coded symbols' bpp (the streams less their fixed
+    framing) within 0.5% of the estimate and the real bpp at most that
+    plus 457 B of framing, K13 once per compress and once per decompress,
+    the bf16 synthesis leaving the streams unchanged; compress, decompress
+    and the decode's stage split (rANS, glue, K13, synthesis) timed at
+    512×768, and K13 at 512×768 and 2048² beside its bound, its plain
+    version and the cuDNN composition it replaces (a reference, not the
+    same bits); the flagship 200-epoch CLI run with
     ``ENTROPY_CODE_GRIDS=True``, its artifact through the decode CLI at
-    mips 0-2 (3 K1 launches, the launch log naming only
-    ``decode_v2_mma``) equal to the same codes saved fixed-length; then
-    one training step on the card against the same step on the CPU: from
-    the initial weights within the CPU tests' limits (loss rel 1e-5,
-    each leaf's grad max|Δ|/max|g| 1e-4, params 1e-6), from the trained
-    state the loss and params within them; from both, each device's
-    gradients against the same step in float64 on the CPU (the card's
-    worst leaf within HP_GRAD64_TOL, 1e-4 from the initial weights and
-    2e-3 from the trained state, and a control with TF32 convolutions on
-    the card beyond it).
+    mips 0-2 (3 K1 launches, the launch log naming only ``decode_v2_mma``)
+    equal to the same codes saved fixed-length; then one training step on
+    the card against the same step on the CPU: from the initial weights
+    within the CPU tests' limits (loss rel 1e-5, each leaf's grad
+    max|Δ|/max|g| 1e-4, params 1e-6), from the trained state the loss and
+    params within them; from both, each device's gradients against the
+    same step in float64 on the CPU (the card's worst leaf within
+    HP_GRAD64_TOL, 1e-4 from the initial weights and 2e-3 from the trained
+    state, and a control with TF32 convolutions on the card beyond it).
 
 The conv-AE and per-pixel family (image_comp, pixel_comp,
 pixel_pos_comp, movie_frame_comp, movie_2d_comp, movie_3d_comp,
@@ -270,9 +274,10 @@ bytes (each input read once, each output written once) over 3.35 TB/s and
 its dot operations (the JAX cost model's count) over the published peak
 for their type (67 TFLOP/s fp32, 989 TFLOP/s bf16; H100 SXM, 700 W; K1,
 K5, K2, K3 and K4 take their fp32 dots as three TF32 tensor-core
-products, so theirs count at 495/3 TFLOP/s; K13 issues its fp32
-multiplies and adds as separate instructions, so its count at 33.5, half
-the FMA peak). No single PyTorch call computes any of these
+products, so theirs count at 495/3 TFLOP/s; K13 issues every fp32
+multiply and add as its own instruction, by design (no FMA, for the
+bits), so its count at 33.5, half the FMA peak). No single PyTorch call
+computes any of these
 fused functions (K13's cuDNN composition sums in another order and is
 printed as a reference), so ``library_ms`` is null.
 """
@@ -3418,6 +3423,20 @@ K13_SOURCE = "nic_torch/kernels/csrc/hs_bins.cu"
 K13_REPLACES = "nic/train/hyperprior.py:284"
 # the JAX trainer's and CLI's defaults and the r5 checkpoint's config
 HP_N, HP_M, HP_LAM, HP_PATCH, HP_BATCH = 96, 128, 0.018, 256, 8
+# K13 against its plain version at n = HP_N, m = HP_M: (tag, B, ẑ rows,
+# ẑ columns): 512×768, the edge tiles (a block's 16 columns wider than
+# the image, ragged columns), 480² padded to 512², a batch, 2048²; and at
+# the model's default widths (nic/models/hyperprior.py HyperSynthesis)
+K13_SHAPES = (("seeded ẑ, random model, 8×12", 1, 8, 12),
+              ("edge tile, 1×1", 1, 1, 1), ("edge tiles, 3×5", 1, 3, 5),
+              ("8×8 (480² padded)", 1, 8, 8), ("B = 2, 8×12", 2, 8, 12),
+              ("2048², 32×32", 1, 32, 32))
+K13_MODEL_NM = (128, 192)
+# and on seeded weights at widths that take the kernel's other paths:
+# (tag, n, m, ẑ rows, ẑ columns): odd widths (4-byte copies: rows that a
+# tensor copy's box cannot take) and n past 668 (8-column tiles)
+K13_WIDTHS = (("odd widths n = 13, m = 20", 13, 20, 3, 5),
+              ("n = 700, m = 24 (8-column tiles)", 700, 24, 2, 3))
 HP_TRAIN_S = 45.0  # training wall budget (whole chunks of HP_CHUNK steps)
 HP_CHUNK = 100
 # the CPU tests' tolerances for one step: loss rel, grads max|Δ|/max|g|,
@@ -3491,6 +3510,32 @@ def _hs_bits_equal(tag, z, hs_card, hs_cpu) -> dict:
         fail(f"K13 {tag}: {sigma_bits} σ bits and {bins} bins differ from "
              "the plain version on the CPU")
     return err
+
+
+def _hs_random_weights(n: int, m: int, gen):
+    """Seeded K13 weights (rows layout) of widths n, m, lecun-scaled so σ
+    spreads over the bins."""
+    import torch
+
+    from nic_torch.kernels.hs_bins import HsWeights
+
+    def rand(*shape, fan_in):
+        return torch.randn(*shape, generator=gen) / fan_in**0.5
+
+    return HsWeights(rand(n, 16 * n, fan_in=4 * n), rand(n, fan_in=n),
+                     rand(n, 16 * n, fan_in=4 * n), rand(n, fan_in=n),
+                     rand(m, 9 * n, fan_in=9 * n), rand(m, fan_in=n))
+
+
+def _hs_print(where: str, k13, plain, lib, work) -> None:
+    b_ms, b_by = bound(*work, "fp32_nofma")
+    print(f"phase 29: K13 at {where.format(HP_N, HP_M)}: {k13:.4f} ms "
+          f"({k13 / b_ms:.2f}× its bound), plain {plain:.4f} ms, bound "
+          f"{b_ms:.4f} ms ({b_by}, no-FMA fp32 rate; "
+          f"{bound(*work, 'fp32')[0]:.4f} ms at the FMA peak); the cuDNN "
+          f"composition it replaces (convT, convT, conv, exp, log; another "
+          f"order, not the same bits; a reference) {lib:.4f} ms",
+          flush=True)
 
 
 def _hs_times(z, hs, model) -> tuple:
@@ -3837,10 +3882,24 @@ def phase_hyperprior(device) -> dict:
 
     gen = torch.Generator().manual_seed(13)
     rand = HyperpriorModel(HP_N, HP_M, generator=gen)
-    z = torch.round(torch.randn(1, HP_N, 8, 12, generator=gen) * 3.0)
-    err = _hs_bits_equal("seeded ẑ, random model", z,
-                         hs_weights(rand.to(device).h_s),
-                         hs_weights(rand.cpu().h_s))
+    hs_rand = (hs_weights(rand.to(device).h_s), hs_weights(rand.cpu().h_s))
+    err, z2048 = 0.0, None
+    for tag, b, h4, w4 in K13_SHAPES:
+        z = torch.round(torch.randn(b, HP_N, h4, w4, generator=gen) * 3.0)
+        err = max(err, _hs_bits_equal(tag, z, *hs_rand))
+        z2048 = z if (h4, w4) == (32, 32) else z2048
+    wide = HyperpriorModel(*K13_MODEL_NM, generator=gen)
+    z = torch.round(torch.randn(1, K13_MODEL_NM[0], 8, 12, generator=gen)
+                    * 3.0)
+    err = max(err, _hs_bits_equal(
+        "the model's default n = {}, m = {}, 8×12".format(*K13_MODEL_NM), z,
+        hs_weights(wide.to(device).h_s), hs_weights(wide.cpu().h_s)))
+    del wide
+    for tag, n, m, h4, w4 in K13_WIDTHS:
+        hs_cpu = _hs_random_weights(n, m, gen)
+        z = torch.round(torch.randn(1, n, h4, w4, generator=gen) * 3.0)
+        err = max(err, _hs_bits_equal(
+            tag, z, type(hs_cpu)(*(t.to(device) for t in hs_cpu)), hs_cpu))
     trainer, staged, steps_s = _hp_train(device)
     codec = _hp_codec(trainer)
     z_tr = torch.from_numpy(codec["sancho 512×768"][2].transpose(
@@ -3851,14 +3910,11 @@ def phase_hyperprior(device) -> dict:
                                   hs_weights(trainer.model.cpu().h_s)))
     trainer.model.to(device)
     k13, plain, lib, work = _hs_times(z_tr, hs_card, trainer.model)
-    b_ms, b_by = bound(*work, "fp32_nofma")
-    print(f"phase 29: K13 at 512×768 (z 8×12×{HP_N} → σ 32×48×{HP_M}): "
-          f"{k13:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.4f} ms "
-          f"({b_by}, no-FMA fp32 rate; {bound(*work, 'fp32')[0]:.4f} ms at "
-          f"the FMA peak); the cuDNN composition it replaces (convT, convT, "
-          f"conv, exp, log; another order, not the same bits; a "
-          f"reference) {lib:.4f} ms; train {steps_s:.2f} steps/s",
-          flush=True)
+    _hs_print("512×768 (z 8×12×{} → σ 32×48×{}), trained model", k13,
+              plain, lib, work)
+    _hs_print("2048² (z 32×32×{} → σ 128×128×{}), random model",
+              *_hs_times(z2048, hs_rand[0], rand.to(device)))
+    print(f"phase 29: train {steps_s:.2f} steps/s", flush=True)
     _hp_entropy_flagship(device)
     from nic_torch.train.hyperprior import HyperpriorTrainer
 

@@ -32,10 +32,21 @@ exp, log and tanh are :func:`exp_fixed`, :func:`log_fixed` and
 polynomial, within 1.3 ulp of a float64 reference. GELU is the tanh form
 (:func:`gelu_fixed`).
 
+The kernel (the design and its bound are in ``csrc/hs_bins.cu``'s note):
+three launches, one a layer; a block computes 16 output channels × a tile
+of 4 rows × 16 columns where the layer's grid is large, else 1 row × 16
+(8 where N's shared memory needs it), a thread 4 channels × a column of
+the tile's rows, from the block's input window and one tap's weights at a
+time staged in shared memory by the tensor memory accelerator's tensor
+copies. The tiles change no output's order of operations, so its bits
+are the plain version's.
+
 - :func:`hs_bins_plain`: the function in torch ops, on any device;
 - :func:`hs_bins_kernel`: launches the CUDA kernel for CUDA tensors and
   runs :func:`hs_bins_plain` for CPU tensors; ``hs_bins_kernel.launches``
   counts launches (one per call: the kernel's three layers);
+- :func:`launch_plan`: the kernel's tiles, grids and shared memory for
+  widths and a ẑ size (a width with none raises);
 - :func:`hs_weights`: the rows layout both take, from a
   ``HyperSynthesis`` module.
 """
@@ -43,14 +54,15 @@ polynomial, within 1.3 ulp of a float64 reference. GELU is the tanh form
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
 __all__ = ["HsWeights", "hs_weights", "hs_bins_plain", "hs_bins_kernel",
-           "exp_fixed", "log_fixed", "tanh_fixed", "gelu_fixed",
-           "SCALE_MIN", "SCALE_MAX", "NUM_SCALE_BINS"]
+           "launch_plan", "exp_fixed", "log_fixed", "tanh_fixed",
+           "gelu_fixed", "SCALE_MIN", "SCALE_MAX", "NUM_SCALE_BINS"]
 
 SCALE_MIN, SCALE_MAX, NUM_SCALE_BINS = 0.11, 64.0, 64
 # fp32 values (each exact in a Python float): ln(SCALE_MIN) and
@@ -226,6 +238,57 @@ def hs_bins_plain(z: torch.Tensor, wt: HsWeights) -> tuple:
     return sigma, _bins(sigma)
 
 
+# csrc/hs_bins.cu's tiles: output channels a block computes, the shared
+# bytes a block may take, and the blocks a layer's grid must have for
+# 4-row tiles (2 an SM of the H100's 132)
+_TC, SMEM_LIMIT, _FILL_BLOCKS = 16, 232_448, 2 * 132
+
+
+def _chan_stride(n: int) -> int:
+    """The staged channel stride: n padded to a multiple of 4 floats with
+    stride/4 odd (``chan_stride`` in the source)."""
+    s = (n + 3) & ~3
+    return s + 4 if (s // 4) % 2 == 0 else s
+
+
+def _smem(tw: int, tr: int, n: int) -> int:
+    """Shared bytes of a block with tiles of tr rows × tw columns: the
+    window (rows padded to 128 bytes), two weight buffers, two
+    mbarriers."""
+    s = _chan_stride(n)
+    rp = ((tw + 2) * s + 31) & ~31
+    return ((tr + 2) * rp + 2 * _TC * s) * 4 + 16
+
+
+@functools.lru_cache(maxsize=64)
+def launch_plan(n: int, m: int, h4: int, w4: int, batch: int = 1) -> tuple:
+    """The kernel's three launches for widths n, m and ẑ [batch, n, h4,
+    w4], as ``launch`` in the source picks them: per layer ``tw`` × ``tr``
+    (16 × 4 where that grid has 264 blocks and its shared memory fits, else
+    16 × 1, else 8 × 1), ``threads`` a block (4·tw), ``smem`` (shared bytes
+    a block) and ``grid`` (x, y, z). Raises ValueError where no tile fits
+    (n past 932), as the kernel refuses the call."""
+    plan = []
+    for h, w, co, phases in ((h4, w4, n, 4), (2 * h4, 2 * w4, n, 4),
+                             (4 * h4, 4 * w4, m, 1)):
+        co_tiles = -(-co // _TC)
+        tw, tr = 16, 1
+        if (-(-h // 4) * -(-w // 16) * co_tiles * batch * phases
+                >= _FILL_BLOCKS and _smem(16, 4, n) <= SMEM_LIMIT):
+            tr = 4
+        elif _smem(16, 1, n) > SMEM_LIMIT:
+            tw = 8
+        smem = _smem(tw, tr, n)
+        if smem > SMEM_LIMIT:
+            raise ValueError(f"hs_bins: no tile of the kernel fits n = {n}: "
+                             f"{smem} B of shared memory at {tw} columns, "
+                             f"{SMEM_LIMIT} B a block")
+        plan.append({"tw": tw, "tr": tr, "threads": 4 * tw, "smem": smem,
+                     "grid": (-(-w // tw) * -(-h // tr), co_tiles,
+                              batch * phases)})
+    return tuple(plan)
+
+
 def _check(z: torch.Tensor, wt: HsWeights) -> None:
     if z.dim() != 4 or z.dtype != torch.float32:
         raise ValueError(f"hs_bins: z must be float32 [B, N, h4, w4], got "
@@ -255,13 +318,17 @@ def hs_bins_kernel(z: torch.Tensor, wt: HsWeights) -> tuple:
         raise ValueError(f"hs_bins runs on cuda or cpu, not {z.device}")
     from nic_torch.kernels import _build
 
-    lib = _build.load()
-    z = z.contiguous()
     B, n, h4, w4 = z.shape
     m = wt.w3.shape[0]
-    s1 = torch.empty((B, n, 2 * h4, 2 * w4), dtype=torch.float32,
+    launch_plan(n, m, h4, w4, B)  # raises where the kernel has no tile
+    lib = _build.load()
+    z = z.contiguous()
+    # the layers' outputs, channels-last with the kernel's padded channel
+    # stride: the next layer's tensor copies take whole rows of pixels
+    s = _chan_stride(n)
+    s1 = torch.empty((B, 2 * h4, 2 * w4, s), dtype=torch.float32,
                      device=z.device)
-    s2 = torch.empty((B, n, 4 * h4, 4 * w4), dtype=torch.float32,
+    s2 = torch.empty((B, 4 * h4, 4 * w4, s), dtype=torch.float32,
                      device=z.device)
     sigma = torch.empty((B, m, 4 * h4, 4 * w4), dtype=torch.float32,
                         device=z.device)

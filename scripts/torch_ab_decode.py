@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Time the decode kernels K1 (2D), K2 (the z1-matmul decode), K5 (3D),
-K3 (the v1 decode) and K4 (the v3 MLP tail) of one checkout of the port,
-for A/B comparisons of two checkouts on one card.
+K3 (the v1 decode), K4 (the v3 MLP tail) and K13 (the hyperprior's σ →
+bin) of one checkout of the port, for A/B comparisons of two checkouts on
+one card.
 
     python3 scripts/torch_ab_decode.py ROOT [PARTS]
 
@@ -27,8 +28,14 @@ e.g. ``decode_v2_mma``, ``decode_z1mm_mma``, ``decode_v1_mma``,
 output's bytes: two checkouts whose kernels compute the same bits print
 the same digest. It first prints the registers and spills ``ptxas -v``
 reported for the checkout's decode tensor-core bodies
-(``chip_smoke.ptxas_usage``). PARTS (comma-separated, of k1, k2, k3, k4,
-v3, k5; all by default) times only those.
+(``chip_smoke.ptxas_usage``). For ``hs_bins_kernel`` (K13, the
+hyper-synthesis and σ → bin) it prints the registers and spills of the
+checkout's K13 kernels (``ptxas -v``, by kernel), then on a seeded random
+n = 96, m = 128 model (``HyperpriorModel``, generator seed 13) and ẑ at
+512×768 (1×96×8×12) the wrapper ms, the device ms and the SHA-256 of σ's
+bytes followed by the bins': K13 keeps its bits across a redesign when
+both checkouts print the same digest. PARTS (comma-separated, of k1, k2,
+k3, k4, v3, k5, k13; all by default) times only those.
 
 Compare two checkouts only inside one call, in turns (parent, change,
 change, parent).
@@ -57,6 +64,8 @@ from nic_torch.kernels import decode_fused_3d as k5  # noqa: E402
 from nic_torch.kernels import decode_fused_v2 as k  # noqa: E402
 from nic_torch.kernels import decode_fused_v3 as k4  # noqa: E402
 from nic_torch.kernels import _build  # noqa: E402
+from nic_torch.kernels import hs_bins as k13  # noqa: E402
+from nic_torch.models.hyperprior import HyperpriorModel  # noqa: E402
 
 
 def report(tag: str, fn) -> None:
@@ -67,13 +76,56 @@ def report(tag: str, fn) -> None:
     ab.report(f"{tag} sha256 {digest[:16]}", fn)
 
 
+def k13_ptxas(log: str) -> list:
+    """[(K13 kernel, registers, spill stores B, spill loads B)] from the
+    ``ptxas -v`` lines of an nvcc log (the kernels of ``hs_bins.cu``, by
+    mangled name and template arguments, e.g. ``hs_layerILi16ELi1ELb1ELb0EE``
+    for ``hs_layer<16, 1, true, false>``)."""
+    import re
+
+    out, cur, spill = [], None, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '\S*?\d(hs_[a-z_]+"
+                      r"(?:I(?:L[ib]\d+E)+E)?)", line)
+        if m or "Compiling entry function" in line:
+            cur = m.group(1) if m else None
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and cur:
+            spill = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur and spill:
+            out.append((cur, int(m.group(1)), *spill))
+            cur = None
+    return out
+
+
+def time_k13() -> None:
+    print(f"AB {sys.argv[1]}: ptxas -v of K13 (registers, spill "
+          "stores/loads B): " + "; ".join(
+              f"{name} {r}, {ss}/{sl}" for name, r, ss, sl in
+              k13_ptxas(_build.log_path().read_text())), flush=True)
+    gen = torch.Generator().manual_seed(13)
+    model = HyperpriorModel(96, 128, generator=gen).cuda()
+    z = torch.round(torch.randn(1, 96, 8, 12, generator=gen) * 3.0).cuda()
+    hs = k13.hs_weights(model.h_s)
+    sigma, bins = k13.hs_bins_kernel(z, hs)
+    torch.cuda.synchronize()
+    digest = hashlib.sha256(sigma.cpu().numpy().tobytes()
+                            + bins.cpu().numpy().tobytes()).hexdigest()
+    ab.report(f"K13 512×768 (z 8×12×96 → σ 32×48×128) sha256 "
+              f"{digest[:16]}", lambda: k13.hs_bins_kernel(z, hs))
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("torch.cuda.is_available() is false: this needs a GPU")
     if not k.__file__.startswith(ab.ROOT):
         sys.exit(f"nic_torch came from {k.__file__}, not {ab.ROOT}")
     parts = (sys.argv[2].split(",") if len(sys.argv) > 2 else
-             ["k1", "k2", "k3", "k4", "v3", "k5"])
+             ["k1", "k2", "k3", "k4", "v3", "k5", "k13"])
     print(f"AB {sys.argv[1]}: {ab.chip_smoke.smi_line()}", flush=True)
     _build.load()
     usage = ab.chip_smoke.ptxas_usage(_build.log_path().read_text())
@@ -82,6 +134,10 @@ def main() -> None:
               f"{body}{key} {r}, {ss}/{sl}"
               for (body, key), (r, ss, sl, _) in sorted(usage.items())
               if body.startswith(("decode", "mlp_tail"))), flush=True)
+    if "k13" in parts:
+        time_k13()
+    if not {"k1", "k2", "k3", "k4", "v3", "k5"} & set(parts):
+        return
     fp, mlp, m2l = ab.chip_smoke._random_flagship("cuda", 2048)
     with torch.inference_mode():
         for mode, dtype, gelu in (("fp32", None, "exact"),

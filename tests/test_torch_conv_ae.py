@@ -167,6 +167,43 @@ def _jax_fns(kind: str, impl: str = "matmul"):
     return latent, decode, steps
 
 
+@pytest.mark.parametrize("kind", ["2d", "3d"])
+def test_init_matches_flax_lecun_normal(kind):
+    """The port's initial kernels (``init_convs_``) against flax's
+    ``lecun_normal`` from the JAX trainer's modules, per layer over seeds
+    0-5: the pooled std within 6% of flax's and of 1/√fan-in (fan-in
+    kⁿ·Cin, the JAX kernel matrix's rows), and both truncated at 2σ. A
+    fan-in taken from Cout or kⁿ alone misses by 29% or more."""
+    enc, dec = _modules(kind, "matmul")
+    x = jnp.asarray(_asset(kind))
+    z = jax.eval_shape(enc.apply, jax.eval_shape(enc.init,
+                                                 jax.random.PRNGKey(0), x), x)
+
+    @jax.jit
+    def init(key):  # the JAX trainer's split (nic.train.conv_ae)
+        k1, k2, _ = jax.random.split(key, 3)
+        return {"enc": enc.init(k1, x), "dec": dec.init(k2, jnp.zeros(
+            z.shape))}
+
+    seeds = range(6)
+    jax_w = [_flat(init(jax.random.PRNGKey(s))) for s in seeds]
+    port_w = [_port(kind, seed=s).params_to_jax() for s in seeds]
+    kernels = [k for k in jax_w[0] if k.endswith("kernel")]
+    assert len(kernels) == 4
+    for k in kernels:
+        key = k.replace("params/", "", 0)
+        fan_in = int(np.prod(jax_w[0][k].shape[:-1]))
+        got = np.stack([w[key] for w in port_w]).ravel() * np.sqrt(fan_in)
+        want = np.stack([w[k] for w in jax_w]).ravel() * np.sqrt(fan_in)
+        assert got.size == want.size
+        for a in (got, want):
+            assert abs(a.std() - 1.0) <= 0.06, (k, a.std())
+            assert np.abs(a).max() <= 2.0 / 0.87962566103423978 * (1 + 1e-6)
+        print(f"{kind} {k}: fan-in {fan_in}, std·√fan-in port "
+              f"{got.std():.4f}, flax {want.std():.4f}")
+        assert abs(got.std() / want.std() - 1.0) <= 0.06, k
+
+
 def test_quantize_ste_matches_jax():
     x = np.random.default_rng(2).uniform(0, 1, 4096).astype(np.float32)
     jg = jax.grad(
