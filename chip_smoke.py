@@ -257,6 +257,26 @@ convolutions and cuBLAS's products in fp32 with no TF32, deterministic:
     times: each trainer's step, the conv-AE encode and decode at 512² and
     64³, the pixel decode at 512².
 
+The mesh (``nic_torch.parallel``), two ranks spawned on the one card
+over gloo (NCCL refuses two ranks on one device), against the same work
+in this process on one rank:
+
+31. (a) the flagship 512² at full width with TRAIN_FORWARD=kernel3, 8
+    crops of 256² (4 a rank): 20 ``kernel3_sharded`` steps, K11 launched
+    20 times on each rank and its launch log naming ``ff_pixel_mma``,
+    losses against one rank's 20 steps from the same draws (step 1 rel
+    1e-5, steps 1-20 rtol 2e-3), the params' digest equal on both ranks;
+    (b) the same for the 3D m3 64³ ``kernel3_sharded`` (K12) and the
+    path-B 512² ``kernel2_sharded`` (K7), 10 steps each; (c) the sharded
+    K1 decode of the 2048² random model and of the 512² fixture at mips
+    0-9, and K5 on the 64³ fixture at mips 0-6 and on the 256³ random
+    model, each equal bit for bit to one rank's (the fixtures' one-rank
+    decodes are held to the JAX fold in phases 4 and 14); (d) one step
+    of the hyperprior (phase 29's width), conv-AE 2D 512² and 3D 64³ and
+    movie-label trainers against one rank within phase 29's limits. It
+    prints the per-rank step ms, the all-reduce ms and each part's wall
+    time; two ranks share the card's SMs, so no number is a scaling one.
+
 ``--only a,b`` runs the build and the named phases (``PHASES``) and
 prints no kernels or result line; the build is skipped when every named
 phase is kernel-free (``NO_KERNEL_PHASES``); the driver's run takes no
@@ -279,7 +299,8 @@ multiply and add as its own instruction, by design (no FMA, for the
 bits), so its count at 33.5, half the FMA peak). No single PyTorch call
 computes any of these
 fused functions (K13's cuDNN composition sums in another order and is
-printed as a reference), so ``library_ms`` is null.
+printed as a reference), so ``library_ms`` is null. K1, K5, K7, K11 and
+K12 add ``launches_per_rank``: their launches on each rank of phase 31.
 """
 
 from __future__ import annotations
@@ -4278,11 +4299,307 @@ def phase_conv_ae(device) -> dict:
     return dict(decode_ms=decode_ms, cli=cli, times=times)
 
 
+# ---- phase 31: the mesh, 2 ranks on one card ------------------------------
+
+# the NTC runs of phase 31: (kernel, label, CLI overrides, TRAIN_FORWARD,
+# steps, the engine the mesh gates must pick, the train family)
+MD_RUNS = (
+    ("K11", "flagship 512² kernel3", TRAIN_ARGS, "kernel3", 20,
+     "kernel3_sharded", "train_ff"),
+    ("K12", "3D m3 64³ kernel3", MISTY, "kernel3", 10, "kernel3_sharded",
+     "train_ff3"),
+    ("K7", "path B 512² kernel2", PATH_B, "kernel2", 10, "kernel2_sharded",
+     "train_mlp"),
+)
+MD_RANKS = 2  # at least; one a card where there are more cards
+MD_SIZES = (2048, 256)  # the random models' 2D and 3D decode sizes
+MD_FIRST, MD_RTOL = TRACK_FIRST, TRACK_RTOL  # the engines-vs-gather limits
+
+
+def _md_ntc(mesh, args, engine, steps, counter) -> dict:
+    """``steps`` train steps of a trainer of ``args`` on this rank (mesh
+    None: one process) → losses, median step ms (CUDA events, steps 2 on),
+    the kernel's wrapper launches and launch log over the steps, the engine
+    and the params' digest; with a mesh also the ms of one all-reduce of
+    the params' shapes over 'data'."""
+    import torch
+
+    from nic_torch.cli.image_compression import load_asset
+    from nic_torch.config import parse_overrides
+    from nic_torch.kernels import _build
+    from nic_torch.parallel.mesh import check_replicated, pmean_
+    from nic_torch.train.ntc import NTCTrainer
+
+    cfg = parse_overrides(args + [f"TRAIN_FORWARD={engine}"])
+    tr = NTCTrainer(cfg, load_asset(cfg), mesh=mesh)
+    wrapper = _train_counters()[counter]
+    wrapper.launches = 0
+    _build.clear_body_launches()
+    losses, events = [], []
+    for _ in range(steps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        losses.append(tr.train_step()[0])
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    launches, bodies = wrapper.launches, _build.body_launches()
+    s = tr.state
+    params = list(s.fp) + [s.mlp[k] for k in NAMES]
+    out = dict(losses=[float(v) for v in losses], launches=launches,
+               bodies=bodies, engine=tr._forward_mode,
+               ms=statistics.median(a.elapsed_time(b) for a, b in events[1:]),
+               digest=check_replicated(params, mesh))
+    if mesh is not None:
+        grads = [torch.zeros_like(p) for p in params]
+        out["reduce_ms"] = cuda_ms(lambda: pmean_(grads, mesh, "data"))
+    return out
+
+
+def _md_decodes(mesh, device) -> dict:
+    """The kernel decodes through ``nic_torch.kernels.decode_sharded`` (one
+    rank with mesh None) → {case: (digest of the whole output, shape)},
+    the K1 and K5 launches, and the 2048² and 256³ decodes' ms."""
+    import argparse
+
+    import torch
+
+    from nic_torch.cli.decode import _artifact
+    from nic_torch.kernels.decode_fused_3d import decode_kernel_3d
+    from nic_torch.kernels.decode_fused_v2 import decode_kernel_2d
+    from nic_torch.grids.pyramid import pyramid_mip_levels
+    from nic_torch.kernels.decode_sharded import (
+        decode_image_fused_sharded, decode_volume_fused_sharded)
+    from nic_torch.parallel.mesh import params_digest
+
+    def art(path):
+        a = _artifact(argparse.Namespace(artifact=path, image_size=None),
+                      device)
+        kw = dict(mip_to_level=a["mip_to_level"],
+                  pe_channels=a["pe_channels"], use_tri_pe=a["use_tri_pe"])
+        if a["ndim"] == 3:
+            kw["sparse_g0"] = a["sparse_g0"]
+        return a["fp"], a["mlp"], a["image_size"], kw
+
+    cases = {}
+    fp, mlp, m2l = _random_flagship(device, MD_SIZES[0])
+    big2, big3 = (f"K1 {MD_SIZES[0]}² random mip 0",
+                  f"K5 {MD_SIZES[1]}³ random mip 0")
+    cases[big2] = (decode_image_fused_sharded, fp, mlp, 0,
+                   dict(image_size=MD_SIZES[0], mip_to_level=m2l,
+                        pe_channels=6))
+    fp, mlp, size, kw = art(ART)
+    for mip in range(10):
+        cases[f"K1 512² fixture mip {mip}"] = (
+            decode_image_fused_sharded, fp, mlp, mip,
+            dict(kw, image_size=size))
+    fp, mlp, size, kw = art(ART3)
+    for mip in range(7):
+        cases[f"K5 64³ fixture mip {mip}"] = (
+            decode_volume_fused_sharded, fp, mlp, mip,
+            dict(kw, image_size=size))
+    gen = torch.Generator(device="cpu").manual_seed(MD_SIZES[1])
+    fp, mlp = _pyramid3(gen, device, MD_SIZES[1], False, no_mip=True)
+    cases[big3] = (decode_volume_fused_sharded, fp, mlp, 0,
+                   dict(image_size=MD_SIZES[1], pe_channels=6,
+                        mip_to_level=pyramid_mip_levels(
+                            MD_SIZES[1], MD_SIZES[1] // 4, True)))
+    out = {}
+    decode_kernel_2d.launches = decode_kernel_3d.launches = 0
+    with torch.inference_mode():
+        for name, (fn, fp, mlp, mip, kw) in cases.items():
+            rec = fn(fp, mlp, mip, mesh, **kw)
+            out[name] = (params_digest([rec]), tuple(rec.shape))
+            del rec
+    launches = {"K1": decode_kernel_2d.launches,
+                "K5": decode_kernel_3d.launches}
+    times = {}
+    with torch.inference_mode():
+        for name in (big2, big3):
+            fn, fp, mlp, mip, kw = cases[name]
+            times[name] = cuda_ms(lambda: fn(fp, mlp, mip, mesh, **kw),
+                                  warmup=1, reps=5)
+    return dict(digests=out, launches=launches, ms=times)
+
+
+def _md_family(mesh, device) -> dict:
+    """One step of the hyperprior (phase 29's width, batch 8), movie-label
+    (misty's 64 frames) and conv-AE trainers (sancho 512², misty 64³) on
+    this rank → {trainer: (loss, reduced grads, params)} as numpy."""
+    import numpy as np
+    import torch
+
+    from nic_torch.train.hyperprior import HyperpriorTrainer
+
+    assets = _convae_assets()
+    out = {}
+    hp = HyperpriorTrainer(n=HP_N, m=HP_M, lam=HP_LAM, patch=HP_PATCH,
+                           batch=HP_BATCH, device=device, mesh=mesh)
+    staged = hp.stage_images(list(_hp_images().values())[:2])
+    loss = float(hp.train_step(hp.sample_crops(staged))[0])
+    ps = list(hp.model.parameters())
+    out["hyperprior"] = (loss, [p.grad.cpu().numpy() for p in ps],
+                         [p.detach().cpu().numpy() for p in ps])
+    for name in ("ConvAE 2D 512²", "ConvAE 3D 64³", "MovieLabel 64×64²"):
+        tr = _md_family_trainer(name, assets, mesh, device)
+        loss = float(tr.train_step())
+        out[name] = (loss, list(tr.grads_to_jax().values()),
+                     list(tr.params_to_jax().values()))
+        tr = None
+        torch.cuda.empty_cache()
+    return out
+
+
+def _md_family_trainer(name, assets, mesh, device):
+    from nic_torch.train.conv_ae import ConvAETrainer
+    from nic_torch.train.movie_label import MovieLabelTrainer
+
+    if name == "ConvAE 2D 512²":
+        return ConvAETrainer(assets["sancho"], num_bits=4, num_epochs=1000,
+                             device=device, mesh=mesh)
+    if name == "ConvAE 3D 64³":
+        return ConvAETrainer(assets["misty"], num_bits=8, latent_channels=16,
+                             hidden_channels=32, num_epochs=1000,
+                             device=device, mesh=mesh)
+    return MovieLabelTrainer(assets["misty"], num_bits=8, num_epochs=1000,
+                             device=device, mesh=mesh)
+
+
+def _md_all(mesh, device) -> dict:
+    """Phase 31's work on one rank (or, mesh None, in one process), each
+    part's wall time beside it."""
+    import torch
+
+    from nic_torch.kernels import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if device == "cuda":
+        _build.load()
+    out, wall = {}, {}
+    for kernel, _, args, engine, steps, _, _ in MD_RUNS:
+        t0 = time.perf_counter()
+        out[kernel] = _md_ntc(mesh, args + [f"DEVICE={device}"], engine,
+                              steps, kernel)
+        wall[kernel] = time.perf_counter() - t0
+    for part, fn in (("decodes", _md_decodes), ("family", _md_family)):
+        t0 = time.perf_counter()
+        out[part] = fn(mesh, device)
+        wall[part] = time.perf_counter() - t0
+    out["wall"] = wall
+    out["backend"] = None if mesh is None else mesh.backend
+    return out
+
+
+def _md_leaves(tag, got, want, bad) -> None:
+    """One trainer's step on the mesh against one rank: phase 29/30's
+    limits (loss rel, worst leaf's grad max|Δ|/max|g|, params max|Δ|)."""
+    import numpy as np
+
+    (l1, g1, p1), (l0, g0, p0) = got, want
+    loss = abs(l1 - l0) / abs(l0)
+    grad = max(float(np.abs(a - b).max()) / max(float(np.abs(b).max()),
+                                                 1e-30)
+               for a, b in zip(g1, g0))
+    param = max(float(np.abs(a - b).max()) for a, b in zip(p1, p0))
+    print(f"phase 31 (d): {tag}: loss {l1:.6f} vs "
+          f"{l0:.6f} (rel {loss:.2e}), worst grad {grad:.2e}, params "
+          f"{param:.2e}", flush=True)
+    for key, val in (("loss", loss), ("grad", grad), ("param", param)):
+        if not val <= HP_STEP_TOL[key]:
+            bad.append(f"{tag} {key} {val:.2e} (limit {HP_STEP_TOL[key]})")
+
+
+def phase_multidevice(device) -> dict:
+    """Two ranks on the one card (``torch.distributed`` over gloo: NCCL
+    refuses two ranks on one device), or one rank a card over NCCL where
+    there are more cards, spawned by ``nic_torch.parallel.mesh.run_ranks``,
+    against the same work in this process on one rank: (a)-(b) the NTC runs of MD_RUNS, (c) the sharded
+    K1/K5 decodes, (d) one step of the hyperprior, conv-AE and movie-label
+    trainers. Returns each kernel's launches per rank."""
+    import numpy as np
+
+    from nic_torch.parallel.mesh import run_ranks
+
+    import torch
+
+    torch.cuda.empty_cache()  # the earlier phases' cached blocks
+    world = max(MD_RANKS, torch.cuda.device_count())
+    t0 = time.perf_counter()
+    ranks = run_ranks(_md_all, world, device, device=device)
+    t_ranks = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    one = _md_all(None, device)
+    t_one = time.perf_counter() - t1
+    bad = []
+    for kernel, label, _, _, steps, engine, family in MD_RUNS:
+        want_body = _want_body(family, 64, "bf16")
+        got = [r[kernel] for r in ranks]
+        ref = one[kernel]
+        for r, g in enumerate(got):
+            named = _bodies_named([b for b, n in g["bodies"].items() if n])
+            if (g["engine"] != engine or g["launches"] != steps
+                    or want_body not in named):
+                bad.append(f"{label} rank {r}: engine {g['engine']}, "
+                           f"{g['launches']} {kernel} launches of {steps}, "
+                           f"launch log {sorted(named)}")
+        if len({g["digest"] for g in got}) != 1:
+            bad.append(f"{label}: params differ across ranks "
+                       f"{[g['digest'] for g in got]}")
+        first = abs(got[0]["losses"][0] - ref["losses"][0]) / abs(
+            ref["losses"][0])
+        rel = np.abs(np.array(got[0]["losses"]) - ref["losses"]) / np.abs(
+            ref["losses"])
+        print(f"phase 31 (a/b): {label}: {engine} on each of {world} "
+              f"ranks ({got[0]['launches']} {kernel} launches a rank, "
+              f"launch log {sorted(_bodies_named(got[0]['bodies']))}), "
+              f"params digest "
+              f"{got[0]['digest']} on every rank; loss step 1 rel "
+              f"{first:.2e}, steps 1-{steps} max rel {rel.max():.2e} vs one "
+              f"rank; step ms median per rank "
+              + "/".join(f"{g['ms']:.4f}" for g in got)
+              + f" (one rank {ref['ms']:.4f}); all-reduce of the params' "
+              f"shapes {got[0]['reduce_ms']:.4f} ms", flush=True)
+        if not first <= MD_FIRST or not (rel <= MD_RTOL).all():
+            bad.append(f"{label}: losses vs one rank step 1 {first:.2e}, "
+                       f"max {rel.max():.2e}")
+    dec = [r["decodes"] for r in ranks]
+    for name, want in one["decodes"]["digests"].items():
+        got = [d["digests"][name] for d in dec]
+        if any(g != want for g in got):
+            bad.append(f"{name}: sharded {got} vs one rank {want}")
+    print(f"phase 31 (c): {len(dec[0]['digests'])} sharded decodes equal "
+          f"bit for bit to one rank's (the 512² fixture's one-rank decode "
+          f"is phase 4's, held to the JAX fold there); launches per rank "
+          f"{dec[0]['launches']} (one rank {one['decodes']['launches']}); "
+          + "; ".join(f"{k}: {dec[0]['ms'][k]:.4f} ms on {world} ranks, "
+                      f"{one['decodes']['ms'][k]:.4f} on one"
+                      for k in dec[0]["ms"]), flush=True)
+    for name in one["family"]:
+        _md_leaves(f"{name}, {world} ranks vs one", ranks[0]["family"][name],
+                   one["family"][name], bad)
+    print(f"phase 31: wall s per part, rank 0 / one rank: " + "; ".join(
+        f"{k} {ranks[0]['wall'][k]:.1f}/{one['wall'][k]:.1f}"
+        for k in one["wall"]) + f"; the spawn {t_ranks:.1f}, one rank "
+        f"{t_one:.1f}; backend {ranks[0]['backend']}" + (
+            " (ranks share the card's SMs: no scaling number)"
+            if world > torch.cuda.device_count() else ""), flush=True)
+    if bad:
+        fail(f"phase 31: {bad}")
+    print(f"phase 31: multidevice passed in {time.perf_counter() - t0:.1f} "
+          "s", flush=True)
+    per = {k: ranks[0][k]["launches"] for k, *_ in MD_RUNS}
+    per.update(ranks[0]["decodes"]["launches"])
+    return per
+
+
 # the phases by name, in the order a full run takes them
 PHASES = ("parity", "serve", "scale", "k11", "k7", "k6", "train", "path_a",
           "path_b", "step_time", "k5", "serve3", "scale3", "k12", "k9",
           "k6_3d", "train3", "step_time3", "k3", "k4", "k2", "xla_cli",
-          "folded", "widths", "small_cli", "rect", "hyperprior", "conv_ae")
+          "folded", "widths", "small_cli", "rect", "hyperprior", "conv_ae",
+          "multidevice")
 
 
 # phases that launch no kernel of the port's
@@ -4354,6 +4671,7 @@ def main(argv=None) -> None:
     phase_rect("cuda")
     hp = phase_hyperprior("cuda")
     phase_conv_ae("cuda")
+    per_rank = phase_multidevice("cuda")
     k11_ms, k11_plain, k11_work = k11["timings"]["f=4 bf16·poly noise=on"]
     print(f"K11 share of the kernel3 step: {k11_ms / steps['kernel3']:.3f} "
           f"({k11_ms:.4f} of {steps['kernel3']:.4f} ms); K7 share of the "
@@ -4370,10 +4688,18 @@ def main(argv=None) -> None:
 
     def entry(name, source, replaces, launches, err, ms, plain, work, dtype):
         b_ms, b_by = bound(*work, dtype)
-        return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": launches,
-                "max_abs_err": err, "ms": ms, "plain_ms": plain,
-                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+        got = {"name": name, "route": "cuda", "source": source,
+               "replaces": replaces, "launches": launches,
+               "max_abs_err": err, "ms": ms, "plain_ms": plain,
+               "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+        # the kernels phase 31's sharded paths launch: their launches on
+        # each of its ranks
+        key = {"decode_fused_v2": "K1", "decode_fused_3d": "K5",
+               "train_fused_ff": "K11", "train_fused_ff3": "K12",
+               "train_fused_ng": "K7"}.get(name)
+        if key is not None:
+            got["launches_per_rank"] = per_rank[key]
+        return got
 
     # each at its path's shape and mode: K1 2048² fp32·exact; K11 8×256²
     # bf16·poly with noise; K6 8×32² (path A's largest launch) and K7

@@ -3,10 +3,17 @@
 checkpoints, resume, and the PSNR reports.
 
 The flags are the JAX CLIs' plus ``--device`` (``cuda`` by default, which
-raises without a card; ``--device cpu`` runs on the CPU). ``--data_parallel
-true`` raises: the device mesh is queue 1, item 13. Checkpoints and
+raises without a card; ``--device cpu`` runs on the CPU). Checkpoints and
 latents keep the JAX CLIs' names and keys, so ``--resume`` and
 ``--resume_step`` read a checkpoint of either package.
+
+``--data_parallel true`` under a launcher (``torchrun --nproc_per_node N
+-m nic_torch.cli.image_comp --data_parallel true``) trains the conv-AE
+workloads (image_comp, movie_frame_comp, movie_2d_comp, movie_3d_comp)
+and the movie-label one over the ranks' mesh, one process a device
+(:func:`start`); rank 0 alone writes the log, scalars, checkpoints,
+latent and images. Without a launcher it runs one rank. The per-pixel
+workloads have no mesh path, as in the JAX CLIs.
 """
 
 from __future__ import annotations
@@ -20,8 +27,8 @@ import torch
 from nic_torch.core.metrics import average_psnr, psnr
 from nic_torch.obs.log import RunLog, ScalarWriter
 
-__all__ = ["standard_parser", "resolve", "save_name", "run_training",
-           "maybe_resume", "report_image", "report_video"]
+__all__ = ["standard_parser", "resolve", "start", "is_main", "save_name",
+           "run_training", "maybe_resume", "report_image", "report_video"]
 
 
 def _flag(v: str) -> bool:
@@ -53,22 +60,49 @@ def standard_parser(description: str, **defaults) -> argparse.ArgumentParser:
     p.add_argument("--qat_ste", type=_flag, default=False)
     p.add_argument("--output_root", default="runs")
     p.add_argument("--data_parallel", type=_flag, default=False,
-                   help="shard the frame/sheet-row axis over a device mesh "
-                        "(not ported: raises)")
+                   help="shard the frame/sheet-row axis over the ranks of a "
+                        "launcher (torchrun), one process a device")
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a card) or cpu")
     return p
 
 
 def resolve(args) -> torch.device:
-    """The run's device; refuses what the port does not have."""
+    """The run's device (``cuda`` without a card raises)."""
     from nic_torch.train.hyperprior import resolve_device
 
-    if args.data_parallel:
-        raise NotImplementedError("--data_parallel (queue 1, item 13): a "
-                                  "device mesh is not ported to nic_torch "
-                                  "yet (ROADMAP.md)")
     return resolve_device(args.device)
+
+
+def start(args, name: str):
+    """(device, mesh, log) of a run: with ``--data_parallel`` this rank's
+    mesh under a launcher (None without one) and its device; the run's
+    log on rank 0, a silent one on the other ranks."""
+    from nic_torch.obs.log import make_filename_by_seq
+
+    device, mesh = resolve(args), None
+    if args.data_parallel:
+        from nic_torch.parallel.mesh import init_from_env
+
+        mesh = init_from_env(device)
+        if mesh is not None:
+            device = mesh.device
+    if mesh is None or mesh.is_main:
+        log = RunLog(make_filename_by_seq(
+            os.path.join(args.output_root, "printlog"), f"{name}.txt"))
+    else:
+        log = RunLog(None, echo=False)
+    if args.data_parallel:
+        log("data parallel over mesh " + (
+            str(mesh.shape) if mesh is not None else
+            "{'data': 1, 'pixel': 1} (no launcher: one rank)"))
+    return device, mesh, log
+
+
+def is_main(trainer) -> bool:
+    """Does this process write the run's files (no mesh, or rank 0)?"""
+    mesh = getattr(trainer, "mesh", None)
+    return mesh is None or mesh.is_main
 
 
 def save_name(project: str, args) -> str:
@@ -99,10 +133,13 @@ def run_training(trainer, args, log: RunLog, writer: ScalarWriter | None,
                                   time.perf_counter() - t0, step)
             if step % args.interval_print == 0:
                 log(f"Epoch [{step}/{args.num_epochs}], Loss: {loss:.4f}")
-            if step % args.interval_checkpoint == 0:
+            if step % args.interval_checkpoint == 0 and is_main(trainer):
                 trainer.save_checkpoint(
                     os.path.join(out_dir, f"{name}_{epoch}.ckpt.npz"))
-    trainer.save_checkpoint(os.path.join(out_dir, f"{name}.ckpt.npz"))
+    if is_main(trainer):
+        trainer.save_checkpoint(os.path.join(out_dir, f"{name}.ckpt.npz"))
+    if getattr(trainer, "mesh", None) is not None:
+        trainer.mesh.barrier()
 
 
 def maybe_resume(trainer, args, log: RunLog, project: str) -> None:

@@ -19,7 +19,7 @@ import sys
 import numpy as np
 
 from nic_torch.cli import common
-from nic_torch.obs.log import RunLog, ScalarWriter, make_filename_by_seq
+from nic_torch.obs.log import ScalarWriter, make_filename_by_seq
 
 PROJECT = "image"
 
@@ -31,13 +31,12 @@ def run(argv=None, project: str = PROJECT) -> float:
 
     args = common.standard_parser(__doc__, num_bits=4,
                                   num_epochs=80000).parse_args(argv)
-    device = common.resolve(args)
     name = common.save_name(project, args)
+    device, mesh, log = common.start(args, name)
 
     def out(*p):
         return os.path.join(args.output_root, *p)
 
-    log = RunLog(make_filename_by_seq(out("printlog"), f"{name}.txt"))
     log(datetime.datetime.now())
 
     image_hw3 = load_image_mips(args.image_path, args.image_size,
@@ -46,16 +45,20 @@ def run(argv=None, project: str = PROJECT) -> float:
         image_hw3, num_bits=args.num_bits,
         latent_channels=args.latent_channels,
         hidden_channels=args.hidden_channels, num_epochs=args.num_epochs,
-        lr=args.lr, seed=args.seed, qat_ste=args.qat_ste, device=device)
+        lr=args.lr, seed=args.seed, qat_ste=args.qat_ste, device=device,
+        mesh=mesh)
     common.maybe_resume(trainer, args, log, project)
-    writer = ScalarWriter(out("log", name), out("log", f"{name}_scalars.csv"))
+    main = common.is_main(trainer)
+    writer = (ScalarWriter(out("log", name), out("log", f"{name}_scalars.csv"))
+              if main else ScalarWriter(None))
     if args.train_model:
         common.run_training(trainer, args, log, writer, project)
 
     if args.save_model:
         with log.span("encode time"):
             latent = trainer.encode()
-        save_latent(out("comp", f"{name}.npy"), latent, args.num_bits)
+        if main:
+            save_latent(out("comp", f"{name}.npy"), latent, args.num_bits)
         log(f"latent shape: {latent.shape}")
     else:
         latent = np.load(out("comp", f"{name}.npy"))
@@ -63,7 +66,7 @@ def run(argv=None, project: str = PROJECT) -> float:
     with log.span("decode time"):
         rec = trainer.decode(latent)
     p = common.report_image(log, image_hw3, rec, make_filename_by_seq(
-        out("image"), f"{name}.png"))
+        out("image"), f"{name}.png") if main else None)
     writer.close()
     log(datetime.datetime.now())
     return p

@@ -16,7 +16,7 @@ import sys
 import numpy as np
 
 from nic_torch.cli import common
-from nic_torch.obs.log import RunLog, ScalarWriter, make_filename_by_seq
+from nic_torch.obs.log import ScalarWriter, make_filename_by_seq
 
 PROJECT = "movie_3d"
 
@@ -30,29 +30,32 @@ def run(argv=None) -> float:
         __doc__, image_path="data/misty_64_64.avi", num_bits=8,
         num_epochs=3200000, latent_channels=16, hidden_channels=32)
     args = parser.parse_args(argv)
-    device = common.resolve(args)
     name = common.save_name(PROJECT, args)
+    device, mesh, log = common.start(args, name)
 
     def out(*p):
         return os.path.join(args.output_root, *p)
 
-    log = RunLog(make_filename_by_seq(out("printlog"), f"{name}.txt"))
     log(datetime.datetime.now())
 
     movie = read_clip(args.image_path).astype(np.float32) / 255.0
     trainer = ConvAETrainer(
         movie, num_bits=args.num_bits, latent_channels=args.latent_channels,
         hidden_channels=args.hidden_channels, num_epochs=args.num_epochs,
-        lr=args.lr, seed=args.seed, qat_ste=args.qat_ste, device=device)
+        lr=args.lr, seed=args.seed, qat_ste=args.qat_ste, device=device,
+        mesh=mesh)
     common.maybe_resume(trainer, args, log, PROJECT)
-    writer = ScalarWriter(out("log", name), out("log", f"{name}_scalars.csv"))
+    main = common.is_main(trainer)
+    writer = (ScalarWriter(out("log", name), out("log", f"{name}_scalars.csv"))
+              if main else ScalarWriter(None))
     if args.train_model:
         common.run_training(trainer, args, log, writer, PROJECT)
 
     if args.save_model:
         with log.span("encode time"):
             latent = trainer.encode()
-        save_latent(out("comp", f"{name}.npy"), latent, args.num_bits)
+        if main:
+            save_latent(out("comp", f"{name}.npy"), latent, args.num_bits)
         log(f"latent shape: {latent.shape}")
     else:
         latent = np.load(out("comp", f"{name}.npy"))
@@ -60,7 +63,7 @@ def run(argv=None) -> float:
     with log.span("decode time"):
         rec = trainer.decode(latent)
     p = common.report_video(log, movie, rec, make_filename_by_seq(
-        out("image"), f"{name}.avi"))
+        out("image"), f"{name}.avi") if main else None)
     writer.close()
     log(datetime.datetime.now())
     return p

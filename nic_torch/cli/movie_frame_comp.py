@@ -16,7 +16,7 @@ import sys
 import numpy as np
 
 from nic_torch.cli import common
-from nic_torch.obs.log import RunLog, ScalarWriter, make_filename_by_seq
+from nic_torch.obs.log import ScalarWriter, make_filename_by_seq
 
 PROJECT = "movie_frame"
 
@@ -31,13 +31,12 @@ def run(argv=None, project: str = PROJECT) -> float:
         __doc__, image_path="data/misty_64_64.avi", num_bits=8,
         num_epochs=100000, latent_channels=16)
     args = parser.parse_args(argv)
-    device = common.resolve(args)
     name = common.save_name(project, args)
+    device, mesh, log = common.start(args, name)
 
     def out(*p):
         return os.path.join(args.output_root, *p)
 
-    log = RunLog(make_filename_by_seq(out("printlog"), f"{name}.txt"))
     log(datetime.datetime.now())
 
     movie = read_clip(args.image_path)  # [T, S, S, 3] uint8
@@ -48,16 +47,20 @@ def run(argv=None, project: str = PROJECT) -> float:
     trainer = ConvAETrainer(
         sheet, num_bits=args.num_bits, latent_channels=args.latent_channels,
         hidden_channels=args.hidden_channels, num_epochs=args.num_epochs,
-        lr=args.lr, seed=args.seed, qat_ste=args.qat_ste, device=device)
+        lr=args.lr, seed=args.seed, qat_ste=args.qat_ste, device=device,
+        mesh=mesh)
     common.maybe_resume(trainer, args, log, project)
-    writer = ScalarWriter(out("log", name), out("log", f"{name}_scalars.csv"))
+    main = common.is_main(trainer)
+    writer = (ScalarWriter(out("log", name), out("log", f"{name}_scalars.csv"))
+              if main else ScalarWriter(None))
     if args.train_model:
         common.run_training(trainer, args, log, writer, project)
 
     if args.save_model:
         with log.span("encode time"):
             latent = trainer.encode()
-        save_latent(out("comp", f"{name}.npy"), latent, args.num_bits)
+        if main:
+            save_latent(out("comp", f"{name}.npy"), latent, args.num_bits)
     else:
         latent = np.load(out("comp", f"{name}.npy"))
 
@@ -66,7 +69,7 @@ def run(argv=None, project: str = PROJECT) -> float:
     rec_movie = unflatten_2d_to_3d(rec_sheet, s, t)
     p = common.report_video(
         log, movie.astype(np.float32) / 255.0, rec_movie,
-        make_filename_by_seq(out("image"), f"{name}.avi"))
+        make_filename_by_seq(out("image"), f"{name}.avi") if main else None)
     writer.close()
     log(datetime.datetime.now())
     return p

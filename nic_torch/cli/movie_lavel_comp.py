@@ -35,37 +35,39 @@ def run(argv=None) -> float:
 def _run_label(argv) -> float:
     from nic_torch.data.assets import read_clip
     from nic_torch.io.artifacts import save_latent
-    from nic_torch.obs.log import RunLog, make_filename_by_seq
+    from nic_torch.obs.log import make_filename_by_seq
     from nic_torch.train.movie_label import MovieLabelTrainer
 
     parser = common.standard_parser(
         "per-frame label-embedding video compression",
         image_path="data/misty_64_64.avi", num_bits=8, num_epochs=50000)
     args = parser.parse_args(argv)
-    device = common.resolve(args)
     name = common.save_name("movie_label", args)
+    device, mesh, log = common.start(args, name)
 
     def out(*p):
         return os.path.join(args.output_root, *p)
 
-    log = RunLog(make_filename_by_seq(out("printlog"), f"{name}.txt"))
     log(datetime.datetime.now())
 
     movie = read_clip(args.image_path).astype(np.float32) / 255.0
     trainer = MovieLabelTrainer(
         movie, num_bits=args.num_bits, latent_channels=args.latent_channels,
         hidden_channels=args.hidden_channels, num_epochs=args.num_epochs,
-        lr=args.lr, seed=args.seed, qat_ste=args.qat_ste, device=device)
+        lr=args.lr, seed=args.seed, qat_ste=args.qat_ste, device=device,
+        mesh=mesh)
     with log.span("train time"):
         losses = trainer.train_many(args.num_epochs)
     log(f"loss: first {losses[0]:.6f}, last {losses[-1]:.6f}")
     with log.span("encode time"):
         latent = trainer.encode()
-    save_latent(out("comp", f"{name}.npy"), latent, args.num_bits)
+    main = common.is_main(trainer)
+    if main:
+        save_latent(out("comp", f"{name}.npy"), latent, args.num_bits)
     with log.span("decode time"):
         rec = trainer.decode(latent)
     p = common.report_video(log, movie, rec, make_filename_by_seq(
-        out("image"), f"{name}.avi"))
+        out("image"), f"{name}.avi") if main else None)
     log(datetime.datetime.now())
     return p
 

@@ -42,6 +42,9 @@ def run(argv=None, project: str = PROJECT, use_pe: bool = USE_PE) -> float:
 
     log = RunLog(make_filename_by_seq(out("printlog"), f"{name}.txt"))
     log(datetime.datetime.now())
+    if args.data_parallel:
+        log("--data_parallel: the per-pixel workload has no mesh path (as "
+            "in the JAX CLI); training on one device")
 
     image = load_image_mips(args.image_path, args.image_size,
                             0)[0].transpose(1, 2, 0)

@@ -10,7 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["mse", "psnr", "average_psnr", "safe_statistics"]
+__all__ = ["mse", "psnr", "psnr_of_mse", "average_psnr", "safe_statistics"]
 
 
 def mse(a, b) -> torch.Tensor:
@@ -21,9 +21,14 @@ def mse(a, b) -> torch.Tensor:
 def psnr(original, reconstructed, num_bits: int = 8,
          max_value: float | None = None) -> torch.Tensor:
     """PSNR in dB; ``max_value=None`` → the reference's 2^num_bits."""
+    return psnr_of_mse(mse(original, reconstructed), num_bits, max_value)
+
+
+def psnr_of_mse(m: torch.Tensor, num_bits: int = 8,
+                max_value: float | None = None) -> torch.Tensor:
+    """PSNR in dB of a mean squared error (``psnr``'s peaks)."""
     if max_value is None:
         max_value = float(2**num_bits)
-    m = mse(original, reconstructed)
     db = 10.0 * torch.log10(max_value * max_value / torch.clamp(m, min=1e-30))
     return torch.where(m == 0, torch.full_like(db, float("inf")), db)
 

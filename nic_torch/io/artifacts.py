@@ -33,6 +33,7 @@ from nic_torch.core.quant import pack_bits, pack_grid, unpack_bits, unpack_grid
 from nic_torch.models.mlp import PARAM_NAMES, MLPDecoder
 
 __all__ = ["save_compressed", "load_compressed", "compressed_num_bits",
+           "artifact_meta",
            "save_latent", "load_latent", "save_checkpoint",
            "load_checkpoint", "CheckpointManager"]
 
@@ -125,6 +126,13 @@ def load_compressed(path: str, *, device) -> tuple[MLPDecoder, tuple, dict]:
                                                          dtype=torch.float32)
                   for k in PARAM_NAMES}
     return MLPDecoder(params, requires_grad=False), tuple(pyramid), meta
+
+
+def artifact_meta(path: str) -> dict:
+    """A saved artifact's ``__meta__`` (its config, bits, grid shapes and
+    whether its grids are rANS-coded)."""
+    with np.load(path) as z:
+        return json.loads(bytes(z["__meta__"]).decode())
 
 
 def compressed_num_bits(path: str) -> int:

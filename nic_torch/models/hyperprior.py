@@ -190,6 +190,17 @@ class HyperpriorModel(nn.Module):
             dim=(1, 2, 3))
         return x_hat, y_bits, z_bits
 
+    def noise_shapes(self, x_shape) -> tuple:
+        """The shapes of y and z for an NCHW input of ``x_shape``: each
+        k5/s2/p2 conv halves a side, rounding up."""
+        b, _, h, w = x_shape
+        for _ in range(4):
+            h, w = (h + 1) // 2, (w + 1) // 2
+        y = (b, self.m, h, w)
+        for _ in range(2):
+            h, w = (h + 1) // 2, (w + 1) // 2
+        return y, (b, self.n, h, w)
+
     # the codec's stages
     def analysis(self, x):
         return self.g_a(x)

@@ -32,15 +32,18 @@ def make_filename_by_seq(dirname: str, filename: str,
 
 
 class RunLog:
-    """Print to the console and append to a per-run text log."""
+    """Print to the console and append to a per-run text log; with
+    ``echo=False`` and no path it is silent (a mesh rank other than 0)."""
 
-    def __init__(self, path: str | None):
+    def __init__(self, path: str | None, echo: bool = True):
         self.path = path
+        self.echo = echo
         if path:
             os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
 
     def __call__(self, msg) -> None:
-        print(msg, flush=True)
+        if self.echo:
+            print(msg, flush=True)
         if self.path:
             with open(self.path, "a") as f:
                 print(msg, file=f)

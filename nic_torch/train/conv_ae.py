@@ -23,8 +23,20 @@ the JAX trainer's), as ``truncate(quantize(z)·(2^b − 1))``.
 Checkpoints are flat arrays under the JAX trainer's keys
 (``nic_torch.io.convert``: the ``conv_impl="matmul"`` tree by default,
 either tree on load), so either package resumes the other's. The trainer
-runs on one device (the JAX trainer's mesh is queue 1, item 13); it
 defaults to the card and raises without one.
+
+Under a mesh (``mesh=``, :mod:`nic_torch.parallel.mesh`) the sheet rows
+(2D) or frames (3D) split over 'data', the params replicated, as the JAX
+trainer shards them; where JAX's partitioner exchanges the convolutions'
+halos, each rank recomputes them. A rank that owns output rows [4a, 4b)
+(blocks of 4 rows, the latent's stride) encodes input rows [4a − 8,
+4b + 8) (cut at the asset's border, where the convolutions' zero padding
+is the true one) into latent rows [a − 1, b + 1), whose every row the
+decode of its own rows reads is exact; it adds that slice of the whole
+latent's noise (or quantizes it), decodes it and keeps its own rows. Its
+loss is its rows' share of the whole mean, so the gradients and losses
+are summed over 'data' (one all-reduce a step). No activation crosses
+between ranks. Encode, decode and reconstruct run whole on every rank.
 """
 
 from __future__ import annotations
@@ -41,7 +53,8 @@ from nic_torch.models.autoencoder import (ConvDecoder2D, ConvDecoder3D,
 from nic_torch.train.hyperprior import conv_flags, resolve_device
 from nic_torch.train.spatiotemporal import make_batched_decode
 
-__all__ = ["ConvAETrainer", "QATTrainer", "channels_first"]
+__all__ = ["ConvAETrainer", "QATTrainer", "channels_first", "halo_window",
+           "halo_loss"]
 
 # optax.adam = chain(scale_by_adam, scale_by_learning_rate): its state is
 # the chain's 0th
@@ -65,15 +78,25 @@ class QATTrainer:
 
     conv_impl = "matmul"  # the JAX tree a checkpoint is written in
 
-    def _init_common(self, device, seed: int, lr: float) -> None:
+    def _init_common(self, device, seed: int, lr: float,
+                     mesh=None) -> None:
         self.device = resolve_device(device)
+        self.mesh = mesh
+        if mesh is not None:
+            if mesh.device.type != self.device.type:
+                raise ValueError(f"device {device} but the mesh rank runs "
+                                 f"on {mesh.device}")
+            self.device = mesh.device
         self.lr = lr
         self.init_gen = torch.Generator().manual_seed(seed)
         self.gen = torch.Generator(device=self.device).manual_seed(seed + 1)
         self.step = 0
 
     def _init_opt(self) -> None:
+        from nic_torch.parallel.mesh import replicate_
+
         params = [p for p, _, _ in self.leaves().values()]
+        replicate_(params, self.mesh)
         self.opt = torch.optim.Adam(params, lr=self.lr, betas=(0.9, 0.999),
                                     eps=1e-8)
 
@@ -92,8 +115,16 @@ class QATTrainer:
 
     def step_core(self, phase: str, *draws) -> torch.Tensor:
         """One step from the given draws (:meth:`_draws`' tensors): forward,
-        backward, Adam; returns the loss (a device scalar)."""
+        backward, Adam; returns the loss (a device scalar). Under a mesh
+        the draws are the whole step's and each rank's loss is its share
+        of the step's: grads and loss are summed over 'data'."""
         loss = self.loss_and_grads(phase, *draws)
+        if self.mesh is not None:
+            from nic_torch.parallel.mesh import psum_
+
+            loss = loss.clone()
+            psum_([p.grad for p, _, _ in self.leaves().values()
+                   if p.grad is not None] + [loss], self.mesh, "data")
         self.opt.step()
         self.step += 1
         return loss
@@ -186,16 +217,48 @@ class QATTrainer:
         return self.step
 
 
+def halo_window(length: int, parts: int, k: int) -> tuple:
+    """Rank k of ``parts``' rows along the sharded axis (sheet rows or
+    frames) → (input rows, latent rows, own output rows) as slices:
+    output rows [4a, 4b), latent rows [a − 1, b + 1) and input rows
+    [4(a − 2), 4(b + 2)), each cut at the axis's ends."""
+    if length % (4 * parts):
+        raise ValueError(f"{length} rows do not split into {parts} blocks "
+                         "of a multiple of 4 (the latent's stride)")
+    z_rows = length // 4
+    a, b = k * z_rows // parts, (k + 1) * z_rows // parts
+    za, zb = max(a - 1, 0), min(b + 1, z_rows)
+    s, e = max(4 * za - 4, 0), min(4 * zb + 4, length)
+    return slice(s, e), slice(za, zb), slice(4 * a, 4 * b)
+
+
+def halo_loss(encoder, decoder, image, window, qat) -> torch.Tensor:
+    """This rank's share of the conv-AE's mean squared error with the
+    halo recomputed (:func:`halo_window`'s rows along axis 2 of ``image``,
+    [1, 3, L, …]): ``qat(z, latent rows)`` noises or quantizes the latent
+    slice. → Σ over the own rows of the squared error / image.numel()."""
+    rows_in, rows_z, rows_out = window
+    z = encoder(image[:, :, rows_in])
+    z = z[:, :, rows_z.start - rows_in.start // 4:
+          rows_z.stop - rows_in.start // 4]
+    out = decoder(qat(z, rows_z))
+    own = out[:, :, rows_out.start - 4 * rows_z.start:
+              rows_out.stop - 4 * rows_z.start]
+    return torch.sum((own - image[:, :, rows_out]) ** 2) / image.numel()
+
+
 class ConvAETrainer(QATTrainer):
     def __init__(self, image, *, num_bits: int = 4, latent_channels: int = 8,
                  hidden_channels: int = 16, num_epochs: int = 1000,
                  lr: float = 1e-3, seed: int = 0, qat_ste: bool = False,
-                 device="cuda"):
+                 device="cuda", mesh=None):
         """``image``: [H, W, 3] (2D) or [T, H, W, 3] (3D) in [0, 1]. Weights
         from ``torch.Generator(seed)`` (flax's ``lecun_normal``, fan-in
         kⁿ·Cin; not JAX's values); noise from a generator on the device
-        seeded with ``seed + 1``."""
-        self._init_common(device, seed, lr)
+        seeded with ``seed + 1``. ``mesh``: this rank's
+        :class:`~nic_torch.parallel.mesh.Mesh` (rows or frames over
+        'data', a multiple of 4 each)."""
+        self._init_common(device, seed, lr, mesh)
         self.num_bits, self.num_epochs, self.qat_ste = (num_bits, num_epochs,
                                                         qat_ste)
         image = np.asarray(image, np.float32)
@@ -210,6 +273,8 @@ class ConvAETrainer(QATTrainer):
             mod.to(self.device)
         self._init_opt()
         self._decode = make_batched_decode(self.decoder)
+        self.window = None if mesh is None else halo_window(
+            self.image.shape[2], mesh.data, mesh.data_index)
 
     def leaves(self, conv_impl: str | None = None) -> dict:
         from nic_torch.io.convert import conv_leaves
@@ -234,8 +299,14 @@ class ConvAETrainer(QATTrainer):
         ``.grad`` and returns the loss."""
         self.opt.zero_grad(set_to_none=True)
         with conv_flags():
-            z = self._qat(self.encoder(self.image), phase, noise)
-            loss = torch.mean((self.decoder(z) - self.image) ** 2)
+            if self.window is None:
+                z = self._qat(self.encoder(self.image), phase, noise)
+                loss = torch.mean((self.decoder(z) - self.image) ** 2)
+            else:
+                loss = halo_loss(self.encoder, self.decoder, self.image,
+                                 self.window, lambda z, rows: self._qat(
+                                     z, phase, None if noise is None
+                                     else noise[:, :, rows]))
             loss.backward()
         return loss.detach()
 

@@ -26,8 +26,14 @@ the streams are the JAX package's. ŷ = round(y) is half to even, as
 ``np.round``. The transforms run in fp32 (no TF32) on deterministic
 cuDNN (:func:`conv_flags`).
 
-The trainer runs on one device (the JAX trainer's mesh is queue 1, item
-13). Entry points default to the card and raise without one.
+Under a mesh (``mesh=``, :mod:`nic_torch.parallel.mesh`) the patch batch
+splits over 'data' and the params are replicated, as in the JAX trainer:
+every rank draws the whole batch's crops and noise from identically
+seeded streams and takes its block; the gradients of the local mean are
+averaged over 'data' (one all-reduce), then clipped by the global norm
+and stepped on every rank (optax clips after the reduce: clipping per
+rank would be another step). Entry points default to the card and raise
+without one.
 """
 
 from __future__ import annotations
@@ -92,15 +98,27 @@ class HyperpriorTrainer:
     def __init__(self, *, n: int = 96, m: int = 128, lam: float = 0.01,
                  lr: float = 1e-4, patch: int = 256, batch: int = 8,
                  seed: int = 0, clip_grad_norm: float = 1.0,
-                 device="cuda"):
+                 device="cuda", mesh=None):
         """Weights from ``torch.Generator(seed)`` (flax's ``lecun_normal``
         distribution; the values are not JAX's); crops and noise from a
         generator on ``device`` seeded with ``seed + 1``.
-        ``clip_grad_norm=0`` disables clipping."""
+        ``clip_grad_norm=0`` disables clipping. ``mesh``: this rank's
+        :class:`~nic_torch.parallel.mesh.Mesh` (its device is the run's;
+        ``batch`` must split over its data axis)."""
+        from nic_torch.parallel.mesh import replicate_
+
         self.device = resolve_device(device)
+        self.mesh = mesh
+        if mesh is not None:
+            if mesh.device.type != self.device.type or batch % mesh.data:
+                raise ValueError(f"a mesh rank on {mesh.device} with "
+                                 f"{mesh.data} data ranks cannot run a "
+                                 f"{device} batch of {batch}")
+            self.device = mesh.device
         self.model = HyperpriorModel(
             n, m, generator=torch.Generator().manual_seed(seed)).to(
                 self.device)
+        replicate_(self.model, mesh)
         self.lam, self.lr = lam, lr
         self.patch, self.batch, self.seed = patch, batch, seed
         self.clip_grad_norm = clip_grad_norm
@@ -139,7 +157,27 @@ class HyperpriorTrainer:
         self.step += 1
 
     def train_step(self, batch, noise=None):
-        loss = self.loss_and_grads(batch, noise)
+        """One step on a batch (as :meth:`loss_and_grads`); under a mesh
+        ``batch`` and ``noise`` are the whole step's, the noise drawn
+        whole if not given, and each rank steps on its block."""
+        if self.mesh is None:
+            loss = self.loss_and_grads(batch, noise)
+        else:
+            from nic_torch.parallel.mesh import pmean_, shard_rows
+
+            x = batch if torch.is_tensor(batch) else _nchw(batch,
+                                                           self.device)
+            if noise is None:  # the whole batch's, as one rank draws it
+                noise = tuple(
+                    torch.rand(shape, generator=self.gen,
+                               device=self.device) - 0.5
+                    for shape in self.model.noise_shapes(x.shape))
+            loss = self.loss_and_grads(
+                shard_rows(x, self.mesh),
+                tuple(shard_rows(u, self.mesh) for u in noise))
+            loss = tuple(t.clone() for t in loss)
+            pmean_([p.grad for p in self.model.parameters()
+                    if p.grad is not None] + list(loss), self.mesh)
         self.apply_grads()
         return loss
 

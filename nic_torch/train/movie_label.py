@@ -9,6 +9,12 @@ Each step takes all frames. The JAX trainer builds this model from flax's
 ``Conv``/``ConvTranspose`` (the ``"xla"`` tree) whatever its other
 trainers use, so checkpoints here are written in that tree; the
 embedding crosses as JAX's [T, H/4, W/4, 1].
+
+Under a mesh (``mesh=``) the frames split over 'data' (JAX's batched
+``movie_spec``), the params replicated: each rank steps on its frames
+with its slice of the whole step's noise, its loss the frames' share of
+the whole mean; the gradients (the embedding's rows of other frames
+zero) and losses are summed over 'data'.
 """
 
 from __future__ import annotations
@@ -32,12 +38,14 @@ class MovieLabelTrainer(QATTrainer):
     def __init__(self, movie, *, num_bits: int = 8, latent_channels: int = 8,
                  hidden_channels: int = 16, num_epochs: int = 50000,
                  lr: float = 1e-3, seed: int = 0, qat_ste: bool = False,
-                 device="cuda"):
+                 device="cuda", mesh=None):
         """``movie``: [T, H, W, 3] in [0, 1]. Weights from
         ``torch.Generator(seed)`` (flax's ``lecun_normal`` at flax's
         ``Conv``/``ConvTranspose`` fan-ins), then the embedding; noise from a
-        generator on the device seeded with ``seed + 1``."""
-        self._init_common(device, seed, lr)
+        generator on the device seeded with ``seed + 1``. ``mesh``: this
+        rank's :class:`~nic_torch.parallel.mesh.Mesh` (T must split over
+        its data axis)."""
+        self._init_common(device, seed, lr, mesh)
         self.num_bits, self.num_epochs, self.qat_ste = (num_bits, num_epochs,
                                                         qat_ste)
         self.movie = channels_first(movie, self.device)[0].transpose(
@@ -55,6 +63,14 @@ class MovieLabelTrainer(QATTrainer):
         self._init_opt()
         self._decode = make_batched_decode(
             lambda z: self.decoder(torch.cat([z, self.emb], dim=1)))
+        self.frames = slice(None)
+        if mesh is not None:
+            if t % mesh.data:
+                raise ValueError(f"{t} frames do not split over {mesh.data} "
+                                 "data ranks")
+            per = t // mesh.data
+            self.frames = slice(mesh.data_index * per,
+                                (mesh.data_index + 1) * per)
 
     def leaves(self, conv_impl: str | None = None) -> dict:
         from nic_torch.io.convert import conv_leaves
@@ -78,10 +94,15 @@ class MovieLabelTrainer(QATTrainer):
         """Forward and backward of one step over all frames (``noise``
         [T, C, H/4, W/4] in the noise phase)."""
         self.opt.zero_grad(set_to_none=True)
+        fr = self.frames
+        movie = self.movie[fr]
         with conv_flags():
-            z = self._qat(self.encoder(self.movie), phase, noise)
-            out = self.decoder(torch.cat([z, self.emb], dim=1))
-            loss = torch.mean((out - self.movie) ** 2)
+            z = self._qat(self.encoder(movie), phase,
+                          None if noise is None else noise[fr])
+            out = self.decoder(torch.cat([z, self.emb[fr]], dim=1))
+            loss = torch.mean((out - movie) ** 2)
+            if self.mesh is not None:  # this rank's share of the mean
+                loss = loss / self.mesh.data
             loss.backward()
         return loss.detach()
 

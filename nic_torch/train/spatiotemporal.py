@@ -1,5 +1,5 @@
 """The one batched spatiotemporal decode of the movie family (port of
-``nic.train.spatiotemporal``, single device).
+``nic.train.spatiotemporal``).
 
 Every conv-AE variant decodes through :func:`make_batched_decode`: a
 latent laid out as the host's ``[B, *spatial, C]`` through a conv
@@ -11,8 +11,10 @@ decoder, with the natural batch axis as the batch:
   sheet;
 - movie_3d: B = 1, spatial = (T, H, W).
 
-The JAX package's mesh and sharding specs (``movie_spec``,
-``put_sharded``) are multi-device, queue 1 item 13, and not ported.
+Under a mesh the trainers split their own axis (``conv_ae``: sheet rows
+or frames with the halo recomputed; ``movie_label``: frames), where the
+JAX package places the asset with ``movie_spec``/``put_sharded``; the
+decode runs whole on every rank.
 """
 
 from __future__ import annotations
