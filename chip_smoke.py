@@ -16,7 +16,9 @@ Phases (any failure exits non-zero):
    and the registers and spills of the tensor-core bodies (``ptxas -v``:
    the train bodies, K1/K5's ``decode_v2_mma`` and K2's
    ``decode_z1mm_mma`` by plane mode, K3's ``decode_v1_mma`` by grid
-   dtype and K4's ``mlp_tail_mma`` by accumulator and dot dtype);
+   dtype and K4's ``mlp_tail_mma`` by accumulator and dot dtype), and
+   those of K11's back half (``ff_epsgrad``, ``node_windows``,
+   ``node_corners``);
 3. each kernel against its plain PyTorch version on the card, on the
    committed trained artifact's column-stage outputs at mips 0-2, for every
    plane mode x GELU; the launch log must name only ``decode_v2_mma``
@@ -36,10 +38,18 @@ Phases (any failure exits non-zero):
    f=1 (64² crops), random pyramid and MLP from a seeded torch.Generator,
    in fp32·erf and bf16·poly (the tensor-core kernel), each with QAT
    noise off and on: loss, ``out``, every MLP and PE grad and both
-   accumulated node planes, two runs bit-identical; then
+   accumulated node planes, two runs bit-identical; K11's back half
+   alone (``eps_grad``: ff_epsgrad, eps^T dz1; ``node_windows``: the node
+   windows) against its plain versions on each cell's dz1 and on seeded
+   dz1 at every crop phase mod 2f, crops·n² not a multiple of 128, F = 73
+   and 137 (past the pass of 80) and pixel base 0 and not, max|Δ|/max|plain|
+   within EPS_GRAD_TOL and WINDOWS_TOL, two runs bit-identical; then
    kernel vs plain timed at the flagship shape (bf16·poly noise on, the
    path's mode, and fp32·erf), with the device time of the per-pixel
-   body. In phases 6-8, 16-18 and 26 the second of the two runs of each
+   body, K11's device ms by part (A the body, B the windows, C
+   ``ff_rowcol`` + ``ff_pe``, D ``ff_epsgrad``), and the back half alone
+   beside its plain versions and, for eps^T dz1, ``torch.matmul`` on a
+   materialised eps. In phases 6-8, 16-18 and 26 the second of the two runs of each
    cell is profiled, and the per-pixel body that ran must be the one
    ``nic_torch/kernels/_widths.py`` ``kernel_body`` names: the
    tensor-core body (``ff_pixel_mma``, ``mlp_pixel_mma``,
@@ -49,7 +59,8 @@ Phases (any failure exits non-zero):
    128² (f=2), 64² (f=1) and 16² (f=1), on the sinusoidal-PE gather of a
    random flagship-width pyramid and MLP, in fp32·erf and bf16·poly: loss,
    ``out``, every MLP grad, and dG0/dG1 after the unfold; two runs must
-   be bit-identical; kernel vs plain timed at 8×256²;
+   be bit-identical; ``node_windows`` alone on each cell's dz1 as in
+   phase 6; kernel vs plain timed at 8×256²;
 8. K6 likewise at 8×32² (LOD 3), 8×4² (LOD 6), 8×2² (LOD 7) and 8×1²
    (LODs 8, 9; these two fill part of one 128-pixel tile) and 8×256² (the
    TRAIN_FORWARD=kernel shape), with dx among the compared outputs;
@@ -95,6 +106,8 @@ The 3D path (methods 3 and 4, the misty 64³ protocol: C=12, H=64, PE 6,
     8³ (f=1) and 8³ at f=4 (slab blocks smaller than a cell in JAX), m3
     with triangular and m4 with sinusoidal PE, noise off and on,
     fp32·erf and bf16·poly (K11's tolerances, two runs bit-identical);
+    ``eps_grad`` alone at K12's widths and feature passes (H = 64 in
+    passes of 128, H = 128 in passes of 64) as in phase 6;
 17. K9 likewise on the 3D gather, with dG0/dG1 after the unfold;
 18. K6 at the 3D width F = 127 at 8×4³, 8×2³ and 8×1³ (partial tiles);
 19. four 200-epoch 3D CLI runs: m3 flag-free (200 K12 launches, mip-0
@@ -151,7 +164,8 @@ Every hidden and feature width the gates admit (``nic_torch/kernels/
 _widths.py``: narrower widths zero-padded to an instantiated one):
 
 26. kernel vs plain (K11's tolerances, two runs bit-identical; the decode
-    tolerances): K11 at H = 16 and 32 in four modes; K7 and K6 at H = 16,
+    tolerances): ``node_windows`` alone at H = 192 and 256 (as in phase
+    6); K11 at H = 16 and 32 in four modes; K7 and K6 at H = 16,
     128, 192 and 256 (at 128 x in feature chunks, W1 from device memory;
     past 128 ``mlp_pixel_wide``); K12 m3 at PE 8 (F = 133) and F = 205
     (C = 20), and at H = 128 with F = 133, in four modes; K9 at F = 133
@@ -210,8 +224,9 @@ and prints which format-3 rANS decode path the host takes):
     13, m = 20) and past n = 668 (n = 700: 8-column tiles), and on the
     trained model's ẑ of 512×768: every σ bit and every bin equal; the
     trainer at n = 96, m = 128, λ = 0.018, patch 256, batch 8 on
-    ``data/*.png`` for whole chunks of 100 steps within 45 s (the mean
-    loss of the last 100 steps below the first 100's); the codec on sancho
+    ``data/*.png`` for 3000 steps (HP_TRAIN_STEPS, so the trained state
+    does not move with the host's speed; the mean loss of the last 100
+    steps below the first 100's); the codec on sancho
     512², mandrill 480² (padded) and sancho resized to 512×768: the card's
     decompress equal to ``evaluate`` bit for bit, the card's streams
     decoded on the CPU and the CPU's on the card to the same ŷ/ẑ and x̂
@@ -230,9 +245,10 @@ and prints which format-3 rANS decode path the host takes):
     within the CPU tests' limits (loss rel 1e-5, each leaf's grad
     max|Δ|/max|g| 1e-4, params 1e-6), from the trained state the loss and
     params within them; from both, each device's gradients against the
-    same step in float64 on the CPU (the card's worst leaf within
-    HP_GRAD64_TOL, 1e-4 from the initial weights and 2e-3 from the trained
-    state, and a control with TF32 convolutions on the card beyond it).
+    same step in float64 on the CPU (the card's worst leaf within 1e-4
+    from the initial weights, HP_GRAD64_TOL, and from the trained state
+    within 3 × the CPU's own fp32 worst leaf, HP_GRAD64_VS_CPU, and a
+    control with TF32 convolutions on the card beyond each limit).
 
 The conv-AE and per-pixel family (image_comp, pixel_comp,
 pixel_pos_comp, movie_frame_comp, movie_2d_comp, movie_3d_comp,
@@ -506,6 +522,33 @@ def ptxas_usage(log: str) -> dict:
     return out
 
 
+def _rest_registers(log: str) -> dict:
+    """{kernel<template args>: (registers, spill stores, spill loads)} of
+    ff_epsgrad, node_windows and node_corners from the ``ptxas -v`` lines
+    of an nvcc log."""
+    import re
+
+    out, cur, spills = {}, None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '\S*?\d(ff_epsgrad|"
+                      r"node_windows|node_corners)(\S*)'", line)
+        if m:
+            args = re.findall(r"L[ib](\d+)E", m.group(2))
+            cur = m.group(1) + (f"<{','.join(args)}>" if args else "")
+            spills = (0, 0)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and cur:
+            spills = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur:
+            out[cur] = (int(m.group(1)), *spills)
+            cur = None
+    return out
+
+
 def phase_build() -> float:
     from nic_torch.kernels import _build
 
@@ -531,6 +574,12 @@ def phase_build() -> float:
     if {b for b, _ in usage} != set(bodies):
         fail(f"ptxas reported {sorted(usage)}, not every one of {bodies} "
              f"(nvcc log {_build.log_path()})")
+    rest = _rest_registers(_build.log_path().read_text())
+    print("phase 2: the back half of K11 (ptxas -v; ff_epsgrad<H,bf16,pass>)"
+          ": " + ", ".join(f"{k} {r} registers, {ss}/{sl} B spill "
+                           "stores/loads"
+                           for k, (r, ss, sl) in sorted(rest.items())),
+          flush=True)
     train = {k: v for k, v in usage.items() if k[0] in MMA_BODIES}
     print("phase 2: tensor-core bodies (ptxas -v): " + "; ".join(
         f"{b}<{'poly' if g else 'erf'}> {r} registers, {ss} B spill stores, "
@@ -982,8 +1031,195 @@ def _k11_call(inputs, n, f, cd, gelu, nbits) -> tuple:
                  cd=None if cd == "fp32" else torch.bfloat16, nbits=nbits))
 
 
+# the back half of K11 alone (phases 6, 7, 16, 26): ff_epsgrad (eps^T dz1,
+# K11 and K12) and node_windows (K11 and K7) against their plain versions,
+# max|Δ|/max|plain|: eps^T dz1 within the JAX suite's fp32 grad limit, the
+# windows (fp32 sums of the same terms in another order) within 1e-5; two
+# runs of each bit-identical
+EPS_GRAD_TOL = 1e-4
+WINDOWS_TOL = 1e-5
+REST_WORDS = (12345, -987654321)  # the alone checks' noise stream words
+# K11's kernels by part: A the per-pixel body, B the node windows, C the
+# row/column sums and PE grads, D eps^T dz1
+K11_PARTS = {"A": ("ff_pixel_mma", "ff_pixel"),
+             "B": ("node_windows", "node_corners"),
+             "C": ("ff_rowcol", "ff_pe"), "D": ("ff_epsgrad",)}
+
+
+def _parts_ms(fn, parts: dict) -> dict:
+    """{part: device ms per call of its kernels ``parts[part]``} of
+    ``fn`` by :func:`device_ms`, whose trace is taken again, up to
+    BODY_TRIES times, while it holds none of them (the card's profiler
+    now and then returns a trace without the call's kernels)."""
+    for _ in range(BODY_TRIES):
+        per = device_ms(fn)[1]
+        got = {p: sum(_body_ms(per, nm) for nm in names)
+               for p, names in parts.items()}
+        if any(got.values()):
+            break
+    return got
+
+
+def _phase_origins(gen, crops, n, f, span):
+    """Origins [crops, 2] of n² crops inside ``span`` pixels, at every
+    phase mod 2f on both axes (crop i at phase i mod 2f in rows, the
+    columns' phases shuffled)."""
+    import torch
+
+    f1 = 2 * f
+    ph = torch.arange(crops) % f1
+    cells = (span - n - f1) // f1 + 1
+    rows = f1 * torch.randint(0, cells, (crops,), generator=gen) + ph
+    cols = (f1 * torch.randint(0, cells, (crops,), generator=gen)
+            + ph[torch.randperm(crops, generator=gen)])
+    return torch.stack([rows, cols], dim=1)
+
+
+def _seeded_dz1(seed, npix, hidden, device):
+    """A dz1-sized [npix, hidden] fp32 tensor of N(0, 1e-12), seeded."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return torch.randn(npix, hidden, generator=gen, device=device) * 1e-6
+
+
+def _twice(tag, fn) -> tuple:
+    """``fn()`` twice on the card: the results must be bit-identical."""
+    import torch
+
+    got, again = fn(), fn()
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        fail(f"{tag}: two runs differ (the sums must be in a fixed order)")
+    return got
+
+
+def _eps_kw(nfeat, base, bf16) -> dict:
+    return dict(nfeat=nfeat, fslot=-(-nfeat // 8) * 8, s0=REST_WORDS[0],
+                s1=REST_WORDS[1], nbits=8, pixel_base=base, bf16=bf16)
+
+
+def _eps_grad_alone(tag, dz1, nfeat, base, bf16, feat_pass) -> float:
+    """ff_epsgrad alone (``eps_grad``) against ``eps_grad_plain`` on
+    ``dz1``: max|Δ|/max|plain|; fails past EPS_GRAD_TOL or if two runs
+    differ."""
+    from nic_torch.kernels import train_fused_ff as k
+
+    kw = _eps_kw(nfeat, base, bf16)
+    (got,) = _twice(tag, lambda: (k.eps_grad(dz1, feat_pass=feat_pass,
+                                             **kw),))
+    err = _rel(got, k.eps_grad_plain(dz1, **kw))
+    if err > EPS_GRAD_TOL:
+        fail(f"{tag}: ff_epsgrad vs plain max|Δ|/max|plain| {err:.3e} > "
+             f"{EPS_GRAD_TOL:.0e}")
+    return err
+
+
+def _windows_alone(tag, dz1, origins, n, f) -> float:
+    """node_windows alone against ``node_windows_plain`` on ``dz1``: the
+    worst of the two windows' max|Δ|/max|plain|; fails past WINDOWS_TOL or
+    if two runs differ."""
+    from nic_torch.kernels import train_fused as t
+
+    got = _twice(tag, lambda: t.node_windows(dz1, origins, n, f))
+    want = t.node_windows_plain(dz1, origins, n, f)
+    err = max(_rel(a, b) for a, b in zip(got, want))
+    if err > WINDOWS_TOL:
+        fail(f"{tag}: node_windows vs plain max|Δ|/max|plain| {err:.3e} > "
+             f"{WINDOWS_TOL:.0e}")
+    return err
+
+
+def _rest_alone(phase, device, hidden, lattices, eps_cases) -> None:
+    """ff_epsgrad and node_windows alone on seeded dz1 of 8 crops of n²
+    per (n, f) of ``lattices``, origins at every phase mod 2f (the windows
+    only where H is a multiple of 64); eps^T dz1 for each (F, feature pass)
+    of ``eps_cases`` at pixel base 0 and 123457, in bf16 and fp32 dots."""
+    import torch
+
+    gen = torch.Generator().manual_seed(1000 * phase + hidden)
+    worst_e = worst_w = 0.0
+    cells = 0
+    for n, f in lattices:
+        dz1 = _seeded_dz1(cells + hidden, 8 * n * n, hidden, device)
+        cell = f"H={hidden} 8×{n}² f={f}"
+        origins = _phase_origins(gen, 8, n, f, 4 * n)
+        worst_w = max(worst_w, _windows_alone(f"node_windows {cell}", dz1,
+                                              origins, n, f))
+        cells += 1
+        for nfeat, feat_pass in eps_cases:
+            for base in (0, 123457):
+                for bf16 in (True, False):
+                    worst_e = max(worst_e, _eps_grad_alone(
+                        f"ff_epsgrad {cell} F={nfeat} base={base} "
+                        f"{'bf16' if bf16 else 'fp32'}", dz1, nfeat, base,
+                        bf16, feat_pass))
+                    cells += 1
+    print(f"phase {phase}: back half alone at H={hidden}, {cells} cells "
+          f"(n, f) {list(lattices)}, every phase mod 2f, crops·n² not a "
+          f"multiple of 128: node_windows worst max|Δ|/max|plain| "
+          f"{worst_w:.2e} (tol {WINDOWS_TOL:.0e})"
+          + (f", ff_epsgrad (F, pass) {list(eps_cases)} worst {worst_e:.2e}"
+             f" (tol {EPS_GRAD_TOL:.0e})" if eps_cases else "")
+          + "; reruns bit-identical", flush=True)
+
+
+def _k11_rest_times(k, dz1, origins, n, f, nfeat, k11) -> dict:
+    """At the flagship: K11's parts A-D by device ms (``k11``: the K11
+    call), then ff_epsgrad and node_windows alone
+    on the step's dz1: wrapper ms, device ms, plain ms, bound, and for
+    eps^T dz1 the library's product (cuBLAS, bf16 in, fp32 sums) on a
+    materialised eps. Returns {kernel: (device ms, wrapper ms, plain ms,
+    library ms or None, (bytes, FLOPs))}."""
+    import torch
+
+    from nic_torch.kernels import train_fused as t
+
+    npix, hid = dz1.shape
+    rows0, cols0, rows1, cols1 = t._window_extents(n, f)
+    windows = 4 * hid * origins.shape[0] * (rows0 * cols0 + rows1 * cols1)
+    parts = _parts_ms(k11, K11_PARTS)
+    print("phase 6: K11 8×256² bf16·poly noise=on device ms by part: "
+          + ", ".join(f"{p} {'+'.join(K11_PARTS[p])} {ms:.4f}"
+                      for p, ms in parts.items()), flush=True)
+    kw = _eps_kw(nfeat, 0, True)
+    eps = k.eps_uniform(torch.arange(npix, device=dz1.device)[:, None]
+                        * kw["fslot"] + torch.arange(nfeat,
+                                                     device=dz1.device),
+                        kw["s0"], kw["s1"], kw["nbits"]).to(torch.bfloat16)
+    dzb = dz1.to(torch.bfloat16)
+    out = {}
+    sms = torch.cuda.get_device_properties(dz1.device).multi_processor_count
+    for name, fn, plain, lib, body, work, dt in (
+            ("ff_epsgrad", lambda: k.eps_grad(dz1, **kw),
+             lambda: k.eps_grad_plain(dz1, **kw),
+             lambda: torch.matmul(eps.t(), dzb), ("ff_epsgrad",),
+             (nbytes(dz1) + 4 * nfeat * hid, 2 * npix * nfeat * hid),
+             "bf16"),
+            ("node_windows", lambda: t.node_windows(dz1, origins, n, f),
+             lambda: t.node_windows_plain(dz1, origins, n, f), None,
+             ("node_windows", "node_corners"),
+             (nbytes(dz1, origins) + windows, 4 * npix * hid), "fp32")):
+        ms = cuda_ms(fn, reps=20)
+        dev = _parts_ms(fn, {name: body})[name]
+        pl = cuda_ms(plain, reps=5)
+        lib_ms = cuda_ms(lib, reps=20) if lib else None
+        b_ms, b_by = bound(*work, dt)
+        out[name] = (dev, ms, pl, lib_ms, work)
+        print(f"phase 6: {name} alone on the 8×256² step's dz1: device "
+              f"{dev:.4f} ms ({'+'.join(body)}), wrapper {ms:.4f} ms, plain "
+              f"{pl:.4f} ms, bound {b_ms:.4f} ms ({b_by})"
+              + (f", library torch.matmul(eps_bf16.t(), dz1_bf16) "
+                 f"{lib_ms:.4f} ms" if lib else "")
+              + (f"; {min(-(-npix // 128), 2 * sms)} blocks"
+                 if name == "ff_epsgrad" else ""), flush=True)
+    return out
+
+
 def phase_k11(device) -> dict:
-    """K11 vs plain at f = 4, 2, 1 in 4 modes; timings at the flagship."""
+    """K11 vs plain at f = 4, 2, 1 in 4 modes, its back half alone (on
+    each cell's dz1 and on seeded dz1 at every crop phase); timings at the
+    flagship."""
     import torch
 
     from nic_torch.kernels import train_fused_ff as k
@@ -993,6 +1229,7 @@ def phase_k11(device) -> dict:
     gen = torch.Generator(device="cpu").manual_seed(11)
     timings = {}
     out_err = 0.0
+    rest_times = None
     with torch.no_grad():  # the plain version takes autograd inside
         for n, f in ((256, 4), (128, 2), (64, 1)):
             inputs = _k11_inputs(gen, device, n, f)
@@ -1005,16 +1242,27 @@ def phase_k11(device) -> dict:
                     got = _run_twice(f"K11 {cell}", lambda: (
                         k.fused_train_ff_kernel(*args, **kw)),
                         ("train_ff", 64, cd))
-                    want = k.fused_train_ff_plain(*args, **kw)
+                    *want, dz1 = k.fused_train_ff_plain(*args, **kw,
+                                                        with_dz1=True)
                     errs = _compare(f"K11 vs plain {cell}", names, got, want,
                                     tol)
+                    # the back half alone on this cell's dz1
+                    rest = (_windows_alone(f"node_windows {cell}", dz1,
+                                           origins, n, f),
+                            _eps_grad_alone(
+                                f"ff_epsgrad {cell}", dz1,
+                                weights[0].shape[0], 0, cd == "bf16", 80)
+                            if nbits else 0.0)
                     worst_grad = max(e for nm, e in errs.items()
                                      if nm not in ("loss", "out"))
                     print(f"phase 6: K11 vs plain {cell}: loss rel "
                           f"{errs['loss']:.2e}, out max|Δ| {errs['out']:.2e},"
                           f" worst grad/plane rel {worst_grad:.2e} "
                           f"(tol {tol['loss']:.0e}/{tol['out']:.0e}/"
-                          f"{tol['grad']:.0e})", flush=True)
+                          f"{tol['grad']:.0e}); alone on its dz1: "
+                          f"node_windows {rest[0]:.2e}"
+                          + (f", ff_epsgrad {rest[1]:.2e}" if nbits else ""),
+                          flush=True)
                     if n == 256 and cd == "bf16" and nbits:
                         out_err = errs["out"]
                     if n == 256 and ((cd, nbits) in (("bf16", 8),
@@ -1051,8 +1299,14 @@ def phase_k11(device) -> dict:
                         _device_line(6, f"K11 {cell} at 8×256²", lambda: (
                             k.fused_train_ff_kernel(*args, **kw)),
                             "train_ff", 64, cd)
+                        if nbits:
+                            rest_times = _k11_rest_times(
+                                k, dz1, origins, n, f, feat,
+                                lambda: k.fused_train_ff_kernel(*args, **kw))
+    _rest_alone(6, device, 64, ((255, 4), (127, 2), (63, 1)),
+                ((73, 80), (137, 80)))
     _body_summary(6)
-    return {"timings": timings, "out_err": out_err}
+    return {"timings": timings, "out_err": out_err, "rest": rest_times}
 
 
 def _csv_losses(root: str):
@@ -1172,13 +1426,19 @@ def phase_k7(device) -> dict:
                 tol = K11_TOL[cd]
                 errs = _compare(f"K7 vs plain {cell}", names, unfolded(got),
                                 unfolded(want), tol)
+                # node_windows alone on the plain step's dz1
+                dz1 = k._plain_step(x, tgt, weights, kw["cd"], gelu,
+                                    with_dx=False)[2]
+                werr = _windows_alone(f"node_windows K7 {cell}", dz1,
+                                      origins, n, f)
                 print(f"phase 7: K7 vs plain {cell}: loss rel "
                       f"{errs['loss']:.2e}, out max|Δ| {errs['out']:.2e}, "
                       f"MLP grads rel ≤ "
                       f"{max(errs[m] for m in names[2:8]):.2e}, dG0 "
                       f"{errs['dG0']:.2e}, dG1 {errs['dG1']:.2e} (tol "
                       f"{tol['loss']:.0e}/{tol['out']:.0e}/"
-                      f"{tol['grad']:.0e})", flush=True)
+                      f"{tol['grad']:.0e}); node_windows alone on its dz1 "
+                      f"{werr:.2e} (tol {WINDOWS_TOL:.0e})", flush=True)
                 if n == 256:
                     ms = cuda_ms(lambda: k.fused_mlp_loss_ng_kernel(*args,
                                                                     **kw))
@@ -1194,6 +1454,11 @@ def phase_k7(device) -> dict:
                     _device_line(7, f"K7 {cell}", lambda: (
                         k.fused_mlp_loss_ng_kernel(*args, **kw)),
                         "train_mlp", 64, cd)
+                    win_ms = _parts_ms(lambda: k.node_windows(
+                        dz1, origins, n, f), K11_PARTS)["B"]
+                    print(f"phase 7: node_windows alone on the K7 {cell} "
+                          f"dz1: device {win_ms:.4f} ms (node_windows+"
+                          "node_corners)", flush=True)
     _body_summary(7)
     return timings
 
@@ -1747,6 +2012,7 @@ def phase_k12(device) -> dict:
     noise off and on, fp32·erf and bf16·poly; timings at 8×32³."""
     import torch
 
+    from nic_torch.kernels import train_fused_ff as k_ff
     from nic_torch.kernels import train_fused_ff3 as k
 
     names = ("loss", "out", "dw2", "db2", "dw3", "db3", "dpe0", "dpe1",
@@ -1800,6 +2066,27 @@ def phase_k12(device) -> dict:
                             _device_line(16, f"K12 {cell}", lambda: (
                                 k.fused_train_ff3_kernel(*args, **kw)),
                                 "train_ff3", 64, cd)
+    # ff_epsgrad alone at K12's widths and feature passes (H = 64 in
+    # passes of 128, H = 128 in passes of 64) on seeded dz1 of 8×31³ voxels
+    # (not a multiple of 128), F = 127 (m3's) and 205 (past both passes)
+    werr = 0.0
+    for hidden, feat_pass in ((64, 128), (128, 64)):
+        dz1 = _seeded_dz1(hidden, 8 * 31**3, hidden, device)
+        for nfeat in (127, 205):
+            for base in (0, 123457):
+                for bf16 in (True, False):
+                    werr = max(werr, _eps_grad_alone(
+                        f"ff_epsgrad K12 H={hidden} 8×31³ F={nfeat} "
+                        f"base={base} {'bf16' if bf16 else 'fp32'}", dz1,
+                        nfeat, base, bf16, feat_pass))
+    dz1 = _seeded_dz1(12, 8 * 32**3, 64, device)
+    eps_ms = _parts_ms(lambda: k_ff.eps_grad(
+        dz1, feat_pass=128, **_eps_kw(127, 0, True)), K11_PARTS)["D"]
+    print(f"phase 16: ff_epsgrad alone at K12's widths (H = 64 pass 128, H "
+          f"= 128 pass 64; F = 127, 205; base 0, 123457; bf16, fp32): worst "
+          f"max|Δ|/max|plain| {werr:.2e} (tol {EPS_GRAD_TOL:.0e}), reruns "
+          f"bit-identical; device at 8×32³ H=64 F=127 bf16 "
+          f"{eps_ms:.4f} ms", flush=True)
     for label in K11_MODES:
         tol = K11_TOL[K11_MODES[label][0]]
         errs = {nm: e for (lb, nm), e in worst.items() if lb == label}
@@ -2899,6 +3186,9 @@ def phase_widths(device) -> dict:
     for c in counters.values():
         c.launches = 0
     pad = {"K11": _widths_train(device), "K1": _widths_decode(device)}
+    # node_windows past the flagship's width (K7's wide bodies' dz1)
+    for hidden in (192, 256):
+        _rest_alone(26, device, hidden, ((127, 4), (63, 2), (31, 1)), ())
     launches = {k: c.launches for k, c in counters.items()}
     print(f"phase 26: launches {launches}", flush=True)
     if not all(launches.values()):
@@ -3458,19 +3748,22 @@ K13_MODEL_NM = (128, 192)
 # tensor copy's box cannot take) and n past 668 (8-column tiles)
 K13_WIDTHS = (("odd widths n = 13, m = 20", 13, 20, 3, 5),
               ("n = 700, m = 24 (8-column tiles)", 700, 24, 2, 3))
-HP_TRAIN_S = 45.0  # training wall budget (whole chunks of HP_CHUNK steps)
-HP_CHUNK = 100
+HP_TRAIN_STEPS = 3000  # training steps (chunks of HP_CHUNK), whatever
+HP_CHUNK = 100         # the host's speed, so the trained state is fixed
 # the CPU tests' tolerances for one step: loss rel, grads max|Δ|/max|g|,
 # params after clip + Adam; x̂ between devices; the coded symbols' bpp
 # (the streams without their fixed framing, ``_framing_bytes``) against
 # the model's estimate
 HP_STEP_TOL = dict(loss=1e-5, grad=1e-4, param=1e-6)
 # the card's fp32 gradients against float64 on the CPU, worst leaf's
-# max|Δ|/max|g64|, by state. Read on the H100: card 6.2e-6 and 6.2e-4
-# (h_s/MatmulConv_0/kernel, where the CPU's fp32 reads 9.1e-5), a TF32
-# control 1.0e-3 and 7.7e-3; the initial weights take the CPU tests' grad
-# limit, the trained state ~3× the card's reading
-HP_GRAD64_TOL = {"initial weights": 1e-4, "trained": 2e-3}
+# max|Δ|/max|g64|: from the initial weights within the CPU tests' grad
+# limit; from the trained state within HP_GRAD64_VS_CPU times the CPU's own
+# fp32 reading from the same state (how far fp32 lands from float64 there
+# depends on the state: at 2900 steps the card read 2.03e-3 and the CPU
+# 2.04e-3, after 45 s of training 6.2e-4 and 9.1e-5). A TF32 control must
+# land beyond each limit
+HP_GRAD64_TOL = {"initial weights": 1e-4}
+HP_GRAD64_VS_CPU = 3.0
 HP_XHAT_TOL = 1e-5
 # the coded symbols' bpp (the streams less their fixed framing) against
 # the estimate: 0.13-0.25% read on the H100 at 45 s of training
@@ -3597,9 +3890,8 @@ def _hs_times(z, hs, model) -> tuple:
 
 
 def _hp_train(device):
-    """The full-width trainer on data/*.png for whole chunks within
-    HP_TRAIN_S; the loss must fall (last 100 steps against the first
-    100)."""
+    """The full-width trainer on data/*.png for HP_TRAIN_STEPS steps; the
+    loss must fall (last 100 steps against the first 100)."""
     import glob
 
     import numpy as np
@@ -3614,7 +3906,7 @@ def _hp_train(device):
     trainer.train_chunk(staged, 5)  # cuDNN plans and allocator warm-up
     losses = []
     t0 = time.perf_counter()
-    while time.perf_counter() - t0 < HP_TRAIN_S or len(losses) < 2 * HP_CHUNK:
+    for _ in range(HP_TRAIN_STEPS // HP_CHUNK):
         losses.extend(trainer.train_chunk(staged, HP_CHUNK)[0].tolist())
     wall = time.perf_counter() - t0
     first, last = np.mean(losses[:HP_CHUNK]), np.mean(losses[-HP_CHUNK:])
@@ -3944,21 +4236,30 @@ def phase_hyperprior(device) -> dict:
     # from the initial weights, as the CPU tests step against JAX, every
     # limit card vs CPU; from the trained state the loss and the updated
     # params card vs CPU, and from both the card's gradients against
-    # float64, where a TF32 control must land beyond the limit
+    # float64 (trained: against the CPU's own fp32 distance), where a TF32
+    # control must land beyond the limit
     bad = []
     for tag, tr, keys in (("initial weights", fresh, ("loss", "grad", "param")),
                           ("trained", trainer, ("loss", "param"))):
         got = _hp_step_card_vs_cpu(tr, staged, tag)
         bad += [f"{tag} {k}" for k in keys if got[k] > HP_STEP_TOL[k]]
-        tol = HP_GRAD64_TOL[tag]
+        tol = HP_GRAD64_TOL.get(tag, HP_GRAD64_VS_CPU * got["cpu64"])
+        print(f"phase 29: ({tag}) grads vs float64: CPU fp32 "
+              f"{got['cpu64']:.2e}, card {got['card64']:.2e}, card/CPU "
+              f"{got['card64'] / got['cpu64']:.2f}; limit {tol:.2e}"
+              + ("" if tag in HP_GRAD64_TOL else
+                 f" ({HP_GRAD64_VS_CPU:g} × the CPU's)")
+              + f"; TF32 control {got['tf32_64']:.2e}", flush=True)
         if got["card64"] > tol:
-            bad.append(f"{tag} card grads vs float64 {got['card64']:.2e}")
+            bad.append(f"{tag} card grads vs float64 {got['card64']:.2e} > "
+                       f"{tol:.2e}")
         if not got["tf32_64"] > tol:
             bad.append(f"{tag}: the TF32 control {got['tf32_64']:.2e} "
-                       f"passes {tol}, so the check sees nothing")
+                       f"passes {tol:.2e}, so the check sees nothing")
     if bad:
-        fail(f"the card's step disagrees beyond {HP_STEP_TOL}, "
-             f"grads vs float64 {HP_GRAD64_TOL}: {bad}")
+        fail(f"the card's step disagrees beyond {HP_STEP_TOL}, grads vs "
+             f"float64 {HP_GRAD64_TOL} (initial) and {HP_GRAD64_VS_CPU:g} × "
+             f"the CPU's (trained): {bad}")
     return dict(launches=codec["launches"], err=err, ms=k13, plain=plain,
                 work=work)
 

@@ -79,13 +79,19 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     fn.argtypes = [p] * 6 + [ctypes.c_longlong] + [i] * 5 + [p]
     fn.restype = i
     fn = lib.nic_train_fused_ff
-    fn.argtypes = [p] * 20 + [i] * 20 + [p]
+    fn.argtypes = [p] * 21 + [i] * 20 + [p]
+    fn.restype = i
+    fn = lib.nic_eps_grad
+    fn.argtypes = [p] * 2 + [i] * 11 + [p]
     fn.restype = i
     fn = lib.nic_train_fused_dx
     fn.argtypes = [p] * 11 + [i] * 7 + [p]
     fn.restype = i
     fn = lib.nic_train_fused_ng
-    fn.argtypes = [p] * 14 + [i] * 9 + [p]
+    fn.argtypes = [p] * 15 + [i] * 9 + [p]
+    fn.restype = i
+    fn = lib.nic_node_windows
+    fn.argtypes = [p] * 5 + [i] * 4 + [p]
     fn.restype = i
     fn = lib.nic_train_fused_ng3
     fn.argtypes = [p] * 14 + [i] * 9 + [p]

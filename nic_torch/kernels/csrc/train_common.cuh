@@ -5,8 +5,10 @@
 // memory or read from device memory, kernel3's per-pixel MLP tail on the
 // CUDA cores (ff_tail) and, for bf16 dots, on the tensor cores
 // (ff_tail_mma, with noise_mma and the mma.sync/ldmatrix wrappers), the
-// eps^T dz1 kernel (ff_epsgrad), and the per-crop node-window (2D) and
-// node-volume (3D) reductions of dz1.
+// eps^T dz1 kernel (ff_epsgrad, bf16 dots on the tensor cores over
+// cp.async-staged tiles of dz1), and the per-crop node-window (2D: one
+// read of dz1, node_windows + node_corners) and node-volume (3D)
+// reductions of dz1.
 //
 // Everything here sits in an anonymous namespace: each source that
 // includes it gets its own copy (the __constant__ tables included), so the
@@ -712,81 +714,248 @@ struct NoiseGeo {
   uint32_t s0, s1, pixel_base;
 };
 
-// eps^T dz1, per-block partials [nblk][nfeat][H], the eps stream
-// regenerated from the counter hash (kernel3 with feature noise; dz1
-// rounded to the dot type, as the JAX kernel's dot takes it). The features
-// go in passes of PASS (one pass when nfeat <= PASS): each pass walks the
-// block's tiles again, so any nfeat fits the same registers and shared
-// memory.
+// ---- eps^T dz1 (kernel3 with feature noise) -----------------------------
+//
+// Replaces the eps^T dz1 of the Pallas kernels nic/kernels/train_fused_ff.py
+// `_kernel_ff` (:371) and train_fused_ff3.py `_kernel_ff3`, which take it
+// on dz1 while it is in VMEM. Here dz1 [N, H] fp32 comes back from device
+// memory once (the per-pixel body wrote it), and eps is regenerated from
+// the counter hash: the eps_uniform stream the body adds to z1. Output:
+// per-block partials part [nblk][nfeat][H] over the block's 128-pixel tiles
+// (blockIdx.x, + gridDim.x, ...), summed afterwards in a fixed order.
+//
+// What bounds it (8 x 256^2, H = 64, F = 73): dz1 read once, 134 MB, 0.040
+// ms at 3.35 TB/s; 2 N F H = 4.9 GFLOP, 0.005 ms on the bf16 tensor cores;
+// and the hash, ~21 integer operations for each of the N F = 38 M eps.
+// Design: 256 threads. Each tile of dz1 (128 pixels x H contiguous floats)
+// comes into a shared-memory stage by 16-byte cp.async copies, the next
+// tile's copy in flight while the block works on this one (two stages);
+// the block hashes the tile's eps cooperatively into shared memory. In
+// bf16-dot mode (eps and dz1 rounded to bf16, as the JAX kernel's dot
+// takes them) eps^T dz1 runs as m16n8k16 tensor-core products with fp32
+// accumulators: warp w owns units 8w..8w+7 of every 64 and every feature
+// of the pass; its A operand (eps^T) is read by ldmatrix.trans from
+// [pixel][feature] bf16 rows, its B operand (dz1) from the fp32 stage,
+// rounded to bf16 as it is packed; the accumulators (PASS / 16 x H / 64
+// m16n8 tiles: 20 floats a thread at H = 64, PASS = 80) stay in registers
+// over the block's tiles. In fp32-dot mode a thread owns 4 units x PASS /
+// (256 / (H / 4)) features on the CUDA cores (fp32 FMAs, eps as [feature]
+// [pixel] fp32). The features go in passes of PASS (one pass when nfeat <=
+// PASS), each pass walking the block's tiles again. Every sum runs in a
+// fixed order (no atomics), so two runs are bit-identical.
+
+constexpr int ET = 256;  // threads of an eps^T dz1 block
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int bytes) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// shared memory of ff_epsgrad: two dz1 stages [TP][H + 4] fp32, then eps
+// (bf16 [TP][PASS + 8] for the tensor cores, fp32 [PASS][LDP] otherwise):
+// 92,160 bytes at H = 64, PASS = 80 in bf16-dot mode (two blocks an SM)
 template <int H, bool BF16, int PASS>
-__global__ void __launch_bounds__(TP, 2)
+constexpr size_t epsgrad_smem() {
+  return 2 * sizeof(float) * TP * (H + 4) +
+         (BF16 ? sizeof(__nv_bfloat16) * TP * (PASS + 8)
+               : sizeof(float) * PASS * LDP);
+}
+
+// one tile of dz1 (pixels tile * TP.., zeros past npix) into a stage, one
+// 16-byte copy per thread and step, neighbouring threads on neighbouring
+// addresses
+template <int H>
+__device__ __forceinline__ void epsgrad_fetch(float* stage,
+                                              const float* __restrict__ dz1,
+                                              int tile, int npix) {
+  constexpr int Q = H / 4;
+  for (int c = threadIdx.x; c < TP * Q; c += ET) {
+    const int row = c / Q, col = c % Q;
+    const int pix = tile * TP + row;
+    const bool in = pix < npix;
+    cp_async16(stage + row * (H + 4) + 4 * col,
+               dz1 + (in ? static_cast<size_t>(pix) * H + 4 * col : 0),
+               in ? 16 : 0);
+  }
+  cp_async_commit();
+}
+
+template <int H, bool BF16, int PASS>
+__global__ void __launch_bounds__(ET, 2)
 ff_epsgrad(const float* __restrict__ dz1, float* __restrict__ part,
            NoiseGeo g) {
+  static_assert(H % 64 == 0 && PASS % 16 == 0, "H: 64s; PASS: 16s");
+  constexpr int LDZ = H + 4;     // stage row stride (floats)
+  constexpr int LDE = PASS + 8;  // bf16 eps row stride: 16-byte rows whose
+                                 // 8 ldmatrix rows hit distinct banks
   extern __shared__ float4 smem4[];
-  float* sZ = reinterpret_cast<float*>(smem4);  // dz1b [H][LDP]
-  float* sE = sZ + H * LDP;                     // eps [PASS][LDP]
-  constexpr int JQ = H / 4;                     // h = jq + JQ*hh
-  constexpr int KG = TP / JQ;                   // feature j = kg + KG*m
-  constexpr int JPT = (PASS + KG - 1) / KG;
+  float* stage = reinterpret_cast<float*>(smem4);  // [2][TP][LDZ]
+  void* se = stage + 2 * TP * LDZ;
   const int tid = threadIdx.x;
-  const int jq = tid % JQ, kg = tid / JQ;
+  const int warp = tid >> 5, lane = tid & 31, gq = lane >> 2, q = lane & 3;
   float* mypart = part + static_cast<size_t>(blockIdx.x) * g.nfeat * H;
   const int tiles = (g.npix + TP - 1) / TP;
+  const int ntb = static_cast<int>(blockIdx.x) < tiles
+                      ? (tiles - 1 - static_cast<int>(blockIdx.x)) /
+                                static_cast<int>(gridDim.x) + 1
+                      : 0;
+  // bf16: m16n8 tiles (feature tile mt, unit tile 8 warp + 64 nw); fp32:
+  // features kg + KG m, units 4 jq..4 jq + 3
+  constexpr int MTF = PASS / 16, NTW = H / 64;
+  constexpr int JQ = H / 4, KG = ET / JQ, JPT = PASS / KG;
+  static_assert(BF16 || PASS % KG == 0, "fp32 features per thread");
+  const int jq = tid % JQ, kg = tid / JQ;
   for (int j0 = 0; j0 < g.nfeat; j0 += PASS) {
     const int nf = min(PASS, g.nfeat - j0);
-    float acc[JPT][4];
-NIC_UNROLL_H(JPT)
-    for (int m = 0; m < JPT; ++m)
+    float acc[BF16 ? MTF * NTW : JPT][4];
 #pragma unroll
-      for (int hh = 0; hh < 4; ++hh) acc[m][hh] = 0.0f;
-    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-      const int pix = tile * TP + tid;
-      if (pix < g.npix) {
-        const float* drow = dz1 + static_cast<size_t>(pix) * H;
-        for (int h = 0; h < H; ++h) sZ[h * LDP + tid] = cd<BF16>(drow[h]);
-        const uint32_t ctr0 = (static_cast<uint32_t>(pix) + g.pixel_base) *
-                                  static_cast<uint32_t>(g.fslot) +
-                              static_cast<uint32_t>(j0);
-        for (int j = 0; j < nf; ++j)
-          sE[j * LDP + tid] = cd<BF16>(eps_uniform(
-              ctr0 + static_cast<uint32_t>(j), g.s0, g.s1, g.eps_scale));
+    for (int m = 0; m < (BF16 ? MTF * NTW : JPT); ++m)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[m][e] = 0.0f;
+    if (ntb > 0) epsgrad_fetch<H>(stage, dz1, blockIdx.x, g.npix);
+    for (int t = 0; t < ntb; ++t) {
+      const int tile = blockIdx.x + t * gridDim.x;
+      const float* cur = stage + (t & 1) * TP * LDZ;
+      if (t + 1 < ntb)
+        epsgrad_fetch<H>(stage + ((t + 1) & 1) * TP * LDZ, dz1,
+                         tile + gridDim.x, g.npix);
+      // the tile's eps (zero past npix and past the pass's nf features)
+      if constexpr (BF16) {
+        // four features a thread and step (independent hash chains),
+        // stored as 8 bytes of bf16
+        auto* sE = static_cast<__nv_bfloat16*>(se);  // [TP][LDE]
+#pragma unroll 2
+        for (int i = tid; i < TP * (PASS / 4); i += ET) {
+          const int p = i / (PASS / 4), j = 4 * (i % (PASS / 4));
+          const int pix = tile * TP + p;
+          float e[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+          if (pix < g.npix) {
+            const uint32_t ctr =
+                (static_cast<uint32_t>(pix) + g.pixel_base) *
+                    static_cast<uint32_t>(g.fslot) +
+                static_cast<uint32_t>(j0 + j);
+#pragma unroll
+            for (int u = 0; u < 4; ++u)
+              if (j + u < nf)
+                e[u] = eps_uniform(ctr + static_cast<uint32_t>(u), g.s0,
+                                   g.s1, g.eps_scale);
+          }
+          *reinterpret_cast<uint2*>(sE + p * LDE + j) =
+              make_uint2(pack_bf16(e[0], e[1]), pack_bf16(e[2], e[3]));
+        }
       } else {
-        for (int h = 0; h < H; ++h) sZ[h * LDP + tid] = 0.0f;
-        for (int j = 0; j < nf; ++j) sE[j * LDP + tid] = 0.0f;
+        float* sE = static_cast<float*>(se);  // [PASS][LDP]
+        for (int i = tid; i < nf * TP; i += ET) {
+          const int j = i / TP, p = i % TP;
+          const int pix = tile * TP + p;
+          sE[j * LDP + p] =
+              pix < g.npix
+                  ? eps_uniform((static_cast<uint32_t>(pix) + g.pixel_base) *
+                                        static_cast<uint32_t>(g.fslot) +
+                                    static_cast<uint32_t>(j0 + j),
+                                g.s0, g.s1, g.eps_scale)
+                  : 0.0f;
+        }
       }
+      if (t + 1 < ntb)
+        cp_async_wait<1>();
+      else
+        cp_async_wait<0>();
       __syncthreads();
-      for (int p = 0; p < TP; p += 4) {
-        float4 zv[4];
+      if constexpr (BF16) {
+        const auto* sE = static_cast<const __nv_bfloat16*>(se);
+        const int li = lane >> 3, rr = lane & 7;
+#pragma unroll 2
+        for (int ks = 0; ks < TP / 16; ++ks) {
+          // B = dz1 [16 pixels][8 units] of each unit tile, from the stage
+          uint32_t b[NTW][2];
 #pragma unroll
-        for (int hh = 0; hh < 4; ++hh)
-          zv[hh] =
-              *reinterpret_cast<const float4*>(sZ + (jq + JQ * hh) * LDP + p);
-NIC_UNROLL_H(JPT)
-        for (int m = 0; m < JPT; ++m) {
-          const int j = kg + KG * m;
-          if (j < nf) {
-            const float4 ev = *reinterpret_cast<const float4*>(sE + j * LDP + p);
+          for (int nw = 0; nw < NTW; ++nw) {
+            const float* z = cur + (16 * ks + 2 * q) * LDZ + 64 * nw +
+                             8 * warp + gq;
+            b[nw][0] = pack_bf16(z[0], z[LDZ]);
+            b[nw][1] = pack_bf16(z[8 * LDZ], z[9 * LDZ]);
+          }
 #pragma unroll
-            for (int hh = 0; hh < 4; ++hh) {
-              float a = acc[m][hh];
-              a = fmaf(ev.x, zv[hh].x, a);
-              a = fmaf(ev.y, zv[hh].y, a);
-              a = fmaf(ev.z, zv[hh].z, a);
-              a = fmaf(ev.w, zv[hh].w, a);
-              acc[m][hh] = a;
+          for (int mt = 0; mt < MTF; ++mt) {
+            if (16 * mt < nf) {
+              uint32_t a[4];
+              ldsm_x4_trans(a, sE + (16 * ks + 8 * (li >> 1) + rr) * LDE +
+                                   16 * mt + 8 * (li & 1));
+#pragma unroll
+              for (int nw = 0; nw < NTW; ++nw)
+                mma16816(acc[mt * NTW + nw], a, b[nw][0], b[nw][1]);
+            }
+          }
+        }
+      } else {
+        const float* sE = static_cast<const float*>(se);
+        for (int p = 0; p < TP; p += 4) {
+          float z[4][4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float4 v =
+                *reinterpret_cast<const float4*>(cur + (p + i) * LDZ + 4 * jq);
+            z[i][0] = v.x;
+            z[i][1] = v.y;
+            z[i][2] = v.z;
+            z[i][3] = v.w;
+          }
+#pragma unroll
+          for (int m = 0; m < JPT; ++m) {
+            const int j = kg + KG * m;
+            if (j < nf) {
+              const float4 ev =
+                  *reinterpret_cast<const float4*>(sE + j * LDP + p);
+#pragma unroll
+              for (int hh = 0; hh < 4; ++hh) {
+                float s = acc[m][hh];
+                s = fmaf(ev.x, z[0][hh], s);
+                s = fmaf(ev.y, z[1][hh], s);
+                s = fmaf(ev.z, z[2][hh], s);
+                s = fmaf(ev.w, z[3][hh], s);
+                acc[m][hh] = s;
+              }
             }
           }
         }
       }
       __syncthreads();
     }
-NIC_UNROLL_H(JPT)
-    for (int m = 0; m < JPT; ++m) {
-      const int j = kg + KG * m;
-      if (j < nf)
+    if constexpr (BF16) {
 #pragma unroll
-        for (int hh = 0; hh < 4; ++hh)
-          mypart[(j0 + j) * H + jq + JQ * hh] = acc[m][hh];
+      for (int mt = 0; mt < MTF; ++mt)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int j = 16 * mt + gq + 8 * r;
+          if (j < nf)
+#pragma unroll
+            for (int nw = 0; nw < NTW; ++nw)
+              *reinterpret_cast<float2*>(mypart + (j0 + j) * H + 64 * nw +
+                                         8 * warp + 2 * q) =
+                  make_float2(acc[mt * NTW + nw][2 * r],
+                              acc[mt * NTW + nw][2 * r + 1]);
+        }
+    } else {
+#pragma unroll
+      for (int m = 0; m < JPT; ++m) {
+        const int j = kg + KG * m;
+        if (j < nf)
+          *reinterpret_cast<float4*>(mypart + (j0 + j) * H + 4 * jq) =
+              make_float4(acc[m][0], acc[m][1], acc[m][2], acc[m][3]);
+      }
     }
   }
 }
@@ -794,85 +963,162 @@ NIC_UNROLL_H(JPT)
 template <int H, bool BF16, int PASS>
 cudaError_t launch_epsgrad(const float* dz1, float* part, const NoiseGeo& g,
                            int nblk, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (H * LDP + PASS * LDP);
+  constexpr size_t smem = epsgrad_smem<H, BF16, PASS>();
   auto kern = ff_epsgrad<H, BF16, PASS>;
   const cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
   if (e != cudaSuccess) return e;
-  kern<<<nblk, TP, smem, stream>>>(dz1, part, g);
+  kern<<<nblk, ET, smem, stream>>>(dz1, part, g);
   return cudaGetLastError();
 }
 
-// Geometry of the node windows: crops of n x n pixels at origins org
-// [crops][2] on a lattice of period f (G0 cells) and f1 = 2f (G1 nodes);
-// windows of rows0 x cols0 P cells and rows1 x cols1 C1 nodes per crop.
+// ---- the node windows of dz1 (2D) ---------------------------------------
+//
+// Geometry: crops of n x n pixels at origins org [crops][2] on a lattice of
+// period f (G0 cells) and f1 = 2f (G1 nodes); per crop a P window of rows0
+// x cols0 cells and a C1 window of rows1 x cols1 nodes, gathered from as
+// many C1 cells: node q takes cells q - 1 and q per axis, and cells 0 ..
+// rows1 - 1 (cols1 - 1) hold every pixel and every P window cell, at any
+// n and phase.
 struct WinGeo {
   int crops, n, f, f1, rows0, cols0, rows1, cols1;
   float inv_f1;
 };
 
-// Per-crop node windows of dz1 [crops * n * n][H] (row-major per crop):
-// P window [crops][rows0][cols0][H] of cell sums; C1 window
+__device__ __forceinline__ void add4(float4& a, const float4& x) {
+  a.x += x.x;
+  a.y += x.y;
+  a.z += x.z;
+  a.w += x.w;
+}
+
+__device__ __forceinline__ void fma4(float4& a, float w, const float4& x) {
+  a.x = fmaf(w, x.x, a.x);
+  a.y = fmaf(w, x.y, a.y);
+  a.z = fmaf(w, x.z, a.z);
+  a.w = fmaf(w, x.w, a.w);
+}
+
+// Replaces the node windows of the Pallas kernels nic/kernels/
+// train_fused_ff.py `_kernel_ff` (:374-391) and train_fused.py
+// `_kernel_ng` (:405), which sum dz1 into each crop's windows while it is
+// in VMEM. Per crop of dz1 [crops * n * n][H] (row-major per crop): the P
+// window [crops][rows0][cols0][H] of G0 cell sums, and the C1 window
 // [crops][rows1][cols1][H], where each pixel adds (1-u)(1-v), (1-u)v,
 // u(1-v), uv of its dz1 to its four C1 nodes (u, v the in-cell fractions
 // at the absolute coordinate's phase). Window node q of a crop at origin o
-// is the absolute cell o/f + q (o/f1 + q for C1). Thread = (window node,
-// h) for any H that is a multiple of 64; block = (64, 4) threads, the
-// grid's y walking the 64-unit column blocks of H; each thread sums its
-// own output in a fixed order.
-__global__ void node_windows(const float* __restrict__ dz1,
-                             const int* __restrict__ org,
-                             float* __restrict__ win_p,
-                             float* __restrict__ win_c1, WinGeo g, int H) {
-  const int h = blockIdx.y * blockDim.x + threadIdx.x;
+// is the absolute cell o/f + q (o/f1 + q for C1).
+//
+// What bounds it (8 x 256^2, H = 64): dz1 read once, 134 MB, plus 11 MB of
+// windows: 0.043 ms at 3.35 TB/s. Design: two passes, each sum in a fixed
+// order (no atomics). node_windows: a thread owns 4 units of one C1 cell of
+// one crop (the cell's f1 x f1 pixels at the crop's phase, cut at the
+// crop's edges) and reads each of its pixels once, 16 bytes at a time; the
+// 16 threads of a cell cover 64 units, so a warp's load is two pixels' 256
+// contiguous bytes. The cell holds whole G0 cells (f1 = 2f and both
+// lattices sit at absolute multiples), so the thread writes its four G0
+// cell sums straight to the P window, and its four corner partials (the
+// cell's pixels weighted towards each of its four C1 nodes) to corners
+// [crops][rows1][cols1][4][H]. node_corners: a thread sums a C1 node's
+// at most four corner partials, in a fixed order, into the C1 window.
+__global__ void __launch_bounds__(256)
+node_windows(const float* __restrict__ dz1, const int* __restrict__ org,
+             float* __restrict__ win_p, float* __restrict__ corners,
+             WinGeo g, int H) {
+  const int h = blockIdx.y * 64 + 4 * threadIdx.x;
+  const int per_crop = g.rows1 * g.cols1;
+  const int cell = blockIdx.x * blockDim.y + threadIdx.y;
+  if (cell >= g.crops * per_crop) return;
+  const int crop = cell / per_crop, rem = cell % per_crop;
+  const int a = rem / g.cols1, b = rem % g.cols1;
+  const int n = g.n, f = g.f, f1 = g.f1;
+  const int phr = org[2 * crop] % f1, phc = org[2 * crop + 1] % f1;
+  // the cell's first row and column in the crop (negative at a phase),
+  // its pixels' ranges and the first row and column of its second G0 half
+  const int r0 = a * f1 - phr, c0 = b * f1 - phc;
+  const int rlo = max(r0, 0), rhi = min(r0 + f1, n);
+  const int clo = max(c0, 0), chi = min(c0 + f1, n);
+  const int rm = min(max(r0 + f, rlo), rhi), cm = min(max(c0 + f, clo), chi);
+  const float* base = dz1 + static_cast<size_t>(crop) * n * n * H + h;
+  const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  float4 p[2][2] = {{zero, zero}, {zero, zero}};
+  float4 k[2][2] = {{zero, zero}, {zero, zero}};
+  // one row of the cell: its G0 halves' sums into pl, pr; its pixels
+  // weighted 1-v and v, then by 1-u and u, into the corner partials
+  auto row = [&](int r, float4& pl, float4& pr) {
+    const float* px = base + static_cast<size_t>(r) * n * H;
+    float4 left = zero, right = zero, sa = zero, sb = zero;
+#pragma unroll 4
+    for (int c = clo; c < cm; ++c) {
+      const float v = static_cast<float>(c - c0) * g.inv_f1;
+      const float4 x = __ldg(
+          reinterpret_cast<const float4*>(px + static_cast<size_t>(c) * H));
+      add4(left, x);
+      fma4(sa, 1.0f - v, x);
+      fma4(sb, v, x);
+    }
+#pragma unroll 4
+    for (int c = cm; c < chi; ++c) {
+      const float v = static_cast<float>(c - c0) * g.inv_f1;
+      const float4 x = __ldg(
+          reinterpret_cast<const float4*>(px + static_cast<size_t>(c) * H));
+      add4(right, x);
+      fma4(sa, 1.0f - v, x);
+      fma4(sb, v, x);
+    }
+    add4(pl, left);
+    add4(pr, right);
+    const float u = static_cast<float>(r - r0) * g.inv_f1;
+    fma4(k[0][0], 1.0f - u, sa);
+    fma4(k[0][1], 1.0f - u, sb);
+    fma4(k[1][0], u, sa);
+    fma4(k[1][1], u, sb);
+  };
+  for (int r = rlo; r < rm; ++r) row(r, p[0][0], p[0][1]);
+  for (int r = rm; r < rhi; ++r) row(r, p[1][0], p[1][1]);
+  // G0 cell (2a + hr - sr, 2b + hc - sc) of the P window: sr, sc = 1 where
+  // the crop's phase starts in the second half of a C1 cell
+  const int sr = phr >= f, sc = phc >= f;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr)
+#pragma unroll
+    for (int hc = 0; hc < 2; ++hc) {
+      const int qr = 2 * a + hr - sr, qc = 2 * b + hc - sc;
+      if (qr >= 0 && qr < g.rows0 && qc >= 0 && qc < g.cols0)
+        *reinterpret_cast<float4*>(
+            win_p + ((static_cast<size_t>(crop) * g.rows0 + qr) * g.cols0 +
+                     qc) * H + h) = p[hr][hc];
+    }
+  float* kc = corners + static_cast<size_t>(cell) * 4 * H + h;
+#pragma unroll
+  for (int c = 0; c < 4; ++c)
+    *reinterpret_cast<float4*>(kc + c * H) = k[c >> 1][c & 1];
+}
+
+// C1 node (qr, qc) of a crop = corner (da, db) of cell (qr - da, qc - db)
+// over (da, db) = (0, 0), (0, 1), (1, 0), (1, 1), cells before the first
+// skipped
+__global__ void __launch_bounds__(256)
+node_corners(const float* __restrict__ corners, float* __restrict__ win_c1,
+             WinGeo g, int H) {
+  const int h = blockIdx.y * 64 + 4 * threadIdx.x;
+  const int per_crop = g.rows1 * g.cols1;
   const int node = blockIdx.x * blockDim.y + threadIdx.y;
-  const int rows0 = g.rows0, cols0 = g.cols0;
-  const int rows1 = g.rows1, cols1 = g.cols1;
-  const int np = g.crops * rows0 * cols0;
-  const int nc = g.crops * rows1 * cols1;
-  if (node >= np + nc) return;
-  const int n = g.n;
-  const float* base;
-  float acc = 0.0f;
-  if (node < np) {
-    const int crop = node / (rows0 * cols0), rem = node % (rows0 * cols0);
-    const int qr = rem / cols0, qc = rem % cols0;
-    const int r0 = qr * g.f - org[2 * crop] % g.f;
-    const int c0 = qc * g.f - org[2 * crop + 1] % g.f;
-    base = dz1 + static_cast<size_t>(crop) * n * n * H + h;
-    for (int r = max(r0, 0); r < min(r0 + g.f, n); ++r) {
-      float s = 0.0f;
-      for (int c = max(c0, 0); c < min(c0 + g.f, n); ++c)
-        s += base[(static_cast<size_t>(r) * n + c) * H];
-      acc += s;
-    }
-    win_p[static_cast<size_t>(node) * H + h] = acc;
-    return;
+  if (node >= g.crops * per_crop) return;
+  const int crop = node / per_crop, rem = node % per_crop;
+  const int qr = rem / g.cols1, qc = rem % g.cols1;
+  float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const int a = qr - (c >> 1), b = qc - (c & 1);
+    if (a >= 0 && b >= 0)
+      add4(acc, __ldg(reinterpret_cast<const float4*>(
+                    corners +
+                    ((static_cast<size_t>(crop) * g.rows1 + a) * g.cols1 +
+                     b) * 4 * H + c * H + h)));
   }
-  const int nd = node - np;
-  const int crop = nd / (rows1 * cols1), rem = nd % (rows1 * cols1);
-  const int qr = rem / cols1, qc = rem % cols1;
-  const int f1 = g.f1;
-  const int ph = org[2 * crop] % f1, phc = org[2 * crop + 1] % f1;
-  base = dz1 + static_cast<size_t>(crop) * n * n * H + h;
-  // rows of cell qr-1 (weight u), then of cell qr (weight 1-u)
-  const int rlo = max((qr - 1) * f1 - ph, 0), rhi = min((qr + 1) * f1 - ph, n);
-  for (int r = rlo; r < rhi; ++r) {
-    const float u = static_cast<float>((r + ph) % f1) * g.inv_f1;
-    const float wr = ((r + ph) / f1 == qr) ? 1.0f - u : u;
-    // this cell's columns with weight 1-v, the previous cell's with v
-    float sa = 0.0f, sb = 0.0f;
-    for (int c = max(qc * f1 - phc, 0); c < min((qc + 1) * f1 - phc, n); ++c) {
-      const float v = static_cast<float>((c + phc) % f1) * g.inv_f1;
-      sa += (1.0f - v) * base[(static_cast<size_t>(r) * n + c) * H];
-    }
-    for (int c = max((qc - 1) * f1 - phc, 0); c < min(qc * f1 - phc, n); ++c) {
-      const float v = static_cast<float>((c + phc) % f1) * g.inv_f1;
-      sb += v * base[(static_cast<size_t>(r) * n + c) * H];
-    }
-    acc += wr * (sa + sb);
-  }
-  win_c1[static_cast<size_t>(nd) * H + h] = acc;
+  *reinterpret_cast<float4*>(win_c1 + static_cast<size_t>(node) * H + h) = acc;
 }
 
 // window extents of crops of n at period f (the JAX package's nr0/nc0/
@@ -891,14 +1137,17 @@ inline WinGeo win_geo(int crops, int n, int f) {
   return w;
 }
 
-// the windows of dz1 [crops * n * n][H], H a multiple of 64
+// the windows of dz1 [crops * n * n][H], H a multiple of 64; corners:
+// scratch of [crops][rows1][cols1][4][H] floats
 cudaError_t launch_node_windows(const float* dz1, const int* org,
-                                float* win_p, float* win_c1, const WinGeo& w,
-                                int H, cudaStream_t stream) {
-  const dim3 blk(64, 4);
-  const int nodes = w.crops * (w.rows0 * w.cols0 + w.rows1 * w.cols1);
-  const dim3 grid((nodes + blk.y - 1) / blk.y, H / 64);
-  node_windows<<<grid, blk, 0, stream>>>(dz1, org, win_p, win_c1, w, H);
+                                float* win_p, float* win_c1, float* corners,
+                                const WinGeo& w, int H, cudaStream_t stream) {
+  const dim3 blk(16, 16);
+  const dim3 grid((w.crops * w.rows1 * w.cols1 + blk.y - 1) / blk.y, H / 64);
+  node_windows<<<grid, blk, 0, stream>>>(dz1, org, win_p, corners, w, H);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  node_corners<<<grid, blk, 0, stream>>>(corners, win_c1, w, H);
   return cudaGetLastError();
 }
 

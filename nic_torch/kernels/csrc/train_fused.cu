@@ -617,18 +617,19 @@ extern "C" int nic_train_fused_dx(const void* x, const void* tgt,
 
 // K7: loss, out [N, 3], the per-block partials, dz1 [N, H] (scratch) and
 // the per-crop node windows win_p [crops][rows0][cols0][H], win_c1
-// [crops][rows1][cols1][H] (extents in train_common.cuh win_geo), for
-// crops of n x n pixels (N = crops n^2, row-major per crop) at origins
-// [crops][2] on the lattice of period f.
+// [crops][rows1][cols1][H] (extents in train_common.cuh win_geo; corners
+// [crops][rows1][cols1][4][H] scratch), for crops of n x n pixels (N =
+// crops n^2, row-major per crop) at origins [crops][2] on the lattice of
+// period f.
 extern "C" int nic_train_fused_ng(const void* x, const void* tgt,
                                   const void* origins, const void* w1,
                                   const void* b1, const void* w2,
                                   const void* b2, const void* w3,
                                   const void* b3, void* out, void* dz1,
                                   void* part, void* win_p, void* win_c1,
-                                  int crops, int n, int f, int feat,
-                                  int hidden, int bf16, int gelu_id, int body,
-                                  int nblk, void* stream) {
+                                  void* corners, int crops, int n, int f,
+                                  int feat, int hidden, int bf16, int gelu_id,
+                                  int body, int nblk, void* stream) {
   if (crops <= 0 || n <= 0 || f <= 0 ||
       bad_shape(crops * n * n, feat, hidden, nblk))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -646,8 +647,23 @@ extern "C" int nic_train_fused_ng(const void* x, const void* tgt,
   const auto* o = static_cast<const int*>(origins);
   const WinGeo w = win_geo(crops, n, f);
   return static_cast<int>(launch_node_windows(
-      d, o, static_cast<float*>(win_p), static_cast<float*>(win_c1), w,
-      hidden, st));
+      d, o, static_cast<float*>(win_p), static_cast<float*>(win_c1),
+      static_cast<float*>(corners), w, hidden, st));
+}
+
+// The node windows alone (B as K11 and K7 launch it) of dz1 [crops n^2]
+// [hidden], hidden a multiple of 64: as nic_train_fused_ng's.
+extern "C" int nic_node_windows(const void* dz1, const void* origins,
+                                void* win_p, void* win_c1, void* corners,
+                                int crops, int n, int f, int hidden,
+                                void* stream) {
+  if (crops <= 0 || n <= 0 || f <= 0 || hidden <= 0 || hidden % 64)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_node_windows(
+      static_cast<const float*>(dz1), static_cast<const int*>(origins),
+      static_cast<float*>(win_p), static_cast<float*>(win_c1),
+      static_cast<float*>(corners), win_geo(crops, n, f), hidden,
+      static_cast<cudaStream_t>(stream)));
 }
 
 // K9 (3D kernel2): as K7 for crops of n^3 voxels (N = crops n^3,

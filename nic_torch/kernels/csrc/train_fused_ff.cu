@@ -22,13 +22,16 @@
 //                dW2, db2. In bf16-dot mode (the flagship's) this is
 //                ff_pixel_mma on the tensor cores; in fp32-dot mode
 //                ff_pixel, one thread per pixel on the CUDA cores;
-//   B node_windows (train_common.cuh) the node-resolution cotangents per
-//                crop window: P-cell sums of dz1 and C1
-//                interpolation-weighted sums;
+//   B node_windows + node_corners (train_common.cuh) the node-resolution
+//                cotangents per crop window: P-cell sums of dz1 and C1
+//                interpolation-weighted sums, each pixel read once (a
+//                thread per C1 cell and 4 units, then a small pass that
+//                sums each C1 node's four cell corners);
 //   C ff_rowcol  row and column sums of dz1 per crop, then ff_pe: the PE
 //                tables against them (dWpe0, dWpe1) and db1;
 //   D ff_epsgrad (train_common.cuh; noise only) eps^T dz1 per block, the
-//                eps stream regenerated from the counter hash.
+//                eps stream regenerated from the counter hash; in
+//                bf16-dot mode on the tensor cores (mma.sync m16n8k16).
 //
 // Every reduction is a fixed-order sum (no atomics): per-block partials
 // are summed afterwards in a fixed order, so two runs are bit-identical.
@@ -63,9 +66,9 @@
 // noise and ~4.7 kFMA for eps^T dz1 in D: ~21 kFMA, i.e. ~22 GFLOP per
 // flagship step (524,288 pixels): ~0.35 ms on the fp32 CUDA cores at 67
 // TFLOP/s, 0.023 ms on the bf16 tensor cores at 989, against ~0.5 GB of
-// device-memory traffic (dz1 written once, read by B, C and D: ~0.15 ms
-// at 3.35 TB/s). On the tensor cores the bytes, the GELUs and the hash
-// bound A, not the products.
+// device-memory traffic (dz1 written once, read by B and D once each and
+// by C twice: ~0.2 ms at 3.35 TB/s). On the tensor cores the bytes, the
+// GELUs and the hash bound A and D, not the products.
 // Not carried over from the TPU kernel: lane packing of two row blocks
 // with block-diagonal weights, the per-step parameter tiles, the per-crop
 // window staging and the scratch-ref expansions; this kernel indexes the
@@ -457,7 +460,8 @@ __global__ void ff_pe(const float* __restrict__ sums,
 struct Args {
   const float *pp, *c1p, *w1, *bvec, *wpe0, *wpe1, *w2, *b2, *w3, *b3, *tgt;
   const int* org;
-  float *out, *dz1, *part_mlp, *win_p, *win_c1, *sums, *pe, *part_eps;
+  float *out, *dz1, *part_mlp, *win_p, *win_c1, *corners, *sums, *pe,
+      *part_eps;
   int nblk_mlp, nblk_eps;
   WinGeo win;
   Geo g;
@@ -510,7 +514,7 @@ template <int H, bool BF16>
 cudaError_t launch_rest(const Args& a) {
   const dim3 blk(H, 256 / H);
   cudaError_t e = launch_node_windows(a.dz1, a.org, a.win_p, a.win_c1,
-                                      a.win, H, a.stream);
+                                      a.corners, a.win, H, a.stream);
   if (e != cudaSuccess) return e;
   const int lines = a.g.crops * a.g.n;
   ff_rowcol<H><<<(lines + blk.y - 1) / blk.y, blk, 0, a.stream>>>(
@@ -555,7 +559,8 @@ extern "C" int nic_train_fused_ff(
     const void* bvec, const void* wpe0, const void* wpe1, const void* w2,
     const void* b2, const void* w3, const void* b3, const void* tgt,
     const void* origins, void* out, void* dz1, void* part_mlp, void* win_p,
-    void* win_c1, void* sums, void* pe_grads, void* part_eps, int crops,
+    void* win_c1, void* win_corners, void* sums, void* pe_grads,
+    void* part_eps, int crops,
     int n, int f, int p_rows, int p_cols, int c1_rows, int c1_cols,
     int hidden, int npe, int nfeat, int fslot, int bf16, int gelu_id,
     int mma, int nbits, int s0, int s1, int pixel_base, int nblk_mlp,
@@ -604,6 +609,7 @@ extern "C" int nic_train_fused_ff(
   a.part_mlp = static_cast<float*>(part_mlp);
   a.win_p = static_cast<float*>(win_p);
   a.win_c1 = static_cast<float*>(win_c1);
+  a.corners = static_cast<float*>(win_corners);
   a.sums = static_cast<float*>(sums);
   a.pe = static_cast<float*>(pe_grads);
   a.part_eps = static_cast<float*>(part_eps);
@@ -615,5 +621,40 @@ extern "C" int nic_train_fused_ff(
   if (hidden != 64) return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t e = bf16 ? dispatch_gelu<64, true>(gelu_id, a)
                              : dispatch_gelu<64, false>(gelu_id, a);
+  return static_cast<int>(e);
+}
+
+// eps^T dz1 alone (D as K11 and K12 launch it): per-block partials part
+// [nblk][nfeat][H] of dz1 [npix][hidden] against the counter-hash eps of
+// nfeat features in slots of fslot (2^-nbits, stream words s0, s1, pixel
+// base), the features in passes of feat_pass: K11's (H = 64, 80) or K12's
+// (64, 128; 128, 64).
+extern "C" int nic_eps_grad(const void* dz1, void* part, int npix, int nfeat,
+                            int fslot, int hidden, int feat_pass, int bf16,
+                            int nbits, int s0, int s1, int pixel_base,
+                            int nblk, void* stream) {
+  if (npix <= 0 || nfeat <= 0 || fslot < nfeat || nbits <= 0 || nblk <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  NoiseGeo g;
+  g.npix = npix;
+  g.nfeat = nfeat;
+  g.fslot = fslot;
+  g.eps_scale = ldexpf(1.0f, -nbits);
+  g.s0 = static_cast<uint32_t>(s0);
+  g.s1 = static_cast<uint32_t>(s1);
+  g.pixel_base = static_cast<uint32_t>(pixel_base);
+  const auto* d = static_cast<const float*>(dz1);
+  auto* pt = static_cast<float*>(part);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t e = cudaErrorInvalidValue;
+  if (hidden == 64 && feat_pass == 80)
+    e = bf16 ? launch_epsgrad<64, true, 80>(d, pt, g, nblk, st)
+             : launch_epsgrad<64, false, 80>(d, pt, g, nblk, st);
+  else if (hidden == 64 && feat_pass == 128)
+    e = bf16 ? launch_epsgrad<64, true, 128>(d, pt, g, nblk, st)
+             : launch_epsgrad<64, false, 128>(d, pt, g, nblk, st);
+  else if (hidden == 128 && feat_pass == 64)
+    e = bf16 ? launch_epsgrad<128, true, 64>(d, pt, g, nblk, st)
+             : launch_epsgrad<128, false, 64>(d, pt, g, nblk, st);
   return static_cast<int>(e);
 }

@@ -34,7 +34,9 @@
 //   C ff3_sums      the slab, a1 and a2 sums of dz1 per crop, which the
 //                   wrapper contracts with the PE tables (dW1's PE rows)
 //                   and sums to db1;
-//   D ff_epsgrad    (train_common.cuh; noise only) eps^T dz1 per block.
+//   D ff_epsgrad    (train_common.cuh, shared with the 2D kernel3; noise
+//                   only) eps^T dz1 per block, in bf16-dot mode on the
+//                   tensor cores.
 //
 // The feature noise is the JAX kernel's stream: counter (crop n^3 + voxel
 // + pixel_base) * pad8(F) + feature, the row-major voxel index being the

@@ -58,7 +58,7 @@ __all__ = ["pick_block_rows", "fused_mlp_loss", "fused_mlp_loss_kernel",
            "fused_mlp_loss_plain", "fused_mlp_loss_ng",
            "fused_mlp_loss_ng_kernel", "fused_mlp_loss_ng_plain",
            "fused_mlp_loss_ng3", "fused_mlp_loss_ng3_kernel",
-           "fused_mlp_loss_padded"]
+           "fused_mlp_loss_padded", "node_windows", "node_windows_plain"]
 
 _INV_SQRT2 = 0.7071067811865476
 _INV_SQRT2PI = 0.3989422804014327
@@ -290,6 +290,43 @@ def _node_sums(dz1, origins, *, n: int, f: int, g0_nodes, g1_nodes):
     return pacc, c1acc
 
 
+def node_windows_plain(dz1, origins, n: int, f: int) -> tuple:
+    """Each crop's node windows of dz1 [crops·n², H] (row-major per crop,
+    ``origins`` [crops, 2]) in torch ops → (win_p [crops, rows0, cols0, H]
+    of the P cell sums at period f, win_c1 [crops, rows1, cols1, H] where
+    each pixel adds its dz1 to its four C1 nodes at period 2f with the
+    bilinear weights of its phase), extents :func:`_window_extents`. Window
+    node q of a crop at origin o is the absolute cell o//f + q (o//2f + q
+    for C1); a contribution past a window's extent is dropped, as the
+    kernel drops it. :func:`_accumulate_node_planes` of the windows is
+    :func:`_node_sums` of dz1."""
+    org = torch.as_tensor(origins).to(dz1.device).long()
+    crops = org.shape[0]
+    hidden = dz1.shape[1]
+    rows0, cols0, rows1, cols1 = _window_extents(n, f)
+    f1 = 2 * f
+    ar = torch.arange(n, device=dz1.device)
+    ys, xs = org[:, :1] + ar, org[:, 1:] + ar              # [crops, n]
+    dv = dz1.float().reshape(crops, n, n, hidden)
+    ci = torch.arange(crops, device=dz1.device)[:, None, None]
+    win_p = dv.new_zeros((crops, rows0, cols0, hidden))
+    win_p.index_put_((ci, (ys // f - org[:, :1] // f)[:, :, None],
+                      (xs // f - org[:, 1:] // f)[:, None, :]), dv,
+                     accumulate=True)
+    win_c1 = dv.new_zeros((crops, rows1, cols1, hidden))
+    u = (ys % f1).float() * (1.0 / f1)
+    v = (xs % f1).float() * (1.0 / f1)
+    for dr, dc in itertools.product((0, 1), repeat=2):
+        qr = ys // f1 - org[:, :1] // f1 + dr
+        qc = xs // f1 - org[:, 1:] // f1 + dc
+        w = ((u if dr else 1.0 - u) * (qr < rows1))[:, :, None] * (
+            (v if dc else 1.0 - v) * (qc < cols1))[:, None, :]
+        win_c1.index_put_((ci, qr.clamp(max=rows1 - 1)[:, :, None],
+                           qc.clamp(max=cols1 - 1)[:, None, :]),
+                          w[..., None] * dv, accumulate=True)
+    return win_p, win_c1
+
+
 def fused_mlp_loss_ng_plain(x, tgt, origins, w1, b1, w2, b2, w3, b3, *,
                             n: int, f: int, g0_nodes, g1_nodes, cd=None,
                             gelu: str = "erf") -> tuple:
@@ -479,13 +516,15 @@ def _ng_kernel(wrapper, entry: str, x, tgt, origins, weights, *, n: int,
     if width != hidden:
         return fused_mlp_loss_padded(wrapper, width, x, tgt, origins,
                                      *weights, **kw)
+    empty = lambda *s: torch.empty(s, dtype=torch.float32,  # noqa: E731
+                                   device=device)
     if nd == 2:
         r0, c0, r1, c1 = _window_extents(n, f)
         ext0, ext1 = (r0, c0), (r1, c1)
+        scratch = (empty(crops, r1, c1, 4, hidden),)  # C1 cell corners
     else:
         ext0, ext1 = _window_extents_3d(n, f)
-    empty = lambda *s: torch.empty(s, dtype=torch.float32,  # noqa: E731
-                                   device=device)
+        scratch = ()
     out, dz1 = empty(npix, 3), empty(npix, hidden)
     win_p = empty(crops, *ext0, hidden)
     win_c1 = empty(crops, *ext1, hidden)
@@ -493,7 +532,7 @@ def _ng_kernel(wrapper, entry: str, x, tgt, origins, weights, *, n: int,
     body = kernel_body("train_mlp", hidden, cd is not None)
     part, nblk = _partials(npix, feat, hidden, body, device)
     xs, tg, *ws = _prep(x, tgt, *weights)
-    _call(entry, (xs, tg, org, *ws, out, dz1, part, win_p, win_c1),
+    _call(entry, (xs, tg, org, *ws, out, dz1, part, win_p, win_c1, *scratch),
           (crops, n, f, feat, hidden, int(cd is not None), GELU_IDS[gelu],
            BODY_IDS[body], nblk), device)
     wrapper.launches += 1
@@ -526,6 +565,43 @@ def fused_mlp_loss_ng_kernel(x, tgt, origins, w1, b1, w2, b2, w3, b3, *,
 
 
 fused_mlp_loss_ng_kernel.launches = 0
+
+
+def node_windows(dz1, origins, n: int, f: int) -> tuple:
+    """The node windows on dz1's device → the pair of
+    :func:`node_windows_plain`. A CUDA tensor launches ``nic_node_windows``
+    of ``csrc/train_fused.cu`` (``node_windows`` and ``node_corners`` of
+    ``csrc/train_common.cuh``, the pass that K11 and K7 run on their dz1;
+    H a multiple of 64) and raises if it does not launch; a CPU tensor
+    runs :func:`node_windows_plain`. ``node_windows.launches`` counts
+    launches."""
+    origins = torch.as_tensor(origins)
+    crops = origins.shape[0]
+    hidden = dz1.shape[1]
+    if tuple(origins.shape) != (crops, 2) or dz1.shape[0] != crops * n * n:
+        raise ValueError(f"node_windows: dz1 {tuple(dz1.shape)} is not "
+                         f"[crops·n², H] for origins {tuple(origins.shape)}"
+                         f" and n={n}")
+    if dz1.device.type == "cpu":
+        return node_windows_plain(dz1, origins, n, f)
+    if dz1.device.type != "cuda" or hidden % 64:
+        raise ValueError(f"node_windows runs H a multiple of 64 on cuda or "
+                         f"any H on cpu, not H={hidden} on {dz1.device}")
+    device = dz1.device
+    rows0, cols0, rows1, cols1 = _window_extents(n, f)
+    empty = lambda *s: torch.empty(s, dtype=torch.float32,  # noqa: E731
+                                   device=device)
+    win_p = empty(crops, rows0, cols0, hidden)
+    win_c1 = empty(crops, rows1, cols1, hidden)
+    corners = empty(crops, rows1, cols1, 4, hidden)
+    org = origins.to(device=device, dtype=torch.int32).contiguous()
+    _call("nic_node_windows", (*_prep(dz1), org, win_p, win_c1, corners),
+          (crops, n, f, hidden), device)
+    node_windows.launches += 1
+    return win_p, win_c1
+
+
+node_windows.launches = 0
 
 
 def fused_mlp_loss_ng3_kernel(x, tgt, origins, w1, b1, w2, b2, w3, b3, *,

@@ -51,7 +51,7 @@ from nic_torch.kernels.train_fused import (_CORNERS, GELU_IDS,
 
 __all__ = ["fused_train_ff", "fused_train_ff_kernel", "fused_train_ff_plain",
            "fused_train_ff_padded", "ff_geometry", "eps_uniform",
-           "fold_planes"]
+           "fold_planes", "eps_grad", "eps_grad_plain"]
 
 _M32 = 0xFFFFFFFF
 
@@ -166,14 +166,17 @@ def _node_plane_shapes(g0_nodes, g1_nodes):
 def fused_train_ff_plain(p_plane, c1_plane, w1, b1, w2, b2, w3, b3, tgt,
                          origins, seed, *, n: int, f: int, npe: int,
                          lodf: float, cd=None, gelu: str = "erf",
-                         nbits: int | None = None) -> tuple:
+                         nbits: int | None = None,
+                         with_dz1: bool = False) -> tuple:
     """The kernel's step in torch ops. ``p_plane`` [g0r−1, g0c−1, H] and
     ``c1_plane`` [g1r, g1c, H] from :func:`fold_planes`; ``tgt``
     [crops·n², 3]; ``origins`` [crops, 2] int; ``seed`` [4] int32
     (s0, s1, pixel base, 0), read only when ``nbits`` is set.
 
     Returns (loss, out [N, 3], dw2, db2, dw3, db3, dpe0, dpe1, db1,
-    P_acc [g0r+1, g0c+1, H], C1_acc [g1r+2, g1c+2, H], dw1e or None)."""
+    P_acc [g0r+1, g0c+1, H], C1_acc [g1r+2, g1c+2, H], dw1e or None), and
+    with ``with_dz1`` then dz1 [N, H], the fp32 cotangent of z1 that the
+    kernel reduces to everything after dw1e."""
     device = p_plane.device
     hidden = w2.shape[0]
     ch = (w1.shape[0] - 2 * npe - 1) // 5
@@ -226,11 +229,68 @@ def fused_train_ff_plain(p_plane, c1_plane, w1, b1, w2, b2, w3, b3, tgt,
         diff = out - tgt.float()
         loss = torch.sum(diff * diff) * (1.0 / diff.numel())
         names = list(leaves)
-        grads = dict(zip(names, torch.autograd.grad(
-            loss, [leaves[k] for k in names])))
+        grads = dict(zip(names + ["z1"], torch.autograd.grad(
+            loss, [leaves[k] for k in names] + ([z1] if with_dz1 else []))))
     return (loss.detach(), out.detach(), grads["w2"], grads["b2"],
             grads["w3"], grads["b3"], grads["wpe0"], grads["wpe1"],
-            grads["bvec"], grads["pacc"], grads["c1acc"], grads.get("w1n"))
+            grads["bvec"], grads["pacc"], grads["c1acc"], grads.get("w1n")
+            ) + ((grads["z1"],) if with_dz1 else ())
+
+
+def eps_grad_plain(dz1, nfeat: int, fslot: int, s0: int, s1: int,
+                   nbits: int, pixel_base: int = 0,
+                   bf16: bool = False) -> torch.Tensor:
+    """εᵀ·dz1 [nfeat, H] in torch ops, for dz1 [npix, H] and the counter-
+    hash ε [npix, nfeat] of :func:`eps_uniform` (counter (pixel +
+    ``pixel_base``)·``fslot`` + feature, stream words ``s0``/``s1``,
+    2^−``nbits``); with ``bf16`` both rounded to bf16 before the product,
+    which sums in fp32 (the kernels' dot, and the plain step's dw1e)."""
+    gid = torch.arange(dz1.shape[0], dtype=torch.int64,
+                       device=dz1.device) + int(pixel_base)
+    ctr = gid[:, None] * fslot + torch.arange(nfeat, device=dz1.device)[None]
+    cd = torch.bfloat16 if bf16 else None
+    return _cd(eps_uniform(ctr, s0, s1, nbits), cd).T @ _cd(dz1.float(), cd)
+
+
+def eps_grad(dz1, nfeat: int, fslot: int, s0: int, s1: int, nbits: int,
+             pixel_base: int = 0, bf16: bool = False,
+             feat_pass: int = 80) -> torch.Tensor:
+    """εᵀ·dz1 on dz1's device → :func:`eps_grad_plain`'s [nfeat, H]. A
+    CUDA tensor launches ``nic_eps_grad`` of ``csrc/train_fused_ff.cu``
+    (``ff_epsgrad`` of ``csrc/train_common.cuh``, the pass K11 and K12 run
+    on their dz1, with the features in passes of ``feat_pass``: K11's H =
+    64 with 80, K12's 64 with 128 or 128 with 64), 2 blocks an SM whose
+    partials are summed in a fixed order, and raises if it does not
+    launch; a CPU tensor runs :func:`eps_grad_plain`.
+    ``eps_grad.launches`` counts launches."""
+    if dz1.device.type == "cpu":
+        return eps_grad_plain(dz1, nfeat, fslot, s0, s1, nbits, pixel_base,
+                              bf16)
+    if dz1.device.type != "cuda":
+        raise ValueError(f"eps_grad runs on cuda or cpu, not {dz1.device}")
+    from nic_torch.kernels import _build
+
+    lib = _build.load()
+    device = dz1.device
+    npix, hidden = dz1.shape
+    dz = dz1.detach().to(torch.float32).contiguous()
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    nblk = min(-(-npix // 128), 2 * sms)
+    part = torch.empty((nblk, nfeat, hidden), dtype=torch.float32,
+                       device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = lib.nic_eps_grad(dz.data_ptr(), part.data_ptr(), npix, nfeat,
+                              fslot, hidden, feat_pass, int(bf16), nbits,
+                              s0, s1, pixel_base, nblk, stream)
+    if rc != 0:
+        raise RuntimeError("eps_grad kernel launch failed: "
+                           + lib.nic_cuda_error_string(rc).decode())
+    eps_grad.launches += 1
+    return part.sum(dim=0)
+
+
+eps_grad.launches = 0
 
 
 # ---- hidden-width padding ----------------------------------------------
@@ -365,6 +425,7 @@ def fused_train_ff_kernel(p_plane, c1_plane, w1, b1, w2, b2, w3, b3, tgt,
     part_mlp = empty(nblk_mlp, part_len)
     win_p = empty(crops, rows0, cols0, hidden)
     win_c1 = empty(crops, rows1, cols1, hidden)
+    corners = empty(crops, rows1, cols1, 4, hidden)  # C1 cell corners
     sums = empty(2, crops, n, hidden)
     pe_grads = empty(2 * npe + 1, hidden)
     part_eps = empty(max(nblk_eps, 1), nfeat, hidden)
@@ -375,7 +436,8 @@ def fused_train_ff_kernel(p_plane, c1_plane, w1, b1, w2, b2, w3, b3, tgt,
             wpe0.data_ptr(), wpe1.data_ptr(), w2f.data_ptr(), b2f.data_ptr(),
             w3f.data_ptr(), b3f.data_ptr(), tgt_c.data_ptr(), org.data_ptr(),
             out.data_ptr(), dz1.data_ptr(), part_mlp.data_ptr(),
-            win_p.data_ptr(), win_c1.data_ptr(), sums.data_ptr(),
+            win_p.data_ptr(), win_c1.data_ptr(), corners.data_ptr(),
+            sums.data_ptr(),
             pe_grads.data_ptr(), part_eps.data_ptr(),
             crops, n, f, p_c.shape[0], p_c.shape[1], c1_c.shape[0],
             c1_c.shape[1], hidden, npe, nfeat, _pad8(nfeat),

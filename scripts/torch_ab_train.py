@@ -20,9 +20,10 @@ by the same code. On a machine with one NVIDIA GPU it prints:
   (``fused_mlp_loss_ng3_kernel``) on the 3D gather of 8×32³ (seed 9) in
   bf16·poly, the misty protocol's LOD 0: each the median of 50 CUDA-event
   timings of the wrapper and, by ``torch.profiler``, the device time per
-  call of all the kernels it launches and of the four longest by name (so
-  host time and device time separate, and the per-pixel body, e.g.
-  ``mlp_pixel`` or ``mlp_pixel_mma``, shows on its own);
+  call of all the kernels it launches and of each by name, longest first
+  (so host time and device time separate, and the per-pixel body, e.g.
+  ``mlp_pixel`` or ``mlp_pixel_mma``, and the back half, ``node_windows``,
+  ``ff_rowcol``, ``ff_pe``, ``ff_epsgrad``, show on their own);
 - the train step (``chip_smoke.step_timing``) of TRAIN_FORWARD=kernel3
   and gather at the flagship configuration, kernel2 on path B
   (TF_USE_TRI_PE=0), and kernel3 and kernel2 on the 3D misty m3 protocol.
@@ -64,7 +65,7 @@ def short(name: str) -> str:
 def report(tag: str, fn) -> None:
     ms = chip_smoke.cuda_ms(fn, reps=50)
     total, per = chip_smoke.device_ms(fn)
-    top = sorted(per.items(), key=lambda kv: -kv[1])[:4]
+    top = sorted(per.items(), key=lambda kv: -kv[1])
     print(f"AB {sys.argv[1]}: {tag}: {ms:.4f} ms (device {total:.4f} ms: "
           + "; ".join(f"{short(name)} {t:.4f}" for name, t in top) + ")",
           flush=True)

@@ -17,6 +17,7 @@ import numpy as np
 import optax
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one torch thread: tests/torch_threads.py)
 
 from nic.core import quant as jquant
 from nic.io import artifacts as jart

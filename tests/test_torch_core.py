@@ -6,6 +6,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one torch thread: tests/torch_threads.py)
 
 from nic.core import encodings as jenc
 from nic.core import metrics as jmet

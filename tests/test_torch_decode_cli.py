@@ -10,6 +10,7 @@ import sys
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one torch thread: tests/torch_threads.py)
 
 from nic_torch.cli import decode as tcli
 from nic_torch.core.metrics import psnr

@@ -12,6 +12,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one torch thread: tests/torch_threads.py)
 from jax.experimental.pallas import tpu as pltpu
 
 from nic.grids.pyramid import pyramid_mip_levels

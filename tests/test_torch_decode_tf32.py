@@ -17,6 +17,7 @@ for K4. No JAX here: the plain versions are held to JAX elsewhere
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one torch thread: tests/torch_threads.py)
 
 from nic_torch.kernels import decode_fused_v3 as tv3
 from nic_torch.kernels.decode_fused_v2 import GELUS, _dot

@@ -7,6 +7,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one torch thread: tests/torch_threads.py)
 
 from nic.core.quant import quant_range
 from nic.grids import fastdecode as jfd

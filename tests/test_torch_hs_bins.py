@@ -16,6 +16,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one torch thread: tests/torch_threads.py)
 
 from nic.models.hyperprior import HyperpriorModel as JaxModel
 from nic.train.hyperprior import HyperpriorCodec as JaxCodec

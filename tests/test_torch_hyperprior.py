@@ -14,6 +14,7 @@ import numpy as np
 import optax
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one torch thread: tests/torch_threads.py)
 
 from nic.io import artifacts as jart
 from nic.io import bitstream as jbits

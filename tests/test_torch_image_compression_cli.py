@@ -10,6 +10,7 @@ import os
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one torch thread: tests/torch_threads.py)
 
 from nic.grids.fastdecode import fast_decode
 from nic.grids.pyramid import pyramid_mip_levels

@@ -16,6 +16,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one torch thread: tests/torch_threads.py)
 
 from nic.config import CompressionConfig as JConfig
 from nic.core.quant import qat_noise

@@ -19,6 +19,7 @@ import jax.numpy as jnp
 import optax
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one torch thread: tests/torch_threads.py)
 from jax.experimental.pallas import tpu as pltpu
 
 from nic.cli.image_compression import load_asset as j_load_asset

@@ -34,6 +34,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one torch thread: tests/torch_threads.py)
 
 import torch_parallel_ranks as ranks
 from torch_parallel_ranks import check_steps
@@ -51,7 +52,10 @@ from test_torch_ntc_train import _jax_draws
 
 requires_8 = pytest.mark.skipif(len(jax.devices()) < 8,
                                 reason="needs 8 virtual devices")
-STEPS = 3
+# steps of JAX's mesh runs (NTC gather and kernel3, conv-AE): the second
+# is the first with Adam's moments carried and, for the conv-AE, in the
+# quantize phase; a third adds no new kind of step
+STEPS = 2
 
 
 def test_backend_rule_and_rank_devices():

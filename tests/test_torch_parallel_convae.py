@@ -12,6 +12,7 @@ one-rank steps by ``tests/test_torch_parallel.py``.
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one torch thread: tests/torch_threads.py)
 
 from nic_torch.train.conv_ae import ConvAETrainer, halo_loss, halo_window
 

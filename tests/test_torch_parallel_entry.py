@@ -12,6 +12,7 @@ import os
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one torch thread: tests/torch_threads.py)
 
 import torch_parallel_ranks as ranks
 from nic_torch.parallel.mesh import run_ranks

@@ -15,6 +15,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one torch thread: tests/torch_threads.py)
 
 from nic.grids import sample as jsample
 from nic_torch.grids import sample as tsample

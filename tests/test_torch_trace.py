@@ -14,6 +14,7 @@ import textwrap
 
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one torch thread: tests/torch_threads.py)
 
 from nic_torch.obs.trace import SpanTimer, enable_nan_checks
 
@@ -21,9 +22,11 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _child(code: str) -> None:
+    # one torch thread, as in this process (tests/torch_threads.py)
     proc = subprocess.run([sys.executable, "-c", textwrap.dedent(code)],
                           cwd=ROOT, capture_output=True, text=True,
-                          timeout=300)
+                          timeout=300,
+                          env={**os.environ, "OMP_NUM_THREADS": "1"})
     assert proc.returncode == 0, (proc.stdout[-2000:], proc.stderr[-4000:])
 
 

@@ -16,6 +16,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one torch thread: tests/torch_threads.py)
 from jax.experimental.pallas import tpu as pltpu
 
 from nic.kernels import train_fused_ff as jff

@@ -22,6 +22,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one torch thread: tests/torch_threads.py)
 
 from nic_torch.kernels import _widths
 from nic_torch.kernels import decode_fused_v2 as dv2

@@ -29,6 +29,7 @@ test_torch_decode_fused_v2.py.
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one torch thread: tests/torch_threads.py)
 
 from nic_torch.kernels import decode_fused_v2 as tdf
 from test_torch_decode_tf32 import _inputs, _tail, dot3, tf32
