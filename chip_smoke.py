@@ -17,8 +17,9 @@ Phases (any failure exits non-zero):
    the train bodies, K1/K5's ``decode_v2_mma`` and K2's
    ``decode_z1mm_mma`` by plane mode, K3's ``decode_v1_mma`` by grid
    dtype and K4's ``mlp_tail_mma`` by accumulator and dot dtype), and
-   those of K11's back half (``ff_epsgrad``, ``node_windows``,
-   ``node_corners``);
+   those of the back halves of K11 and K12 (``ff_epsgrad``,
+   ``node_windows``, ``node_corners``, ``ff_pe_band``, ``ff_pe_sum``,
+   ``node_volumes``, ``node_volume_corners``);
 3. each kernel against its plain PyTorch version on the card, on the
    committed trained artifact's column-stage outputs at mips 0-2, for every
    plane mode x GELU; the launch log must name only ``decode_v2_mma``
@@ -40,17 +41,20 @@ Phases (any failure exits non-zero):
    noise off and on: loss, ``out``, every MLP and PE grad and both
    accumulated node planes, two runs bit-identical; K11's back half
    alone (``eps_grad``: ff_epsgrad, eps^T dz1; ``node_windows``: the node
-   windows) against its plain versions on each cell's dz1 and on seeded
-   dz1 at every crop phase mod 2f, crops·n² not a multiple of 128, F = 73
-   and 137 (past the pass of 80) and pixel base 0 and not, max|Δ|/max|plain|
-   within EPS_GRAD_TOL and WINDOWS_TOL, two runs bit-identical; then
-   kernel vs plain timed at the flagship shape (bf16·poly noise on, the
-   path's mode, and fp32·erf), with the device time of the per-pixel
+   windows; ``pe_grads``: part C, the PE grads and db1) against its plain
+   versions on each cell's dz1 and on seeded dz1 at every crop phase mod
+   2f, crops·n² not a multiple of 128, F = 73 and 137 (past the pass of
+   80), pixel base 0 and not, npe 6 and 8, max|Δ|/max|plain| within
+   EPS_GRAD_TOL, WINDOWS_TOL and PE_GRADS_TOL, two runs bit-identical;
+   then kernel vs plain timed at the flagship shape (bf16·poly noise on,
+   the path's mode, and fp32·erf), with the device time of the per-pixel
    body, K11's device ms by part (A the body, B the windows, C
-   ``ff_rowcol`` + ``ff_pe``, D ``ff_epsgrad``), and the back half alone
-   beside its plain versions and, for eps^T dz1, ``torch.matmul`` on a
-   materialised eps. In phases 6-8, 16-18 and 26 the second of the two runs of each
-   cell is profiled, and the per-pixel body that ran must be the one
+   ``ff_pe_band`` + ``ff_pe_sum``, D ``ff_epsgrad``), and the back half
+   alone beside its plain versions and the library: for eps^T dz1
+   ``torch.matmul`` on a materialised eps, for part C ``torch.sum`` and
+   ``torch.einsum`` with the tri tables. In phases 6-8, 16-18 and 26
+   the second of the two runs of each cell is profiled, and the
+   per-pixel body that ran must be the one
    ``nic_torch/kernels/_widths.py`` ``kernel_body`` names: the
    tensor-core body (``ff_pixel_mma``, ``mlp_pixel_mma``,
    ``ff3_pixel_mma``) for bf16 dots at H = 64, the CUDA-core one
@@ -108,7 +112,15 @@ The 3D path (methods 3 and 4, the misty 64³ protocol: C=12, H=64, PE 6,
     fp32·erf and bf16·poly (K11's tolerances, two runs bit-identical);
     ``eps_grad`` alone at K12's widths and feature passes (H = 64 in
     passes of 128, H = 128 in passes of 64) as in phase 6;
-17. K9 likewise on the 3D gather, with dG0/dG1 after the unfold;
+    ``node_volumes`` (``node_volumes`` + ``node_volume_corners``, shared
+    with K9) alone against ``node_volumes_plain`` on each cell's dz1 and
+    on seeded dz1 at every SHAPES3 shape, every crop phase mod 2f on each
+    axis, H = 64 and 128 (WINDOWS_TOL, two runs bit-identical); K12's
+    device ms by part at 8×32³ (A the body, B the node volumes, C
+    ``ff3_sums``, D ``ff_epsgrad``) and the node volumes alone timed
+    beside their plain version and bound;
+17. K9 likewise on the 3D gather, with dG0/dG1 after the unfold, and its
+    device ms by part at 8×32³ (A the body, B the node volumes);
 18. K6 at the 3D width F = 127 at 8×4³, 8×2³ and 8×1³ (partial tiles);
 19. four 200-epoch 3D CLI runs: m3 flag-free (200 K12 launches, mip-0
     PSNR within 1.0 dB of the fixture's JAX run), m4 flag-free (200 K12),
@@ -524,14 +536,15 @@ def ptxas_usage(log: str) -> dict:
 
 def _rest_registers(log: str) -> dict:
     """{kernel<template args>: (registers, spill stores, spill loads)} of
-    ff_epsgrad, node_windows and node_corners from the ``ptxas -v`` lines
-    of an nvcc log."""
+    the back halves of K11 and K12 (REST_KERNELS) from the ``ptxas -v``
+    lines of an nvcc log."""
     import re
 
     out, cur, spills = {}, None, (0, 0)
+    names = "|".join(REST_KERNELS)
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '\S*?\d(ff_epsgrad|"
-                      r"node_windows|node_corners)(\S*)'", line)
+        m = re.search(rf"Compiling entry function '\S*?\d({names})(\S*)'",
+                      line)
         if m:
             args = re.findall(r"L[ib](\d+)E", m.group(2))
             cur = m.group(1) + (f"<{','.join(args)}>" if args else "")
@@ -575,11 +588,14 @@ def phase_build() -> float:
         fail(f"ptxas reported {sorted(usage)}, not every one of {bodies} "
              f"(nvcc log {_build.log_path()})")
     rest = _rest_registers(_build.log_path().read_text())
-    print("phase 2: the back half of K11 (ptxas -v; ff_epsgrad<H,bf16,pass>)"
-          ": " + ", ".join(f"{k} {r} registers, {ss}/{sl} B spill "
-                           "stores/loads"
-                           for k, (r, ss, sl) in sorted(rest.items())),
-          flush=True)
+    missing = set(REST_KERNELS) - {k.split("<")[0] for k in rest}
+    if missing:
+        fail(f"ptxas reported no {sorted(missing)} (nvcc log "
+             f"{_build.log_path()})")
+    print("phase 2: the back halves of K11 and K12 (ptxas -v; "
+          "ff_epsgrad<H,bf16,pass>): " + ", ".join(
+              f"{k} {r} registers, {ss}/{sl} B spill stores/loads"
+              for k, (r, ss, sl) in sorted(rest.items())), flush=True)
     train = {k: v for k, v in usage.items() if k[0] in MMA_BODIES}
     print("phase 2: tensor-core bodies (ptxas -v): " + "; ".join(
         f"{b}<{'poly' if g else 'erf'}> {r} registers, {ss} B spill stores, "
@@ -1031,19 +1047,29 @@ def _k11_call(inputs, n, f, cd, gelu, nbits) -> tuple:
                  cd=None if cd == "fp32" else torch.bfloat16, nbits=nbits))
 
 
-# the back half of K11 alone (phases 6, 7, 16, 26): ff_epsgrad (eps^T dz1,
-# K11 and K12) and node_windows (K11 and K7) against their plain versions,
-# max|Δ|/max|plain|: eps^T dz1 within the JAX suite's fp32 grad limit, the
-# windows (fp32 sums of the same terms in another order) within 1e-5; two
-# runs of each bit-identical
+# the back halves alone (phases 6, 7, 16, 26): ff_epsgrad (eps^T dz1, K11
+# and K12), node_windows (K11 and K7) and node_volumes (K12 and K9) against
+# their plain versions, max|Δ|/max|plain|: eps^T dz1 within the JAX suite's
+# fp32 grad limit, the windows and volumes (fp32 sums of the same terms in
+# another order) within 1e-5; two runs of each bit-identical
 EPS_GRAD_TOL = 1e-4
 WINDOWS_TOL = 1e-5
 REST_WORDS = (12345, -987654321)  # the alone checks' noise stream words
 # K11's kernels by part: A the per-pixel body, B the node windows, C the
-# row/column sums and PE grads, D eps^T dz1
+# PE grads and db1, D eps^T dz1; K12's likewise (B its node volumes, C its
+# slab/a1/a2 sums) and K9's (A the body, B the node volumes)
 K11_PARTS = {"A": ("ff_pixel_mma", "ff_pixel"),
              "B": ("node_windows", "node_corners"),
-             "C": ("ff_rowcol", "ff_pe"), "D": ("ff_epsgrad",)}
+             "C": ("ff_pe_band", "ff_pe_sum"), "D": ("ff_epsgrad",)}
+K12_PARTS = {"A": ("ff3_pixel_mma", "ff3_pixel"),
+             "B": ("node_volumes", "node_volume_corners"),
+             "C": ("ff3_sums",), "D": ("ff_epsgrad",)}
+K9_PARTS = {"A": ("mlp_pixel_mma", "mlp_pixel"),
+            "B": ("node_volumes", "node_volume_corners")}
+# the kernels of those back halves whose registers phase 2 reports
+REST_KERNELS = ("ff_epsgrad", "node_windows", "node_corners", "ff_pe_band",
+                "ff_pe_sum", "node_volumes", "node_volume_corners")
+PE_GRADS_TOL = 1e-5  # part C alone: fp32 sums of the same terms
 
 
 def _parts_ms(fn, parts: dict) -> dict:
@@ -1116,29 +1142,47 @@ def _eps_grad_alone(tag, dz1, nfeat, base, bf16, feat_pass) -> float:
 
 
 def _windows_alone(tag, dz1, origins, n, f) -> float:
-    """node_windows alone against ``node_windows_plain`` on ``dz1``: the
-    worst of the two windows' max|Δ|/max|plain|; fails past WINDOWS_TOL or
-    if two runs differ."""
+    """node_windows (2D ``origins``) or node_volumes (3D) alone against its
+    plain version on ``dz1``: the worst of the two windows'
+    max|Δ|/max|plain|; fails past WINDOWS_TOL or if two runs differ."""
     from nic_torch.kernels import train_fused as t
 
-    got = _twice(tag, lambda: t.node_windows(dz1, origins, n, f))
-    want = t.node_windows_plain(dz1, origins, n, f)
+    fn, plain = ((t.node_windows, t.node_windows_plain)
+                 if origins.shape[1] == 2
+                 else (t.node_volumes, t.node_volumes_plain))
+    got = _twice(tag, lambda: fn(dz1, origins, n, f))
+    want = plain(dz1, origins, n, f)
     err = max(_rel(a, b) for a, b in zip(got, want))
     if err > WINDOWS_TOL:
-        fail(f"{tag}: node_windows vs plain max|Δ|/max|plain| {err:.3e} > "
+        fail(f"{tag}: {fn.__name__} vs plain max|Δ|/max|plain| {err:.3e} > "
              f"{WINDOWS_TOL:.0e}")
     return err
 
 
+def _pe_grads_alone(tag, dz1, origins, n, f, npe) -> float:
+    """Part C alone (``pe_grads``: ff_pe_band + ff_pe_sum) against
+    ``pe_grads_plain`` on ``dz1``: the worst of dpe0's, dpe1's and db1's
+    max|Δ|/max|plain|; fails past PE_GRADS_TOL or if two runs differ."""
+    from nic_torch.kernels import train_fused_ff as k
+
+    got = _twice(tag, lambda: k.pe_grads(dz1, origins, n, f, npe))
+    want = k.pe_grads_plain(dz1, origins, n, f, npe)
+    err = max(_rel(a, b) for a, b in zip(got, want))
+    if err > PE_GRADS_TOL:
+        fail(f"{tag}: ff_pe_band + ff_pe_sum vs plain max|Δ|/max|plain| "
+             f"{err:.3e} > {PE_GRADS_TOL:.0e}")
+    return err
+
+
 def _rest_alone(phase, device, hidden, lattices, eps_cases) -> None:
-    """ff_epsgrad and node_windows alone on seeded dz1 of 8 crops of n²
-    per (n, f) of ``lattices``, origins at every phase mod 2f (the windows
-    only where H is a multiple of 64); eps^T dz1 for each (F, feature pass)
-    of ``eps_cases`` at pixel base 0 and 123457, in bf16 and fp32 dots."""
+    """ff_epsgrad, node_windows and the PE grads (npe 6 and 8) alone on
+    seeded dz1 of 8 crops of n² per (n, f) of ``lattices``, origins at
+    every phase mod 2f; eps^T dz1 for each (F, feature pass) of
+    ``eps_cases`` at pixel base 0 and 123457, in bf16 and fp32 dots."""
     import torch
 
     gen = torch.Generator().manual_seed(1000 * phase + hidden)
-    worst_e = worst_w = 0.0
+    worst_e = worst_w = worst_p = 0.0
     cells = 0
     for n, f in lattices:
         dz1 = _seeded_dz1(cells + hidden, 8 * n * n, hidden, device)
@@ -1146,6 +1190,9 @@ def _rest_alone(phase, device, hidden, lattices, eps_cases) -> None:
         origins = _phase_origins(gen, 8, n, f, 4 * n)
         worst_w = max(worst_w, _windows_alone(f"node_windows {cell}", dz1,
                                               origins, n, f))
+        for npe in (6, 8):
+            worst_p = max(worst_p, _pe_grads_alone(
+                f"pe_grads {cell} npe={npe}", dz1, origins, n, f, npe))
         cells += 1
         for nfeat, feat_pass in eps_cases:
             for base in (0, 123457):
@@ -1158,7 +1205,8 @@ def _rest_alone(phase, device, hidden, lattices, eps_cases) -> None:
     print(f"phase {phase}: back half alone at H={hidden}, {cells} cells "
           f"(n, f) {list(lattices)}, every phase mod 2f, crops·n² not a "
           f"multiple of 128: node_windows worst max|Δ|/max|plain| "
-          f"{worst_w:.2e} (tol {WINDOWS_TOL:.0e})"
+          f"{worst_w:.2e} (tol {WINDOWS_TOL:.0e}), ff_pe_band + ff_pe_sum "
+          f"(npe 6, 8) {worst_p:.2e} (tol {PE_GRADS_TOL:.0e})"
           + (f", ff_epsgrad (F, pass) {list(eps_cases)} worst {worst_e:.2e}"
              f" (tol {EPS_GRAD_TOL:.0e})" if eps_cases else "")
           + "; reruns bit-identical", flush=True)
@@ -1166,18 +1214,33 @@ def _rest_alone(phase, device, hidden, lattices, eps_cases) -> None:
 
 def _k11_rest_times(k, dz1, origins, n, f, nfeat, k11) -> dict:
     """At the flagship: K11's parts A-D by device ms (``k11``: the K11
-    call), then ff_epsgrad and node_windows alone
-    on the step's dz1: wrapper ms, device ms, plain ms, bound, and for
-    eps^T dz1 the library's product (cuBLAS, bf16 in, fp32 sums) on a
-    materialised eps. Returns {kernel: (device ms, wrapper ms, plain ms,
-    library ms or None, (bytes, FLOPs))}."""
+    call), then ff_epsgrad, node_windows and the PE grads (part C) alone
+    on the step's dz1: wrapper ms, device ms, plain ms, bound, and the
+    library: for eps^T dz1 the product (cuBLAS, bf16 in, fp32 sums) on a
+    materialised eps, for the PE grads the composition of the row and
+    column sums of dz1 (``torch.sum``) and their two contractions with the
+    tri tables (``torch.einsum``, the tables made beforehand). Returns
+    {kernel: (device ms, wrapper ms, plain ms, library ms or None, (bytes,
+    FLOPs))}."""
     import torch
 
     from nic_torch.kernels import train_fused as t
 
     npix, hid = dz1.shape
+    crops, npe = origins.shape[0], 6
     rows0, cols0, rows1, cols1 = t._window_extents(n, f)
-    windows = 4 * hid * origins.shape[0] * (rows0 * cols0 + rows1 * cols1)
+    windows = 4 * hid * crops * (rows0 * cols0 + rows1 * cols1)
+    ar = torch.arange(n, device=dz1.device)
+    org = origins.to(dz1.device)
+    trow, tcol = (k._tri_table((org[:, d:d + 1] + ar).float()
+                               * (1.0 / (2 * f)), npe) for d in (0, 1))
+    dv = dz1.view(crops, n, n, hid)
+
+    def pe_library():
+        rs = dv.sum(dim=2)
+        return (torch.einsum("cnp,cnh->ph", trow, rs),
+                torch.einsum("cnp,cnh->ph", tcol, dv.sum(dim=1)),
+                rs.sum(dim=(0, 1)))
     parts = _parts_ms(k11, K11_PARTS)
     print("phase 6: K11 8×256² bf16·poly noise=on device ms by part: "
           + ", ".join(f"{p} {'+'.join(K11_PARTS[p])} {ms:.4f}"
@@ -1199,7 +1262,14 @@ def _k11_rest_times(k, dz1, origins, n, f, nfeat, k11) -> dict:
             ("node_windows", lambda: t.node_windows(dz1, origins, n, f),
              lambda: t.node_windows_plain(dz1, origins, n, f), None,
              ("node_windows", "node_corners"),
-             (nbytes(dz1, origins) + windows, 4 * npix * hid), "fp32")):
+             (nbytes(dz1, origins) + windows, 4 * npix * hid), "fp32"),
+            # a row-sum and a column-sum add per element, and the two
+            # contractions (crops·n·npe·H multiply-adds each)
+            ("pe_grads", lambda: k.pe_grads(dz1, origins, n, f, npe),
+             lambda: k.pe_grads_plain(dz1, origins, n, f, npe), pe_library,
+             K11_PARTS["C"],
+             (nbytes(dz1, origins) + 4 * (2 * npe + 1) * hid,
+              2 * npix * hid + 4 * crops * n * npe * hid), "fp32")):
         ms = cuda_ms(fn, reps=20)
         dev = _parts_ms(fn, {name: body})[name]
         pl = cuda_ms(plain, reps=5)
@@ -1209,8 +1279,10 @@ def _k11_rest_times(k, dz1, origins, n, f, nfeat, k11) -> dict:
         print(f"phase 6: {name} alone on the 8×256² step's dz1: device "
               f"{dev:.4f} ms ({'+'.join(body)}), wrapper {ms:.4f} ms, plain "
               f"{pl:.4f} ms, bound {b_ms:.4f} ms ({b_by})"
-              + (f", library torch.matmul(eps_bf16.t(), dz1_bf16) "
-                 f"{lib_ms:.4f} ms" if lib else "")
+              + ({"ff_epsgrad": ", library torch.matmul(eps_bf16.t(), "
+                                "dz1_bf16)",
+                  "pe_grads": ", library torch.sum + torch.einsum"}
+                 .get(name, "") + f" {lib_ms:.4f} ms" if lib else "")
               + (f"; {min(-(-npix // 128), 2 * sms)} blocks"
                  if name == "ff_epsgrad" else ""), flush=True)
     return out
@@ -1252,7 +1324,9 @@ def phase_k11(device) -> dict:
                             _eps_grad_alone(
                                 f"ff_epsgrad {cell}", dz1,
                                 weights[0].shape[0], 0, cd == "bf16", 80)
-                            if nbits else 0.0)
+                            if nbits else 0.0,
+                            _pe_grads_alone(f"pe_grads {cell}", dz1,
+                                            origins, n, f, 6))
                     worst_grad = max(e for nm, e in errs.items()
                                      if nm not in ("loss", "out"))
                     print(f"phase 6: K11 vs plain {cell}: loss rel "
@@ -1260,7 +1334,8 @@ def phase_k11(device) -> dict:
                           f" worst grad/plane rel {worst_grad:.2e} "
                           f"(tol {tol['loss']:.0e}/{tol['out']:.0e}/"
                           f"{tol['grad']:.0e}); alone on its dz1: "
-                          f"node_windows {rest[0]:.2e}"
+                          f"node_windows {rest[0]:.2e}, ff_pe_band + "
+                          f"ff_pe_sum {rest[2]:.2e}"
                           + (f", ff_epsgrad {rest[1]:.2e}" if nbits else ""),
                           flush=True)
                     if n == 256 and cd == "bf16" and nbits:
@@ -2007,9 +2082,97 @@ def _inputs3(gen, device, n, f, sparse, crops=8, size=64, **width):
 SHAPES3 = ((32, 4), (16, 2), (8, 1), (8, 4))
 
 
+def _phase_origins3(gen, crops, n, f, span):
+    """Origins [crops, 3] of n³ crops inside ``span`` voxels, at every
+    phase mod 2f on all three axes (crop i at phase i mod 2f on the slab
+    axis, the other axes' phases shuffled)."""
+    import torch
+
+    f1 = 2 * f
+    ph = torch.arange(crops) % f1
+    cells = (span - n - f1) // f1 + 1
+    return torch.stack(
+        [f1 * torch.randint(0, cells, (crops,), generator=gen)
+         + (ph if d == 0 else ph[torch.randperm(crops, generator=gen)])
+         for d in range(3)], dim=1)
+
+
+def _volumes_work(dz1, origins, n, f) -> tuple:
+    """(bytes, FLOPs) of the node volumes of ``dz1``: dz1 read once, the
+    windows written once; per element an add into its G0 half and two
+    weighted adds along the line, then the line's eight corner products
+    (2f voxels a line)."""
+    from nic_torch.kernels import train_fused as t
+
+    npix, hid = dz1.shape
+    ext0, ext1 = t._window_extents_3d(n, f)
+    nodes = origins.shape[0] * (ext0[0] ** 3 + ext1[0] * ext1[1] ** 2)
+    return (nbytes(dz1, origins) + 4 * hid * nodes,
+            5 * npix * hid + 16 * npix * hid // (2 * f))
+
+
+def _k12_part_bounds(args, origins, dz1, n, f, cd) -> dict:
+    """{part: (least ms, by)} of K12's parts at a cell (``args`` the
+    step's arguments, ``dz1`` its cotangent): A the per-voxel body (its
+    inputs, the PE rows [3][crops][n][H], out, dz1 and the block partials;
+    z2, dh1, dW2, the 64 → 3 layer and ε·W1), B the node volumes, C the
+    slab/a1/a2 sums (dz1 once, the sums written), D εᵀ·dz1."""
+    npix, hid = dz1.shape
+    feat, crops = args[2].shape[0], origins.shape[0]
+    nblk = min(-(-npix // 128), 264)
+    px = (nbytes(*args[:9], origins) + 4 * 3 * crops * n * hid
+          + 4 * npix * (3 + hid) + 4 * nblk * (4 + 4 * hid + hid * hid),
+          6 * npix * hid * hid + 18 * npix * hid + 2 * npix * feat * hid)
+    return {"A": bound(*px, cd),
+            "B": bound(*_volumes_work(dz1, origins, n, f), "fp32"),
+            "C": bound(nbytes(dz1) + 4 * 3 * crops * n * hid, 3 * npix * hid,
+                       "fp32"),
+            "D": bound(nbytes(dz1) + 4 * feat * hid, 2 * npix * feat * hid,
+                       "bf16")}
+
+
+def _volumes_times(dz1, origins, n, f) -> tuple:
+    """node_volumes alone on a step's dz1 at 8×32³: (device ms of
+    node_volumes + node_volume_corners, wrapper ms, plain ms, (bytes,
+    FLOPs)); no single PyTorch call computes the windows (the plain
+    version is nine accumulating ``index_put_`` calls), so no library
+    time."""
+    from nic_torch.kernels import train_fused as t
+
+    work = _volumes_work(dz1, origins, n, f)
+    fn = lambda: t.node_volumes(dz1, origins, n, f)  # noqa: E731
+    ms = cuda_ms(fn, reps=20)
+    dev = _parts_ms(fn, {"B": K12_PARTS["B"]})["B"]
+    plain = cuda_ms(lambda: t.node_volumes_plain(dz1, origins, n, f), reps=5)
+    return dev, ms, plain, work
+
+
+def _volumes_rest(phase, device) -> None:
+    """node_volumes alone on seeded dz1 of 8 crops at every SHAPES3 shape,
+    origins at every phase mod 2f on all three axes, H = 64 and 128."""
+    import torch
+
+    gen = torch.Generator().manual_seed(1000 * phase + 3)
+    worst, cells = 0.0, 0
+    for hidden in (64, 128):
+        for n, f in SHAPES3:
+            dz1 = _seeded_dz1(cells, 8 * n**3, hidden, device)
+            origins = _phase_origins3(gen, 8, n, f, 4 * n)
+            worst = max(worst, _windows_alone(
+                f"node_volumes H={hidden} 8×{n}³ f={f}", dz1, origins, n,
+                f))
+            cells += 1
+    print(f"phase {phase}: node_volumes alone at H = 64 and 128, {cells} "
+          f"cells (n, f) {list(SHAPES3)}, every phase mod 2f on each axis: "
+          f"worst max|Δ|/max|plain| {worst:.2e} (tol {WINDOWS_TOL:.0e}); "
+          "reruns bit-identical", flush=True)
+
+
 def phase_k12(device) -> dict:
     """K12 vs plain at SHAPES3, m3 (triangular PE) and m4 (sinusoidal PE),
-    noise off and on, fp32·erf and bf16·poly; timings at 8×32³."""
+    noise off and on, fp32·erf and bf16·poly, and node_volumes alone on
+    each cell's dz1 and at every crop phase; timings at 8×32³, K12's
+    device time by part and node_volumes alone."""
     import torch
 
     from nic_torch.kernels import train_fused_ff as k_ff
@@ -2019,6 +2182,7 @@ def phase_k12(device) -> dict:
              "dpe2", "db1", "P_acc", "C1_acc", "dw1e")
     gen = torch.Generator(device="cpu").manual_seed(12)
     timings, worst = {}, {}
+    vol_err, vol_times = 0.0, None
     with torch.no_grad():
         for n, f in SHAPES3:
             for method in (3, 4):
@@ -2039,13 +2203,17 @@ def phase_k12(device) -> dict:
                         got = _run_twice(f"K12 {cell}", lambda: (
                             k.fused_train_ff3_kernel(*args, **kw)),
                             ("train_ff3", 64, cd))
-                        want = k.fused_train_ff3_plain(*args, **kw)
+                        *want, dz1 = k.fused_train_ff3_plain(
+                            *args, **kw, with_dz1=True)
                         tol = K11_TOL[cd]
                         errs = _compare(f"K12 vs plain {cell}", names, got,
                                         want, tol)
                         for nm, e in errs.items():
                             key = (label, nm)
                             worst[key] = max(worst.get(key, 0.0), e)
+                        # node_volumes alone on this cell's dz1
+                        vol_err = max(vol_err, _windows_alone(
+                            f"node_volumes {cell}", dz1, origins, n, f))
                         if n == 32 and method == 3 and (
                                 (cd, nbits) in (("bf16", 8), ("fp32", None))):
                             ms = cuda_ms(lambda: k.fused_train_ff3_kernel(
@@ -2066,6 +2234,21 @@ def phase_k12(device) -> dict:
                             _device_line(16, f"K12 {cell}", lambda: (
                                 k.fused_train_ff3_kernel(*args, **kw)),
                                 "train_ff3", 64, cd)
+                            if nbits:
+                                parts = _parts_ms(lambda: (
+                                    k.fused_train_ff3_kernel(*args, **kw)),
+                                    K12_PARTS)
+                                bounds = _k12_part_bounds(args, origins, dz1,
+                                                          n, f, cd)
+                                print(f"phase 16: K12 {cell} device ms by "
+                                      "part (bound): " + ", ".join(
+                                          f"{p} {'+'.join(K12_PARTS[p])} "
+                                          f"{ms:.4f} ({bounds[p][0]:.4f} "
+                                          f"{bounds[p][1]})"
+                                          for p, ms in parts.items()),
+                                      flush=True)
+                                vol_times = _volumes_times(dz1, origins, n,
+                                                           f)
     # ff_epsgrad alone at K12's widths and feature passes (H = 64 in
     # passes of 128, H = 128 in passes of 64) on seeded dz1 of 8×31³ voxels
     # (not a multiple of 128), F = 127 (m3's) and 205 (past both passes)
@@ -2087,6 +2270,14 @@ def phase_k12(device) -> dict:
           f"max|Δ|/max|plain| {werr:.2e} (tol {EPS_GRAD_TOL:.0e}), reruns "
           f"bit-identical; device at 8×32³ H=64 F=127 bf16 "
           f"{eps_ms:.4f} ms", flush=True)
+    _volumes_rest(16, device)
+    dev, ms, plain, work = vol_times
+    b_ms, b_by = bound(*work, "fp32")
+    print(f"phase 16: node_volumes alone on the K12 8×32³ step's dz1 "
+          f"(worst on the cells' dz1 {vol_err:.2e}): device {dev:.4f} ms "
+          f"(node_volumes+node_volume_corners), wrapper {ms:.4f} ms, plain "
+          f"{plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}); library none",
+          flush=True)
     for label in K11_MODES:
         tol = K11_TOL[K11_MODES[label][0]]
         errs = {nm: e for (lb, nm), e in worst.items() if lb == label}
@@ -2173,6 +2364,14 @@ def phase_k9(device) -> dict:
                         _device_line(17, f"K9 {cell}", lambda: (
                             k.fused_mlp_loss_ng3_kernel(*args, **kw)),
                             "train_mlp", 64, cd)
+                        parts = _parts_ms(lambda: (
+                            k.fused_mlp_loss_ng3_kernel(*args, **kw)),
+                            K9_PARTS)
+                        print(f"phase 17: K9 {cell} device ms by part: "
+                              + ", ".join(f"{p} {'+'.join(K9_PARTS[p])} "
+                                          f"{ms:.4f}"
+                                          for p, ms in parts.items()),
+                              flush=True)
     _body_summary(17)
     return timings
 

@@ -84,6 +84,9 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     fn = lib.nic_eps_grad
     fn.argtypes = [p] * 2 + [i] * 11 + [p]
     fn.restype = i
+    fn = lib.nic_pe_grads
+    fn.argtypes = [p] * 4 + [i] * 5 + [p]
+    fn.restype = i
     fn = lib.nic_train_fused_dx
     fn.argtypes = [p] * 11 + [i] * 7 + [p]
     fn.restype = i
@@ -93,11 +96,14 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     fn = lib.nic_node_windows
     fn.argtypes = [p] * 5 + [i] * 4 + [p]
     fn.restype = i
+    fn = lib.nic_node_volumes
+    fn.argtypes = [p] * 5 + [i] * 4 + [p]
+    fn.restype = i
     fn = lib.nic_train_fused_ng3
-    fn.argtypes = [p] * 14 + [i] * 9 + [p]
+    fn.argtypes = [p] * 15 + [i] * 9 + [p]
     fn.restype = i
     fn = lib.nic_train_fused_ff3
-    fn.argtypes = [p] * 17 + [i] * 17 + [p]
+    fn.argtypes = [p] * 18 + [i] * 17 + [p]
     fn.restype = i
     fn = lib.nic_hs_bins
     fn.argtypes = [p] * 11 + [i] * 5 + [p]

@@ -7,8 +7,8 @@
 // (ff_tail_mma, with noise_mma and the mma.sync/ldmatrix wrappers), the
 // eps^T dz1 kernel (ff_epsgrad, bf16 dots on the tensor cores over
 // cp.async-staged tiles of dz1), and the per-crop node-window (2D: one
-// read of dz1, node_windows + node_corners) and node-volume (3D)
-// reductions of dz1.
+// read of dz1, node_windows + node_corners) and node-volume (3D: the
+// same in one read, node_volumes + node_volume_corners) reductions of dz1.
 //
 // Everything here sits in an anonymous namespace: each source that
 // includes it gets its own copy (the __constant__ tables included), so the
@@ -1159,89 +1159,206 @@ struct VolGeo {
   float inv_f1;
 };
 
-// the voxel range [lo, hi) of axis coordinate v = 0..n-1 in cell q at
-// period f for a crop whose origin has phase ph = o % f
-__device__ __forceinline__ void cell_range(int q, int f, int ph, int n,
-                                           int& lo, int& hi) {
-  lo = max(q * f - ph, 0);
-  hi = min((q + 1) * f - ph, n);
+// Replaces the node volumes of the Pallas kernels nic/kernels/
+// train_fused_ff3.py `_kernel_ff3` (:237-268) and train_fused.py
+// `_kernel_ng3` (:1048; dp :1075, dc1 :1099), which sum dz1 into each
+// crop's windows while it is in VMEM. Per crop of dz1 [crops * n^3][H]
+// (row-major per crop): the P window [crops][r0][r0][r0][H] of G0 cell
+// sums at period f per axis, and the C1 window [crops][r1][c1][c1][H],
+// where each voxel adds its dz1 with the trilinear weights of its eight C1
+// nodes at period f1 = 2f (per axis 1-u to its floor node and u to the
+// next, u the in-cell fraction at the absolute coordinate's phase). Window
+// node q of a crop at origin o is the absolute cell o/f + q (o/f1 + q for
+// C1).
+//
+// What bounds it (8 x 32^3, f = 4, H = 64): dz1 read once, 67.1 MB, plus
+// 1.9 MB of windows: 0.021 ms at 3.35 TB/s. A thread per (window node,
+// unit) would read each voxel about nine times and leave the C1 threads a
+// serial (2 f1)^3-term loop. Design: the 2D node_windows + node_corners
+// in 3D, two passes, each sum in a fixed order (no atomics).
+// node_volumes: a block owns one C1 cell of one crop (the cell's f1^3
+// voxels at the crop's phase, cut at the crop's edges) and reads each of
+// its voxels once, 16 bytes at a time: 16 threads cover 64 units of a
+// voxel, so a warp's load is two voxels' 256 contiguous bytes. The cell's
+// f1 x f1 lines (s, a), each walked along b, fall in four G0 quarters
+// (hs, ha); the block's 16 line slots take 4 a quarter, so a thread keeps
+// only its quarter's two G0 half sums and the eight corner partials in
+// registers, and it loads each line in chunks of 8 voxels at once. The
+// cell holds whole G0 cells (f1 = 2f and both lattices sit at absolute
+// multiples): the block sums its slots in a fixed order in shared memory
+// and writes its eight G0 cell sums straight to the P window and its
+// eight corner partials (the cell's voxels weighted towards each of its
+// eight C1 nodes) to corners [crops][r1][c1][c1][8][H]; a cell outside
+// the crop writes zeros at once. node_volume_corners: a thread sums a C1
+// node's at most eight corner partials, in a fixed order, into the C1
+// window. f is a power of two.
+constexpr int NVT = 256;  // threads of a node_volumes block
+
+// one axis of a C1 cell q at period f for a crop whose origin has phase
+// ph = o % 2f: the cell's first voxel (negative at a phase), its voxel
+// range [lo, hi) in the crop and the first voxel of its second G0 half
+struct CellAxis {
+  int base, lo, hi, mid;
+};
+
+__device__ __forceinline__ CellAxis cell_axis(int q, int f, int ph, int n) {
+  CellAxis c;
+  c.base = 2 * q * f - ph;
+  c.lo = max(c.base, 0);
+  c.hi = min(c.base + 2 * f, n);
+  c.mid = min(max(c.base + f, c.lo), c.hi);
+  return c;
 }
 
-// Per-crop node volumes of dz1 [crops * n^3][H] (row-major per crop): P
-// window [crops][r0][r0][r0][H] of cell sums at period f per axis; C1
-// window [crops][r1][c1][c1][H] where each voxel adds its dz1 with the
-// trilinear weights of its eight C1 nodes at period f1 (per axis 1-u to
-// its floor node and u to the next, u the in-cell fraction at the absolute
-// coordinate's phase). Window node q of a crop at origin o is the
-// absolute cell o/f + q (o/f1 + q for C1). Thread = (window node, h) for
-// any H that is a multiple of 64; block = (64, 4), the grid's y walking
-// the 64-unit column blocks; each thread sums its own output in a fixed
-// order.
-__global__ void node_volumes(const float* __restrict__ dz1,
-                             const int* __restrict__ org,
-                             float* __restrict__ win_p,
-                             float* __restrict__ win_c1, VolGeo g, int H) {
-  const int h = blockIdx.y * blockDim.x + threadIdx.x;
-  const int node = blockIdx.x * blockDim.y + threadIdx.y;
-  const int r0 = g.r0, r1 = g.r1, c1 = g.c1;
-  const int np = g.crops * r0 * r0 * r0;
-  const int nc = g.crops * r1 * c1 * c1;
-  if (node >= np + nc) return;
-  const int n = g.n;
-  float acc = 0.0f;
-  if (node < np) {
-    const int crop = node / (r0 * r0 * r0);
-    int rem = node % (r0 * r0 * r0);
-    const int qs = rem / (r0 * r0), qa = rem / r0 % r0, qb = rem % r0;
-    const int* o = org + 3 * crop;
-    const float* base = dz1 + static_cast<size_t>(crop) * n * n * n * H + h;
-    int slo, shi, alo, ahi, blo, bhi;
-    cell_range(qs, g.f, o[0] % g.f, n, slo, shi);
-    cell_range(qa, g.f, o[1] % g.f, n, alo, ahi);
-    cell_range(qb, g.f, o[2] % g.f, n, blo, bhi);
-    for (int s = slo; s < shi; ++s)
-      for (int a = alo; a < ahi; ++a) {
-        float sum = 0.0f;
-        for (int b = blo; b < bhi; ++b)
-          sum += base[((static_cast<size_t>(s) * n + a) * n + b) * H];
-        acc += sum;
-      }
-    win_p[static_cast<size_t>(node) * H + h] = acc;
-    return;
-  }
-  const int nd = node - np;
-  const int crop = nd / (r1 * c1 * c1);
-  const int rem = nd % (r1 * c1 * c1);
-  const int q[3] = {rem / (c1 * c1), rem / c1 % c1, rem % c1};
+__global__ void __launch_bounds__(NVT, 2)
+node_volumes(const float* __restrict__ dz1, const int* __restrict__ org,
+             float* __restrict__ win_p, float* __restrict__ corners,
+             VolGeo g, int H) {
+  // per warp: its quarter's 2 G0 half sums and the 8 corner partials
+  __shared__ float4 red[NVT / 32][10][16];
+  const int u = threadIdx.x & 15, slot = threadIdx.x >> 4;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int quarter = slot >> 2, sub = slot & 3;
+  const int hs = quarter >> 1, ha = quarter & 1;
+  const int h = blockIdx.y * 64 + 4 * u;
+  const int per_crop = g.r1 * g.c1 * g.c1;
+  const int cell = blockIdx.x;
+  const int crop = cell / per_crop, rem = cell % per_crop;
+  const int q[3] = {rem / (g.c1 * g.c1), rem / g.c1 % g.c1, rem % g.c1};
   const int* o = org + 3 * crop;
-  const int f1 = g.f1;
-  const float* base = dz1 + static_cast<size_t>(crop) * n * n * n * H + h;
-  // per axis: the voxels of cell q-1 (weight u) and of cell q (1-u)
-  int lo[3], hi[3], ph[3];
+  const int n = g.n, f = g.f, lf = __ffs(f) - 1;
+  int ph[3];
+  CellAxis ax[3];
 #pragma unroll
   for (int d = 0; d < 3; ++d) {
-    ph[d] = o[d] % f1;
-    lo[d] = max((q[d] - 1) * f1 - ph[d], 0);
-    hi[d] = min((q[d] + 1) * f1 - ph[d], n);
+    ph[d] = o[d] & (g.f1 - 1);
+    ax[d] = cell_axis(q[d], f, ph[d], n);
   }
-  for (int s = lo[0]; s < hi[0]; ++s) {
-    const float us = static_cast<float>((s + ph[0]) % f1) * g.inv_f1;
-    const float ws = ((s + ph[0]) / f1 == q[0]) ? 1.0f - us : us;
-    float sa = 0.0f;
-    for (int a = lo[1]; a < hi[1]; ++a) {
-      const float ua = static_cast<float>((a + ph[1]) % f1) * g.inv_f1;
-      const float wa = ((a + ph[1]) / f1 == q[1]) ? 1.0f - ua : ua;
-      float sb = 0.0f;
-      for (int b = lo[2]; b < hi[2]; ++b) {
-        const float ub = static_cast<float>((b + ph[2]) % f1) * g.inv_f1;
-        const float wb = ((b + ph[2]) / f1 == q[2]) ? 1.0f - ub : ub;
-        sb = fmaf(wb, base[((static_cast<size_t>(s) * n + a) * n + b) * H], sb);
+  const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  // output i of thread (slot = i, u): G0 cell (i >> 2, i >> 1 & 1, i & 1),
+  // at 2 q + half - sh per axis of the P window (sh = 1 where the crop's
+  // phase starts in the second half of a C1 cell), or corner i - 8 in the
+  // same order
+  auto write = [&](int i, float4 acc) {
+    if (i < 8) {
+      int qp[3];
+      bool in = true;
+#pragma unroll
+      for (int d = 0; d < 3; ++d) {
+        qp[d] = 2 * q[d] + ((i >> (2 - d)) & 1) - (ph[d] >= f);
+        in = in && qp[d] >= 0 && qp[d] < g.r0;
       }
-      sa = fmaf(wa, sb, sa);
+      if (in)
+        *reinterpret_cast<float4*>(
+            win_p + (((static_cast<size_t>(crop) * g.r0 + qp[0]) * g.r0 +
+                      qp[1]) * g.r0 + qp[2]) * H + h) = acc;
+    } else {
+      *reinterpret_cast<float4*>(
+          corners + (static_cast<size_t>(cell) * 8 + (i - 8)) * H + h) = acc;
     }
-    acc = fmaf(ws, sa, acc);
+  };
+  if (ax[0].hi <= ax[0].lo || ax[1].hi <= ax[1].lo || ax[2].hi <= ax[2].lo) {
+    write(slot, zero);
+    return;
   }
-  win_c1[static_cast<size_t>(nd) * H + h] = acc;
+  const float* base = dz1 + static_cast<size_t>(crop) * n * n * n * H + h;
+  // the thread's lines m = sub, sub + 4, ... of its quarter's f x f, each
+  // in chunks of 8 voxels: unit e is chunk e % chunks of line e / chunks
+  const int chunks = (ax[2].hi - ax[2].lo + 7) >> 3;
+  const int units = sub < f * f ? ((f * f - sub + 3) >> 2) * chunks : 0;
+  float4 p0 = zero, p1 = zero, k[8], sa = zero, sb = zero;
+#pragma unroll
+  for (int c = 0; c < 8; ++c) k[c] = zero;
+  for (int e = 0; e < units; ++e) {
+    const int line = chunks == 1 ? e : e / chunks;
+    const int m = sub + 4 * line;
+    const int s = ax[0].base + hs * f + (m >> lf);
+    const int a = ax[1].base + ha * f + (m & (f - 1));
+    const int b0 = ax[2].lo + 8 * (e - line * chunks);
+    if (s < ax[0].lo || s >= ax[0].hi || a < ax[1].lo || a >= ax[1].hi)
+      continue;
+    const float* px =
+        base + ((static_cast<size_t>(s) * n + a) * n + b0) * H;
+    float4 x[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      x[j] = b0 + j < ax[2].hi
+                 ? __ldg(reinterpret_cast<const float4*>(px + j * H))
+                 : zero;
+    // the chunk's G0 half sums, and its voxels weighted 1-v and v
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int b = b0 + j;
+      const float v = static_cast<float>(b - ax[2].base) * g.inv_f1;
+      const bool first = b < ax[2].mid;
+      add4(p0, first ? x[j] : zero);
+      add4(p1, first ? zero : x[j]);
+      fma4(sa, 1.0f - v, x[j]);
+      fma4(sb, v, x[j]);
+    }
+    if (e - line * chunks == chunks - 1) {  // the line's last chunk
+      const float us = static_cast<float>(s - ax[0].base) * g.inv_f1;
+      const float ua = static_cast<float>(a - ax[1].base) * g.inv_f1;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const float w =
+            ((c >> 1) ? us : 1.0f - us) * ((c & 1) ? ua : 1.0f - ua);
+        fma4(k[2 * c], w, sa);
+        fma4(k[2 * c + 1], w, sb);
+      }
+      sa = zero;
+      sb = zero;
+    }
+  }
+  // the warp's two slots (one quarter), then the quarter's two warps or,
+  // for the corners, all eight warps in order
+  auto put = [&](int i, float4 t) {
+    t.x += __shfl_xor_sync(0xffffffffu, t.x, 16);
+    t.y += __shfl_xor_sync(0xffffffffu, t.y, 16);
+    t.z += __shfl_xor_sync(0xffffffffu, t.z, 16);
+    t.w += __shfl_xor_sync(0xffffffffu, t.w, 16);
+    if (lane < 16) red[warp][i][u] = t;
+  };
+  put(0, p0);
+  put(1, p1);
+#pragma unroll
+  for (int c = 0; c < 8; ++c) put(2 + c, k[c]);
+  __syncthreads();
+  float4 acc;
+  if (slot < 8) {
+    const int w0 = 2 * (slot >> 1);  // warps of G0 quarter slot >> 1
+    acc = red[w0][slot & 1][u];
+    add4(acc, red[w0 + 1][slot & 1][u]);
+  } else {
+    acc = red[0][slot - 6][u];
+#pragma unroll
+    for (int w = 1; w < NVT / 32; ++w) add4(acc, red[w][slot - 6][u]);
+  }
+  write(slot, acc);
+}
+
+// C1 node (Q0, Q1, Q2) of a crop = corner (d0, d1, d2) of cell Q - d over
+// d in {0, 1}^3 in lexicographic order, cells before the first skipped
+__global__ void __launch_bounds__(256)
+node_volume_corners(const float* __restrict__ corners,
+                    float* __restrict__ win_c1, VolGeo g, int H) {
+  const int h = blockIdx.y * 64 + 4 * threadIdx.x;
+  const int per_crop = g.r1 * g.c1 * g.c1;
+  const int node = blockIdx.x * blockDim.y + threadIdx.y;
+  if (node >= g.crops * per_crop) return;
+  const int crop = node / per_crop, rem = node % per_crop;
+  const int q0 = rem / (g.c1 * g.c1), q1 = rem / g.c1 % g.c1, q2 = rem % g.c1;
+  float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    const int a0 = q0 - (c >> 2), a1 = q1 - ((c >> 1) & 1), a2 = q2 - (c & 1);
+    if (a0 >= 0 && a1 >= 0 && a2 >= 0)
+      add4(acc, __ldg(reinterpret_cast<const float4*>(
+                    corners +
+                    ((((static_cast<size_t>(crop) * g.r1 + a0) * g.c1 + a1) *
+                          g.c1 + a2) * 8 + c) * H + h)));
+  }
+  *reinterpret_cast<float4*>(win_c1 + static_cast<size_t>(node) * H + h) = acc;
 }
 
 // window extents of crops of n^3 at period f (the JAX package's na0, and
@@ -1259,14 +1376,20 @@ inline VolGeo vol_geo(int crops, int n, int f) {
   return v;
 }
 
-// the volumes of dz1 [crops * n^3][H], H a multiple of 64
+// the volumes of dz1 [crops * n^3][H], H a multiple of 64, f a power of
+// two; corners: scratch of [crops][r1][c1][c1][8][H] floats
 cudaError_t launch_node_volumes(const float* dz1, const int* org,
-                                float* win_p, float* win_c1, const VolGeo& v,
-                                int H, cudaStream_t stream) {
-  const dim3 blk(64, 4);
-  const int nodes = v.crops * (v.r0 * v.r0 * v.r0 + v.r1 * v.c1 * v.c1);
-  const dim3 grid((nodes + blk.y - 1) / blk.y, H / 64);
-  node_volumes<<<grid, blk, 0, stream>>>(dz1, org, win_p, win_c1, v, H);
+                                float* win_p, float* win_c1, float* corners,
+                                const VolGeo& v, int H, cudaStream_t stream) {
+  if (v.f & (v.f - 1)) return cudaErrorInvalidValue;  // f: a power of two
+  const int cells = v.crops * v.r1 * v.c1 * v.c1;
+  node_volumes<<<dim3(cells, H / 64), NVT, 0, stream>>>(dz1, org, win_p,
+                                                       corners, v, H);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  const dim3 blk(16, 16);
+  node_volume_corners<<<dim3((cells + blk.y - 1) / blk.y, H / 64), blk, 0,
+                        stream>>>(corners, win_c1, v, H);
   return cudaGetLastError();
 }
 

@@ -39,8 +39,8 @@
 //       with kernel3) reduces per crop window to the node-resolution
 //       cotangents: P-cell sums of dz1 at period f and the C1
 //       interpolation-weighted sums at period 2f (K7); in 3D node_volumes
-//       does the same per crop volume, trilinear for C1 (K9, shared with
-//       the 3D kernel3). No [N, F] cotangent exists.
+//       + node_volume_corners do the same per crop volume, trilinear for
+//       C1 (K9, shared with the 3D kernel3). No [N, F] cotangent exists.
 // Surgical bf16 as in JAX: in bf16-dot mode x, h1, h2, the weights and
 // the cotangents dz3, dz2, dz1 on their way into a dot are rounded with
 // __float2bfloat16_rn; every sum and every elementwise op stays fp32, and
@@ -669,14 +669,16 @@ extern "C" int nic_node_windows(const void* dz1, const void* origins,
 // K9 (3D kernel2): as K7 for crops of n^3 voxels (N = crops n^3,
 // row-major per crop) at origins [crops][3]: the per-crop node volumes
 // win_p [crops][r0][r0][r0][H] and win_c1 [crops][r1][c1][c1][H] (extents
-// in train_common.cuh vol_geo).
+// in train_common.cuh vol_geo; corners [crops][r1][c1][c1][8][H]
+// scratch).
 extern "C" int nic_train_fused_ng3(const void* x, const void* tgt,
                                    const void* origins, const void* w1,
                                    const void* b1, const void* w2,
                                    const void* b2, const void* w3,
                                    const void* b3, void* out, void* dz1,
                                    void* part, void* win_p, void* win_c1,
-                                   int crops, int n, int f, int feat,
+                                   void* corners, int crops, int n, int f,
+                                   int feat,
                                    int hidden, int bf16, int gelu_id,
                                    int body, int nblk, void* stream) {
   if (crops <= 0 || n <= 0 || f <= 0 ||
@@ -696,6 +698,21 @@ extern "C" int nic_train_fused_ng3(const void* x, const void* tgt,
   const auto* o = static_cast<const int*>(origins);
   const VolGeo v = vol_geo(crops, n, f);
   return static_cast<int>(launch_node_volumes(
-      d, o, static_cast<float*>(win_p), static_cast<float*>(win_c1), v,
-      hidden, st));
+      d, o, static_cast<float*>(win_p), static_cast<float*>(win_c1),
+      static_cast<float*>(corners), v, hidden, st));
+}
+
+// The node volumes alone (B as K12 and K9 launch it) of dz1 [crops n^3]
+// [hidden], hidden a multiple of 64: as nic_train_fused_ng3's.
+extern "C" int nic_node_volumes(const void* dz1, const void* origins,
+                                void* win_p, void* win_c1, void* corners,
+                                int crops, int n, int f, int hidden,
+                                void* stream) {
+  if (crops <= 0 || n <= 0 || f <= 0 || hidden <= 0 || hidden % 64)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_node_volumes(
+      static_cast<const float*>(dz1), static_cast<const int*>(origins),
+      static_cast<float*>(win_p), static_cast<float*>(win_c1),
+      static_cast<float*>(corners), vol_geo(crops, n, f), hidden,
+      static_cast<cudaStream_t>(stream)));
 }

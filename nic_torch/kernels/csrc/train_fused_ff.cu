@@ -10,10 +10,11 @@
 //        + tri(y/f1) Wpe0 + tri(x/f1) Wpe1 + bvec   (+ eps W1 with noise)
 //   out = sigmoid(gelu(gelu(z1) W2 + b2) W3 + b3),  loss = mean((out-t)^2)
 //
-// and the full backward. One entry point, nic_train_fused_ff, runs five
+// and the full backward. One entry point, nic_train_fused_ff, runs six
 // kernels back to back on the caller's stream (the MLP tail, the eps
-// kernel, the counter hash and the window kernel are shared with the 3D
-// kernel3, train_fused_ff3.cu, through train_common.cuh):
+// kernel and the counter hash are shared with the 3D kernel3,
+// train_fused_ff3.cu, and the window kernels with kernel2, train_fused.cu,
+// through train_common.cuh):
 //
 //   A ff_pixel   the per-pixel step over 128-pixel tiles, each block
 //                walking a fixed set of tiles: z1 build, MLP forward, loss,
@@ -27,8 +28,11 @@
 //                interpolation-weighted sums, each pixel read once (a
 //                thread per C1 cell and 4 units, then a small pass that
 //                sums each C1 node's four cell corners);
-//   C ff_rowcol  row and column sums of dz1 per crop, then ff_pe: the PE
-//                tables against them (dWpe0, dWpe1) and db1;
+//   C ff_pe_band + ff_pe_sum (below) the PE grads (the PE tables
+//                against each crop's row and column sums of dz1: dWpe0,
+//                dWpe1) and db1, each pixel read once (a block per crop
+//                and band of rows writes partials, then a small pass sums
+//                them in a fixed order);
 //   D ff_epsgrad (train_common.cuh; noise only) eps^T dz1 per block, the
 //                eps stream regenerated from the counter hash; in
 //                bf16-dot mode on the tensor cores (mma.sync m16n8k16).
@@ -66,9 +70,9 @@
 // noise and ~4.7 kFMA for eps^T dz1 in D: ~21 kFMA, i.e. ~22 GFLOP per
 // flagship step (524,288 pixels): ~0.35 ms on the fp32 CUDA cores at 67
 // TFLOP/s, 0.023 ms on the bf16 tensor cores at 989, against ~0.5 GB of
-// device-memory traffic (dz1 written once, read by B and D once each and
-// by C twice: ~0.2 ms at 3.35 TB/s). On the tensor cores the bytes, the
-// GELUs and the hash bound A and D, not the products.
+// device-memory traffic (dz1 written once, read by B, C and D once each:
+// ~0.16 ms at 3.35 TB/s). On the tensor cores the bytes, the GELUs and the
+// hash bound A and D, not the products.
 // Not carried over from the TPU kernel: lane packing of two row blocks
 // with block-diagonal weights, the per-step parameter tiles, the per-crop
 // window staging and the scratch-ref expansions; this kernel indexes the
@@ -412,58 +416,180 @@ ff_pixel_mma(const float* __restrict__ pp, const float* __restrict__ c1p,
           make_float2(dw2[t][2 * r], dw2[t][2 * r + 1]);
 }
 
-// ---- C: row and column sums of dz1, then the PE grads and db1 ----------
-template <int H>
-__global__ void ff_rowcol(const float* __restrict__ dz1,
-                          float* __restrict__ sums, Geo g) {
-  const int h = threadIdx.x;
-  const int idx = blockIdx.x * blockDim.y + threadIdx.y;  // (crop, line)
-  const int n = g.n;
-  if (idx >= g.crops * n) return;
-  const int crop = idx / n, line = idx % n;
-  const float* base = dz1 + static_cast<size_t>(crop) * n * n * H + h;
-  float sr = 0.0f, sc = 0.0f;
-  for (int k = 0; k < n; ++k) {
-    sr += base[(static_cast<size_t>(line) * n + k) * H];  // row `line`
-    sc += base[(static_cast<size_t>(k) * n + line) * H];  // column `line`
-  }
-  sums[static_cast<size_t>(idx) * H + h] = sr;
-  sums[(static_cast<size_t>(g.crops) * n + idx) * H + h] = sc;
+// ---- C: the PE grads and db1 in one pass over dz1 ----------------------
+//
+// Replaces the row/column sums and their table contractions of the Pallas
+// kernel `_kernel_ff` (nic/kernels/train_fused_ff.py:360-365): dWpe0[o] =
+// sum over crops and rows r of tri(o, (org0 + r) / f1) rowsum[crop, r],
+// dWpe1 the same over the column sums at org1, db1 = sum of dz1.
+//
+// What bounds it (8 x 256^2, H = 64): dz1 read once, 134 MB: 0.040 ms at
+// 3.35 TB/s; the contractions are ~0. Row sums and column sums each taken
+// in a pass of their own would read dz1 twice (the columns at an n H
+// stride), and a contraction over all crops' lines is one long serial
+// chain. Design: two launches, every sum in a fixed order (no atomics).
+// ff_pe_band: a block owns one crop and a band of PE_ROWS rows and reads
+// each of its pixels once, 16 bytes at a time: 16 threads cover 64 units
+// of a pixel and the block's 16 column slots split the row, so a warp's
+// load is two pixels' 256 contiguous bytes, and a thread walks its
+// columns down the band, PE_ROWS independent loads at a time. A thread
+// keeps its columns' share of each band row and contracts each of its
+// band columns (the crop's origin gives the column's absolute coordinate)
+// with the column tri values at once; the block then finishes each row's
+// sum in shared memory in a fixed order, multiplies it by its row tri
+// values, and writes its partials of dWpe0, dWpe1 and db1 (no row or
+// column sums go to device memory). 256 blocks at the flagship, two an
+// SM. ff_pe_sum sums the blocks' partials in one fixed order.
+constexpr int PE_ROWS = 8;  // rows of a band
+constexpr int PE_T = 256;   // threads of an ff_pe_band block
+
+// the PE geometry; a block's partials are rows [dWpe0 (npe) | dWpe1 (npe)
+// | db1] of H
+struct PeGeo {
+  int crops, n, npe, bands;
+  float inv_f1;
+};
+
+PeGeo pe_geo(int crops, int n, int f, int npe) {
+  PeGeo g;
+  g.crops = crops;
+  g.n = n;
+  g.npe = npe;
+  g.bands = (n + PE_ROWS - 1) / PE_ROWS;
+  g.inv_f1 = 1.0f / static_cast<float>(2 * f);
+  return g;
 }
 
-// rows 0..npe-1: dWpe0, npe..2npe-1: dWpe1, 2npe: db1
-template <int H>
-__global__ void ff_pe(const float* __restrict__ sums,
-                      const int* __restrict__ org, float* __restrict__ pe,
-                      Geo g) {
-  const int h = threadIdx.x;
-  const int row = blockIdx.x;
-  const int n = g.n;
-  const bool col = row >= g.npe && row < 2 * g.npe;
-  const float* s = sums + (col ? static_cast<size_t>(g.crops) * n * H : 0) + h;
-  float acc = 0.0f;
-  for (int crop = 0; crop < g.crops; ++crop) {
-    const int o = org[2 * crop + (col ? 1 : 0)];
-    for (int k = 0; k < n; ++k) {
-      const float v = s[(static_cast<size_t>(crop) * n + k) * H];
-      if (row == 2 * g.npe) {
-        acc += v;
-      } else {
-        const float t = static_cast<float>(o + k) * g.inv_f1;
-        acc = fmaf(tri_pe(t, col ? row - g.npe : row, g.npe), v, acc);
-      }
+__global__ void __launch_bounds__(PE_T, 2)
+ff_pe_band(const float* __restrict__ dz1, const int* __restrict__ org,
+           float* __restrict__ part, PeGeo g, int H) {
+  // per warp: its slots' row shares (PE_ROWS) and column PE partials (8)
+  __shared__ float4 red[PE_T / 32][PE_ROWS + 8][16];
+  __shared__ float4 rows[PE_ROWS][16];  // the band's finished row sums
+  const int u = threadIdx.x & 15, slot = threadIdx.x >> 4;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int crop = blockIdx.x / g.bands, band = blockIdx.x % g.bands;
+  const int n = g.n, r0 = band * PE_ROWS, nr = min(PE_ROWS, n - r0);
+  const int h = blockIdx.y * 64 + 4 * u;
+  const float* base =
+      dz1 + (static_cast<size_t>(crop) * n + r0) * n * H + h;
+  const int o0 = org[2 * crop], o1 = org[2 * crop + 1];
+  const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  float4 rs[PE_ROWS], cp[8];
+#pragma unroll
+  for (int r = 0; r < PE_ROWS; ++r) rs[r] = zero;
+#pragma unroll
+  for (int o = 0; o < 8; ++o) cp[o] = zero;
+  for (int c = slot; c < n; c += 16) {
+    const float* px = base + static_cast<size_t>(c) * H;
+    float4 x[PE_ROWS];
+#pragma unroll
+    for (int r = 0; r < PE_ROWS; ++r)
+      x[r] = r < nr ? __ldg(reinterpret_cast<const float4*>(
+                          px + static_cast<size_t>(r) * n * H))
+                    : zero;
+    float4 col = x[0];
+    add4(rs[0], x[0]);
+#pragma unroll
+    for (int r = 1; r < PE_ROWS; ++r) {
+      add4(col, x[r]);
+      add4(rs[r], x[r]);
     }
+    const float t = static_cast<float>(o1 + c) * g.inv_f1;
+#pragma unroll
+    for (int o = 0; o < 8; ++o)
+      if (o < g.npe) fma4(cp[o], tri_pe(t, o, g.npe), col);
   }
-  pe[row * H + h] = acc;
+  // the warp's two slots, then the warps in order
+  auto put = [&](int i, float4 v) {
+    v.x += __shfl_xor_sync(0xffffffffu, v.x, 16);
+    v.y += __shfl_xor_sync(0xffffffffu, v.y, 16);
+    v.z += __shfl_xor_sync(0xffffffffu, v.z, 16);
+    v.w += __shfl_xor_sync(0xffffffffu, v.w, 16);
+    if (lane < 16) red[warp][i][u] = v;
+  };
+#pragma unroll
+  for (int r = 0; r < PE_ROWS; ++r) put(r, rs[r]);
+#pragma unroll
+  for (int o = 0; o < 8; ++o) put(PE_ROWS + o, cp[o]);
+  __syncthreads();
+  const int rowlen = 2 * g.npe + 1;
+  float* mypart = part + static_cast<size_t>(blockIdx.x) * rowlen * H + h;
+  // thread (slot, u) finishes row `slot` of the band, or for slot = 8 + o
+  // the block's dWpe1 row o
+  float4 acc = red[0][slot][u];
+#pragma unroll
+  for (int w = 1; w < PE_T / 32; ++w) add4(acc, red[w][slot][u]);
+  if (slot < PE_ROWS)
+    rows[slot][u] = acc;
+  else if (slot - PE_ROWS < g.npe)
+    *reinterpret_cast<float4*>(mypart +
+                               static_cast<size_t>(g.npe + slot - PE_ROWS) *
+                                   H) = acc;
+  __syncthreads();
+  // the finished rows by their tri values (dWpe0 row o = slot) and db1
+  if (slot <= g.npe) {
+    float4 s = zero;
+    for (int r = 0; r < nr; ++r) {
+      const float w =
+          slot == g.npe
+              ? 1.0f
+              : tri_pe(static_cast<float>(o0 + r0 + r) * g.inv_f1, slot,
+                       g.npe);
+      fma4(s, w, rows[r][u]);
+    }
+    *reinterpret_cast<float4*>(
+        mypart + static_cast<size_t>(slot == g.npe ? 2 * g.npe : slot) * H) =
+        s;
+  }
+}
+
+// out [2 npe + 1][H] = the sum of the nblk blocks' partials: a group of
+// 16 threads (one 64-unit block) takes blocks g, g + 16, ... in order,
+// then the 16 groups are summed in order
+__global__ void __launch_bounds__(256)
+ff_pe_sum(const float* __restrict__ part, float* __restrict__ out, int nblk,
+          int rowlen, int H) {
+  __shared__ float4 red[16][16];
+  const int u = threadIdx.x & 15, grp = threadIdx.x >> 4;
+  const int row = blockIdx.x, h = blockIdx.y * 64 + 4 * u;
+  const float* src = part + static_cast<size_t>(row) * H + h;
+  float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll 4
+  for (int b = grp; b < nblk; b += 16)
+    add4(acc, __ldg(reinterpret_cast<const float4*>(
+                  src + static_cast<size_t>(b) * rowlen * H)));
+  red[grp][u] = acc;
+  __syncthreads();
+  if (grp == 0) {
+    for (int i = 1; i < 16; ++i) add4(acc, red[i][u]);
+    *reinterpret_cast<float4*>(out + static_cast<size_t>(row) * H + h) =
+        acc;
+  }
+}
+
+// C on dz1 [crops * n^2][H], H a multiple of 64: part, scratch of
+// [crops * bands][2 npe + 1][H] floats; out [2 npe + 1][H]
+cudaError_t launch_pe_grads(const float* dz1, const int* org, float* part,
+                            float* out, const PeGeo& g, int H,
+                            cudaStream_t stream) {
+  const int nblk = g.crops * g.bands;
+  ff_pe_band<<<dim3(nblk, H / 64), PE_T, 0, stream>>>(dz1, org, part, g, H);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  ff_pe_sum<<<dim3(2 * g.npe + 1, H / 64), 256, 0, stream>>>(
+      part, out, nblk, 2 * g.npe + 1, H);
+  return cudaGetLastError();
 }
 
 struct Args {
   const float *pp, *c1p, *w1, *bvec, *wpe0, *wpe1, *w2, *b2, *w3, *b3, *tgt;
   const int* org;
-  float *out, *dz1, *part_mlp, *win_p, *win_c1, *corners, *sums, *pe,
+  float *out, *dz1, *part_mlp, *win_p, *win_c1, *corners, *part_pe, *pe,
       *part_eps;
   int nblk_mlp, nblk_eps;
   WinGeo win;
+  PeGeo pg;
   Geo g;
   cudaStream_t stream;
 };
@@ -512,17 +638,10 @@ cudaError_t launch_pixel(const Args& a) {
 
 template <int H, bool BF16>
 cudaError_t launch_rest(const Args& a) {
-  const dim3 blk(H, 256 / H);
   cudaError_t e = launch_node_windows(a.dz1, a.org, a.win_p, a.win_c1,
                                       a.corners, a.win, H, a.stream);
   if (e != cudaSuccess) return e;
-  const int lines = a.g.crops * a.g.n;
-  ff_rowcol<H><<<(lines + blk.y - 1) / blk.y, blk, 0, a.stream>>>(
-      a.dz1, a.sums, a.g);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  ff_pe<H><<<2 * a.g.npe + 1, H, 0, a.stream>>>(a.sums, a.org, a.pe, a.g);
-  e = cudaGetLastError();
+  e = launch_pe_grads(a.dz1, a.org, a.part_pe, a.pe, a.pg, H, a.stream);
   if (e != cudaSuccess || a.nblk_eps == 0) return e;
   NoiseGeo ng;
   ng.npix = a.g.npix;
@@ -559,7 +678,7 @@ extern "C" int nic_train_fused_ff(
     const void* bvec, const void* wpe0, const void* wpe1, const void* w2,
     const void* b2, const void* w3, const void* b3, const void* tgt,
     const void* origins, void* out, void* dz1, void* part_mlp, void* win_p,
-    void* win_c1, void* win_corners, void* sums, void* pe_grads,
+    void* win_c1, void* win_corners, void* part_pe, void* pe_grads,
     void* part_eps, int crops,
     int n, int f, int p_rows, int p_cols, int c1_rows, int c1_cols,
     int hidden, int npe, int nfeat, int fslot, int bf16, int gelu_id,
@@ -610,12 +729,13 @@ extern "C" int nic_train_fused_ff(
   a.win_p = static_cast<float*>(win_p);
   a.win_c1 = static_cast<float*>(win_c1);
   a.corners = static_cast<float*>(win_corners);
-  a.sums = static_cast<float*>(sums);
+  a.part_pe = static_cast<float*>(part_pe);
   a.pe = static_cast<float*>(pe_grads);
   a.part_eps = static_cast<float*>(part_eps);
   a.nblk_mlp = nblk_mlp;
   a.nblk_eps = nblk_eps;
   a.win = win_geo(crops, n, f);
+  a.pg = pe_geo(crops, n, f, npe);
   a.g = g;
   a.stream = static_cast<cudaStream_t>(stream);
   if (hidden != 64) return static_cast<int>(cudaErrorInvalidValue);
@@ -657,4 +777,21 @@ extern "C" int nic_eps_grad(const void* dz1, void* part, int npix, int nfeat,
     e = bf16 ? launch_epsgrad<128, true, 64>(d, pt, g, nblk, st)
              : launch_epsgrad<128, false, 64>(d, pt, g, nblk, st);
   return static_cast<int>(e);
+}
+
+// C alone (as K11 launches it): the PE grads and db1, out [2 npe + 1][H]
+// (dWpe0 | dWpe1 | db1), of dz1 [crops n^2][hidden] for crops of n x n at
+// origins [crops][2] on the lattice of period f; part: scratch of
+// [crops * ceil(n / PE_ROWS)][2 npe + 1][hidden] floats; hidden a multiple
+// of 64.
+extern "C" int nic_pe_grads(const void* dz1, const void* origins, void* part,
+                            void* out, int crops, int n, int f, int npe,
+                            int hidden, void* stream) {
+  if (crops <= 0 || n <= 0 || f <= 0 || npe < 0 || npe > 8 || hidden <= 0 ||
+      hidden % 64)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_pe_grads(
+      static_cast<const float*>(dz1), static_cast<const int*>(origins),
+      static_cast<float*>(part), static_cast<float*>(out),
+      pe_geo(crops, n, f, npe), hidden, static_cast<cudaStream_t>(stream)));
 }

@@ -27,10 +27,12 @@
 //                   K11's ff_pixel_mma); the caller names the body
 //                   (`mma`, nic_torch/kernels/_widths.py kernel_body) and
 //                   a body that does not take the mode is refused;
-//   B node_volumes  (train_common.cuh, shared with the 3D kernel2) the
-//                   node-resolution cotangents per crop: P-cell sums of
-//                   dz1 at period f per axis, C1 trilinear-weighted sums
-//                   at period 2f;
+//   B node_volumes + node_volume_corners (train_common.cuh, shared with
+//                   the 3D kernel2) the node-resolution cotangents per
+//                   crop: P-cell sums of dz1 at period f per axis, C1
+//                   trilinear-weighted sums at period 2f, each voxel read
+//                   once (a block per C1 cell, then a small pass that sums
+//                   each C1 node's eight cell corners);
 //   C ff3_sums      the slab, a1 and a2 sums of dz1 per crop, which the
 //                   wrapper contracts with the PE tables (dW1's PE rows)
 //                   and sums to db1;
@@ -404,7 +406,8 @@ __global__ void ff3_sums(const float* __restrict__ dz1,
 struct Args3 {
   const float *pv, *c1v, *w1, *pe, *w2, *b2, *w3, *b3, *tgt;
   const int* org;
-  float *out, *dz1, *part_mlp, *win_p, *win_c1, *sums, *part_eps;
+  float *out, *dz1, *part_mlp, *win_p, *win_c1, *corners, *sums,
+      *part_eps;
   int nblk_mlp, nblk_eps, mma;
   VolGeo vol;
   Geo3 g;
@@ -461,8 +464,8 @@ template <int H, bool BF16, int G>
 cudaError_t launch_all(const Args3& a) {
   cudaError_t e = launch_pixel<H, BF16, G>(a);
   if (e != cudaSuccess) return e;
-  e = launch_node_volumes(a.dz1, a.org, a.win_p, a.win_c1, a.vol, H,
-                          a.stream);
+  e = launch_node_volumes(a.dz1, a.org, a.win_p, a.win_c1, a.corners, a.vol,
+                          H, a.stream);
   if (e != cudaSuccess) return e;
   const dim3 blk(H, 256 / H);
   const int lines = 3 * a.g.crops * a.g.n;
@@ -496,7 +499,8 @@ cudaError_t dispatch_gelu(int gelu_id, const Args3& a) {
 // K12: loss, out [N, 3] and the per-block partials part_mlp [nblk_mlp][4 +
 // 4H + H*H] (ff_tail's layout), dz1 [N, H] (scratch), the per-crop node
 // volumes win_p [crops][r0^3][H] and win_c1 [crops][r1][c1][c1][H]
-// (extents in train_common.cuh vol_geo), the PE sums [3][crops][n][H] and,
+// (extents in train_common.cuh vol_geo; corners [crops][r1][c1][c1][8][H]
+// scratch), the PE sums [3][crops][n][H] and,
 // with noise (nbits > 0), part_eps [nblk_eps][nfeat][H], for crops of n^3
 // voxels (N = crops n^3, row-major per crop) at origins [crops][3] on the
 // lattice of period f. p_vol [p_side^3][H], c1_vol [c_side^3][H], pe
@@ -505,7 +509,8 @@ extern "C" int nic_train_fused_ff3(
     const void* p_vol, const void* c1_vol, const void* w1, const void* pe,
     const void* w2, const void* b2, const void* w3, const void* b3,
     const void* tgt, const void* origins, void* out, void* dz1,
-    void* part_mlp, void* win_p, void* win_c1, void* sums, void* part_eps,
+    void* part_mlp, void* win_p, void* win_c1, void* win_corners, void* sums,
+    void* part_eps,
     int crops, int n, int f, int p_side, int c_side, int hidden, int nfeat,
     int fslot, int bf16, int gelu_id, int mma, int nbits, int s0, int s1,
     int pixel_base, int nblk_mlp, int nblk_eps, void* stream) {
@@ -549,6 +554,7 @@ extern "C" int nic_train_fused_ff3(
   a.part_mlp = static_cast<float*>(part_mlp);
   a.win_p = static_cast<float*>(win_p);
   a.win_c1 = static_cast<float*>(win_c1);
+  a.corners = static_cast<float*>(win_corners);
   a.sums = static_cast<float*>(sums);
   a.part_eps = static_cast<float*>(part_eps);
   a.nblk_mlp = nblk_mlp;

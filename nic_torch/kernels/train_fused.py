@@ -58,7 +58,8 @@ __all__ = ["pick_block_rows", "fused_mlp_loss", "fused_mlp_loss_kernel",
            "fused_mlp_loss_plain", "fused_mlp_loss_ng",
            "fused_mlp_loss_ng_kernel", "fused_mlp_loss_ng_plain",
            "fused_mlp_loss_ng3", "fused_mlp_loss_ng3_kernel",
-           "fused_mlp_loss_padded", "node_windows", "node_windows_plain"]
+           "fused_mlp_loss_padded", "node_windows", "node_windows_plain",
+           "node_volumes", "node_volumes_plain"]
 
 _INV_SQRT2 = 0.7071067811865476
 _INV_SQRT2PI = 0.3989422804014327
@@ -129,6 +130,15 @@ def _window_extents_3d(n: int, f: int) -> tuple[tuple, tuple]:
     c1) C1 nodes), the JAX package's na0 and rows1/na1."""
     r0, _, r1, c1 = _window_extents(n, f)
     return (r0,) * 3, (r1, c1, c1)
+
+
+def _window_extents_nd(n: int, f: int, nd: int) -> tuple[tuple, tuple]:
+    """(P extents, C1 extents) per axis of a crop's node windows in 2D
+    (``nd`` = 2) or node volumes in 3D."""
+    if nd == 3:
+        return _window_extents_3d(n, f)
+    rows0, cols0, rows1, cols1 = _window_extents(n, f)
+    return (rows0, cols0), (rows1, cols1)
 
 
 def _accumulate_node_planes(win_p, win_c1, origins, *, f: int, g0_nodes,
@@ -290,6 +300,43 @@ def _node_sums(dz1, origins, *, n: int, f: int, g0_nodes, g1_nodes):
     return pacc, c1acc
 
 
+def _windows_plain(dz1, origins, n: int, f: int) -> tuple:
+    """Each crop's node windows (2D) or volumes (3D, by the origins'
+    width) of dz1 [crops·n^d, H] in torch ops, with the kernels' extents
+    (:func:`_window_extents_nd`); a contribution past an extent is
+    dropped, as the kernels drop it."""
+    org = torch.as_tensor(origins).to(dz1.device).long()
+    crops, nd = org.shape
+    ext0, ext1 = _window_extents_nd(n, f, nd)
+    hidden = dz1.shape[1]
+    f1 = 2 * f
+    ar = torch.arange(n, device=dz1.device)
+    cs = [org[:, d, None] + ar for d in range(nd)]          # [crops, n]
+
+    def axis(t, d):  # [crops, n] → broadcast along pixel axis d
+        shape = [crops] + [1] * nd
+        shape[1 + d] = n
+        return t.reshape(shape)
+
+    dv = dz1.float().reshape((crops,) + (n,) * nd + (hidden,))
+    ci = torch.arange(crops, device=dz1.device).reshape([crops] + [1] * nd)
+    win_p = dv.new_zeros((crops, *ext0, hidden))
+    win_p.index_put_((ci, *(axis(c // f - org[:, d:d + 1] // f, d)
+                            for d, c in enumerate(cs))), dv,
+                     accumulate=True)
+    win_c1 = dv.new_zeros((crops, *ext1, hidden))
+    us = [(c % f1).float() * (1.0 / f1) for c in cs]
+    for off in itertools.product((0, 1), repeat=nd):
+        w, idx = None, []
+        for d, o in enumerate(off):
+            q = cs[d] // f1 - org[:, d:d + 1] // f1 + o
+            wd = axis((us[d] if o else 1.0 - us[d]) * (q < ext1[d]), d)
+            w = wd if w is None else w * wd
+            idx.append(axis(q.clamp(max=ext1[d] - 1), d))
+        win_c1.index_put_((ci, *idx), w[..., None] * dv, accumulate=True)
+    return win_p, win_c1
+
+
 def node_windows_plain(dz1, origins, n: int, f: int) -> tuple:
     """Each crop's node windows of dz1 [crops·n², H] (row-major per crop,
     ``origins`` [crops, 2]) in torch ops → (win_p [crops, rows0, cols0, H]
@@ -300,31 +347,19 @@ def node_windows_plain(dz1, origins, n: int, f: int) -> tuple:
     for C1); a contribution past a window's extent is dropped, as the
     kernel drops it. :func:`_accumulate_node_planes` of the windows is
     :func:`_node_sums` of dz1."""
-    org = torch.as_tensor(origins).to(dz1.device).long()
-    crops = org.shape[0]
-    hidden = dz1.shape[1]
-    rows0, cols0, rows1, cols1 = _window_extents(n, f)
-    f1 = 2 * f
-    ar = torch.arange(n, device=dz1.device)
-    ys, xs = org[:, :1] + ar, org[:, 1:] + ar              # [crops, n]
-    dv = dz1.float().reshape(crops, n, n, hidden)
-    ci = torch.arange(crops, device=dz1.device)[:, None, None]
-    win_p = dv.new_zeros((crops, rows0, cols0, hidden))
-    win_p.index_put_((ci, (ys // f - org[:, :1] // f)[:, :, None],
-                      (xs // f - org[:, 1:] // f)[:, None, :]), dv,
-                     accumulate=True)
-    win_c1 = dv.new_zeros((crops, rows1, cols1, hidden))
-    u = (ys % f1).float() * (1.0 / f1)
-    v = (xs % f1).float() * (1.0 / f1)
-    for dr, dc in itertools.product((0, 1), repeat=2):
-        qr = ys // f1 - org[:, :1] // f1 + dr
-        qc = xs // f1 - org[:, 1:] // f1 + dc
-        w = ((u if dr else 1.0 - u) * (qr < rows1))[:, :, None] * (
-            (v if dc else 1.0 - v) * (qc < cols1))[:, None, :]
-        win_c1.index_put_((ci, qr.clamp(max=rows1 - 1)[:, :, None],
-                           qc.clamp(max=cols1 - 1)[:, None, :]),
-                          w[..., None] * dv, accumulate=True)
-    return win_p, win_c1
+    return _windows_plain(dz1, origins, n, f)
+
+
+def node_volumes_plain(dz1, origins, n: int, f: int) -> tuple:
+    """:func:`node_windows_plain` in 3D: each crop's node volumes of dz1
+    [crops·n³, H] (row-major per crop, ``origins`` [crops, 3]) → (win_p
+    [crops, r0, r0, r0, H] of the P cell sums at period f, win_c1 [crops,
+    r1, c1, c1, H] where each voxel adds its dz1 to its eight C1 nodes at
+    period 2f with the trilinear weights of its phase), extents
+    :func:`_window_extents_3d`, what lies past them dropped.
+    :func:`_accumulate_node_planes` of the volumes is :func:`_node_sums`
+    of dz1."""
+    return _windows_plain(dz1, origins, n, f)
 
 
 def fused_mlp_loss_ng_plain(x, tgt, origins, w1, b1, w2, b2, w3, b3, *,
@@ -474,11 +509,7 @@ def _check_origins(origins, n: int, f: int, g0_nodes, g1_nodes) -> None:
     nd = org.shape[1] if org.dim() == 2 else 0
     ok = nd in (2, 3) and int(org.min()) >= 0
     if ok:
-        if nd == 2:
-            r0, c0, r1, c1 = _window_extents(n, f)
-            ext0, ext1 = (r0, c0), (r1, c1)
-        else:
-            ext0, ext1 = _window_extents_3d(n, f)
+        ext0, ext1 = _window_extents_nd(n, f, nd)
         last = org.max(dim=0).values.tolist()
         ok = all(o // f + e <= g + 1 for o, e, g in
                  zip(last, ext0, _node_counts(g0_nodes, nd))) and all(
@@ -518,13 +549,8 @@ def _ng_kernel(wrapper, entry: str, x, tgt, origins, weights, *, n: int,
                                      *weights, **kw)
     empty = lambda *s: torch.empty(s, dtype=torch.float32,  # noqa: E731
                                    device=device)
-    if nd == 2:
-        r0, c0, r1, c1 = _window_extents(n, f)
-        ext0, ext1 = (r0, c0), (r1, c1)
-        scratch = (empty(crops, r1, c1, 4, hidden),)  # C1 cell corners
-    else:
-        ext0, ext1 = _window_extents_3d(n, f)
-        scratch = ()
+    ext0, ext1 = _window_extents_nd(n, f, nd)
+    corners = empty(crops, *ext1, 2**nd, hidden)  # C1 cell corners
     out, dz1 = empty(npix, 3), empty(npix, hidden)
     win_p = empty(crops, *ext0, hidden)
     win_c1 = empty(crops, *ext1, hidden)
@@ -532,7 +558,7 @@ def _ng_kernel(wrapper, entry: str, x, tgt, origins, weights, *, n: int,
     body = kernel_body("train_mlp", hidden, cd is not None)
     part, nblk = _partials(npix, feat, hidden, body, device)
     xs, tg, *ws = _prep(x, tgt, *weights)
-    _call(entry, (xs, tg, org, *ws, out, dz1, part, win_p, win_c1, *scratch),
+    _call(entry, (xs, tg, org, *ws, out, dz1, part, win_p, win_c1, corners),
           (crops, n, f, feat, hidden, int(cd is not None), GELU_IDS[gelu],
            BODY_IDS[body], nblk), device)
     wrapper.launches += 1
@@ -567,6 +593,40 @@ def fused_mlp_loss_ng_kernel(x, tgt, origins, w1, b1, w2, b2, w3, b3, *,
 fused_mlp_loss_ng_kernel.launches = 0
 
 
+def _windows_kernel(wrapper, entry: str, nd: int, dz1, origins, n: int,
+                    f: int) -> tuple:
+    """The node windows (``nd`` = 2) or volumes (3) of dz1 on its device:
+    :func:`_windows_plain` for a CPU tensor, else one launch of ``entry``,
+    counted on ``wrapper.launches``."""
+    origins = torch.as_tensor(origins)
+    crops = origins.shape[0]
+    hidden = dz1.shape[1]
+    name = wrapper.__name__
+    if tuple(origins.shape) != (crops, nd) or dz1.shape[0] != crops * n**nd:
+        raise ValueError(f"{name}: dz1 {tuple(dz1.shape)} is not "
+                         f"[crops·n{'²' if nd == 2 else '³'}, H] for "
+                         f"origins {tuple(origins.shape)} and n={n}")
+    if f < 1 or f & (f - 1):
+        raise ValueError(f"{name}: f={f} must be a power of two")
+    if dz1.device.type == "cpu":
+        return _windows_plain(dz1, origins, n, f)
+    if dz1.device.type != "cuda" or hidden % 64:
+        raise ValueError(f"{name} runs H a multiple of 64 on cuda or any H "
+                         f"on cpu, not H={hidden} on {dz1.device}")
+    device = dz1.device
+    ext0, ext1 = _window_extents_nd(n, f, nd)
+    empty = lambda *s: torch.empty(s, dtype=torch.float32,  # noqa: E731
+                                   device=device)
+    win_p = empty(crops, *ext0, hidden)
+    win_c1 = empty(crops, *ext1, hidden)
+    corners = empty(crops, *ext1, 2**nd, hidden)
+    org = origins.to(device=device, dtype=torch.int32).contiguous()
+    _call(entry, (*_prep(dz1), org, win_p, win_c1, corners),
+          (crops, n, f, hidden), device)
+    wrapper.launches += 1
+    return win_p, win_c1
+
+
 def node_windows(dz1, origins, n: int, f: int) -> tuple:
     """The node windows on dz1's device → the pair of
     :func:`node_windows_plain`. A CUDA tensor launches ``nic_node_windows``
@@ -575,33 +635,26 @@ def node_windows(dz1, origins, n: int, f: int) -> tuple:
     H a multiple of 64) and raises if it does not launch; a CPU tensor
     runs :func:`node_windows_plain`. ``node_windows.launches`` counts
     launches."""
-    origins = torch.as_tensor(origins)
-    crops = origins.shape[0]
-    hidden = dz1.shape[1]
-    if tuple(origins.shape) != (crops, 2) or dz1.shape[0] != crops * n * n:
-        raise ValueError(f"node_windows: dz1 {tuple(dz1.shape)} is not "
-                         f"[crops·n², H] for origins {tuple(origins.shape)}"
-                         f" and n={n}")
-    if dz1.device.type == "cpu":
-        return node_windows_plain(dz1, origins, n, f)
-    if dz1.device.type != "cuda" or hidden % 64:
-        raise ValueError(f"node_windows runs H a multiple of 64 on cuda or "
-                         f"any H on cpu, not H={hidden} on {dz1.device}")
-    device = dz1.device
-    rows0, cols0, rows1, cols1 = _window_extents(n, f)
-    empty = lambda *s: torch.empty(s, dtype=torch.float32,  # noqa: E731
-                                   device=device)
-    win_p = empty(crops, rows0, cols0, hidden)
-    win_c1 = empty(crops, rows1, cols1, hidden)
-    corners = empty(crops, rows1, cols1, 4, hidden)
-    org = origins.to(device=device, dtype=torch.int32).contiguous()
-    _call("nic_node_windows", (*_prep(dz1), org, win_p, win_c1, corners),
-          (crops, n, f, hidden), device)
-    node_windows.launches += 1
-    return win_p, win_c1
+    return _windows_kernel(node_windows, "nic_node_windows", 2, dz1,
+                           origins, n, f)
 
 
 node_windows.launches = 0
+
+
+def node_volumes(dz1, origins, n: int, f: int) -> tuple:
+    """The node volumes on dz1's device → the pair of
+    :func:`node_volumes_plain`. A CUDA tensor launches ``nic_node_volumes``
+    of ``csrc/train_fused.cu`` (``node_volumes`` and
+    ``node_volume_corners`` of ``csrc/train_common.cuh``, the pass that
+    K12 and K9 run on their dz1; H a multiple of 64) and raises if it does
+    not launch; a CPU tensor runs :func:`node_volumes_plain`.
+    ``node_volumes.launches`` counts launches."""
+    return _windows_kernel(node_volumes, "nic_node_volumes", 3, dz1,
+                           origins, n, f)
+
+
+node_volumes.launches = 0
 
 
 def fused_mlp_loss_ng3_kernel(x, tgt, origins, w1, b1, w2, b2, w3, b3, *,

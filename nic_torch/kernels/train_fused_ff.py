@@ -51,9 +51,13 @@ from nic_torch.kernels.train_fused import (_CORNERS, GELU_IDS,
 
 __all__ = ["fused_train_ff", "fused_train_ff_kernel", "fused_train_ff_plain",
            "fused_train_ff_padded", "ff_geometry", "eps_uniform",
-           "fold_planes", "eps_grad", "eps_grad_plain"]
+           "fold_planes", "eps_grad", "eps_grad_plain", "pe_grads",
+           "pe_grads_plain"]
 
 _M32 = 0xFFFFFFFF
+# rows of a crop's band in the PE-gradient pass (csrc/train_fused_ff.cu
+# PE_ROWS): a block's share, whose partials the wrapper's scratch holds
+PE_ROWS = 8
 
 
 # ---- counter-hash feature noise (bit-exact with the JAX package) ---------
@@ -293,6 +297,76 @@ def eps_grad(dz1, nfeat: int, fslot: int, s0: int, s1: int, nbits: int,
 eps_grad.launches = 0
 
 
+def pe_grads_plain(dz1, origins, n: int, f: int, npe: int) -> tuple:
+    """The PE grads and db1 of dz1 [crops·n², H] (row-major per crop,
+    ``origins`` [crops, 2]) in torch ops → (dpe0 [npe, H], dpe1 [npe, H],
+    db1 [H]): each crop's row sums against the row PE table at
+    (origin row + r)/2f, its column sums against the column table, and the
+    sum of dz1 (the JAX kernel's PE/bias gradients; the plain step's dpe0,
+    dpe1 and db1)."""
+    org = torch.as_tensor(origins).to(dz1.device).long()
+    crops = org.shape[0]
+    dv = dz1.float().reshape(crops, n, n, -1)
+    ar = torch.arange(n, device=dz1.device)
+    trow = _tri_table((org[:, :1] + ar).float() * (1.0 / (2 * f)), npe)
+    tcol = _tri_table((org[:, 1:] + ar).float() * (1.0 / (2 * f)), npe)
+    return (torch.einsum("cnp,cnh->ph", trow, dv.sum(dim=2)),
+            torch.einsum("cnp,cnh->ph", tcol, dv.sum(dim=1)),
+            dz1.float().sum(dim=0))
+
+
+def pe_grads(dz1, origins, n: int, f: int, npe: int) -> tuple:
+    """The PE grads and db1 on dz1's device → the triple of
+    :func:`pe_grads_plain`. A CUDA tensor launches ``nic_pe_grads`` of
+    ``csrc/train_fused_ff.cu`` (``ff_pe_band`` and ``ff_pe_sum``, the pass
+    K11 runs on its dz1; H a multiple of 64) and raises if it does not
+    launch; a CPU tensor runs :func:`pe_grads_plain`.
+    ``pe_grads.launches`` counts launches."""
+    origins = torch.as_tensor(origins)
+    crops = origins.shape[0]
+    hidden = dz1.shape[1]
+    if tuple(origins.shape) != (crops, 2) or dz1.shape[0] != crops * n * n:
+        raise ValueError(f"pe_grads: dz1 {tuple(dz1.shape)} is not "
+                         f"[crops·n², H] for origins {tuple(origins.shape)} "
+                         f"and n={n}")
+    if not 0 <= npe <= 8:
+        raise ValueError(f"pe_grads takes 0 to 8 PE rows, not {npe}")
+    if dz1.device.type == "cpu":
+        return pe_grads_plain(dz1, origins, n, f, npe)
+    if dz1.device.type != "cuda" or hidden % 64:
+        raise ValueError(f"pe_grads runs H a multiple of 64 on cuda or any "
+                         f"H on cpu, not H={hidden} on {dz1.device}")
+    from nic_torch.kernels import _build
+
+    lib = _build.load()
+    device = dz1.device
+    dz = dz1.detach().to(torch.float32).contiguous()
+    org = origins.to(device=device, dtype=torch.int32).contiguous()
+    part = _pe_partials(crops, n, npe, hidden, device)
+    out = torch.empty((2 * npe + 1, hidden), dtype=torch.float32,
+                      device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = lib.nic_pe_grads(dz.data_ptr(), org.data_ptr(), part.data_ptr(),
+                              out.data_ptr(), crops, n, f, npe, hidden,
+                              stream)
+    if rc != 0:
+        raise RuntimeError("pe_grads kernel launch failed: "
+                           + lib.nic_cuda_error_string(rc).decode())
+    pe_grads.launches += 1
+    return out[:npe], out[npe:2 * npe], out[2 * npe]
+
+
+pe_grads.launches = 0
+
+
+def _pe_partials(crops: int, n: int, npe: int, hidden: int, device):
+    """Scratch for the PE-gradient pass's block partials: [crops·bands,
+    2·npe + 1, H], a block per crop and band of PE_ROWS rows."""
+    return torch.empty((crops * -(-n // PE_ROWS), 2 * npe + 1, hidden),
+                       dtype=torch.float32, device=device)
+
+
 # ---- hidden-width padding ----------------------------------------------
 
 # the hidden axes of the step's results, in the order of
@@ -426,8 +500,8 @@ def fused_train_ff_kernel(p_plane, c1_plane, w1, b1, w2, b2, w3, b3, tgt,
     win_p = empty(crops, rows0, cols0, hidden)
     win_c1 = empty(crops, rows1, cols1, hidden)
     corners = empty(crops, rows1, cols1, 4, hidden)  # C1 cell corners
-    sums = empty(2, crops, n, hidden)
-    pe_grads = empty(2 * npe + 1, hidden)
+    part_pe = _pe_partials(crops, n, npe, hidden, device)
+    pe_out = empty(2 * npe + 1, hidden)
     part_eps = empty(max(nblk_eps, 1), nfeat, hidden)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -437,8 +511,7 @@ def fused_train_ff_kernel(p_plane, c1_plane, w1, b1, w2, b2, w3, b3, tgt,
             w3f.data_ptr(), b3f.data_ptr(), tgt_c.data_ptr(), org.data_ptr(),
             out.data_ptr(), dz1.data_ptr(), part_mlp.data_ptr(),
             win_p.data_ptr(), win_c1.data_ptr(), corners.data_ptr(),
-            sums.data_ptr(),
-            pe_grads.data_ptr(), part_eps.data_ptr(),
+            part_pe.data_ptr(), pe_out.data_ptr(), part_eps.data_ptr(),
             crops, n, f, p_c.shape[0], p_c.shape[1], c1_c.shape[0],
             c1_c.shape[1], hidden, npe, nfeat, _pad8(nfeat),
             int(cd is not None), GELU_IDS[gelu], int(body.endswith("_mma")),
@@ -457,7 +530,7 @@ def fused_train_ff_kernel(p_plane, c1_plane, w1, b1, w2, b2, w3, b3, tgt,
     dw3 = part[4:o].reshape(hidden, 3)
     db2 = part[o:o + hidden]
     dw2 = part[o + hidden:].reshape(hidden, hidden)
-    dpe0, dpe1, db1 = pe_grads[:npe], pe_grads[npe:2 * npe], pe_grads[2 * npe]
+    dpe0, dpe1, db1 = pe_out[:npe], pe_out[npe:2 * npe], pe_out[2 * npe]
     dw1e = part_eps.sum(dim=0) if nbits is not None else None
     pacc, c1acc = _accumulate_node_planes(win_p, win_c1, origins, f=f,
                                           g0_nodes=g0_nodes,

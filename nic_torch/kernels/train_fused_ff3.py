@@ -145,14 +145,17 @@ def fused_train_ff3_plain(p_vol, c1_vol, w1, b1, w2, b2, w3, b3, tgt,
                           lodf: float, sparse_g0: bool = False,
                           use_tri_pe: bool = True, cd=None,
                           gelu: str = "erf",
-                          nbits: int | None = None) -> tuple:
+                          nbits: int | None = None,
+                          with_dz1: bool = False) -> tuple:
     """The kernel's step in torch ops. ``p_vol`` [cells³, H] and ``c1_vol``
     [g1n³, H] from :func:`fold_volumes`; ``tgt`` [crops·n³, 3];
     ``origins`` [crops, 3] int; ``seed`` [≥3] int32 (s0, s1, pixel base),
     read only when ``nbits`` is set.
 
     Returns (loss, out [N, 3], dw2, db2, dw3, db3, dpe0, dpe1, dpe2, db1,
-    P_acc [(g0n+1)³, H], C1_acc [(g1n+2)³, H], dw1e or None)."""
+    P_acc [(g0n+1)³, H], C1_acc [(g1n+2)³, H], dw1e or None), and with
+    ``with_dz1`` then dz1 [N, H], the fp32 cotangent of z1 that the kernel
+    reduces to everything after dw1e."""
     device = p_vol.device
     hidden = w2.shape[0]
     crops = origins.shape[0]
@@ -213,12 +216,12 @@ def fused_train_ff3_plain(p_vol, c1_vol, w1, b1, w2, b2, w3, b3, tgt,
         diff = out - tgt.float()
         loss = torch.sum(diff * diff) * (1.0 / diff.numel())
         names = list(leaves)
-        grads = dict(zip(names, torch.autograd.grad(
-            loss, [leaves[k] for k in names])))
+        grads = dict(zip(names + ["z1"], torch.autograd.grad(
+            loss, [leaves[k] for k in names] + ([z1] if with_dz1 else []))))
     return (loss.detach(), out.detach(), grads["w2"], grads["b2"],
             grads["w3"], grads["b3"], grads["wpe0"], grads["wpe1"],
             grads["wpe2"], grads["bvec"], grads["pacc"], grads["c1acc"],
-            grads.get("w1n"))
+            grads.get("w1n")) + ((grads["z1"],) if with_dz1 else ())
 
 
 # ---- hidden-width padding ----------------------------------------------
@@ -353,6 +356,7 @@ def fused_train_ff3_kernel(p_vol, c1_vol, w1, b1, w2, b2, w3, b3, tgt,
     part_mlp = empty(nblk_mlp, 4 + 4 * hidden + hidden * hidden)
     win_p = empty(crops, *ext0, hidden)
     win_c1 = empty(crops, *ext1, hidden)
+    corners = empty(crops, *ext1, 8, hidden)  # C1 cell corners
     sums = empty(3, crops, n, hidden)
     part_eps = empty(max(nblk_eps, 1), nfeat, hidden)
     with torch.cuda.device(device):
@@ -362,8 +366,8 @@ def fused_train_ff3_kernel(p_vol, c1_vol, w1, b1, w2, b2, w3, b3, tgt,
             w2f.data_ptr(), b2f.data_ptr(), w3f.data_ptr(), b3f.data_ptr(),
             tgt_c.data_ptr(), org.data_ptr(), out.data_ptr(), dz1.data_ptr(),
             part_mlp.data_ptr(), win_p.data_ptr(), win_c1.data_ptr(),
-            sums.data_ptr(), part_eps.data_ptr(), crops, n, f,
-            p_c.shape[0], c1_c.shape[0], hidden, nfeat, _pad8(nfeat),
+            corners.data_ptr(), sums.data_ptr(), part_eps.data_ptr(), crops,
+            n, f, p_c.shape[0], c1_c.shape[0], hidden, nfeat, _pad8(nfeat),
             int(cd is not None), GELU_IDS[gelu], int(body.endswith("_mma")),
             0 if nbits is None else int(nbits), s0, s1, pixel_base,
             nblk_mlp, nblk_eps, stream)

@@ -22,8 +22,9 @@ by the same code. On a machine with one NVIDIA GPU it prints:
   timings of the wrapper and, by ``torch.profiler``, the device time per
   call of all the kernels it launches and of each by name, longest first
   (so host time and device time separate, and the per-pixel body, e.g.
-  ``mlp_pixel`` or ``mlp_pixel_mma``, and the back half, ``node_windows``,
-  ``ff_rowcol``, ``ff_pe``, ``ff_epsgrad``, show on their own);
+  ``mlp_pixel`` or ``mlp_pixel_mma``, and the back half, e.g.
+  ``node_windows``, ``ff_pe_band``, ``ff_pe_sum``, ``ff_epsgrad`` and in
+  3D ``node_volumes``, ``node_volume_corners``, show on their own);
 - the train step (``chip_smoke.step_timing``) of TRAIN_FORWARD=kernel3
   and gather at the flagship configuration, kernel2 on path B
   (TF_USE_TRI_PE=0), and kernel3 and kernel2 on the 3D misty m3 protocol.

@@ -1,20 +1,23 @@
 """The back half of K11 (``csrc/train_common.cuh``: ``ff_epsgrad``, εᵀ·dz1,
-and ``node_windows``, the per-crop node windows) against the K11 plain
-version, on the CPU.
+and ``node_windows``, the per-crop node windows; ``csrc/train_fused_ff.cu``:
+``ff_pe_band`` + ``ff_pe_sum``, the PE grads and db1) against the K11
+plain version, on the CPU.
 
-The two kernels' plain versions, :func:`eps_grad_plain` and
-:func:`node_windows_plain`, and their wrappers (which take the plain
-version for a CPU tensor) run on the dz1 that the K11 plain version's
-autograd produces (``with_dz1``), and must give back that plain version's
-dw1e, P_acc and C1_acc; the K11 plain version is held to JAX by
+The three passes' plain versions, :func:`eps_grad_plain`,
+:func:`node_windows_plain` and :func:`pe_grads_plain`, and their wrappers
+(which take the plain version for a CPU tensor) run on the dz1 that the
+K11 plain version's autograd produces (``with_dz1``), and must give back
+that plain version's dw1e, P_acc and C1_acc, dpe0, dpe1 and db1; the K11
+plain version is held to JAX by
 tests/test_torch_train_fused_ff.py, so no JAX call runs here. Cases: f =
 4, 2, 1 with crop origins at every phase mod 2f on both axes, crops·n²
 not a multiple of 128 (the kernels' last tile is partial), F = 73 (the
 flagship's, one feature pass of K11's 80) at pixel base 0 and F = 137
 (past K11's pass and K12's 128) at a pixel base past 0 (a mesh rank's
 share of the stream), fp32 and bf16 dots, at H = 16. Limits: εᵀ·dz1 is the same product as
-the plain step's dw1e (rel 1e-6); the windows sum the same terms in
-another order (rel 1e-5, the limit chip_smoke.py holds the kernel to).
+the plain step's dw1e (rel 1e-6); the windows and the PE grads sum the
+same terms in another order (rel 1e-5, the limit chip_smoke.py holds the
+kernels to).
 The C1 cells the windows kernel walks per crop (as many as the C1
 window has nodes, the size of its scratch) are checked against the
 windows at every n and phase.
@@ -151,3 +154,27 @@ def test_node_windows_refuse_a_wrong_dz1():
     dz1 = torch.zeros(2 * 8 * 8 - 1, H)
     with pytest.raises(ValueError, match="not \\[crops·n², H\\]"):
         tf.node_windows(dz1, torch.zeros(2, 2, dtype=torch.int64), 8, 2)
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+@pytest.mark.parametrize("nfeat", list(FEATS))
+@pytest.mark.parametrize("f,n,crops", LATTICES)
+def test_pe_grads_match_k11_plain(f, n, crops, nfeat, mode):
+    """The PE grads and db1 of the plain version and of the wrapper on the
+    CPU = the K11 plain step's dpe0, dpe1 and db1 (npe 6 and 8; crops at
+    every phase)."""
+    outs, dz1, origins, _ = _k11_plain(f, n, crops, nfeat, mode)
+    npe = FEATS[nfeat][1]
+    launches = tff.pe_grads.launches
+    for fn in (tff.pe_grads_plain, tff.pe_grads):
+        got = fn(dz1, torch.from_numpy(origins), n, f, npe)
+        for g, want in zip(got, outs[6:9]):
+            assert g.shape == want.shape
+            assert _rel(g, want) <= 1e-5, (fn.__name__, _rel(g, want))
+    assert tff.pe_grads.launches == launches
+
+
+def test_pe_grads_refuse_a_wrong_dz1():
+    dz1 = torch.zeros(2 * 8 * 8 - 1, H)
+    with pytest.raises(ValueError, match="not \\[crops·n², H\\]"):
+        tff.pe_grads(dz1, torch.zeros(2, 2, dtype=torch.int64), 8, 2, 6)
