@@ -14,12 +14,13 @@ Phases (any failure exits non-zero):
    node-gradient (K7, kernel2; K9 in 3D) train kernels; one nvcc per
    source, all started together) for sm_90a, and print the build time
    and the registers and spills of the tensor-core bodies (``ptxas -v``:
-   the train bodies, K1/K5's ``decode_v2_mma`` and K2's
-   ``decode_z1mm_mma`` by plane mode, K3's ``decode_v1_mma`` by grid
-   dtype and K4's ``mlp_tail_mma`` by accumulator and dot dtype), and
-   those of the back halves of K11 and K12 (``ff_epsgrad``,
-   ``node_windows``, ``node_corners``, ``ff_pe_band``, ``ff_pe_sum``,
-   ``node_volumes``, ``node_volume_corners``);
+   the train bodies, among them the wide one ``mlp_pixel_mma_wide``,
+   K1/K5's ``decode_v2_mma`` and K2's ``decode_z1mm_mma`` by plane mode,
+   K3's ``decode_v1_mma`` by grid dtype and K4's ``mlp_tail_mma`` by
+   accumulator and dot dtype), and those of the back halves of K11 and
+   K12 (``ff_epsgrad``, ``node_windows``, ``node_corners``,
+   ``ff_pe_band``, ``ff_pe_sum``, ``node_volumes``,
+   ``node_volume_corners``, ``ff3_pe_band``);
 3. each kernel against its plain PyTorch version on the card, on the
    committed trained artifact's column-stage outputs at mips 0-2, for every
    plane mode x GELU; the launch log must name only ``decode_v2_mma``
@@ -57,8 +58,11 @@ Phases (any failure exits non-zero):
    per-pixel body that ran must be the one
    ``nic_torch/kernels/_widths.py`` ``kernel_body`` names: the
    tensor-core body (``ff_pixel_mma``, ``mlp_pixel_mma``,
-   ``ff3_pixel_mma``) for bf16 dots at H = 64, the CUDA-core one
-   (``ff_pixel``, ``mlp_pixel``, ``ff3_pixel``) for fp32 dots and H = 128;
+   ``ff3_pixel_mma``) for bf16 dots at H = 64 and, for K6/K7/K9,
+   ``mlp_pixel_mma_wide`` for bf16 dots from H = 128 to 256, the
+   CUDA-core one (``ff_pixel``, ``mlp_pixel``, ``ff3_pixel``,
+   ``mlp_pixel_wide``) for fp32 dots, K12's H = 128 and K6/K7/K9's bf16
+   dots past 256;
 7. K7 against its plain version on the card at 8 crops of 256² (f=4),
    128² (f=2), 64² (f=1) and 16² (f=1), on the sinusoidal-PE gather of a
    random flagship-width pyramid and MLP, in fp32·erf and bf16·poly: loss,
@@ -115,10 +119,18 @@ The 3D path (methods 3 and 4, the misty 64³ protocol: C=12, H=64, PE 6,
     ``node_volumes`` (``node_volumes`` + ``node_volume_corners``, shared
     with K9) alone against ``node_volumes_plain`` on each cell's dz1 and
     on seeded dz1 at every SHAPES3 shape, every crop phase mod 2f on each
-    axis, H = 64 and 128 (WINDOWS_TOL, two runs bit-identical); K12's
-    device ms by part at 8×32³ (A the body, B the node volumes, C
-    ``ff3_sums``, D ``ff_epsgrad``) and the node volumes alone timed
-    beside their plain version and bound;
+    axis, H = 64 and 128 (WINDOWS_TOL, two runs bit-identical); part C
+    (``pe_grads3``: ``ff3_pe_band`` + ``ff_pe_sum``, the PE grads and db1
+    in one pass over dz1) alone against ``pe_grads3_plain`` likewise, on
+    each cell's dz1 and on seeded dz1 at every SHAPES3 shape and crop
+    phase, H = 64 and 128, npe 6 and 8, triangular and sinusoidal tables
+    (PE_GRADS_TOL, two runs bit-identical); K12's device ms by part at
+    8×32³ (A the body, B the node volumes, C ``ff3_pe_band`` +
+    ``ff_pe_sum``, D ``ff_epsgrad``) beside each part's bound, the node
+    volumes and part C alone timed beside their plain versions and bound,
+    part C's library composition (``torch.sum`` by axes + ``torch.einsum``)
+    and part D's (``torch.matmul(eps_bf16.t(), dz1_bf16)``) at K12's
+    shape;
 17. K9 likewise on the 3D gather, with dG0/dG1 after the unfold, and its
     device ms by part at 8×32³ (A the body, B the node volumes);
 18. K6 at the 3D width F = 127 at 8×4³, 8×2³ and 8×1³ (partial tiles);
@@ -178,11 +190,13 @@ _widths.py``: narrower widths zero-padded to an instantiated one):
 26. kernel vs plain (K11's tolerances, two runs bit-identical; the decode
     tolerances): ``node_windows`` alone at H = 192 and 256 (as in phase
     6); K11 at H = 16 and 32 in four modes; K7 and K6 at H = 16,
-    128, 192 and 256 (at 128 x in feature chunks, W1 from device memory;
-    past 128 ``mlp_pixel_wide``); K12 m3 at PE 8 (F = 133) and F = 205
-    (C = 20), and at H = 128 with F = 133, in four modes; K9 at F = 133
-    and 205 and at H = 192 and 256; K6 at F = 413 (the tensor-core body's
-    two feature chunks), 200 rows; K1, K2, K3, K4 on random 512² models
+    128, 192, 256 and 320 (bf16 dots from 128 to 256 on
+    ``mlp_pixel_mma_wide`` and at 320 on ``mlp_pixel_wide``; fp32 dots at
+    128 with x in feature chunks, W1 from device memory, and past 128 on
+    ``mlp_pixel_wide``); K12 m3 at PE 8 (F = 133) and F = 205 (C = 20),
+    and at H = 128 with F = 133, in four modes; K9 at F = 133 and 205
+    and at H = 128, 192, 256 and 320; K6 at F = 413, 200 rows, at H = 64
+    and 128 (the tensor-core bodies' two feature chunks); K1, K2, K3, K4 on random 512² models
     and K5 on a 64³ m3 mip-mode model at H = 16, 32, 128, 192 and 256 in
     their plane modes, the 192/256 cells' bodies (``decode_v2_mma`` and
     the wide tails), K1's and K5's at 16 (their CUDA-core body) and K2's,
@@ -198,10 +212,14 @@ _widths.py``: narrower widths zero-padded to an instantiated one):
     kernel3's gate refuses: K7 at every step (exactly 50 launches), the
     decode CLI at mips 0-9 through K1 (exactly 3 launches), every mip
     within 1.0 dB of a TRAIN_FORWARD=gather run of the same
-    configuration, and the per-LOD engine log printed; then a 20-epoch
-    flagship run with PROFILE_DIR (two chunks of INTERVAL_PRINT=10): the
-    trace of the second chunk must be written, named by the log, and
-    hold K11's body ``ff_pixel_mma`` among its device kernels.
+    configuration, the run's wall time beside gather's and the per-LOD
+    engine log printed, and K7 alone at the run's LOD-0 shape (8×256²,
+    H = 256, bf16·poly) against its plain version, its body
+    (``mlp_pixel_mma_wide``) by the launch log and its device ms; then a
+    20-epoch flagship run with PROFILE_DIR (two chunks of
+    INTERVAL_PRINT=10): the trace of the second chunk must be written,
+    named by the log, and hold K11's body ``ff_pixel_mma`` among its
+    device kernels.
 
 Rectangular images, the Kodak geometry (IMAGE_SIZE=512, IMAGE_SIZE_W=768,
 ``data/sancho_512.png`` resized; full width):
@@ -316,7 +334,9 @@ power limit, and before that the ``{"kernels": [...]}`` record: for each
 kernel its launches on its main path (K1 the serve phase, K11 the
 flagship training run, K6 path A, K7 path B, K5 the 3D serve, K12 the m3
 flag-free run, K9 the kernel2 run, K2, K3 and K4 their artifact serves of
-phases 21-23, K13 the codec's card serves of phase 29), its time and its
+phases 21-23, K13 the codec's card serves of phase 29; K7 at H = 256
+on ``mlp_pixel_mma_wide`` the 50-epoch H = 256 CLI run of phase 27), its
+time and its
 plain version's at the path's shape and mode, and its bound, the larger of its
 bytes (each input read once, each output written once) over 3.35 TB/s and
 its dot operations (the JAX cost model's count) over the published peak
@@ -352,6 +372,8 @@ K11_SOURCE = "nic_torch/kernels/csrc/train_fused_ff.cu"
 K11_REPLACES = "nic/kernels/train_fused_ff.py:568"
 # K6, K7 and K9 are timed in bf16·poly, where their body is mlp_pixel_mma
 K67_SOURCE = "nic_torch/kernels/csrc/train_fused_mma.cu"
+# and at H = 128-256 (phase 27's H = 256 CLI) mlp_pixel_mma_wide
+K67W_SOURCE = "nic_torch/kernels/csrc/train_fused_mma_wide.cu"
 K6_REPLACES = "nic/kernels/train_fused.py:230"
 K7_REPLACES = "nic/kernels/train_fused.py:510"
 K5_SOURCE = KERNEL_SOURCE
@@ -478,7 +500,8 @@ def u8(x):
 
 
 # the tensor-core bodies whose registers and spills phase 2 reports
-MMA_BODIES = ("ff_pixel_mma", "mlp_pixel_mma", "ff3_pixel_mma")
+MMA_BODIES = ("ff_pixel_mma", "mlp_pixel_mma", "ff3_pixel_mma",
+              "mlp_pixel_mma_wide")
 # K1/K5's tensor-core body, by (plane mode, H = 64 with h1 in registers or
 # wider with h1 in slots); phase 2 reports its exact-erf and tanherf GELUs
 DECODE_MMA = "decode_v2_mma"
@@ -541,7 +564,7 @@ def _rest_registers(log: str) -> dict:
     import re
 
     out, cur, spills = {}, None, (0, 0)
-    names = "|".join(REST_KERNELS)
+    names = "|".join(sorted(REST_KERNELS, key=len, reverse=True))
     for line in log.splitlines():
         m = re.search(rf"Compiling entry function '\S*?\d({names})(\S*)'",
                       line)
@@ -1057,18 +1080,20 @@ WINDOWS_TOL = 1e-5
 REST_WORDS = (12345, -987654321)  # the alone checks' noise stream words
 # K11's kernels by part: A the per-pixel body, B the node windows, C the
 # PE grads and db1, D eps^T dz1; K12's likewise (B its node volumes, C its
-# slab/a1/a2 sums) and K9's (A the body, B the node volumes)
+# PE grads and db1 from the slab/a1/a2 sums) and K9's (A the body, B the
+# node volumes)
 K11_PARTS = {"A": ("ff_pixel_mma", "ff_pixel"),
              "B": ("node_windows", "node_corners"),
              "C": ("ff_pe_band", "ff_pe_sum"), "D": ("ff_epsgrad",)}
 K12_PARTS = {"A": ("ff3_pixel_mma", "ff3_pixel"),
              "B": ("node_volumes", "node_volume_corners"),
-             "C": ("ff3_sums",), "D": ("ff_epsgrad",)}
+             "C": ("ff3_pe_band", "ff_pe_sum"), "D": ("ff_epsgrad",)}
 K9_PARTS = {"A": ("mlp_pixel_mma", "mlp_pixel"),
             "B": ("node_volumes", "node_volume_corners")}
 # the kernels of those back halves whose registers phase 2 reports
 REST_KERNELS = ("ff_epsgrad", "node_windows", "node_corners", "ff_pe_band",
-                "ff_pe_sum", "node_volumes", "node_volume_corners")
+                "ff_pe_sum", "node_volumes", "node_volume_corners",
+                "ff3_pe_band")
 PE_GRADS_TOL = 1e-5  # part C alone: fp32 sums of the same terms
 
 
@@ -2115,8 +2140,9 @@ def _k12_part_bounds(args, origins, dz1, n, f, cd) -> dict:
     """{part: (least ms, by)} of K12's parts at a cell (``args`` the
     step's arguments, ``dz1`` its cotangent): A the per-voxel body (its
     inputs, the PE rows [3][crops][n][H], out, dz1 and the block partials;
-    z2, dh1, dW2, the 64 → 3 layer and ε·W1), B the node volumes, C the
-    slab/a1/a2 sums (dz1 once, the sums written), D εᵀ·dz1."""
+    z2, dh1, dW2, the 64 → 3 layer and ε·W1), B the node volumes, C the PE
+    grads and db1 (dz1 once, the tables [3][crops][n][8] read, the 3·6 + 1
+    rows written), D εᵀ·dz1."""
     npix, hid = dz1.shape
     feat, crops = args[2].shape[0], origins.shape[0]
     nblk = min(-(-npix // 128), 264)
@@ -2125,8 +2151,9 @@ def _k12_part_bounds(args, origins, dz1, n, f, cd) -> dict:
           6 * npix * hid * hid + 18 * npix * hid + 2 * npix * feat * hid)
     return {"A": bound(*px, cd),
             "B": bound(*_volumes_work(dz1, origins, n, f), "fp32"),
-            "C": bound(nbytes(dz1) + 4 * 3 * crops * n * hid, 3 * npix * hid,
-                       "fp32"),
+            "C": bound(nbytes(dz1) + 4 * 3 * crops * n * 8
+                       + 4 * (3 * 6 + 1) * hid,
+                       2 * npix * hid + 6 * crops * n * 6 * hid, "fp32"),
             "D": bound(nbytes(dz1) + 4 * feat * hid, 2 * npix * feat * hid,
                        "bf16")}
 
@@ -2168,6 +2195,105 @@ def _volumes_rest(phase, device) -> None:
           "reruns bit-identical", flush=True)
 
 
+def _pe3_alone(tag, dz1, origins, n, f, npe, tri) -> float:
+    """K12's part C alone (``pe_grads3``: ff3_pe_band + ff_pe_sum) against
+    ``pe_grads3_plain`` on ``dz1``: the worst of dpe0's, dpe1's, dpe2's and
+    db1's max|Δ|/max|plain|; fails past PE_GRADS_TOL or if two runs
+    differ."""
+    from nic_torch.kernels import train_fused_ff3 as k
+
+    got = _twice(tag, lambda: k.pe_grads3(dz1, origins, n, f, npe, tri))
+    want = k.pe_grads3_plain(dz1, origins, n, f, npe, tri)
+    err = max(_rel(a, b) for a, b in zip(got, want))
+    if err > PE_GRADS_TOL:
+        fail(f"{tag}: ff3_pe_band + ff_pe_sum vs plain max|Δ|/max|plain| "
+             f"{err:.3e} > {PE_GRADS_TOL:.0e}")
+    return err
+
+
+def _pe3_rest(phase, device) -> None:
+    """Part C alone on seeded dz1 of 8 crops at every SHAPES3 shape,
+    origins at every phase mod 2f on all three axes, H = 64 and 128, npe 6
+    and 8, triangular and sinusoidal tables."""
+    import torch
+
+    gen = torch.Generator().manual_seed(1000 * phase + 5)
+    worst, cells = 0.0, 0
+    for hidden in (64, 128):
+        for n, f in SHAPES3:
+            dz1 = _seeded_dz1(100 + cells, 8 * n**3, hidden, device)
+            origins = _phase_origins3(gen, 8, n, f, 4 * n)
+            for npe in (6, 8):
+                for tri in (True, False):
+                    worst = max(worst, _pe3_alone(
+                        f"pe_grads3 H={hidden} 8×{n}³ f={f} npe={npe} "
+                        f"{'tri' if tri else 'sin'}", dz1, origins, n, f,
+                        npe, tri))
+            cells += 1
+    print(f"phase {phase}: K12 part C (ff3_pe_band + ff_pe_sum) alone at H "
+          f"= 64 and 128, (n, f) {list(SHAPES3)}, npe 6 and 8, triangular "
+          f"and sinusoidal, every phase mod 2f on each axis: worst "
+          f"max|Δ|/max|plain| {worst:.2e} (tol {PE_GRADS_TOL:.0e}); reruns "
+          "bit-identical", flush=True)
+
+
+def _pe3_times(dz1, origins, n, f, npe, tri) -> None:
+    """Part C alone on a K12 step's dz1: device ms (ff3_pe_band +
+    ff_pe_sum), wrapper ms, plain ms, bound, and the library composition:
+    ``torch.sum`` of dz1 over each pair of voxel axes and three
+    ``torch.einsum`` with the PE tables (made beforehand), db1 from the
+    slab sums."""
+    import torch
+
+    from nic_torch.kernels import train_fused_ff3 as k
+
+    npix, hid = dz1.shape
+    crops = origins.shape[0]
+    tables = k.pe_tables(origins.to(dz1.device), n, f, npe, tri)
+    dv = dz1.view(crops, n, n, n, hid)
+
+    def library():
+        s0 = dv.sum(dim=(2, 3))
+        return (torch.einsum("cnp,cnh->ph", tables[0], s0),
+                torch.einsum("cnp,cnh->ph", tables[1], dv.sum(dim=(1, 3))),
+                torch.einsum("cnp,cnh->ph", tables[2], dv.sum(dim=(1, 2))),
+                s0.sum(dim=(0, 1)))
+    fn = lambda: k.pe_grads3(dz1, origins, n, f, npe, tri)  # noqa: E731
+    ms = cuda_ms(fn, reps=20)
+    dev = _parts_ms(fn, {"C": K12_PARTS["C"]})["C"]
+    plain = cuda_ms(lambda: k.pe_grads3_plain(dz1, origins, n, f, npe, tri),
+                    reps=5)
+    lib = cuda_ms(library, reps=20)
+    # dz1 once, the tables, the 3 npe + 1 rows out; per element a slab
+    # share and a line sum, then the contractions (crops·n·npe·H
+    # multiply-adds a table)
+    work = (nbytes(dz1, tables) + 4 * (3 * npe + 1) * hid,
+            2 * npix * hid + 6 * crops * n * npe * hid)
+    b_ms, b_by = bound(*work, "fp32")
+    print(f"phase 16: K12 part C alone on the 8×{n}³ step's dz1: device "
+          f"{dev:.4f} ms (ff3_pe_band+ff_pe_sum), wrapper {ms:.4f} ms, plain "
+          f"{plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}), library "
+          f"torch.sum + torch.einsum {lib:.4f} ms", flush=True)
+
+
+def _k12_eps_library(dz1, nfeat) -> float:
+    """K12's part D by the library at its shape: ``torch.matmul(eps_bf16.t(),
+    dz1_bf16)`` (cuBLAS, fp32 sums) on a materialised eps of ``nfeat``
+    features, ms."""
+    import torch
+
+    from nic_torch.kernels import train_fused_ff as k
+
+    npix = dz1.shape[0]
+    kw = _eps_kw(nfeat, 0, True)
+    eps = k.eps_uniform(torch.arange(npix, device=dz1.device)[:, None]
+                        * kw["fslot"] + torch.arange(nfeat,
+                                                     device=dz1.device),
+                        kw["s0"], kw["s1"], kw["nbits"]).to(torch.bfloat16)
+    dzb = dz1.to(torch.bfloat16)
+    return cuda_ms(lambda: torch.matmul(eps.t(), dzb), reps=20)
+
+
 def phase_k12(device) -> dict:
     """K12 vs plain at SHAPES3, m3 (triangular PE) and m4 (sinusoidal PE),
     noise off and on, fp32·erf and bf16·poly, and node_volumes alone on
@@ -2183,6 +2309,7 @@ def phase_k12(device) -> dict:
     gen = torch.Generator(device="cpu").manual_seed(12)
     timings, worst = {}, {}
     vol_err, vol_times = 0.0, None
+    pe_err, eps_lib = 0.0, None
     with torch.no_grad():
         for n, f in SHAPES3:
             for method in (3, 4):
@@ -2211,9 +2338,12 @@ def phase_k12(device) -> dict:
                         for nm, e in errs.items():
                             key = (label, nm)
                             worst[key] = max(worst.get(key, 0.0), e)
-                        # node_volumes alone on this cell's dz1
+                        # node_volumes and part C alone on this cell's dz1
                         vol_err = max(vol_err, _windows_alone(
                             f"node_volumes {cell}", dz1, origins, n, f))
+                        pe_err = max(pe_err, _pe3_alone(
+                            f"pe_grads3 {cell}", dz1, origins, n, f, 6,
+                            not sparse))
                         if n == 32 and method == 3 and (
                                 (cd, nbits) in (("bf16", 8), ("fp32", None))):
                             ms = cuda_ms(lambda: k.fused_train_ff3_kernel(
@@ -2249,6 +2379,9 @@ def phase_k12(device) -> dict:
                                       flush=True)
                                 vol_times = _volumes_times(dz1, origins, n,
                                                            f)
+                                _pe3_times(dz1, origins, n, f, 6, True)
+                                eps_lib = _k12_eps_library(
+                                    dz1, weights[0].shape[0])
     # ff_epsgrad alone at K12's widths and feature passes (H = 64 in
     # passes of 128, H = 128 in passes of 64) on seeded dz1 of 8×31³ voxels
     # (not a multiple of 128), F = 127 (m3's) and 205 (past both passes)
@@ -2271,6 +2404,11 @@ def phase_k12(device) -> dict:
           f"bit-identical; device at 8×32³ H=64 F=127 bf16 "
           f"{eps_ms:.4f} ms", flush=True)
     _volumes_rest(16, device)
+    _pe3_rest(16, device)
+    print(f"phase 16: K12 part C alone on the cells' dz1: worst "
+          f"max|Δ|/max|plain| {pe_err:.2e} (tol {PE_GRADS_TOL:.0e}); part D "
+          f"by the library at 8×32³ (torch.matmul(eps_bf16.t(), dz1_bf16), "
+          f"F = 127) {eps_lib:.4f} ms", flush=True)
     dev, ms, plain, work = vol_times
     b_ms, b_by = bound(*work, "fp32")
     print(f"phase 16: node_volumes alone on the K12 8×32³ step's dz1 "
@@ -3073,11 +3211,14 @@ def _width_counters() -> dict:
 
 
 def _widths_train(device) -> dict:
-    """K11 at H = 16, 32; K6, K7 at H = 16, 128, 192 and 256 (the last two
-    on mlp_pixel_wide); K12 at m3 PE 8 (F = 133) and F = 205 and at H =
-    128; K9 at F = 133 and F = 205 (C = 20) and at H = 192 and 256:
-    kernel vs plain (two runs bit-identical) at K11's tolerances. Returns
-    K11's padding cost: {H: ms} at 8×256² bf16·poly with noise."""
+    """K11 at H = 16, 32; K6, K7 at H = 16, 128, 192, 256 and 320 (bf16
+    dots on mlp_pixel_mma_wide from 128 to 256 and on mlp_pixel_wide at
+    320, fp32 dots on mlp_pixel_wide past 128); K6 at F = 413 at H = 64
+    and 128 (x in two chunks on mlp_pixel_mma_wide); K12 at m3 PE 8 (F =
+    133) and F = 205 and at H = 128; K9 at F = 133 and F = 205 (C = 20)
+    and at H = 128, 192, 256 and 320: kernel vs plain (two runs
+    bit-identical, the body by the launch log) at K11's tolerances.
+    Returns K11's padding cost: {H: ms} at 8×256² bf16·poly with noise."""
     import torch
 
     from nic_torch.kernels import train_fused as k67
@@ -3125,7 +3266,7 @@ def _widths_train(device) -> dict:
                    "P_acc", "C1_acc")
         names6 = ("loss", "out", "dx", "dw1", "db1", "dw2", "db2", "dw3",
                   "db3")
-        for hidden in (16, 128, 192, 256):
+        for hidden in (16, 128, 192, 256, 320):
             fp, weights, x, tgt, origins = _gather_inputs(
                 gen, device, 64, 1.0, True, hidden=hidden)
             geo = dict(g0_nodes=tuple(fp[0].shape[1:]),
@@ -3147,21 +3288,23 @@ def _widths_train(device) -> dict:
                       lambda: k67.fused_mlp_loss_plain(
                           x6, tgt6, *weights6, gelu=gelu, cd=cdt), cd,
                       "train_mlp", hidden)
-        # F = 413 (C = 80): x and W1 past the 384 features the tensor-core
-        # body stages at once, so it takes them in two chunks; 200 rows
-        # leave the second tile's last warps partly empty
+        # F = 413 (C = 80): x and W1 past the features the tensor-core
+        # bodies stage at once (384 at H = 64, 2H = 256 at H = 128), so
+        # they take them in two chunks; 200 rows leave the last tile's last
+        # warps partly empty
         x6 = torch.rand(200, 413, generator=gen).to(device) * 2.0 - 1.0
         tgt6 = torch.rand(200, 3, generator=gen).to(device)
-        mlp6 = init_mlp(gen, 413, 64, 3, device=device)
-        weights6 = [mlp6[k].detach() for k in NAMES]
-        for label, (cd, gelu) in K11_MODES.items():
-            cdt = None if cd == "fp32" else torch.bfloat16
-            check(f"K6 F=413 N=200 {label}", names6,
-                  lambda: k67.fused_mlp_loss_kernel(
-                      x6, tgt6, *weights6, gelu=gelu, cd=cdt),
-                  lambda: k67.fused_mlp_loss_plain(
-                      x6, tgt6, *weights6, gelu=gelu, cd=cdt), cd,
-                  "train_mlp", 64)
+        for hidden in (64, 128):
+            mlp6 = init_mlp(gen, 413, hidden, 3, device=device)
+            weights6 = [mlp6[k].detach() for k in NAMES]
+            for label, (cd, gelu) in K11_MODES.items():
+                cdt = None if cd == "fp32" else torch.bfloat16
+                check(f"K6 H={hidden} F=413 N=200 {label}", names6,
+                      lambda: k67.fused_mlp_loss_kernel(
+                          x6, tgt6, *weights6, gelu=gelu, cd=cdt),
+                      lambda: k67.fused_mlp_loss_plain(
+                          x6, tgt6, *weights6, gelu=gelu, cd=cdt), cd,
+                      "train_mlp", hidden)
 
         names12 = ("loss", "out", "dw2", "db2", "dw3", "db3", "dpe0", "dpe1",
                    "dpe2", "db1", "P_acc", "C1_acc", "dw1e")
@@ -3192,8 +3335,10 @@ def _widths_train(device) -> dict:
                           lambda: k67.fused_mlp_loss_ng_plain(
                               x, tgt, origins, *weights, **kw9), cd,
                           "train_mlp", hidden)
-        # K9 past H = 128 (mlp_pixel_wide; K12's gate refuses these widths)
-        for hidden in (192, 256):
+        # K9 from H = 128 on (bf16 dots on mlp_pixel_mma_wide up to 256 and
+        # on mlp_pixel_wide at 320, fp32 dots on mlp_pixel at 128 and
+        # mlp_pixel_wide past it; K12's gate refuses the widths past 128)
+        for hidden in (128, 192, 256, 320):
             fp, weights, tgt, origins, _ = _inputs3(gen, device, n, f, False,
                                                     hidden=hidden)
             x = _gather3(fp, origins, n, f, False, device)
@@ -3403,12 +3548,59 @@ SMALL_EPOCHS = 50
 WIDE_HIDDEN = 256
 
 
-def _wide_cli(args) -> None:
+def _wide_k7(device) -> dict:
+    """K7 at the H = WIDE_HIDDEN CLI's LOD-0 shape (8 crops of 256², f=4,
+    bf16·poly, on the sinusoidal gather of a random pyramid): against its
+    plain version (phase 7's limits, two runs bit-identical, the body
+    ``kernel_body`` names by the launch log), wrapper ms, device ms of its
+    body and of the whole call, plain ms and bound."""
+    import torch
+
+    from nic_torch.kernels import train_fused as k
+
+    names = ("loss", "out", "dw1", "db1", "dw2", "db2", "dw3", "db3",
+             "P_acc", "C1_acc")
+    gen = torch.Generator(device="cpu").manual_seed(27)
+    with torch.no_grad():
+        fp, weights, x, tgt, origins = _gather_inputs(
+            gen, device, 256, 0.25, False, hidden=WIDE_HIDDEN)
+        kw = dict(n=256, f=4, gelu="poly", cd=torch.bfloat16,
+                  g0_nodes=tuple(fp[0].shape[1:]),
+                  g1_nodes=tuple(fp[1].shape[1:]))
+        args = (x, tgt, origins, *weights)
+        cell = f"K7 H={WIDE_HIDDEN} 8×256² f=4 bf16·poly"
+        got = _run_twice(cell, lambda: k.fused_mlp_loss_ng_kernel(*args,
+                                                                  **kw),
+                         ("train_mlp", WIDE_HIDDEN, "bf16"))
+        want = k.fused_mlp_loss_ng_plain(*args, **kw)
+        errs = _compare(f"{cell} vs plain", names, got, want, K11_TOL["bf16"])
+        body = _want_body("train_mlp", WIDE_HIDDEN, "bf16")
+        fn = lambda: k.fused_mlp_loss_ng_kernel(*args, **kw)  # noqa: E731
+        ms = cuda_ms(fn)
+        plain = cuda_ms(lambda: k.fused_mlp_loss_ng_plain(*args, **kw),
+                        reps=3)
+        total, per = device_ms(fn)
+        body_ms = _body_ms(per, body)
+        work = _fused_work(x, tgt, weights, got, origins, with_dx=False)
+    b_ms, b_by = bound(*work, "bf16")
+    print(f"phase 27: {cell}: kernel {ms:.4f} ms vs plain {plain:.4f} ms; "
+          f"device {total:.4f} ms, of it {body} {body_ms:.4f} ms; bound "
+          f"{b_ms:.4f} ms ({b_by}); loss rel {errs['loss']:.2e}, out max|Δ| "
+          f"{errs['out']:.2e}, worst grad rel "
+          f"{max(e for nm, e in errs.items() if nm not in ('loss', 'out')):.2e}",
+          flush=True)
+    _body_summary(27)
+    return {"ms": ms, "plain": plain, "work": work, "err": errs["out"],
+            "device": total, "body_ms": body_ms}
+
+
+def _wide_cli(args) -> dict:
     """The flagship CLI at H = WIDE_HIDDEN under TRAIN_FORWARD=auto: K7 on
     every step (kernel2 at every LOD), the decode CLI at mips 0-9 with 3 K1
     launches, each mip within TRAIN_PSNR_DB of a TRAIN_FORWARD=gather run
     of the same configuration (PSNR of the decode against the image's
-    mip)."""
+    mip); then K7 alone at the run's LOD-0 shape (:func:`_wide_k7`).
+    Returns K7's launches in the run and that timing."""
     import numpy as np
 
     from nic_torch.config import parse_overrides
@@ -3454,12 +3646,13 @@ def _wide_cli(args) -> None:
     if far:
         fail(f"H={WIDE_HIDDEN}: mips {far} decode more than {TRAIN_PSNR_DB} "
              f"dB from the gather run's")
+    return {"launches": run["launches"]["K7"], **_wide_k7("cuda")}
 
 
-def phase_small_cli(device) -> None:
+def phase_small_cli(device) -> dict:
     """Short CLI runs at H = 16 and 32 under TRAIN_FORWARD=auto: kernel3 at
     every step, then the decode CLI at mips 0-9; then H = WIDE_HIDDEN
-    (:func:`_wide_cli`)."""
+    (:func:`_wide_cli`, whose K7 launches and timing it returns)."""
     import numpy as np
 
     for hidden in (16, 32):
@@ -3481,9 +3674,10 @@ def phase_small_cli(device) -> None:
         if not np.isfinite(run["losses"]).all():
             fail(f"H={hidden}: non-finite losses")
         _check_decodes(f"H={hidden}", run, no_mip=True)
-    _wide_cli([f"NUM_EPOCHS={SMALL_EPOCHS}", "SDC_GUARD_TRAIN=False",
-               f"HIDDEN_LAYER_CHANNELS={WIDE_HIDDEN}"])
+    wide = _wide_cli([f"NUM_EPOCHS={SMALL_EPOCHS}", "SDC_GUARD_TRAIN=False",
+                      f"HIDDEN_LAYER_CHANNELS={WIDE_HIDDEN}"])
     _profile_dir_run()
+    return wide
 
 
 def _profile_dir_run() -> None:
@@ -5167,7 +5361,7 @@ def main(argv=None) -> None:
     phase_xla_cli("cuda")
     phase_folded("cuda")
     phase_widths("cuda")
-    phase_small_cli("cuda")
+    wide = phase_small_cli("cuda")
     phase_rect("cuda")
     hp = phase_hyperprior("cuda")
     phase_conv_ae("cuda")
@@ -5224,6 +5418,9 @@ def main(argv=None) -> None:
               k12[k12_cell][3], *k12[k12_cell][:3], "bf16"),
         entry("train_fused_ng3", K67_SOURCE, K9_REPLACES, launches3["K9"],
               k9["bf16·poly"][3], *k9["bf16·poly"][:3], "bf16"),
+        entry(f"train_fused_ng H={WIDE_HIDDEN}", K67W_SOURCE, K7_REPLACES,
+              wide["launches"], wide["err"], wide["ms"], wide["plain"],
+              wide["work"], "bf16"),
         entry("decode_z1mm", K2_SOURCE, K2_REPLACES, k2["launches"],
               k2["err"], *k2["fp32"][:3], "tf32x3"),
         entry("decode_fused", K3_SOURCE, K3_REPLACES, k3["launches"],

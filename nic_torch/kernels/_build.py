@@ -103,7 +103,13 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     fn.argtypes = [p] * 15 + [i] * 9 + [p]
     fn.restype = i
     fn = lib.nic_train_fused_ff3
-    fn.argtypes = [p] * 18 + [i] * 17 + [p]
+    fn.argtypes = [p] * 20 + [i] * 18 + [p]
+    fn.restype = i
+    fn = lib.nic_pe3_blocks
+    fn.argtypes = [i, i]
+    fn.restype = i
+    fn = lib.nic_pe_grads3
+    fn.argtypes = [p] * 4 + [i] * 4 + [p]
     fn.restype = i
     fn = lib.nic_hs_bins
     fn.argtypes = [p] * 11 + [i] * 5 + [p]

@@ -36,8 +36,13 @@ tile still fits (the ``.cu`` files refuse past it). K11 (``train_ff``,
 The train families have two per-pixel bodies each at the built widths,
 which compute the same step: one on the bf16 tensor cores (``*_mma``,
 built at H = 64 for bf16 dot inputs) and one on the fp32 CUDA cores (fp32
-dots, and H = 128). :func:`kernel_body` is the one place that picks
-between them; the wrappers pass its choice to the ``.cu`` entry point,
+dots; K11's and K12's at H = 128 too). K6/K7/K9 (``train_mlp``) run bf16
+dots from H = 128 up to :data:`WIDEST_MMA` on a wide tensor-core body
+(``mlp_pixel_mma_wide``, the 64-unit column-block walk of
+``mlp_pixel_wide`` with every product on the tensor cores), and fp32 dots
+at H = 128 on ``mlp_pixel``, past it on ``mlp_pixel_wide`` (so do bf16
+dots past :data:`WIDEST_MMA`). :func:`kernel_body` is the one place that
+picks between them; the wrappers pass its choice to the ``.cu`` entry point,
 which runs that body or refuses the call, and size their grids by
 :data:`BODY_BLOCKS_PER_SM`. :func:`decode_body` does the same for the
 decodes by plane mode (:data:`DECODE_BODIES`): K1/K5 run ``decode_v2_mma``
@@ -58,7 +63,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-__all__ = ["KERNEL_WIDTHS", "WIDEST", "WIDE", "KERNEL_BODIES",
+__all__ = ["KERNEL_WIDTHS", "WIDEST", "WIDE", "WIDE_MMA", "WIDEST_MMA",
+           "KERNEL_BODIES",
            "DECODE_BODIES", "PLANE_MODES", "BODY_BLOCKS_PER_SM",
            "kernel_width", "kernel_body", "decode_body", "body_blocks",
            "pad_hidden", "pad_mlp", "unpad", "unpad_all"]
@@ -87,14 +93,24 @@ WIDEST = {
 }
 WIDE = "wide"  # the width key of the bodies past the built widths
 
-# the per-pixel CUDA body each train family runs, by (built width or
-# WIDE, bf16 dot inputs): the tensor-core bodies take bf16 dots at H = 64
+# the widest hidden width of the wide tensor-core train body: a 64-pixel
+# tile's z1, z2 (fp32) and h1b, dz2b (bf16) [64][H + 8] beside two 64 x 64
+# bf16 weight tiles fit in the 227 KB of shared memory up to H = 256
+# (229,904 bytes; csrc/train_fused_mma_wide.cu wide_mma_smem)
+WIDEST_MMA = {"train_mlp": 256}
+WIDE_MMA = "wide_mma"  # its width key: past the built widths, up to it
+
+# the per-pixel CUDA body each train family runs, by (built width, WIDE or
+# WIDE_MMA, bf16 dot inputs): the tensor-core bodies take bf16 dots at H =
+# 64 and, for train_mlp, from 128 up to WIDEST_MMA
 KERNEL_BODIES = {
     "train_ff": {(64, True): "ff_pixel_mma", (64, False): "ff_pixel"},
     "train_ff3": {(64, True): "ff3_pixel_mma", (64, False): "ff3_pixel",
                   (128, True): "ff3_pixel", (128, False): "ff3_pixel"},
     "train_mlp": {(64, True): "mlp_pixel_mma", (64, False): "mlp_pixel",
-                  (128, True): "mlp_pixel", (128, False): "mlp_pixel",
+                  (128, True): "mlp_pixel_mma_wide",
+                  (128, False): "mlp_pixel",
+                  (WIDE_MMA, True): "mlp_pixel_mma_wide",
                   (WIDE, True): "mlp_pixel_wide",
                   (WIDE, False): "mlp_pixel_wide"},
 }
@@ -137,7 +153,8 @@ DECODE_BODIES = {
 # (mlp_pixel_mma at F > 80) the rest run as a second wave
 BODY_BLOCKS_PER_SM = {"ff_pixel": 2, "ff_pixel_mma": 2, "ff3_pixel": 1,
                       "ff3_pixel_mma": 2, "mlp_pixel": 1,
-                      "mlp_pixel_mma": 2, "mlp_pixel_wide": 1}
+                      "mlp_pixel_mma": 2, "mlp_pixel_wide": 1,
+                      "mlp_pixel_mma_wide": 1}
 
 
 def kernel_width(family: str, hidden: int) -> int:
@@ -170,7 +187,11 @@ def kernel_body(family: str, hidden: int, bf16: bool) -> str:
     """The per-pixel CUDA body that runs hidden width ``hidden`` for the
     train kernels of ``family`` (a key of :data:`KERNEL_BODIES`) with bf16
     (True) or fp32 (False) dot inputs."""
-    return KERNEL_BODIES[family][(_width_key(family, hidden), bool(bf16))]
+    key = _width_key(family, hidden)
+    if key == WIDE and bf16 and (kernel_width(family, hidden)
+                                 <= WIDEST_MMA.get(family, 0)):
+        key = WIDE_MMA
+    return KERNEL_BODIES[family][(key, bool(bf16))]
 
 
 def decode_body(family: str, hidden: int, mode: str) -> str:

@@ -8,7 +8,8 @@
 // eps^T dz1 kernel (ff_epsgrad, bf16 dots on the tensor cores over
 // cp.async-staged tiles of dz1), and the per-crop node-window (2D: one
 // read of dz1, node_windows + node_corners) and node-volume (3D: the
-// same in one read, node_volumes + node_volume_corners) reductions of dz1.
+// same in one read, node_volumes + node_volume_corners) reductions of dz1,
+// and ff_pe_sum, the fixed-order sum of kernel3's PE-grad block partials.
 //
 // Everything here sits in an anonymous namespace: each source that
 // includes it gets its own copy (the __constant__ tables included), so the
@@ -431,6 +432,11 @@ constexpr int MT = 256;   // threads of a tensor-core block: 8 warps x 16 pixels
 constexpr int LDB = 72;   // bf16 row stride of the tensor-core tiles: 144 B,
                           // so ldmatrix rows are 16-byte aligned and the
                           // 8 rows of a matrix hit distinct banks
+
+// v rounded up to a multiple of 16 (an m16n8k16 product's k)
+__host__ __device__ __forceinline__ int pad16(int v) {
+  return (v + 15) / 16 * 16;
+}
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -1391,6 +1397,33 @@ cudaError_t launch_node_volumes(const float* dz1, const int* org,
   node_volume_corners<<<dim3((cells + blk.y - 1) / blk.y, H / 64), blk, 0,
                         stream>>>(corners, win_c1, v, H);
   return cudaGetLastError();
+}
+
+// ---- the PE grads' last step (kernel3's part C, 2D and 3D) ------------
+//
+// out [rowlen][H] = the sum of the nblk blocks' partials part [nblk][rowlen]
+// [H] (ff_pe_band's rows of 2 npe + 1, ff3_pe_band's of 3 npe + 1): a
+// group of 16 threads (one 64-unit block) takes blocks g, g + 16, ... in
+// order, then the 16 groups are summed in order
+__global__ void __launch_bounds__(256)
+ff_pe_sum(const float* __restrict__ part, float* __restrict__ out, int nblk,
+          int rowlen, int H) {
+  __shared__ float4 red[16][16];
+  const int u = threadIdx.x & 15, grp = threadIdx.x >> 4;
+  const int row = blockIdx.x, h = blockIdx.y * 64 + 4 * u;
+  const float* src = part + static_cast<size_t>(row) * H + h;
+  float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll 4
+  for (int b = grp; b < nblk; b += 16)
+    add4(acc, __ldg(reinterpret_cast<const float4*>(
+                  src + static_cast<size_t>(b) * rowlen * H)));
+  red[grp][u] = acc;
+  __syncthreads();
+  if (grp == 0) {
+    for (int i = 1; i < 16; ++i) add4(acc, red[i][u]);
+    *reinterpret_cast<float4*>(out + static_cast<size_t>(row) * H + h) =
+        acc;
+  }
 }
 
 }  // namespace

@@ -18,12 +18,14 @@
 //   z1 = x W1 + b1,  out = sigmoid(gelu(gelu(z1) W2 + b2) W3 + b3),
 //   loss = mean((out - t)^2)
 //
-// and the full backward. Each entry point runs one of three per-pixel
+// and the full backward. Each entry point runs one of four per-pixel
 // bodies, which write the same outputs: in bf16-dot mode at H = 64
-// mlp_pixel_mma (train_fused_mma.cu) on the tensor cores, in fp32-dot mode
-// and at H = 128 mlp_pixel, below, on the CUDA cores, and past H = 128
-// mlp_pixel_wide (train_fused_wide.cu, any multiple of 64 up to 1344, on
-// the CUDA cores). The caller names the body (`body`, from
+// mlp_pixel_mma (train_fused_mma.cu) and from H = 128 to 256
+// mlp_pixel_mma_wide (train_fused_mma_wide.cu, W1 and W2 given as bf16) on
+// the tensor cores; in fp32-dot mode at H = 64 and 128 mlp_pixel, below,
+// and past H = 128 (bf16 dots past 256) mlp_pixel_wide
+// (train_fused_wide.cu, any multiple of 64 up to 1344), on the CUDA
+// cores. The caller names the body (`body`, from
 // nic_torch/kernels/_widths.py kernel_body) and a body that does not take
 // the mode or the width is refused. mlp_pixel: one thread per pixel,
 // 128-pixel tiles, each block walking a fixed set of tiles. It stages the
@@ -67,11 +69,11 @@
 // block of 128 threads per SM, whose 64-wide register rows give each
 // thread independent FMA chains. dW1 = x^T dz1 is reduced in passes of 80
 // features, so the wider F adds a pass, not registers.
-// Widths: H = 64 (fp32 dots; bf16 dots run mlp_pixel_mma) and H = 128
-// are built (a narrower model is zero-padded to 64 by the wrapper,
-// nic_torch/kernels/_widths.py; a wider one to a multiple of 64 for
-// mlp_pixel_wide), and any F runs. The node reductions take any multiple
-// of 64 (train_common.cuh). Where
+// Widths: H = 64 and H = 128 are built for fp32 dots (bf16 dots run
+// mlp_pixel_mma and mlp_pixel_mma_wide; a narrower model is zero-padded
+// to 64 by the wrapper, nic_torch/kernels/_widths.py; a wider one to a
+// multiple of 64 for mlp_pixel_wide), and any F runs. The node reductions
+// take any multiple of 64 (train_common.cuh). Where
 // x's slab and W1 do not both fit in shared memory (F > 183 at H = 64, any
 // F > 24 at H = 128, whose W2 and staging tiles take 202 KB), W1 rows are
 // read from device memory through L1 and x is staged in chunks of as many
@@ -83,8 +85,16 @@
 
 #include "train_common.cuh"
 
-// the tensor-core body (train_fused_mma.cu) and the wide body
-// (train_fused_wide.cu)
+// the tensor-core bodies (train_fused_mma.cu, train_fused_mma_wide.cu) and
+// the CUDA-core wide body (train_fused_wide.cu)
+extern "C" int nic_mlp_pixel_mma_wide(const float* x, const float* tgt,
+                                      const void* w1, const float* b1,
+                                      const void* w2, const float* b2,
+                                      const float* w3, const float* b3,
+                                      float* out, float* grad_out,
+                                      float* part, int npix, int feat,
+                                      int hidden, int write_dx, int gelu_id,
+                                      int nblk, void* stream);
 extern "C" int nic_mlp_pixel_mma(const float* x, const float* tgt,
                                  const float* w1, const float* b1,
                                  const float* w2, const float* b2,
@@ -112,21 +122,21 @@ struct Shape {
 };
 
 // z1 += xb W1 over the staged chunk of nf features starting at j0
-template <int H, bool BF16, bool kGlobal>
+template <int H, bool kGlobal>
 __device__ __forceinline__ void z1_chunk(float (&z1)[H], const float* sX,
                                          const float* w1, int j0, int nf) {
   for (int j = 0; j < nf; ++j)
-    fma_row<H, BF16, kGlobal>(z1, sX[j * LDP + threadIdx.x],
-                              w1 + static_cast<size_t>(j0 + j) * H);
+    fma_row<H, false, kGlobal>(z1, sX[j * LDP + threadIdx.x],
+                               w1 + static_cast<size_t>(j0 + j) * H);
 }
 
 // dx for the chunk's nf features (dz1b . W1 row) into sX
-template <int H, bool BF16, bool kGlobal>
+template <int H, bool kGlobal>
 __device__ __forceinline__ void dx_chunk(const float (&db)[H], float* sX,
                                          const float* w1, int j0, int nf) {
   for (int j = 0; j < nf; ++j)
     sX[j * LDP + threadIdx.x] =
-        dot_row<H, BF16, kGlobal>(db, w1 + static_cast<size_t>(j0 + j) * H);
+        dot_row<H, false, kGlobal>(db, w1 + static_cast<size_t>(j0 + j) * H);
 }
 
 // block sums of dW1 = xb^T dz1b over the nc staged features c0.. of x
@@ -200,20 +210,18 @@ NIC_UNROLL_H(JPT)
 }
 
 // the tile's x columns [j0, j0 + nf): one [cnt, F] slab, read row by row
-// and staged transposed, rounded to the dot type (zeros past the end)
-template <bool BF16>
+// and staged transposed (zeros past the end)
 __device__ __forceinline__ void stage_x(float* sX, const float* xt, int F,
                                         int j0, int nf, int cnt) {
   for (int i = threadIdx.x; i < TP * nf; i += TP) {
     const int p = i / nf, j = i - p * nf;
-    sX[j * LDP + p] = p < cnt ? cd<BF16>(xt[static_cast<size_t>(p) * F + j0 + j])
-                              : 0.0f;
+    sX[j * LDP + p] = p < cnt ? xt[static_cast<size_t>(p) * F + j0 + j] : 0.0f;
   }
 }
 
 // partial row layout (floats): [loss, db3[3], dW3[H][3], db2[H], dW2[H][H],
 // db1[H], dW1[F][H]]
-template <int H, bool BF16, int G>
+template <int H, int G>
 __global__ void __launch_bounds__(TP, 1)
 mlp_pixel(const float* __restrict__ x, const float* __restrict__ tgt,
           const float* __restrict__ w1, const float* __restrict__ b1,
@@ -236,9 +244,9 @@ mlp_pixel(const float* __restrict__ x, const float* __restrict__ tgt,
   float* sW1 = sb3 + 4;                         // [F][H] when staged
 
   const int tid = threadIdx.x;
-  for (int i = tid; i < H * H; i += TP) sW2[i] = cd<BF16>(w2[i]);
-  stage_w1<BF16>(sW1, w1, F * H, s.w1_smem);
-  for (int i = tid; i < H * 3; i += TP) sW3[i] = cd<BF16>(w3[i]);
+  for (int i = tid; i < H * H; i += TP) sW2[i] = w2[i];
+  stage_w1<false>(sW1, w1, F * H, s.w1_smem);
+  for (int i = tid; i < H * 3; i += TP) sW3[i] = w3[i];
   for (int i = tid; i < H; i += TP) {
     sb1[i] = b1[i];
     sb2[i] = b2[i];
@@ -265,13 +273,13 @@ NIC_UNROLL_H(H)
     for (int j0 = 0; j0 < F; j0 += FC) {
       const int nf = min(FC, F - j0);
       if (j0 > 0) __syncthreads();
-      stage_x<BF16>(sX, xt, F, j0, nf, cnt);
+      stage_x(sX, xt, F, j0, nf, cnt);
       __syncthreads();
       if (valid) {
         if (s.w1_smem)
-          z1_chunk<H, BF16, false>(z1, sX, sW1, j0, nf);
+          z1_chunk<H, false>(z1, sX, sW1, j0, nf);
         else
-          z1_chunk<H, BF16, true>(z1, sX, w1, j0, nf);
+          z1_chunk<H, true>(z1, sX, w1, j0, nf);
       }
     }
     if (valid) {
@@ -282,7 +290,7 @@ NIC_UNROLL_H(H)
       for (int j = 0; j < H; ++j) z2[j] = 0.0f;
 NIC_UNROLL_H(H)
       for (int k = 0; k < H; ++k) {
-        const float hk = cd<BF16>(gelu_f<G>(z1[k]));
+        const float hk = gelu_f<G>(z1[k]);
         sA[k * LDP + tid] = hk;
         const float4* wr = reinterpret_cast<const float4*>(sW2 + k * H);
 NIC_UNROLL_H(H / 4)
@@ -299,7 +307,7 @@ NIC_UNROLL_H(H / 4)
 NIC_UNROLL_H(H)
       for (int j = 0; j < H; ++j) {
         z2[j] += sb2[j];
-        const float h2 = cd<BF16>(gelu_f<G>(z2[j]));
+        const float h2 = gelu_f<G>(z2[j]);
         sB[j * LDP + tid] = h2;
         o3[0] = fmaf(h2, sW3[j * 3 + 0], o3[0]);
         o3[1] = fmaf(h2, sW3[j * 3 + 1], o3[1]);
@@ -312,7 +320,7 @@ NIC_UNROLL_H(H)
         const float diff = ov - tgt[static_cast<size_t>(pix) * 3 + c];
         lossv = fmaf(diff, diff, lossv);
         dz3[c] = (2.0f * s.inv_total) * diff * ov * (1.0f - ov);
-        dz3b[c] = cd<BF16>(dz3[c]);
+        dz3b[c] = dz3[c];
       }
       // dz2 = (dz3b W3^T) * gelu'(z2), in place of z2
 NIC_UNROLL_H(H)
@@ -344,10 +352,7 @@ NIC_UNROLL_H(H)
     // raw dz2 to sB (dW2, db2), then dz1 = (dz2b W2^T) * gelu'(z1), in
     // place of z1
 NIC_UNROLL_H(H)
-    for (int j = 0; j < H; ++j) {
-      sB[j * LDP + tid] = z2[j];
-      z2[j] = cd<BF16>(z2[j]);
-    }
+    for (int j = 0; j < H; ++j) sB[j * LDP + tid] = z2[j];
     if (valid) {
 NIC_UNROLL_H(H)
       for (int k = 0; k < H; ++k) {
@@ -389,8 +394,6 @@ NIC_UNROLL_H(KPT)
           for (int jj = 0; jj < 4; ++jj) {
             bv[jj] = *reinterpret_cast<const float4*>(sB + (jq + JQ * jj) * LDP + p);
             if (kg == 0) bsum[jj] += (bv[jj].x + bv[jj].y) + (bv[jj].z + bv[jj].w);
-            bv[jj] = make_float4(cd<BF16>(bv[jj].x), cd<BF16>(bv[jj].y),
-                                 cd<BF16>(bv[jj].z), cd<BF16>(bv[jj].w));
           }
 NIC_UNROLL_H(KPT)
           for (int m = 0; m < KPT; ++m) {
@@ -430,7 +433,7 @@ NIC_UNROLL_H(KPT)
     // writes the raw dz1 row to device memory for the window reduction
 NIC_UNROLL_H(H)
     for (int k = 0; k < H; ++k) {
-      sA[k * LDP + tid] = cd<BF16>(z1[k]);
+      sA[k * LDP + tid] = z1[k];
       sB[k * LDP + tid] = z1[k];
     }
     if (!s.write_dx && valid) {
@@ -448,7 +451,7 @@ NIC_UNROLL_H(H / 4)
       const int nc = min(FC, F - c0);
       if (chunked) {
         __syncthreads();
-        stage_x<BF16>(sX, xt, F, c0, nc, cnt);
+        stage_x(sX, xt, F, c0, nc, cnt);
         __syncthreads();
       }
       dw1_sums<H>(sA, sB, sX, mypart, c0, nc, first);
@@ -459,16 +462,16 @@ NIC_UNROLL_H(H / 4)
       // features at a time, each chunk written to the tile's [cnt, F] slab
       float db[H];
 NIC_UNROLL_H(H)
-      for (int h = 0; h < H; ++h) db[h] = cd<BF16>(z1[h]);
+      for (int h = 0; h < H; ++h) db[h] = z1[h];
       float* dxt = grad_out + static_cast<size_t>(base) * F;
       for (int c0 = 0; c0 < F; c0 += FC) {
         const int nc = min(FC, F - c0);
         __syncthreads();
         if (valid) {
           if (s.w1_smem)
-            dx_chunk<H, BF16, false>(db, sX, sW1, c0, nc);
+            dx_chunk<H, false>(db, sX, sW1, c0, nc);
           else
-            dx_chunk<H, BF16, true>(db, sX, w1, c0, nc);
+            dx_chunk<H, true>(db, sX, w1, c0, nc);
         }
         __syncthreads();
         for (int i = tid; i < cnt * nc; i += TP) {
@@ -509,37 +512,40 @@ void mlp_layout(Shape& s) {
   s.fc = s.feat < fit ? s.feat : fit;
 }
 
-template <int H, bool BF16, int G>
+template <int H, int G>
 cudaError_t launch_pixel(const float* x, const float* tgt, const float* w1,
                          const float* b1, const float* w2, const float* b2,
                          const float* w3, const float* b3, float* out,
                          float* grad_out, float* part, Shape s,
                          int nblk, cudaStream_t stream) {
-  if constexpr (BF16 && H == 64) {
-    return cudaErrorInvalidValue;  // mlp_pixel_mma's mode
-  } else {
-    mlp_layout<H>(s);
-    const size_t smem = mlp_smem<H>(s.feat, s.fc, s.w1_smem);
-    auto kern = mlp_pixel<H, BF16, G>;
-    cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
-    kern<<<nblk, TP, smem, stream>>>(x, tgt, w1, b1, w2, b2, w3, b3, out,
-                                     grad_out, part, s);
-    e = cudaGetLastError();
-    if (e == cudaSuccess) nic_note_body(reinterpret_cast<const void*>(kern));
-    return e;
-  }
+  mlp_layout<H>(s);
+  const size_t smem = mlp_smem<H>(s.feat, s.fc, s.w1_smem);
+  auto kern = mlp_pixel<H, G>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  kern<<<nblk, TP, smem, stream>>>(x, tgt, w1, b1, w2, b2, w3, b3, out,
+                                   grad_out, part, s);
+  e = cudaGetLastError();
+  if (e == cudaSuccess) nic_note_body(reinterpret_cast<const void*>(kern));
+  return e;
 }
 
 // the per-pixel bodies by the caller's id (nic_torch/kernels/
 // train_fused.py BODY_IDS)
-enum Body { kMlpPixel = 0, kMlpPixelMma = 1, kMlpPixelWide = 2 };
+enum Body {
+  kMlpPixel = 0,
+  kMlpPixelMma = 1,
+  kMlpPixelWide = 2,
+  kMlpPixelMmaWide = 3
+};
 
 // body kMlpPixelMma: the tensor-core body (bf16 dots at H = 64 only);
-// kMlpPixelWide: H > 128; kMlpPixel: fp32 dots at 64, and H = 128. Any
-// other pairing is refused.
+// kMlpPixelMmaWide: the wide tensor-core body (bf16 dots from H = 128 to
+// its widest, 256, with w1 and w2 pointing at bf16 copies of W1 and W2);
+// kMlpPixelWide: H > 128; kMlpPixel: fp32 dots at 64 and 128. Any other
+// pairing is refused.
 cudaError_t dispatch(int hidden, int bf16, int gelu_id, int body,
                      const float* x, const float* tgt,
                      const float* w1, const float* b1, const float* w2,
@@ -552,28 +558,30 @@ cudaError_t dispatch(int hidden, int bf16, int gelu_id, int body,
         x, tgt, w1, b1, w2, b2, w3, b3, out, grad_out, part, s.npix, s.feat,
         s.write_dx, gelu_id, nblk, stream));
   }
+  if (body == kMlpPixelMmaWide) {
+    if (!bf16) return cudaErrorInvalidValue;
+    return static_cast<cudaError_t>(nic_mlp_pixel_mma_wide(
+        x, tgt, w1, b1, w2, b2, w3, b3, out, grad_out, part, s.npix, s.feat,
+        hidden, s.write_dx, gelu_id, nblk, stream));
+  }
   if (body == kMlpPixelWide) {
     if (hidden <= 128) return cudaErrorInvalidValue;
     return static_cast<cudaError_t>(nic_mlp_pixel_wide(
         x, tgt, w1, b1, w2, b2, w3, b3, out, grad_out, part, s.npix, s.feat,
         hidden, s.write_dx, bf16, gelu_id, nblk, stream));
   }
-  if (body != kMlpPixel) return cudaErrorInvalidValue;
-#define NIC_LAUNCH(H, BF, G)                                                 \
-  return launch_pixel<H, BF, G>(x, tgt, w1, b1, w2, b2, w3, b3, out,        \
-                                grad_out, part, s, nblk, stream)
+  // mlp_pixel takes fp32 dots only (bf16 dots run the tensor-core bodies)
+  if (body != kMlpPixel || bf16) return cudaErrorInvalidValue;
 #define NIC_WIDTH(H)                                                         \
-  if (bf16) {                                                                \
-    if (gelu_id == kErf) NIC_LAUNCH(H, true, kErf);                          \
-    if (gelu_id == kPoly) NIC_LAUNCH(H, true, kPoly);                        \
-  } else {                                                                   \
-    if (gelu_id == kErf) NIC_LAUNCH(H, false, kErf);                         \
-    if (gelu_id == kPoly) NIC_LAUNCH(H, false, kPoly);                       \
-  }
+  if (gelu_id == kErf)                                                       \
+    return launch_pixel<H, kErf>(x, tgt, w1, b1, w2, b2, w3, b3, out,        \
+                                 grad_out, part, s, nblk, stream);           \
+  if (gelu_id == kPoly)                                                      \
+    return launch_pixel<H, kPoly>(x, tgt, w1, b1, w2, b2, w3, b3, out,       \
+                                  grad_out, part, s, nblk, stream);
   if (hidden == 64) { NIC_WIDTH(64) }
   if (hidden == 128) { NIC_WIDTH(128) }
 #undef NIC_WIDTH
-#undef NIC_LAUNCH
   return cudaErrorInvalidValue;
 }
 

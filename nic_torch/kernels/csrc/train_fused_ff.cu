@@ -28,7 +28,7 @@
 //                interpolation-weighted sums, each pixel read once (a
 //                thread per C1 cell and 4 units, then a small pass that
 //                sums each C1 node's four cell corners);
-//   C ff_pe_band + ff_pe_sum (below) the PE grads (the PE tables
+//   C ff_pe_band (below) + ff_pe_sum the PE grads (the PE tables
 //                against each crop's row and column sums of dz1: dWpe0,
 //                dWpe1) and db1, each pixel read once (a block per crop
 //                and band of rows writes partials, then a small pass sums
@@ -439,7 +439,8 @@ ff_pixel_mma(const float* __restrict__ pp, const float* __restrict__ c1p,
 // sum in shared memory in a fixed order, multiplies it by its row tri
 // values, and writes its partials of dWpe0, dWpe1 and db1 (no row or
 // column sums go to device memory). 256 blocks at the flagship, two an
-// SM. ff_pe_sum sums the blocks' partials in one fixed order.
+// SM. ff_pe_sum (train_common.cuh) sums the blocks' partials in one
+// fixed order.
 constexpr int PE_ROWS = 8;  // rows of a band
 constexpr int PE_T = 256;   // threads of an ff_pe_band block
 
@@ -541,30 +542,6 @@ ff_pe_band(const float* __restrict__ dz1, const int* __restrict__ org,
     *reinterpret_cast<float4*>(
         mypart + static_cast<size_t>(slot == g.npe ? 2 * g.npe : slot) * H) =
         s;
-  }
-}
-
-// out [2 npe + 1][H] = the sum of the nblk blocks' partials: a group of
-// 16 threads (one 64-unit block) takes blocks g, g + 16, ... in order,
-// then the 16 groups are summed in order
-__global__ void __launch_bounds__(256)
-ff_pe_sum(const float* __restrict__ part, float* __restrict__ out, int nblk,
-          int rowlen, int H) {
-  __shared__ float4 red[16][16];
-  const int u = threadIdx.x & 15, grp = threadIdx.x >> 4;
-  const int row = blockIdx.x, h = blockIdx.y * 64 + 4 * u;
-  const float* src = part + static_cast<size_t>(row) * H + h;
-  float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-#pragma unroll 4
-  for (int b = grp; b < nblk; b += 16)
-    add4(acc, __ldg(reinterpret_cast<const float4*>(
-                  src + static_cast<size_t>(b) * rowlen * H)));
-  red[grp][u] = acc;
-  __syncthreads();
-  if (grp == 0) {
-    for (int i = 1; i < 16; ++i) add4(acc, red[i][u]);
-    *reinterpret_cast<float4*>(out + static_cast<size_t>(row) * H + h) =
-        acc;
   }
 }
 

@@ -33,9 +33,12 @@
 //                   trilinear-weighted sums at period 2f, each voxel read
 //                   once (a block per C1 cell, then a small pass that sums
 //                   each C1 node's eight cell corners);
-//   C ff3_sums      the slab, a1 and a2 sums of dz1 per crop, which the
-//                   wrapper contracts with the PE tables (dW1's PE rows)
-//                   and sums to db1;
+//   C ff3_pe_band + ff_pe_sum the PE grads (the PE tables against each
+//                   crop's slab, a1 and a2 sums of dz1: dWpe0, dWpe1,
+//                   dWpe2) and db1, each voxel read once (a block per crop
+//                   and band of slabs contracts its sums on the SM and
+//                   writes partials, then a small pass sums them in a
+//                   fixed order);
 //   D ff_epsgrad    (train_common.cuh, shared with the 2D kernel3; noise
 //                   only) eps^T dz1 per block, in bf16-dot mode on the
 //                   tensor cores.
@@ -211,7 +214,7 @@ NIC_UNROLL_H(H / 4)
 // cell; the eight C1 taps, trilinear, a2 then a1 then the slab axis; the
 // three PE rows; ff3_pixel's order of summation), adds eps W1 from
 // noise_mma (W1^T in bf16) and hands z1 to ff_tail_mma, which writes dz1
-// for node_volumes, ff3_sums and ff_epsgrad. The block's slice of dW2
+// for node_volumes, ff3_pe_band and ff_epsgrad. The block's slice of dW2
 // stays in registers over its tiles and is written once.
 //
 // Shared memory (bytes): h2b [64][132] bf16 16,896; dz3b, dz3, loss
@@ -375,41 +378,176 @@ ff3_pixel_mma(const float* __restrict__ pv, const float* __restrict__ c1v,
           make_float2(dw2[t][2 * r], dw2[t][2 * r + 1]);
 }
 
-// sums [3][crops][n][H]: axis 0 the slab sums (over a1, a2), axis 1 the
-// a1 sums (over slab, a2), axis 2 the a2 sums (over slab, a1) of dz1.
-// Thread = (axis, crop, line, h); each sums its n^2 values in a fixed
-// order.
-template <int H>
-__global__ void ff3_sums(const float* __restrict__ dz1,
-                         float* __restrict__ sums, Geo3 g) {
-  const int h = threadIdx.x;
-  const int idx = blockIdx.x * blockDim.y + threadIdx.y;
-  const int n = g.n;
-  if (idx >= 3 * g.crops * n) return;
-  const int axis = idx / (g.crops * n), rem = idx % (g.crops * n);
-  const int crop = rem / n, line = rem % n;
-  const float* base = dz1 + static_cast<size_t>(crop) * n * n * n * H + h;
-  // strides (in voxels) of the summed-over axes and of the line's axis
-  const size_t st[3] = {static_cast<size_t>(n) * n, static_cast<size_t>(n), 1};
-  const size_t sl = st[axis];
-  const size_t su = st[axis == 0 ? 1 : 0], sv = st[axis == 2 ? 1 : 2];
-  float acc = 0.0f;
-  for (int u = 0; u < n; ++u) {
-    float part = 0.0f;
-    for (int v = 0; v < n; ++v)
-      part += base[(line * sl + u * su + v * sv) * H];
-    acc += part;
+// ---- C: the PE grads and db1 in one pass over dz1 ---------------------
+//
+// Replaces the slab, a1 and a2 sums of the Pallas kernel `_kernel_ff3`
+// (nic/kernels/train_fused_ff3.py:225-234) and their table contractions,
+// which JAX leaves to XLA: dWpe0[o] = sum over crops and slabs s of
+// T0[crop][s][o] slabsum[crop][s] (slabsum: dz1 summed over the crop's a1
+// and a2), dWpe1 and dWpe2 the same over the a1 sums (over slab and a2)
+// and the a2 sums (over slab and a1) with T1 and T2, db1 = sum of dz1.
+// T is pe_tables' [3][crops][n][npe], zero-padded to 8 entries a row.
+//
+// What bounds it (8 x 32^3, H = 64): dz1 read once, 67 MB: 0.020 ms at
+// 3.35 TB/s; the contractions are ~0. Design (K11's part C, ff_pe_band,
+// carried to 3D): two launches, every sum in a fixed order, no atomics.
+// ff3_pe_band: a block owns one crop and a band of PE3_SLABS slabs and
+// reads each of their voxels once, 16 bytes at a time: 16 threads cover 64
+// units of a voxel and the block's 16 slots each own the a1 rows slot,
+// slot + 16, ...; a thread walks its rows' lines (a1, a2) along a2, loads
+// the line's band of slabs (PE3_SLABS independent loads, four lines
+// unrolled), keeps its share of each slab's sum, contracts each line's sum
+// over the band with the line's a2 table row at once and each row's sum
+// with its a1 table row when the row ends. The contraction is linear, so
+// these band partials of dWpe1 and dWpe2 add exactly as partial sums
+// would. The block then sums its slots' shares in a fixed order in shared
+// memory, finishes each slab's sum (complete in the block), contracts it
+// with the slab's T0 row and adds it to db1, and writes its partial rows
+// [dWpe0 (npe) | dWpe1 (npe) | dWpe2 (npe) | db1] of H. ff_pe_sum
+// (train_common.cuh) sums the blocks' partials in one fixed order. No
+// slab, a1 or a2 sum reaches device memory.
+constexpr int PE3_SLABS = 2;  // slabs of a band
+constexpr int PE3_T = 256;    // threads of an ff3_pe_band block
+
+struct Pe3Geo {
+  int crops, n, npe, bands;
+};
+
+Pe3Geo pe3_geo(int crops, int n, int npe) {
+  Pe3Geo g;
+  g.crops = crops;
+  g.n = n;
+  g.npe = npe;
+  g.bands = (n + PE3_SLABS - 1) / PE3_SLABS;
+  return g;
+}
+
+// eight entries of a table row [8] as fma weights on a float4
+__device__ __forceinline__ void fma_row8(float4 (&acc)[8], const float* t,
+                                         int npe, const float4& v) {
+  const float4 lo = __ldg(reinterpret_cast<const float4*>(t));
+  const float4 hi = __ldg(reinterpret_cast<const float4*>(t + 4));
+  const float w[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+#pragma unroll
+  for (int o = 0; o < 8; ++o)
+    if (o < npe) fma4(acc[o], w[o], v);
+}
+
+__global__ void __launch_bounds__(PE3_T, 2)
+ff3_pe_band(const float* __restrict__ dz1, const float* __restrict__ tab,
+            float* __restrict__ part, Pe3Geo g, int H) {
+  // per warp: its slots' slab shares, a1 and a2 contractions
+  constexpr int NI = PE3_SLABS + 16;
+  __shared__ float4 red[PE3_T / 32][NI][16];
+  __shared__ float4 slabs[PE3_SLABS][16];  // the band's finished slab sums
+  const int u = threadIdx.x & 15, slot = threadIdx.x >> 4;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int crop = blockIdx.x / g.bands, band = blockIdx.x % g.bands;
+  const int n = g.n, s0 = band * PE3_SLABS, ns = min(PE3_SLABS, n - s0);
+  const int h = blockIdx.y * 64 + 4 * u;
+  const size_t slab = static_cast<size_t>(n) * n * H;  // floats of a slab
+  const float* base = dz1 + (static_cast<size_t>(crop) * n + s0) * slab + h;
+  const float* t1 = tab + (static_cast<size_t>(g.crops) + crop) * n * 8;
+  const float* t2 = tab + (static_cast<size_t>(2 * g.crops) + crop) * n * 8;
+  const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  float4 rs[PE3_SLABS], c1[8], c2[8];
+#pragma unroll
+  for (int s = 0; s < PE3_SLABS; ++s) rs[s] = zero;
+#pragma unroll
+  for (int o = 0; o < 8; ++o) c1[o] = c2[o] = zero;
+  for (int a = slot; a < n; a += 16) {
+    const float* pa = base + static_cast<size_t>(a) * n * H;
+    float4 row = zero;  // the row's line sums over the band
+#pragma unroll 4
+    for (int b = 0; b < n; ++b) {
+      const float* px = pa + static_cast<size_t>(b) * H;
+      float4 x[PE3_SLABS];
+#pragma unroll
+      for (int s = 0; s < PE3_SLABS; ++s)
+        x[s] = s < ns ? __ldg(reinterpret_cast<const float4*>(px + s * slab))
+                      : zero;
+      float4 line = x[0];
+      add4(rs[0], x[0]);
+#pragma unroll
+      for (int s = 1; s < PE3_SLABS; ++s) {
+        add4(line, x[s]);
+        add4(rs[s], x[s]);
+      }
+      add4(row, line);
+      fma_row8(c2, t2 + 8 * b, g.npe, line);
+    }
+    fma_row8(c1, t1 + 8 * a, g.npe, row);
   }
-  sums[static_cast<size_t>(idx) * H + h] = acc;
+  // the warp's two slots, then the warps in order
+  auto put = [&](int i, float4 v) {
+    v.x += __shfl_xor_sync(0xffffffffu, v.x, 16);
+    v.y += __shfl_xor_sync(0xffffffffu, v.y, 16);
+    v.z += __shfl_xor_sync(0xffffffffu, v.z, 16);
+    v.w += __shfl_xor_sync(0xffffffffu, v.w, 16);
+    if (lane < 16) red[warp][i][u] = v;
+  };
+#pragma unroll
+  for (int s = 0; s < PE3_SLABS; ++s) put(s, rs[s]);
+#pragma unroll
+  for (int o = 0; o < 8; ++o) {
+    put(PE3_SLABS + o, c1[o]);
+    put(PE3_SLABS + 8 + o, c2[o]);
+  }
+  __syncthreads();
+  float* mypart =
+      part + static_cast<size_t>(blockIdx.x) * (3 * g.npe + 1) * H + h;
+  // thread (slot, u) finishes item slot (and slot + 16): a slab sum, or
+  // the block's dWpe1 / dWpe2 row
+  for (int i = slot; i < NI; i += 16) {
+    float4 acc = red[0][i][u];
+#pragma unroll
+    for (int w = 1; w < PE3_T / 32; ++w) add4(acc, red[w][i][u]);
+    if (i < PE3_SLABS) {
+      slabs[i][u] = acc;
+    } else {
+      const int axis = 1 + (i - PE3_SLABS) / 8, o = (i - PE3_SLABS) % 8;
+      if (o < g.npe)
+        *reinterpret_cast<float4*>(
+            mypart + static_cast<size_t>(axis * g.npe + o) * H) = acc;
+    }
+  }
+  __syncthreads();
+  // the finished slabs by their T0 values (dWpe0 row o = slot) and db1
+  if (slot <= g.npe) {
+    const float* t0 = tab + (static_cast<size_t>(crop) * n + s0) * 8;
+    float4 acc = zero;
+    for (int s = 0; s < ns; ++s)
+      fma4(acc, slot == g.npe ? 1.0f : __ldg(t0 + 8 * s + slot), slabs[s][u]);
+    *reinterpret_cast<float4*>(
+        mypart + static_cast<size_t>(slot == g.npe ? 3 * g.npe : slot) * H) =
+        acc;
+  }
+}
+
+// C on dz1 [crops * n^3][H], H a multiple of 64, with the PE tables tab
+// [3][crops][n][8]: part, scratch of [crops * bands][3 npe + 1][H] floats;
+// out [3 npe + 1][H] (dWpe0 | dWpe1 | dWpe2 | db1)
+cudaError_t launch_pe_grads3(const float* dz1, const float* tab, float* part,
+                             float* out, const Pe3Geo& g, int H,
+                             cudaStream_t stream) {
+  const int nblk = g.crops * g.bands;
+  ff3_pe_band<<<dim3(nblk, H / 64), PE3_T, 0, stream>>>(dz1, tab, part, g,
+                                                          H);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  ff_pe_sum<<<dim3(3 * g.npe + 1, H / 64), 256, 0, stream>>>(
+      part, out, nblk, 3 * g.npe + 1, H);
+  return cudaGetLastError();
 }
 
 struct Args3 {
-  const float *pv, *c1v, *w1, *pe, *w2, *b2, *w3, *b3, *tgt;
+  const float *pv, *c1v, *w1, *pe, *tab, *w2, *b2, *w3, *b3, *tgt;
   const int* org;
-  float *out, *dz1, *part_mlp, *win_p, *win_c1, *corners, *sums,
-      *part_eps;
+  float *out, *dz1, *part_mlp, *win_p, *win_c1, *corners, *part_pe,
+      *pe_grads, *part_eps;
   int nblk_mlp, nblk_eps, mma;
   VolGeo vol;
+  Pe3Geo pg;
   Geo3 g;
   cudaStream_t stream;
 };
@@ -467,11 +605,8 @@ cudaError_t launch_all(const Args3& a) {
   e = launch_node_volumes(a.dz1, a.org, a.win_p, a.win_c1, a.corners, a.vol,
                           H, a.stream);
   if (e != cudaSuccess) return e;
-  const dim3 blk(H, 256 / H);
-  const int lines = 3 * a.g.crops * a.g.n;
-  ff3_sums<H><<<(lines + blk.y - 1) / blk.y, blk, 0, a.stream>>>(a.dz1,
-                                                                  a.sums, a.g);
-  e = cudaGetLastError();
+  e = launch_pe_grads3(a.dz1, a.tab, a.part_pe, a.pe_grads, a.pg, H,
+                       a.stream);
   if (e != cudaSuccess || a.nblk_eps == 0) return e;
   NoiseGeo ng;
   ng.npix = a.g.npix;
@@ -500,22 +635,24 @@ cudaError_t dispatch_gelu(int gelu_id, const Args3& a) {
 // 4H + H*H] (ff_tail's layout), dz1 [N, H] (scratch), the per-crop node
 // volumes win_p [crops][r0^3][H] and win_c1 [crops][r1][c1][c1][H]
 // (extents in train_common.cuh vol_geo; corners [crops][r1][c1][c1][8][H]
-// scratch), the PE sums [3][crops][n][H] and,
-// with noise (nbits > 0), part_eps [nblk_eps][nfeat][H], for crops of n^3
-// voxels (N = crops n^3, row-major per crop) at origins [crops][3] on the
-// lattice of period f. p_vol [p_side^3][H], c1_vol [c_side^3][H], pe
-// [3][crops][n][H].
+// scratch), the PE grads and db1 pe_grads [3 npe + 1][H] (dWpe0 | dWpe1 |
+// dWpe2 | db1; part_pe [nic_pe3_blocks(crops, n)][3 npe + 1][H] scratch)
+// and, with noise (nbits > 0), part_eps [nblk_eps][nfeat][H], for crops of
+// n^3 voxels (N = crops n^3, row-major per crop) at origins [crops][3] on
+// the lattice of period f. p_vol [p_side^3][H], c1_vol [c_side^3][H], pe
+// [3][crops][n][H] (the PE rows through W1), tables [3][crops][n][8] (the
+// PE values, zero past npe).
 extern "C" int nic_train_fused_ff3(
     const void* p_vol, const void* c1_vol, const void* w1, const void* pe,
-    const void* w2, const void* b2, const void* w3, const void* b3,
-    const void* tgt, const void* origins, void* out, void* dz1,
-    void* part_mlp, void* win_p, void* win_c1, void* win_corners, void* sums,
-    void* part_eps,
-    int crops, int n, int f, int p_side, int c_side, int hidden, int nfeat,
-    int fslot, int bf16, int gelu_id, int mma, int nbits, int s0, int s1,
+    const void* tables, const void* w2, const void* b2, const void* w3,
+    const void* b3, const void* tgt, const void* origins, void* out,
+    void* dz1, void* part_mlp, void* win_p, void* win_c1, void* win_corners,
+    void* part_pe, void* pe_grads, void* part_eps, int crops, int n, int f,
+    int p_side, int c_side, int hidden, int npe, int nfeat, int fslot,
+    int bf16, int gelu_id, int mma, int nbits, int s0, int s1,
     int pixel_base, int nblk_mlp, int nblk_eps, void* stream) {
   if (crops <= 0 || n <= 0 || f <= 0 || p_side <= 0 || c_side <= 0 ||
-      nfeat <= 0 || fslot < nfeat || nblk_mlp <= 0 ||
+      npe < 0 || npe > 8 || nfeat <= 0 || fslot < nfeat || nblk_mlp <= 0 ||
       (nbits > 0) != (nblk_eps > 0) || (hidden != 64 && hidden != 128))
     return static_cast<int>(cudaErrorInvalidValue);
   Geo3 g;
@@ -543,6 +680,7 @@ extern "C" int nic_train_fused_ff3(
   a.c1v = static_cast<const float*>(c1_vol);
   a.w1 = static_cast<const float*>(w1);
   a.pe = static_cast<const float*>(pe);
+  a.tab = static_cast<const float*>(tables);
   a.w2 = static_cast<const float*>(w2);
   a.b2 = static_cast<const float*>(b2);
   a.w3 = static_cast<const float*>(w3);
@@ -555,12 +693,14 @@ extern "C" int nic_train_fused_ff3(
   a.win_p = static_cast<float*>(win_p);
   a.win_c1 = static_cast<float*>(win_c1);
   a.corners = static_cast<float*>(win_corners);
-  a.sums = static_cast<float*>(sums);
+  a.part_pe = static_cast<float*>(part_pe);
+  a.pe_grads = static_cast<float*>(pe_grads);
   a.part_eps = static_cast<float*>(part_eps);
   a.nblk_mlp = nblk_mlp;
   a.nblk_eps = nblk_eps;
   a.mma = mma;
   a.vol = vol_geo(crops, n, f);
+  a.pg = pe3_geo(crops, n, npe);
   a.g = g;
   a.stream = static_cast<cudaStream_t>(stream);
   cudaError_t e;
@@ -571,4 +711,29 @@ extern "C" int nic_train_fused_ff3(
     e = bf16 ? dispatch_gelu<128, true>(gelu_id, a)
              : dispatch_gelu<128, false>(gelu_id, a);
   return static_cast<int>(e);
+}
+
+// the blocks of ff3_pe_band for crops of n^3 voxels, a block per crop and
+// band of PE3_SLABS slabs: the rows of part C's partials scratch, which
+// the caller sizes by this
+extern "C" int nic_pe3_blocks(int crops, int n) {
+  const Pe3Geo g = pe3_geo(crops, n, 0);
+  return g.crops * g.bands;
+}
+
+// C alone (as K12 launches it): the PE grads and db1, out [3 npe + 1][H]
+// (dWpe0 | dWpe1 | dWpe2 | db1), of dz1 [crops n^3][hidden] for crops of
+// n^3 voxels with the PE tables tab [3][crops][n][8] (zero past npe);
+// part: scratch of [nic_pe3_blocks(crops, n)][3 npe + 1][hidden]
+// floats; hidden a multiple of 64.
+extern "C" int nic_pe_grads3(const void* dz1, const void* tables, void* part,
+                             void* out, int crops, int n, int npe, int hidden,
+                             void* stream) {
+  if (crops <= 0 || n <= 0 || npe < 0 || npe > 8 || hidden <= 0 ||
+      hidden % 64)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_pe_grads3(
+      static_cast<const float*>(dz1), static_cast<const float*>(tables),
+      static_cast<float*>(part), static_cast<float*>(out),
+      pe3_geo(crops, n, npe), hidden, static_cast<cudaStream_t>(stream)));
 }

@@ -85,10 +85,6 @@ size_t mma_smem(int ldc) {
          static_cast<size_t>(TP + 64) * ldc * sizeof(__nv_bfloat16);
 }
 
-__host__ __device__ __forceinline__ int pad16(int v) {
-  return (v + 15) / 16 * 16;
-}
-
 // x's columns [c0, c0 + nf) of the tile's [cnt, F] slab, rounded to bf16,
 // into sX [TP][ldc]: kp = pad16(nf) columns, zero past nf and in the rows
 // from cnt on; consecutive threads read consecutive columns of a row

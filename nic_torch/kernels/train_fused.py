@@ -65,7 +65,8 @@ _INV_SQRT2 = 0.7071067811865476
 _INV_SQRT2PI = 0.3989422804014327
 GELU_IDS = {"erf": 0, "poly": 1}
 # the per-pixel bodies by their id in csrc/train_fused.cu (enum Body)
-BODY_IDS = {"mlp_pixel": 0, "mlp_pixel_mma": 1, "mlp_pixel_wide": 2}
+BODY_IDS = {"mlp_pixel": 0, "mlp_pixel_mma": 1, "mlp_pixel_wide": 2,
+            "mlp_pixel_mma_wide": 3}
 _CORNERS = ((0, 0), (0, 1), (1, 0), (1, 1))
 # the 3D G0 corners: dense (method 3) and the sparse even-parity four
 # (method 4), in the gather's order
@@ -441,6 +442,16 @@ def _prep(*tensors):
     return [t.clone() if t.data_ptr() % 16 else t for t in out]
 
 
+def _body_weights(body: str, w1, b1, w2, b2, w3, b3) -> tuple:
+    """The prepared weights as ``body`` reads them: fp32, but W1 and W2 as
+    bf16 for ``mlp_pixel_mma_wide``, whose 64 x 64 tiles of them stream
+    into shared memory by 16-byte copies (rounded here to nearest even, as
+    the plain version and the other bodies round them)."""
+    if body == "mlp_pixel_mma_wide":
+        w1, w2 = (w.to(torch.bfloat16).contiguous() for w in (w1, w2))
+    return w1, b1, w2, b2, w3, b3
+
+
 def _partials(npix: int, feat: int, hidden: int, body: str, device):
     """(per-block partial rows [nblk, 4 + 5H + H² + F·H], nblk): as many
     blocks of 128-pixel tiles per SM as ``body`` is built for."""
@@ -470,8 +481,9 @@ def fused_mlp_loss_kernel(x, tgt, w1, b1, w2, b2, w3, b3, *, cd=None,
     A CUDA tensor launches ``nic_train_fused_dx`` of ``csrc/
     train_fused.cu`` (and raises if it does not build or launch) with the
     per-pixel body :func:`~nic_torch.kernels._widths.kernel_body` names
-    (``mlp_pixel_mma`` for bf16 dots at H = 64, ``mlp_pixel_wide`` past
-    H = 128, else ``mlp_pixel``), a hidden width below an instantiated one
+    (for bf16 dots ``mlp_pixel_mma`` at H = 64 and ``mlp_pixel_mma_wide``
+    from 128 to 256; ``mlp_pixel`` for fp32 dots at 64 and 128;
+    ``mlp_pixel_wide`` past those), a hidden width below an instantiated one
     (64, 128) or, past them, below a multiple of 64 zero-padded to it
     (:func:`fused_mlp_loss_padded`); a CPU tensor runs
     :func:`fused_mlp_loss_plain`.
@@ -491,7 +503,9 @@ def fused_mlp_loss_kernel(x, tgt, w1, b1, w2, b2, w3, b3, *, cd=None,
     dx = torch.empty((npix, feat), dtype=torch.float32, device=device)
     body = kernel_body("train_mlp", hidden, cd is not None)
     part, nblk = _partials(npix, feat, hidden, body, device)
-    _call("nic_train_fused_dx", (*_prep(x, tgt, *weights), out, dx, part),
+    xs, tg, *ws = _prep(x, tgt, *weights)
+    _call("nic_train_fused_dx", (xs, tg, *_body_weights(body, *ws), out, dx,
+                                 part),
           (npix, feat, hidden, int(cd is not None), GELU_IDS[gelu],
            BODY_IDS[body], nblk), device)
     fused_mlp_loss_kernel.launches += 1
@@ -558,7 +572,8 @@ def _ng_kernel(wrapper, entry: str, x, tgt, origins, weights, *, n: int,
     body = kernel_body("train_mlp", hidden, cd is not None)
     part, nblk = _partials(npix, feat, hidden, body, device)
     xs, tg, *ws = _prep(x, tgt, *weights)
-    _call(entry, (xs, tg, org, *ws, out, dz1, part, win_p, win_c1, corners),
+    _call(entry, (xs, tg, org, *_body_weights(body, *ws), out, dz1, part,
+                  win_p, win_c1, corners),
           (crops, n, f, feat, hidden, int(cd is not None), GELU_IDS[gelu],
            BODY_IDS[body], nblk), device)
     wrapper.launches += 1

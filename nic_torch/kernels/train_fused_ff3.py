@@ -15,13 +15,14 @@ for every voxel of a crop at absolute (S, A, B) the step rebuilds
          + ε·W1                                  (feature noise, if on)
 
 then runs the MLP tail, the MSE over crops·n³·3 values and the full
-backward. It emits the loss, ``out``, the W2/W3/bias grads, the slab, a1
-and a2 sums of dz1 (contracted here with the PE tables into dW1's PE
-rows, and summed to db1), εᵀ·dz1, and the node-resolution cotangents of
-the P and C1 volumes (cell sums and trilinear-weighted sums of dz1),
-accumulated into full-grid volumes. The backward of the autograd function
-(:func:`_unfold_ff3`, torch ops) contracts them with W1 for dG0/dG1 and
-with the grid values for dW1's grid rows.
+backward. It emits the loss, ``out``, the W2/W3/bias grads, dW1's PE rows
+and db1 (the PE tables contracted with the slab, a1 and a2 sums of dz1 on
+the SM, in one pass over dz1: :func:`pe_grads3`), εᵀ·dz1, and the
+node-resolution cotangents of the P and C1 volumes (cell sums and
+trilinear-weighted sums of dz1), accumulated into full-grid volumes. The
+backward of the autograd function (:func:`_unfold_ff3`, torch ops)
+contracts them with W1 for dG0/dG1 and with the grid values for dW1's
+grid rows.
 
 Counterparts, as for the 2D kernel3: :func:`fused_train_ff3_plain` (torch
 ops; autograd through the tail with the kernel's GELU derivative and bf16
@@ -54,7 +55,8 @@ from nic_torch.kernels.train_fused_ff import _noise
 
 __all__ = ["fused_train_ff3", "fused_train_ff3_kernel",
            "fused_train_ff3_plain", "fused_train_ff3_padded", "ff3_geometry",
-           "fold_volumes", "pe_tables"]
+           "fold_volumes", "pe_tables", "pe_grads3", "pe_grads3_plain"]
+
 
 def ff3_geometry(*, crops: int, n: int, rowsb: int, f: int, hidden: int,
                  pe_channels: int, oc: int = 3, nfeat: int = 0) -> bool:
@@ -224,6 +226,73 @@ def fused_train_ff3_plain(p_vol, c1_vol, w1, b1, w2, b2, w3, b3, tgt,
             grads.get("w1n")) + ((grads["z1"],) if with_dz1 else ())
 
 
+# ---- part C alone: the PE grads and db1 ---------------------------------
+
+def pe_grads3_plain(dz1, origins, n: int, f: int, npe: int,
+                    use_tri_pe: bool = True) -> tuple:
+    """The PE grads and db1 of dz1 [crops·n³, H] (row-major per crop,
+    ``origins`` [crops, 3]) in torch ops → (dpe0, dpe1, dpe2 [npe, H], db1
+    [H]): each crop's slab, a1 and a2 sums of dz1 against the PE tables at
+    (origin + t)/2f (:func:`pe_tables`, triangular or sinusoidal), and the
+    sum of dz1 (the JAX kernel's PE/bias gradients; the plain step's dpe0,
+    dpe1, dpe2 and db1)."""
+    org = torch.as_tensor(origins).to(dz1.device).long()
+    crops = org.shape[0]
+    tables = pe_tables(org, n, f, npe, use_tri_pe)
+    dv = dz1.float().reshape(crops, n, n, n, -1)
+    sums = (dv.sum(dim=(2, 3)), dv.sum(dim=(1, 3)), dv.sum(dim=(1, 2)))
+    return (*(torch.einsum("cnp,cnh->ph", tables[d], sums[d])
+              for d in range(3)), dz1.float().sum(dim=0))
+
+
+def pe_grads3(dz1, origins, n: int, f: int, npe: int,
+              use_tri_pe: bool = True) -> tuple:
+    """The PE grads and db1 on dz1's device → the tuple of
+    :func:`pe_grads3_plain`. A CUDA tensor launches ``nic_pe_grads3`` of
+    ``csrc/train_fused_ff3.cu`` (``ff3_pe_band`` and ``ff_pe_sum``, the
+    pass K12 runs on its dz1; H a multiple of 64) and raises if it does not
+    launch; a CPU tensor runs :func:`pe_grads3_plain`.
+    ``pe_grads3.launches`` counts launches."""
+    origins = torch.as_tensor(origins)
+    crops = origins.shape[0]
+    hidden = dz1.shape[1]
+    if tuple(origins.shape) != (crops, 3) or dz1.shape[0] != crops * n**3:
+        raise ValueError(f"pe_grads3: dz1 {tuple(dz1.shape)} is not "
+                         f"[crops·n³, H] for origins {tuple(origins.shape)} "
+                         f"and n={n}")
+    if not 0 <= npe <= 8:
+        raise ValueError(f"pe_grads3 takes 0 to 8 PE rows, not {npe}")
+    if dz1.device.type == "cpu":
+        return pe_grads3_plain(dz1, origins, n, f, npe, use_tri_pe)
+    if dz1.device.type != "cuda" or hidden % 64:
+        raise ValueError(f"pe_grads3 runs H a multiple of 64 on cuda or any "
+                         f"H on cpu, not H={hidden} on {dz1.device}")
+    from nic_torch.kernels import _build
+
+    lib = _build.load()
+    device = dz1.device
+    dz = dz1.detach().to(torch.float32).contiguous()
+    tables = pe_tables(origins.to(device), n, f, npe, use_tri_pe)
+    tab = torch.nn.functional.pad(tables, (0, 8 - npe)).contiguous()
+    part = torch.empty((lib.nic_pe3_blocks(crops, n), 3 * npe + 1, hidden),
+                       dtype=torch.float32, device=device)
+    out = torch.empty((3 * npe + 1, hidden), dtype=torch.float32,
+                      device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = lib.nic_pe_grads3(dz.data_ptr(), tab.data_ptr(),
+                               part.data_ptr(), out.data_ptr(), crops, n,
+                               npe, hidden, stream)
+    if rc != 0:
+        raise RuntimeError("pe_grads3 kernel launch failed: "
+                           + lib.nic_cuda_error_string(rc).decode())
+    pe_grads3.launches += 1
+    return out[:npe], out[npe:2 * npe], out[2 * npe:3 * npe], out[3 * npe]
+
+
+pe_grads3.launches = 0
+
+
 # ---- hidden-width padding ----------------------------------------------
 
 # the hidden axes of the step's results, in the order of
@@ -357,17 +426,20 @@ def fused_train_ff3_kernel(p_vol, c1_vol, w1, b1, w2, b2, w3, b3, tgt,
     win_p = empty(crops, *ext0, hidden)
     win_c1 = empty(crops, *ext1, hidden)
     corners = empty(crops, *ext1, 8, hidden)  # C1 cell corners
-    sums = empty(3, crops, n, hidden)
+    tab = torch.nn.functional.pad(tables, (0, 8 - npe)).contiguous()
+    part_pe = empty(lib.nic_pe3_blocks(crops, n), 3 * npe + 1, hidden)
+    pe_grads = empty(3 * npe + 1, hidden)
     part_eps = empty(max(nblk_eps, 1), nfeat, hidden)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.nic_train_fused_ff3(
             p_c.data_ptr(), c1_c.data_ptr(), w1f.data_ptr(), pe.data_ptr(),
-            w2f.data_ptr(), b2f.data_ptr(), w3f.data_ptr(), b3f.data_ptr(),
-            tgt_c.data_ptr(), org.data_ptr(), out.data_ptr(), dz1.data_ptr(),
-            part_mlp.data_ptr(), win_p.data_ptr(), win_c1.data_ptr(),
-            corners.data_ptr(), sums.data_ptr(), part_eps.data_ptr(), crops,
-            n, f, p_c.shape[0], c1_c.shape[0], hidden, nfeat, _pad8(nfeat),
+            tab.data_ptr(), w2f.data_ptr(), b2f.data_ptr(), w3f.data_ptr(),
+            b3f.data_ptr(), tgt_c.data_ptr(), org.data_ptr(), out.data_ptr(),
+            dz1.data_ptr(), part_mlp.data_ptr(), win_p.data_ptr(),
+            win_c1.data_ptr(), corners.data_ptr(), part_pe.data_ptr(),
+            pe_grads.data_ptr(), part_eps.data_ptr(), crops, n, f,
+            p_c.shape[0], c1_c.shape[0], hidden, npe, nfeat, _pad8(nfeat),
             int(cd is not None), GELU_IDS[gelu], int(body.endswith("_mma")),
             0 if nbits is None else int(nbits), s0, s1, pixel_base,
             nblk_mlp, nblk_eps, stream)
@@ -376,17 +448,17 @@ def fused_train_ff3_kernel(p_vol, c1_vol, w1, b1, w2, b2, w3, b3, tgt,
                            + lib.nic_cuda_error_string(rc).decode())
     fused_train_ff3_kernel.launches += 1
 
-    # fixed-order sums of the per-block partials, the PE rows as table
-    # contractions of the dz1 sums (as the JAX package does in XLA), then
-    # the per-crop node volumes into full-grid volumes
+    # fixed-order sums of the per-block partials (the PE rows and db1 came
+    # summed from part C), then the per-crop node volumes into full-grid
+    # volumes
     part = part_mlp.sum(dim=0)
     o = 4 + 3 * hidden
     loss, db3 = part[0], part[1:4]
     dw3 = part[4:o].reshape(hidden, 3)
     db2 = part[o:o + hidden]
     dw2 = part[o + hidden:].reshape(hidden, hidden)
-    dpe = [torch.einsum("cnp,cnh->ph", tables[d], sums[d]) for d in range(3)]
-    db1 = sums[0].sum(dim=(0, 1))
+    dpe = [pe_grads[d * npe:(d + 1) * npe] for d in range(3)]
+    db1 = pe_grads[3 * npe]
     dw1e = part_eps.sum(dim=0) if nbits is not None else None
     g0n, g1n = p_c.shape[0] + 1, c1_c.shape[0]
     pacc, c1acc = _accumulate_node_planes(win_p, win_c1, origins, f=f,

@@ -18,7 +18,14 @@ by the same code. On a machine with one NVIDIA GPU it prints:
   and fp32·erf (seeds 7 and 6); K12 (``fused_train_ff3_kernel``) at 8
   crops of 32³ (f=4, method 3, seed 12) in bf16·poly with noise and K9
   (``fused_mlp_loss_ng3_kernel``) on the 3D gather of 8×32³ (seed 9) in
-  bf16·poly, the misty protocol's LOD 0: each the median of 50 CUDA-event
+  bf16·poly, the misty protocol's LOD 0; K7 at 8×256² past the flagship's
+  width, H = 128 and 256 (bf16·poly on the sinusoidal gather of a random
+  pyramid, seed 8: the phase-27 CLI's LOD-0 shape, whose per-pixel body is
+  ``mlp_pixel_mma_wide`` where the checkout has it, else ``mlp_pixel`` /
+  ``mlp_pixel_wide``); K12's part C alone (``pe_grads3``,
+  8×32³, npe 6, on the K12 cell's dz1 from its plain version) where the
+  checkout has it (before, part C ran only inside K12, as ``ff3_sums``):
+  each the median of 50 CUDA-event
   timings of the wrapper and, by ``torch.profiler``, the device time per
   call of all the kernels it launches and of each by name, longest first
   (so host time and device time separate, and the per-pixel body, e.g.
@@ -30,7 +37,7 @@ by the same code. On a machine with one NVIDIA GPU it prints:
   (TF_USE_TRI_PE=0), and kernel3 and kernel2 on the 3D misty m3 protocol.
 
 PARTS (comma-separated, default all of them) picks what is timed: k11,
-k7, k6, k12, k9, steps.
+k7, k6, k12, k9, k7wide, k12c, steps.
 
 Compare two checkouts only inside one call, in turns (parent, change,
 change, parent): step times differ by up to 2x between machines.
@@ -44,7 +51,7 @@ import torch
 
 ROOT = os.path.abspath(sys.argv[1])
 PARTS = set((sys.argv[2] if len(sys.argv) > 2
-             else "k11,k7,k6,k12,k9,steps").split(","))
+             else "k11,k7,k6,k12,k9,k7wide,k12c,steps").split(","))
 _spec = importlib.util.spec_from_file_location(
     "chip_smoke", os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                os.pardir, "chip_smoke.py"))
@@ -130,6 +137,37 @@ def time_k9() -> None:
                x, tgt, origins, *weights, **kw))
 
 
+def time_k7wide() -> None:
+    gen = torch.Generator().manual_seed(8)
+    for hidden in (128, 256):
+        fp, weights, x, tgt, origins = chip_smoke._gather_inputs(
+            gen, "cuda", 256, 0.25, False, hidden=hidden)
+        kw = dict(n=256, f=4, gelu="poly", cd=torch.bfloat16,
+                  g0_nodes=tuple(fp[0].shape[1:]),
+                  g1_nodes=tuple(fp[1].shape[1:]))
+        report(f"K7 H={hidden} 8×256² bf16·poly",
+               lambda: train_fused.fused_mlp_loss_ng_kernel(
+                   x, tgt, origins, *weights, **kw))
+
+
+def time_k12c() -> None:
+    if not hasattr(train_fused_ff3, "pe_grads3"):
+        print(f"AB {sys.argv[1]}: K12 part C alone: no pe_grads3 in this "
+              "checkout (part C runs inside K12: ff3_sums in K12's line)",
+              flush=True)
+        return
+    fp, weights, tgt, origins, seed = chip_smoke._inputs3(
+        torch.Generator().manual_seed(12), "cuda", 32, 4, False)
+    vols = train_fused_ff3.fold_volumes(fp[0], fp[1], weights[0], False,
+                                        torch.bfloat16)
+    dz1 = train_fused_ff3.fused_train_ff3_plain(
+        *vols, *weights, tgt, origins, seed, n=32, f=4, npe=6, lodf=0.0,
+        sparse_g0=False, use_tri_pe=True, cd=torch.bfloat16, gelu="poly",
+        nbits=8, with_dz1=True)[-1]
+    report("K12 part C alone 8×32³ npe 6",
+           lambda: train_fused_ff3.pe_grads3(dz1, origins, 32, 4, 6))
+
+
 def time_steps() -> None:
     for engine, args, label in (
             ("kernel3", chip_smoke.TRAIN_ARGS, None),
@@ -148,7 +186,8 @@ def main() -> None:
         sys.exit(f"nic_torch came from {nic_torch.__file__}, not {ROOT}")
     print(f"AB {sys.argv[1]}: {chip_smoke.smi_line()}", flush=True)
     parts = {"k11": time_k11, "k7": time_k7, "k6": time_k6, "k12": time_k12,
-             "k9": time_k9, "steps": time_steps}
+             "k9": time_k9, "k7wide": time_k7wide, "k12c": time_k12c,
+             "steps": time_steps}
     if PARTS - set(parts):
         sys.exit(f"unknown parts {sorted(PARTS - set(parts))}")
     for name, fn in parts.items():

@@ -1,6 +1,8 @@
 """The node volumes of K12 and K9 (``csrc/train_common.cuh``:
 ``node_volumes`` + ``node_volume_corners``, the per-crop P and C1 windows of
-dz1 in 3D) against the K12 plain version and K9's plain reduction, on the
+dz1 in 3D) against the K12 plain version and K9's plain reduction, and
+K12's part C (``csrc/train_fused_ff3.cu``: ``ff3_pe_band`` +
+``ff_pe_sum``, the PE grads and db1) against the K12 plain version, on the
 CPU.
 
 The plain version :func:`node_volumes_plain` and its wrapper
@@ -20,6 +22,13 @@ cells the kernel walks per crop (one block per cell of the C1 window, the
 size of its scratch) and its split of a quarter's lines over a block's
 line slots are checked to read every voxel once and to hold every window
 node.
+
+Part C: the plain version :func:`pe_grads3_plain` and its wrapper
+:func:`pe_grads3` (the plain version for a CPU tensor, no launch) on the
+same dz1 must give the K12 plain step's dpe0, dpe1, dpe2 and db1 (rel
+1e-5: the same fp32 terms summed in another order), over the same cases
+at npe 6 and 8 (method 3 with triangular PE, method 4 with sinusoidal PE);
+the bands of slabs the kernel's blocks take hold every slab once.
 """
 
 import collections
@@ -44,11 +53,11 @@ QUARTER_SLOTS = 4
 
 
 @functools.lru_cache(maxsize=None)
-def _k12_plain(f, n, crops, method, mode):
-    """The K12 plain step with feature noise on seeded random volumes →
-    (its outputs, dz1, origins, (g0n, g1n)); every crop origin at its own
-    phase mod 2f on each axis."""
-    rng = np.random.default_rng(100 * f + 10 * n + method)
+def _k12_plain(f, n, crops, method, mode, npe=PE):
+    """The K12 plain step with feature noise on seeded random volumes and
+    ``npe`` PE rows a axis → (its outputs, dz1, origins, (g0n, g1n)); every
+    crop origin at its own phase mod 2f on each axis."""
+    rng = np.random.default_rng(100 * f + 10 * n + method + 1000 * (npe - PE))
     sparse = method == 4
     f1 = 2 * f
     size = 2 * n + 2 * f1   # voxels per axis the volumes span
@@ -57,7 +66,7 @@ def _k12_plain(f, n, crops, method, mode):
                           .astype(np.float32))
     g1 = torch.from_numpy(rng.uniform(-0.4, 0.5, (C,) + (g1n,) * 3)
                           .astype(np.float32))
-    dims = (C * ((4 if sparse else 8) + 1) + 3 * PE + 1, H, H, 3)
+    dims = (C * ((4 if sparse else 8) + 1) + 3 * npe + 1, H, H, 3)
     w = []
     for i in range(3):
         b = 1.0 / np.sqrt(dims[i])
@@ -75,7 +84,7 @@ def _k12_plain(f, n, crops, method, mode):
     vols = tff3.fold_volumes(g0, g1, w[0], sparse, cd)
     seed = torch.tensor([S0, S1, 0, 0], dtype=torch.int32)
     outs = tff3.fused_train_ff3_plain(
-        *vols, *w, tgt, torch.from_numpy(origins), seed, n=n, f=f, npe=PE,
+        *vols, *w, tgt, torch.from_numpy(origins), seed, n=n, f=f, npe=npe,
         lodf=0.0, sparse_g0=sparse, use_tri_pe=not sparse, cd=cd, gelu=gelu,
         nbits=NBITS, with_dz1=True)
     return outs[:-1], outs[-1], origins, (g0n, g1n)
@@ -177,3 +186,37 @@ def test_node_volumes_refuse_f_not_a_power_of_two():
     dz1 = torch.zeros(2 * 4**3, H)
     with pytest.raises(ValueError, match="power of two"):
         tf.node_volumes(dz1, torch.zeros(2, 3, dtype=torch.int64), 4, 3)
+
+
+@pytest.mark.parametrize("npe", [6, 8])
+@pytest.mark.parametrize("mode", list(MODES))
+@pytest.mark.parametrize("method", [3, 4])
+@pytest.mark.parametrize("f,n,crops", LATTICES)
+def test_pe_grads3_match_k12_plain(f, n, crops, method, mode, npe):
+    """The PE grads and db1 of the plain version and of the wrapper on the
+    CPU = the K12 plain step's dpe0, dpe1, dpe2 and db1 (triangular PE in
+    method 3, sinusoidal in method 4; crops at every phase)."""
+    outs, dz1, origins, _ = _k12_plain(f, n, crops, method, mode, npe)
+    launches = tff3.pe_grads3.launches
+    for fn in (tff3.pe_grads3_plain, tff3.pe_grads3):
+        got = fn(dz1, torch.from_numpy(origins), n, f, npe, method == 3)
+        assert len(got) == 4
+        for g, want in zip(got, outs[6:10]):
+            assert g.shape == want.shape
+            assert _rel(g, want) <= 1e-5, (fn.__name__, _rel(g, want))
+    assert tff3.pe_grads3.launches == launches  # a CPU tensor launches none
+
+
+def test_pe_grads3_refuse_a_wrong_dz1():
+    dz1 = torch.zeros(2 * 4**3 - 1, H)
+    with pytest.raises(ValueError, match="not \\[crops·n³, H\\]"):
+        tff3.pe_grads3(dz1, torch.zeros(2, 3, dtype=torch.int64), 4, 2, 6)
+    with pytest.raises(ValueError, match="not \\[crops·n³, H\\]"):
+        tff3.pe_grads3(torch.zeros(2 * 4**3, H),
+                       torch.zeros(2, 2, dtype=torch.int64), 4, 2, 6)
+
+
+def test_pe_grads3_refuse_more_than_8_pe_rows():
+    dz1 = torch.zeros(2 * 4**3, H)
+    with pytest.raises(ValueError, match="0 to 8 PE rows"):
+        tff3.pe_grads3(dz1, torch.zeros(2, 3, dtype=torch.int64), 4, 2, 9)

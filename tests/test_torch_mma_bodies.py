@@ -5,10 +5,14 @@ The body table (``nic_torch/kernels/_widths.py`` ``kernel_body``) is pure
 Python: for every train family (K11 ``train_ff``; K12 ``train_ff3``; K6,
 K7 and K9 ``train_mlp``), every hidden width 1..128 its kernels take and
 both dot types, bf16 dots at H ≤ 64 pick the tensor-core body (``*_mma``)
-and fp32 dots or 64 < H ≤ 128 the CUDA-core body; past 128 ``train_mlp``
-runs ``mlp_pixel_wide`` up to its widest width; every body the table
-names is a ``__global__`` kernel of the family's ``.cu`` source, built
-for the blocks per SM that the wrappers launch. The decode body table
+and fp32 dots the CUDA-core body; at 64 < H ≤ 128 bf16 dots pick
+``train_mlp``'s wide tensor-core body (``mlp_pixel_mma_wide``) and K12's
+CUDA-core body; past 128 ``train_mlp`` runs ``mlp_pixel_mma_wide`` for
+bf16 dots up to its widest (256) and ``mlp_pixel_wide`` for fp32 dots
+and past that, up to its widest width; every body the table names is a
+``__global__`` kernel of the family's ``.cu`` sources, built for the
+blocks per SM that the wrappers launch, and the id ``train_fused.py``
+passes for it is the entry point's enum value. The decode body table
 (``decode_body``, by plane mode) likewise: K1/K5 (``decode_v2``) run
 ``decode_v2_mma`` at every width from 17 to the widest in every plane
 mode and their CUDA-core body at H ≤ 16; K3 and K4 their tensor-core
@@ -52,7 +56,7 @@ CSRC = Path(ttf.__file__).resolve().parent / "csrc"
 SOURCES = {"train_ff": ("train_fused_ff.cu",),
            "train_ff3": ("train_fused_ff3.cu",),
            "train_mlp": ("train_fused.cu", "train_fused_mma.cu",
-                         "train_fused_wide.cu"),
+                         "train_fused_mma_wide.cu", "train_fused_wide.cu"),
            "decode_v2": ("decode_fused_v2.cu",),
            "decode_z1mm": ("decode_z1mm.cu",),
            "decode_v1": ("decode_fused.cu",),
@@ -73,19 +77,63 @@ C, PE, H = 2, 2, 16
 
 @pytest.mark.parametrize("bf16", [True, False], ids=["bf16", "fp32"])
 @pytest.mark.parametrize("family", sorted(_widths.KERNEL_BODIES))
-def test_body_table_picks_tensor_cores_for_bf16_up_to_64(family, bf16):
+def test_body_table_picks_tensor_cores_for_bf16_by_width(family, bf16):
+    """bf16 dots run a tensor-core body at H ≤ 64 (``*_mma``) and, for
+    ``train_mlp``, from 65 up to WIDEST_MMA (``mlp_pixel_mma_wide``); fp32
+    dots, K11's and K12's bf16 dots past 64 and train_mlp's past
+    WIDEST_MMA a CUDA-core body, ``mlp_pixel_wide`` past the built
+    widths."""
     top = max(_widths.KERNEL_WIDTHS[family])
+    mma_top = _widths.WIDEST_MMA.get(family, 64)
     for hidden in range(1, top + 1):
         body = _widths.kernel_body(family, hidden, bf16)
         assert body in _widths.KERNEL_BODIES[family].values()
         assert body.endswith("_mma") == (bf16 and hidden <= 64), \
             (family, hidden, bf16, body)
-    # past the built widths: the wide body up to the widest, then refused
+        assert (body == "mlp_pixel_mma_wide") == (
+            bf16 and 64 < hidden <= mma_top), (family, hidden, bf16, body)
+    # past the built widths: the wide tensor-core body for bf16 dots up to
+    # its widest, the CUDA-core wide body past it and for fp32 dots, up to
+    # the widest, then refused
     widest = _widths.WIDEST.get(family, top)
-    for hidden in range(top + 1, widest + 1, 61):
-        assert _widths.kernel_body(family, hidden, bf16) == "mlp_pixel_wide"
+    edge = [mma_top, mma_top + 1] if family in _widths.WIDEST_MMA else []
+    for hidden in list(range(top + 1, widest + 1, 61)) + edge:
+        want = ("mlp_pixel_mma_wide" if bf16 and hidden <= mma_top
+                else "mlp_pixel_wide")
+        assert _widths.kernel_body(family, hidden, bf16) == want, hidden
     with pytest.raises(ValueError):
         _widths.kernel_body(family, widest + 1, bf16)
+
+
+def test_wide_tensor_core_body_fits_to_its_widest():
+    """WIDEST_MMA is the last multiple of 64 whose tile fits in the 227 KB
+    of shared memory: wide_mma_smem of csrc/train_fused_mma_wide.cu (z1 and
+    z2 fp32, h1b and dz2b bf16 [64][H + 8], two [64][72] bf16 weight tiles,
+    5H + 4 + 14·64 floats) at it and 64 past it."""
+    def smem(h):
+        return 64 * (h + 8) * 12 + 2 * 64 * 72 * 2 + 4 * (5 * h + 4 + 14 * 64)
+
+    cap = 232448
+    top = _widths.WIDEST_MMA["train_mlp"]
+    assert smem(top) <= cap < smem(top + 64)
+    text = (CSRC / "train_fused_mma_wide.cu").read_text()
+    assert "2 * sizeof(float) + 2 * sizeof(__nv_bfloat16)" in text
+    assert "14 * WR" in text and "constexpr int WR = 64;" in text
+
+
+def test_train_body_ids_match_the_sources_enum():
+    """The id ``train_fused.py`` passes for each train_mlp body is the
+    enum value train_fused.cu's dispatch takes for it."""
+    text = (CSRC / "train_fused.cu").read_text()
+    enum = dict(re.findall(r"(k\w+) = (\d+)",
+                           re.search(r"enum Body \{([^}]*)\}", text)[1]))
+    names = {"mlp_pixel": "kMlpPixel", "mlp_pixel_mma": "kMlpPixelMma",
+             "mlp_pixel_wide": "kMlpPixelWide",
+             "mlp_pixel_mma_wide": "kMlpPixelMmaWide"}
+    assert set(ttf.BODY_IDS) == set(_widths.KERNEL_BODIES["train_mlp"]
+                                    .values()) == set(names)
+    for body, i in ttf.BODY_IDS.items():
+        assert int(enum[names[body]]) == i, (body, enum)
 
 
 @pytest.mark.parametrize("mode", _widths.PLANE_MODES)
