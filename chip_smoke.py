@@ -14,7 +14,8 @@ Phases (any failure exits non-zero):
    node-gradient (K7, kernel2; K9 in 3D) train kernels; one nvcc per
    source, all started together) for sm_90a, and print the build time
    and the registers and spills of the tensor-core bodies (``ptxas -v``:
-   the train bodies, among them the wide one ``mlp_pixel_mma_wide``,
+   the train bodies, among them the wide one ``mlp_pixel_mma_wide`` and
+   K11's and K12's 3xTF32 ones ``ff_pixel_tf32`` and ``ff3_pixel_tf32``,
    K1/K5's ``decode_v2_mma`` and K2's ``decode_z1mm_mma`` by plane mode,
    K3's ``decode_v1_mma`` by grid dtype and K4's ``mlp_tail_mma`` by
    accumulator and dot dtype), and those of the back halves of K11 and
@@ -38,8 +39,8 @@ Phases (any failure exits non-zero):
 6. K11 against its plain version on the card at the flagship shape class
    (C=12, H=64, PE 6, 8 crops of 256², f=4) and at f=2 (128² crops) and
    f=1 (64² crops), random pyramid and MLP from a seeded torch.Generator,
-   in fp32·erf and bf16·poly (the tensor-core kernel), each with QAT
-   noise off and on: loss, ``out``, every MLP and PE grad and both
+   in fp32·erf and bf16·poly (the tensor-core bodies: 3xTF32 and bf16),
+   each with QAT noise off and on: loss, ``out``, every MLP and PE grad and both
    accumulated node planes, two runs bit-identical; K11's back half
    alone (``eps_grad``: ff_epsgrad, eps^T dz1; ``node_windows``: the node
    windows; ``pe_grads``: part C, the PE grads and db1) against its plain
@@ -48,9 +49,11 @@ Phases (any failure exits non-zero):
    80), pixel base 0 and not, npe 6 and 8, max|Δ|/max|plain| within
    EPS_GRAD_TOL, WINDOWS_TOL and PE_GRADS_TOL, two runs bit-identical;
    then kernel vs plain timed at the flagship shape (bf16·poly noise on,
-   the path's mode, and fp32·erf), with the device time of the per-pixel
-   body, K11's device ms by part (A the body, B the windows, C
-   ``ff_pe_band`` + ``ff_pe_sum``, D ``ff_epsgrad``), and the back half
+   the path's mode, and fp32·erf noise off and on), with the device time
+   of the per-pixel body, K11's device ms by part (A the body, B the
+   windows, C ``ff_pe_band`` + ``ff_pe_sum``, D ``ff_epsgrad``; in
+   fp32·erf beside each part's bound as 3xTF32 and on the fp32 CUDA
+   cores), and the bf16 back half
    alone beside its plain versions and the library: for eps^T dz1
    ``torch.matmul`` on a materialised eps, for part C ``torch.sum`` and
    ``torch.einsum`` with the tri tables. In phases 6-8, 16-18 and 26
@@ -59,10 +62,11 @@ Phases (any failure exits non-zero):
    ``nic_torch/kernels/_widths.py`` ``kernel_body`` names: the
    tensor-core body (``ff_pixel_mma``, ``mlp_pixel_mma``,
    ``ff3_pixel_mma``) for bf16 dots at H = 64 and, for K6/K7/K9,
-   ``mlp_pixel_mma_wide`` for bf16 dots from H = 128 to 256, the
-   CUDA-core one (``ff_pixel``, ``mlp_pixel``, ``ff3_pixel``,
-   ``mlp_pixel_wide``) for fp32 dots, K12's H = 128 and K6/K7/K9's bf16
-   dots past 256;
+   ``mlp_pixel_mma_wide`` for bf16 dots from H = 128 to 256; K11's and
+   K12's 3xTF32 tensor-core body (``ff_pixel_tf32``, ``ff3_pixel_tf32``)
+   for fp32 dots at H = 64; the CUDA-core one (``mlp_pixel``,
+   ``ff3_pixel``, ``mlp_pixel_wide``) for K6/K7/K9's fp32 dots, K12's
+   H = 128 and K6/K7/K9's bf16 dots past 256;
 7. K7 against its plain version on the card at 8 crops of 256² (f=4),
    128² (f=2), 64² (f=1) and 16² (f=1), on the sinusoidal-PE gather of a
    random flagship-width pyramid and MLP, in fp32·erf and bf16·poly: loss,
@@ -95,7 +99,10 @@ Phases (any failure exits non-zero):
 12. train-step time (CUDA events, median over steps 50-199) for
     kernel3, kernel2 (path B), kernel (TRAIN_FORWARD=kernel) and gather
     (plain autograd), all at LOD 0, with the device operations per step
-    counted by ``torch.profiler`` over 5 steps.
+    counted by ``torch.profiler`` over 5 steps; then fp32-dot mode
+    (MLP_NUM_DTYPE=32) on kernel3: against gather from one seed (node
+    noise, as in phase 10) and its step time, with K11's launches (200)
+    and the launch log (``ff_pixel_tf32`` only) of those 200 steps.
 
 The 3D path (methods 3 and 4, the misty 64³ protocol: C=12, H=64, PE 6,
 8 crops of 32³):
@@ -140,8 +147,8 @@ The 3D path (methods 3 and 4, the misty 64³ protocol: C=12, H=64, PE 6,
     1, 2, 4) and m3 TRAIN_FORWARD=kernel2 (200 K9), the last three within
     1.0 dB of a gather run; then kernel3 (node noise) and kernel2 (shared
     feature noise) tracking gather from one seed over 10 steps;
-20. the 3D LOD-0 step time for kernel3, kernel2, kernel and gather, as
-    in phase 12.
+20. the 3D LOD-0 step time for kernel3, kernel2, kernel and gather, and
+    fp32-dot mode on kernel3 (K12 on ``ff3_pixel_tf32``), as in phase 12.
 
 The alternate 2D decodes and the XLA alternates (phase 12 also times the
 ``TRAIN_FORWARD=folded`` step):
@@ -335,14 +342,15 @@ kernel its launches on its main path (K1 the serve phase, K11 the
 flagship training run, K6 path A, K7 path B, K5 the 3D serve, K12 the m3
 flag-free run, K9 the kernel2 run, K2, K3 and K4 their artifact serves of
 phases 21-23, K13 the codec's card serves of phase 29; K7 at H = 256
-on ``mlp_pixel_mma_wide`` the 50-epoch H = 256 CLI run of phase 27), its
-time and its
+on ``mlp_pixel_mma_wide`` the 50-epoch H = 256 CLI run of phase 27; K11
+and K12 in fp32-dot mode, on ``ff_pixel_tf32`` and ``ff3_pixel_tf32``,
+the 200 fp32 kernel3 steps of phases 12 and 20), its time and its
 plain version's at the path's shape and mode, and its bound, the larger of its
 bytes (each input read once, each output written once) over 3.35 TB/s and
 its dot operations (the JAX cost model's count) over the published peak
 for their type (67 TFLOP/s fp32, 989 TFLOP/s bf16; H100 SXM, 700 W; K1,
-K5, K2, K3 and K4 take their fp32 dots as three TF32 tensor-core
-products, so theirs count at 495/3 TFLOP/s; K13 issues every fp32
+K5, K2, K3, K4 and, in fp32-dot mode, K11 and K12 take their fp32 dots
+as three TF32 tensor-core products, so theirs count at 495/3 TFLOP/s; K13 issues every fp32
 multiply and add as its own instruction, by design (no FMA, for the
 bits), so its count at 33.5, half the FMA peak). No single PyTorch call
 computes any of these
@@ -501,7 +509,7 @@ def u8(x):
 
 # the tensor-core bodies whose registers and spills phase 2 reports
 MMA_BODIES = ("ff_pixel_mma", "mlp_pixel_mma", "ff3_pixel_mma",
-              "mlp_pixel_mma_wide")
+              "mlp_pixel_mma_wide", "ff_pixel_tf32", "ff3_pixel_tf32")
 # K1/K5's tensor-core body, by (plane mode, H = 64 with h1 in registers or
 # wider with h1 in slots); phase 2 reports its exact-erf and tanherf GELUs
 DECODE_MMA = "decode_v2_mma"
@@ -1082,10 +1090,10 @@ REST_WORDS = (12345, -987654321)  # the alone checks' noise stream words
 # PE grads and db1, D eps^T dz1; K12's likewise (B its node volumes, C its
 # PE grads and db1 from the slab/a1/a2 sums) and K9's (A the body, B the
 # node volumes)
-K11_PARTS = {"A": ("ff_pixel_mma", "ff_pixel"),
+K11_PARTS = {"A": ("ff_pixel_mma", "ff_pixel_tf32"),
              "B": ("node_windows", "node_corners"),
              "C": ("ff_pe_band", "ff_pe_sum"), "D": ("ff_epsgrad",)}
-K12_PARTS = {"A": ("ff3_pixel_mma", "ff3_pixel"),
+K12_PARTS = {"A": ("ff3_pixel_mma", "ff3_pixel_tf32", "ff3_pixel"),
              "B": ("node_volumes", "node_volume_corners"),
              "C": ("ff3_pe_band", "ff_pe_sum"), "D": ("ff_epsgrad",)}
 K9_PARTS = {"A": ("mlp_pixel_mma", "mlp_pixel"),
@@ -1313,6 +1321,56 @@ def _k11_rest_times(k, dz1, origins, n, f, nfeat, k11) -> dict:
     return out
 
 
+# the rate of a dot mode's products on the card: bf16 dots on the bf16
+# tensor cores; fp32 dots as three TF32 products (K11's and K12's
+# ff_pixel_tf32 and ff3_pixel_tf32, whose bounds are also printed at the
+# fp32 CUDA-core rate)
+DOT_RATE = {"bf16": "bf16", "fp32": "tf32x3"}
+# K11's and K12's timed cells at their flagship shape: (dots, noise bits)
+TIMED_CELLS = (("bf16", 8), ("fp32", None), ("fp32", 8))
+
+
+def _k11_part_bounds(args, origins, dz1, n, f, rate, noise=True) -> dict:
+    """{part: (least ms, by)} of K11's parts at a cell (``args`` the
+    step's arguments, ``dz1`` its cotangent), A's and D's products at
+    ``rate``: A the per-pixel body (planes, weights, targets read; out,
+    dz1 and the block partials written; z2, dh1, dW2 (6·N·H²), the 64 → 3
+    layer and its two products (18·N·H) and, with ``noise``, ε·W1
+    (2·N·F·H)), B the node windows, C the PE grads and db1, D εᵀ·dz1."""
+    from nic_torch.kernels import train_fused as t
+
+    npix, hid = dz1.shape
+    feat, crops, npe = args[2].shape[0], origins.shape[0], 6
+    nblk = min(-(-npix // 128), 264)
+    rows0, cols0, rows1, cols1 = t._window_extents(n, f)
+    windows = 4 * hid * crops * (rows0 * cols0 + rows1 * cols1)
+    px = (nbytes(*args[:9], origins) + 4 * npix * (3 + hid)
+          + 4 * nblk * (4 + 4 * hid + hid * hid),
+          6 * npix * hid * hid + 18 * npix * hid
+          + (2 * npix * feat * hid if noise else 0))
+    return {"A": bound(*px, rate),
+            "B": bound(nbytes(dz1, origins) + windows, 4 * npix * hid,
+                       "fp32"),
+            "C": bound(nbytes(dz1, origins) + 4 * (2 * npe + 1) * hid,
+                       2 * npix * hid + 4 * crops * n * npe * hid, "fp32"),
+            "D": bound(nbytes(dz1) + 4 * feat * hid, 2 * npix * feat * hid,
+                       rate)}
+
+
+def _parts_line(phase, tag, fn, parts, fast, slow) -> None:
+    """Print a cell's device ms by part (``parts``: {part: kernel names})
+    beside each part's bound ``fast[part]`` and, where it differs,
+    ``slow[part]`` (the fp32 dots' bounds as three TF32 products and on
+    the fp32 CUDA cores)."""
+    got = _parts_ms(fn, parts)
+    print(f"phase {phase}: {tag} device ms by part (bound as 3xTF32; on "
+          "the fp32 CUDA cores): " + ", ".join(
+              f"{p} {'+'.join(parts[p])} {ms:.4f} ({fast[p][0]:.4f} "
+              f"{fast[p][1]}"
+              + (f"; {slow[p][0]:.4f} {slow[p][1]}" if slow[p] != fast[p]
+                 else "") + ")" for p, ms in got.items()), flush=True)
+
+
 def phase_k11(device) -> dict:
     """K11 vs plain at f = 4, 2, 1 in 4 modes, its back half alone (on
     each cell's dz1 and on seeded dz1 at every crop phase); timings at the
@@ -1325,7 +1383,7 @@ def phase_k11(device) -> dict:
              "db1", "P_acc", "C1_acc", "dw1e")
     gen = torch.Generator(device="cpu").manual_seed(11)
     timings = {}
-    out_err = 0.0
+    out_err = {}
     rest_times = None
     with torch.no_grad():  # the plain version takes autograd inside
         for n, f in ((256, 4), (128, 2), (64, 1)):
@@ -1363,10 +1421,9 @@ def phase_k11(device) -> dict:
                           f"ff_pe_sum {rest[2]:.2e}"
                           + (f", ff_epsgrad {rest[1]:.2e}" if nbits else ""),
                           flush=True)
-                    if n == 256 and cd == "bf16" and nbits:
-                        out_err = errs["out"]
-                    if n == 256 and ((cd, nbits) in (("bf16", 8),
-                                                     ("fp32", None))):
+                    if n == 256 and nbits:
+                        out_err[cd] = errs["out"]
+                    if n == 256 and (cd, nbits) in TIMED_CELLS:
                         ms = cuda_ms(lambda: k.fused_train_ff_kernel(*args,
                                                                      **kw))
                         plain = cuda_ms(lambda: k.fused_train_ff_plain(
@@ -1379,30 +1436,39 @@ def phase_k11(device) -> dict:
                         work = (nbytes(*args[:9], origins) + nbytes(*got),
                                 flops)
                         timings[cell] = (ms, plain, work)
-                        # the per-pixel kernel alone (ff_pixel or
-                        # ff_pixel_mma): planes, weights, targets read;
-                        # out, dz1 and the block partials written; z2, dh1,
-                        # dW2 (6·N·H²), the 64 → 3 layer and its two
-                        # products (18·N·H) and ε·W1 (2·N·F·H)
-                        nblk = min(-(-npix // 128), 264)
-                        px_bytes = (nbytes(*args[:9], origins)
-                                    + 4 * npix * (3 + hid) + 4 * nblk
-                                    * (4 + 4 * hid + hid * hid))
-                        px_flops = 6 * npix * hid * hid + 18 * npix * hid \
-                            + (2 * npix * feat * hid if nbits else 0)
-                        px_ms, px_by = bound(px_bytes, px_flops, cd)
+                        # the per-pixel kernel alone (ff_pixel_mma or
+                        # ff_pixel_tf32), at the dot mode's rate and, for
+                        # fp32 dots, on the fp32 CUDA cores
+                        rate = DOT_RATE[cd]
+                        px_ms, px_by = _k11_part_bounds(
+                            args, origins, dz1, n, f, rate, bool(nbits))["A"]
+                        px_fp32 = _k11_part_bounds(
+                            args, origins, dz1, n, f, "fp32",
+                            bool(nbits))["A"][0]
                         print(f"phase 6: K11 {cell} at 8×256²: kernel "
                               f"{ms:.4f} ms vs plain {plain:.4f} ms; bound "
-                              f"{bound(*work, cd)[0]:.4f} ms; the per-pixel "
-                              f"kernel alone {px_ms:.4f} ms ({px_by})",
-                              flush=True)
+                              f"{bound(*work, rate)[0]:.4f} ms ({rate}); the "
+                              f"per-pixel kernel alone {px_ms:.4f} ms "
+                              f"({px_by})"
+                              + ("; at the fp32 CUDA-core rate "
+                                 f"{bound(*work, 'fp32')[0]:.4f} ms, the "
+                                 f"per-pixel kernel alone {px_fp32:.4f} ms"
+                                 if cd == "fp32" else ""), flush=True)
                         _device_line(6, f"K11 {cell} at 8×256²", lambda: (
                             k.fused_train_ff_kernel(*args, **kw)),
                             "train_ff", 64, cd)
-                        if nbits:
+                        if nbits and cd == "bf16":
                             rest_times = _k11_rest_times(
                                 k, dz1, origins, n, f, feat,
                                 lambda: k.fused_train_ff_kernel(*args, **kw))
+                        elif nbits:
+                            _parts_line(
+                                6, f"K11 {cell} at 8×256²", lambda: (
+                                    k.fused_train_ff_kernel(*args, **kw)),
+                                K11_PARTS, _k11_part_bounds(
+                                    args, origins, dz1, n, f, "tf32x3"),
+                                _k11_part_bounds(args, origins, dz1, n, f,
+                                                 "fp32"))
     _rest_alone(6, device, 64, ((255, 4), (127, 2), (63, 1)),
                 ((73, 80), (137, 80)))
     _body_summary(6)
@@ -1864,24 +1930,66 @@ def step_timing(engine, args, device, label=None) -> tuple:
            "profiler saw no device activity)"))
 
 
+# fp32-dot mode, the reference's default dot type (nic/config.py)
+FP32_DOTS = ["MLP_NUM_DTYPE=32"]
+
+
+def _fp32_kernel3(phase, args, family, label, device) -> dict:
+    """fp32-dot mode on the kernel3 engine at ``args``: its losses against
+    gather's from one seed (:func:`_track`; node noise, so that both draw
+    the same noise), then its step time (:func:`step_timing`, with the
+    configuration's own feature noise), every train kernel's counter set
+    to 0 just before and read just after, and the launch log naming
+    ``family``'s fp32 body (K11's ff_pixel_tf32, K12's ff3_pixel_tf32) and
+    no other → {"ms": step ms, "launches": the kernel's, "track": (step-1
+    rel, worst rel)}."""
+    from nic_torch.kernels._build import body_launches, clear_body_launches
+
+    track = _track(f"phase {phase}: {label}",
+                   args + FP32_DOTS + ["QAT_NOISE_WHERE=node"], "kernel3")
+    counters = _train_counters()
+    for c in counters.values():
+        c.launches = 0
+    clear_body_launches()
+    ms, line = step_timing("kernel3", args + FP32_DOTS, device, label=label)
+    launches = {k: c.launches for k, c in counters.items()}
+    logged = _bodies_named(body_launches())
+    want = _want_body(family, 64, "fp32")
+    key = {"train_ff": "K11", "train_ff3": "K12"}[family]
+    print(f"phase {phase}: {line}; launches {launches}; the launch log "
+          f"names {sorted(logged)}", flush=True)
+    if logged != {want} or launches != {**{k: 0 for k in launches},
+                                        key: 200}:
+        fail(f"phase {phase}: {label}: the 200 kernel3 steps launched "
+             f"{launches} and the log names {sorted(logged)}, want {key} "
+             f"200 times on {want}")
+    return {"ms": ms, "launches": launches[key], "track": track}
+
+
 def phase_step_time(device) -> dict:
-    """Train-step times per engine at LOD 0 (:func:`step_timing`)."""
+    """Train-step times per engine at LOD 0 (:func:`step_timing`), and
+    kernel3 in fp32-dot mode (:func:`_fp32_kernel3`)."""
     out = {}
     for engine, args in (("kernel3", TRAIN_ARGS), ("kernel2", PATH_B),
                          ("kernel", TRAIN_ARGS), ("gather", TRAIN_ARGS),
                          ("folded", TRAIN_ARGS)):
         out[engine], line = step_timing(engine, args, device)
         print(f"phase 12: {line}", flush=True)
+    out["kernel3 fp32"] = _fp32_kernel3(12, TRAIN_ARGS, "train_ff",
+                                        "flagship fp32 dots", device)
     return out
 
 
 def phase_step_time3(device) -> dict:
-    """3D (misty m3, 8 crops of 32³) train-step times per engine at LOD 0."""
+    """3D (misty m3, 8 crops of 32³) train-step times per engine at LOD 0,
+    and kernel3 in fp32-dot mode (:func:`_fp32_kernel3`)."""
     out = {}
     for engine in ("kernel3", "kernel2", "kernel", "gather"):
         out[engine], line = step_timing(engine, MISTY, device,
                                         label="3D m3 8×32³")
         print(f"phase 20: {line}", flush=True)
+    out["kernel3 fp32"] = _fp32_kernel3(20, MISTY, "train_ff3",
+                                        "3D m3 8×32³ fp32 dots", device)
     return out
 
 
@@ -2136,26 +2244,27 @@ def _volumes_work(dz1, origins, n, f) -> tuple:
             5 * npix * hid + 16 * npix * hid // (2 * f))
 
 
-def _k12_part_bounds(args, origins, dz1, n, f, cd) -> dict:
+def _k12_part_bounds(args, origins, dz1, n, f, rate) -> dict:
     """{part: (least ms, by)} of K12's parts at a cell (``args`` the
-    step's arguments, ``dz1`` its cotangent): A the per-voxel body (its
-    inputs, the PE rows [3][crops][n][H], out, dz1 and the block partials;
-    z2, dh1, dW2, the 64 → 3 layer and ε·W1), B the node volumes, C the PE
-    grads and db1 (dz1 once, the tables [3][crops][n][8] read, the 3·6 + 1
-    rows written), D εᵀ·dz1."""
+    step's arguments, ``dz1`` its cotangent), A's and D's products at
+    ``rate``: A the per-voxel body (its inputs, the PE rows
+    [3][crops][n][H], out, dz1 and the block partials; z2, dh1, dW2, the
+    64 → 3 layer and ε·W1), B the node volumes, C the PE grads and db1
+    (dz1 once, the tables [3][crops][n][8] read, the 3·6 + 1 rows
+    written), D εᵀ·dz1."""
     npix, hid = dz1.shape
     feat, crops = args[2].shape[0], origins.shape[0]
     nblk = min(-(-npix // 128), 264)
     px = (nbytes(*args[:9], origins) + 4 * 3 * crops * n * hid
           + 4 * npix * (3 + hid) + 4 * nblk * (4 + 4 * hid + hid * hid),
           6 * npix * hid * hid + 18 * npix * hid + 2 * npix * feat * hid)
-    return {"A": bound(*px, cd),
+    return {"A": bound(*px, rate),
             "B": bound(*_volumes_work(dz1, origins, n, f), "fp32"),
             "C": bound(nbytes(dz1) + 4 * 3 * crops * n * 8
                        + 4 * (3 * 6 + 1) * hid,
                        2 * npix * hid + 6 * crops * n * 6 * hid, "fp32"),
             "D": bound(nbytes(dz1) + 4 * feat * hid, 2 * npix * feat * hid,
-                       "bf16")}
+                       rate)}
 
 
 def _volumes_times(dz1, origins, n, f) -> tuple:
@@ -2345,7 +2454,7 @@ def phase_k12(device) -> dict:
                             f"pe_grads3 {cell}", dz1, origins, n, f, 6,
                             not sparse))
                         if n == 32 and method == 3 and (
-                                (cd, nbits) in (("bf16", 8), ("fp32", None))):
+                                (cd, nbits) in TIMED_CELLS):
                             ms = cuda_ms(lambda: k.fused_train_ff3_kernel(
                                 *args, **kw))
                             plain = cuda_ms(lambda: k.fused_train_ff3_plain(
@@ -2357,14 +2466,26 @@ def phase_k12(device) -> dict:
                             work = (nbytes(*args[:9], origins)
                                     + nbytes(*got), flops)
                             timings[cell] = (ms, plain, work, errs["out"])
-                            b_ms, b_by = bound(*work, cd)
+                            b_ms, b_by = bound(*work, DOT_RATE[cd])
                             print(f"phase 16: K12 {cell}: kernel {ms:.4f} ms "
                                   f"vs plain {plain:.4f} ms; bound "
-                                  f"{b_ms:.4f} ms ({b_by})", flush=True)
+                                  f"{b_ms:.4f} ms ({b_by}, {DOT_RATE[cd]})"
+                                  + ("; at the fp32 CUDA-core rate "
+                                     f"{bound(*work, 'fp32')[0]:.4f} ms"
+                                     if cd == "fp32" else ""), flush=True)
                             _device_line(16, f"K12 {cell}", lambda: (
                                 k.fused_train_ff3_kernel(*args, **kw)),
                                 "train_ff3", 64, cd)
-                            if nbits:
+                            if nbits and cd == "fp32":
+                                _parts_line(
+                                    16, f"K12 {cell}", lambda: (
+                                        k.fused_train_ff3_kernel(*args,
+                                                                 **kw)),
+                                    K12_PARTS, _k12_part_bounds(
+                                        args, origins, dz1, n, f, "tf32x3"),
+                                    _k12_part_bounds(args, origins, dz1, n,
+                                                     f, "fp32"))
+                            elif nbits:
                                 parts = _parts_ms(lambda: (
                                     k.fused_train_ff3_kernel(*args, **kw)),
                                     K12_PARTS)
@@ -5377,6 +5498,14 @@ def main(argv=None) -> None:
           f"{k12[k12_cell][0] / steps3['kernel3']:.3f}; K9 share of the 3D "
           f"kernel2 step: {k9['bf16·poly'][0] / steps3['kernel2']:.3f}",
           flush=True)
+    k11_fp32 = k11["timings"]["f=4 fp32·erf noise=on"]
+    k12_fp32 = k12["8×32³ f=4 m3 fp32·erf noise=on"]
+    fp32, fp32_3 = steps["kernel3 fp32"], steps3["kernel3 fp32"]
+    print(f"fp32 dots: K11 (fp32·erf, phase 6) over the fp32 kernel3 step "
+          f"(poly, phase 12) {k11_fp32[0] / fp32['ms']:.3f} "
+          f"({k11_fp32[0]:.4f} of {fp32['ms']:.4f} ms); K12 over the 3D "
+          f"one {k12_fp32[0] / fp32_3['ms']:.3f} ({k12_fp32[0]:.4f} of "
+          f"{fp32_3['ms']:.4f} ms)", flush=True)
     print(f"all phases passed in {time.perf_counter() - t0:.1f} s",
           flush=True)
 
@@ -5402,12 +5531,14 @@ def main(argv=None) -> None:
     # bf16·poly (the 3D protocol's LOD 0); K2, K3 and K4 at 2048²
     # fp32·exact, each with its fixture path's launches (mips 0-9); K1, K5,
     # K2, K3 and K4 take their fp32 dots as three TF32 products each
-    # (tf32x3)
+    # (tf32x3); K11 and K12 again in fp32-dot mode (fp32·erf with noise at
+    # 8×256² and 8×32³, their launches in the 200 fp32 kernel3 steps of
+    # phases 12 and 20), on their 3xTF32 bodies
     print(json.dumps({"kernels": [
         entry("decode_fused_v2", KERNEL_SOURCE, REPLACES, k1_launches,
               main_err, *timings[2048][("fp32", "exact")], "tf32x3"),
         entry("train_fused_ff", K11_SOURCE, K11_REPLACES, k11_launches,
-              k11["out_err"], k11_ms, k11_plain, k11_work, "bf16"),
+              k11["out_err"]["bf16"], k11_ms, k11_plain, k11_work, "bf16"),
         entry("train_fused_dx", K67_SOURCE, K6_REPLACES, k6_launches,
               k6[(32, "bf16·poly")][3], *k6[(32, "bf16·poly")][:3], "bf16"),
         entry("train_fused_ng", K67_SOURCE, K7_REPLACES, k7_launches,
@@ -5418,6 +5549,11 @@ def main(argv=None) -> None:
               k12[k12_cell][3], *k12[k12_cell][:3], "bf16"),
         entry("train_fused_ng3", K67_SOURCE, K9_REPLACES, launches3["K9"],
               k9["bf16·poly"][3], *k9["bf16·poly"][:3], "bf16"),
+        entry("train_fused_ff fp32", K11_SOURCE, K11_REPLACES,
+              fp32["launches"], k11["out_err"]["fp32"], *k11_fp32,
+              "tf32x3"),
+        entry("train_fused_ff3 fp32", K12_SOURCE, K12_REPLACES,
+              fp32_3["launches"], k12_fp32[3], *k12_fp32[:3], "tf32x3"),
         entry(f"train_fused_ng H={WIDE_HIDDEN}", K67W_SOURCE, K7_REPLACES,
               wide["launches"], wide["err"], wide["ms"], wide["plain"],
               wide["work"], "bf16"),

@@ -35,8 +35,11 @@ tile still fits (the ``.cu`` files refuse past it). K11 (``train_ff``,
 
 The train families have two per-pixel bodies each at the built widths,
 which compute the same step: one on the bf16 tensor cores (``*_mma``,
-built at H = 64 for bf16 dot inputs) and one on the fp32 CUDA cores (fp32
-dots; K11's and K12's at H = 128 too). K6/K7/K9 (``train_mlp``) run bf16
+built at H = 64 for bf16 dot inputs) and one for fp32 dots: K11's and
+K12's on the tensor cores as three TF32 products a dot (``ff_pixel_tf32``,
+``ff3_pixel_tf32``, at H = 64), K6/K7/K9's on the fp32 CUDA cores
+(``mlp_pixel``); K12 runs its CUDA-core body ``ff3_pixel`` at H = 128 in
+both modes. K6/K7/K9 (``train_mlp``) run bf16
 dots from H = 128 up to :data:`WIDEST_MMA` on a wide tensor-core body
 (``mlp_pixel_mma_wide``, the 64-unit column-block walk of
 ``mlp_pixel_wide`` with every product on the tensor cores), and fp32 dots
@@ -101,11 +104,12 @@ WIDEST_MMA = {"train_mlp": 256}
 WIDE_MMA = "wide_mma"  # its width key: past the built widths, up to it
 
 # the per-pixel CUDA body each train family runs, by (built width, WIDE or
-# WIDE_MMA, bf16 dot inputs): the tensor-core bodies take bf16 dots at H =
-# 64 and, for train_mlp, from 128 up to WIDEST_MMA
+# WIDE_MMA, bf16 dot inputs): the bf16 tensor-core bodies take bf16 dots at
+# H = 64 and, for train_mlp, from 128 up to WIDEST_MMA; K11's and K12's
+# 3xTF32 tensor-core bodies take fp32 dots at H = 64
 KERNEL_BODIES = {
-    "train_ff": {(64, True): "ff_pixel_mma", (64, False): "ff_pixel"},
-    "train_ff3": {(64, True): "ff3_pixel_mma", (64, False): "ff3_pixel",
+    "train_ff": {(64, True): "ff_pixel_mma", (64, False): "ff_pixel_tf32"},
+    "train_ff3": {(64, True): "ff3_pixel_mma", (64, False): "ff3_pixel_tf32",
                   (128, True): "ff3_pixel", (128, False): "ff3_pixel"},
     "train_mlp": {(64, True): "mlp_pixel_mma", (64, False): "mlp_pixel",
                   (128, True): "mlp_pixel_mma_wide",
@@ -150,9 +154,12 @@ DECODE_BODIES = {
 
 # the blocks per SM each body is built for (its __launch_bounds__); a
 # wrapper launches that many per SM, and where shared memory holds fewer
-# (mlp_pixel_mma at F > 80) the rest run as a second wave
-BODY_BLOCKS_PER_SM = {"ff_pixel": 2, "ff_pixel_mma": 2, "ff3_pixel": 1,
-                      "ff3_pixel_mma": 2, "mlp_pixel": 1,
+# (mlp_pixel_mma at F > 80) the rest run as a second wave. The 3xTF32
+# bodies' fp32 tiles and hi/lo weights take ~206 KB (K11, F = 73) and
+# ~226 KB (K12, F = 127): one block of 8 warps an SM
+BODY_BLOCKS_PER_SM = {"ff_pixel_mma": 2, "ff_pixel_tf32": 1, "ff3_pixel": 1,
+                      "ff3_pixel_mma": 2, "ff3_pixel_tf32": 1,
+                      "mlp_pixel": 1,
                       "mlp_pixel_mma": 2, "mlp_pixel_wide": 1,
                       "mlp_pixel_mma_wide": 1}
 

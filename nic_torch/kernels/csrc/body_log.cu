@@ -1,7 +1,8 @@
-// The launch log of the per-pixel training bodies (mlp_pixel,
-// mlp_pixel_mma, ff_pixel, ff_pixel_mma, ff3_pixel, ff3_pixel_mma). Each
-// launcher calls nic_note_body with the very function pointer it launched,
-// once the launch has succeeded; the log keeps the CUDA runtime's name of
+// The launch log of the per-pixel bodies, train (mlp_pixel, mlp_pixel_mma,
+// ff_pixel_mma, ff_pixel_tf32, ff3_pixel, ff3_pixel_mma, ff3_pixel_tf32,
+// ...) and decode. Each launcher calls nic_note_body with the very
+// function pointer it launched, once the launch has succeeded; the log
+// keeps the CUDA runtime's name of
 // that __global__ (cudaFuncGetName) and a count per name. A check on the
 // card reads which body ran from here: unlike a profiler trace, the log
 // cannot come back without the launch.

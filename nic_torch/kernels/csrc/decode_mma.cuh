@@ -13,7 +13,8 @@
 // staged per warp and written as 48 consecutive floats. Dot inputs in
 // bf16 (m16n8k16 products, exact in fp32) or, for fp32 dots, m16n8k8 tf32
 // products of each operand's hi and lo parts (al bh + ah bl + ah bh; the
-// dropped al bl is ~2^-22 of a product). W2 is staged in shared memory in
+// dropped al bl is ~2^-22 of a product; tf32x3.cuh, shared with the train
+// kernels' fp32-dot bodies). W2 is staged in shared memory in
 // 64 x 64 tiles, all of them once per block (`whole`) or one at a time as
 // the walk needs it. Also here: the B-tile staging and the feature-tile
 // product of K3's first layer, and the asynchronous copies K4 streams its
@@ -27,8 +28,11 @@
 #pragma once
 
 #include "decode_common.cuh"
+#include "tf32x3.cuh"
 
 namespace nic_decode {
+
+using namespace nic_tf32;
 
 constexpr int kTileBf16 = 9216;    // bytes of a staged 64 x 64 bf16 W2 tile
 constexpr int kTileTf32 = 36864;   // bytes of a staged tf32 hi/lo W2 tile
@@ -62,13 +66,6 @@ __device__ __forceinline__ uint32_t bf2(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// x rounded to tf32 (round to nearest, ties away), as its fp32 bits
-__device__ __forceinline__ uint32_t tf32_of(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-
 // d += a b: m16n8k16, bf16 inputs, fp32 accumulators
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
@@ -77,36 +74,6 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// d += a b: m16n8k8, tf32 inputs, fp32 accumulators
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// the fp32 A fragment of one k8 tile as tf32 hi and lo parts
-__device__ __forceinline__ void split4(const float (&a)[4], uint32_t (&hi)[4],
-                                       uint32_t (&lo)[4]) {
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    hi[e] = tf32_of(a[e]);
-    lo[e] = tf32_of(a[e] - __uint_as_float(hi[e]));
-  }
-}
-
-// d += a b in three tf32 products: al bh + ah bl + ah bh (al bl dropped)
-__device__ __forceinline__ void mma_3xtf32(float (&d)[4],
-                                           const uint32_t (&ah)[4],
-                                           const uint32_t (&al)[4],
-                                           const float4 b) {
-  mma_tf32(d, al, __float_as_uint(b.x), __float_as_uint(b.y));
-  mma_tf32(d, ah, __float_as_uint(b.z), __float_as_uint(b.w));
-  mma_tf32(d, ah, __float_as_uint(b.x), __float_as_uint(b.y));
 }
 
 // rows k0 .. k0 + kn - 1 (zero from kmax on) and columns j0 .. j0 + 63 of
@@ -121,21 +88,19 @@ __device__ __forceinline__ void stage_b_tile(unsigned char* dst,
                                              const float* __restrict__ src,
                                              int ld, int k0, int kn, int kmax,
                                              int j0) {
+  if (!kBf) {
+    stage_b_pairs(reinterpret_cast<float4*>(dst),
+                  src + static_cast<size_t>(k0) * ld + j0, ld, 1, kn,
+                  kmax - k0);
+    return;
+  }
   const int rw = kn / 2 + 4;
   for (int i = threadIdx.x; i < 32 * kn; i += blockDim.x) {
     const int kp = i / 64, n = i % 64, k = k0 + 2 * kp;
     const float* s = src + static_cast<size_t>(k) * ld + j0 + n;
     const float w0 = k < kmax ? s[0] : 0.0f;
     const float w1 = k + 1 < kmax ? s[ld] : 0.0f;
-    if (kBf) {
-      reinterpret_cast<uint32_t*>(dst)[n * rw + kp] = bf2(w0, w1);
-    } else {
-      const uint32_t h0 = tf32_of(w0), h1 = tf32_of(w1);
-      reinterpret_cast<float4*>(dst)[n * rw + kp] = make_float4(
-          __uint_as_float(h0), __uint_as_float(h1),
-          __uint_as_float(tf32_of(w0 - __uint_as_float(h0))),
-          __uint_as_float(tf32_of(w1 - __uint_as_float(h1))));
-    }
+    reinterpret_cast<uint32_t*>(dst)[n * rw + kp] = bf2(w0, w1);
   }
 }
 
@@ -146,20 +111,17 @@ template <bool kBf>
 __device__ __forceinline__ void stage_w2_tile(unsigned char* dst,
                                               const float* __restrict__ w2,
                                               int H, int kb, int jb) {
+  if (!kBf) {
+    stage_b_pairs(reinterpret_cast<float4*>(dst),
+                  w2 + static_cast<size_t>(kb) * 64 * H + jb * 64, H, 1, 64,
+                  64);
+    return;
+  }
   for (int i = threadIdx.x; i < 64 * 32; i += blockDim.x) {
     const int kp = i / 64, n = i % 64;
     const float* src = w2 + static_cast<size_t>(kb * 64 + 2 * kp) * H +
                        jb * 64 + n;
-    const float w0 = src[0], w1 = src[H];
-    if (kBf) {
-      reinterpret_cast<uint32_t*>(dst)[n * 36 + kp] = bf2(w0, w1);
-    } else {
-      const uint32_t h0 = tf32_of(w0), h1 = tf32_of(w1);
-      reinterpret_cast<float4*>(dst)[n * 36 + kp] = make_float4(
-          __uint_as_float(h0), __uint_as_float(h1),
-          __uint_as_float(tf32_of(w0 - __uint_as_float(h0))),
-          __uint_as_float(tf32_of(w1 - __uint_as_float(h1))));
-    }
+    reinterpret_cast<uint32_t*>(dst)[n * 36 + kp] = bf2(src[0], src[H]);
   }
 }
 
@@ -171,16 +133,6 @@ __device__ __forceinline__ void pack_a(const float (&h)[8][4], int kt,
   a[1] = bf2(h[2 * kt][2], h[2 * kt][3]);
   a[2] = bf2(h[2 * kt + 1][0], h[2 * kt + 1][1]);
   a[3] = bf2(h[2 * kt + 1][2], h[2 * kt + 1][3]);
-}
-
-// k8 tile t of it as the tf32 A fragment: logical columns q and q + 4 are
-// units 8 t + 2 q and 8 t + 2 q + 1 (the B tiles are laid out to match)
-__device__ __forceinline__ void perm_a(const float (&h)[8][4], int t,
-                                       float (&a)[4]) {
-  a[0] = h[t][0];
-  a[1] = h[t][2];
-  a[2] = h[t][1];
-  a[3] = h[t][3];
 }
 
 // d[nt] += h W2 over one 64 x 64 tile (kBf: bf16; else 3xTF32)
@@ -202,17 +154,7 @@ __device__ __forceinline__ void tile_product(float (&d)[8][4],
       }
     }
   } else {
-    const float4* w = reinterpret_cast<const float4*>(tile);
-#pragma unroll
-    for (int t = 0; t < 8; ++t) {
-      float a[4];
-      uint32_t ah[4], al[4];
-      perm_a(h, t, a);
-      split4(a, ah, al);
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-        mma_3xtf32(d[nt], ah, al, w[(8 * nt + g) * 36 + 4 * t + q]);
-    }
+    tile_3xtf32(d, h, reinterpret_cast<const float4*>(tile), g, q);
   }
 }
 
@@ -282,12 +224,7 @@ __device__ __forceinline__ void w3_product(float (&o)[4],
       uint32_t ah[4], al[4];
       perm_a(h, t, a);
       split4(a, ah, al);
-      const float b0 = w3(8 * t + 2 * q), b1 = w3(8 * t + 2 * q + 1);
-      const uint32_t h0 = tf32_of(b0), h1 = tf32_of(b1);
-      mma_3xtf32(o, ah, al,
-                 make_float4(__uint_as_float(h0), __uint_as_float(h1),
-                             __uint_as_float(tf32_of(b0 - __uint_as_float(h0))),
-                             __uint_as_float(tf32_of(b1 - __uint_as_float(h1)))));
+      mma_3xtf32(o, ah, al, hilo2(w3(8 * t + 2 * q), w3(8 * t + 2 * q + 1)));
     }
   }
 }

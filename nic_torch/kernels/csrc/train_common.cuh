@@ -3,8 +3,9 @@
 // node-gradient kernels): bf16 rounding of dot inputs, the GELU pair and
 // its derivative, the counter-hash feature noise, W1 rows staged in shared
 // memory or read from device memory, kernel3's per-pixel MLP tail on the
-// CUDA cores (ff_tail) and, for bf16 dots, on the tensor cores
-// (ff_tail_mma, with noise_mma and the mma.sync/ldmatrix wrappers), the
+// CUDA cores (ff_tail) and on the tensor cores (ff_tail_mma, with
+// noise_mma and the mma.sync/ldmatrix wrappers, for bf16 dots; with
+// noise_tf32 and tf32x3.cuh's three-product TF32 dots for fp32 dots), the
 // eps^T dz1 kernel (ff_epsgrad, bf16 dots on the tensor cores over
 // cp.async-staged tiles of dz1), and the per-crop node-window (2D: one
 // read of dz1, node_windows + node_corners) and node-volume (3D: the
@@ -21,6 +22,10 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "tf32x3.cuh"
+
 // Loops over the hidden width unroll fully up to H = 64, where the arrays
 // they index stay in registers. At H = 128 they stay loops (those arrays
 // live in local memory, and the H = 128 kernels are slow): fully unrolled,
@@ -35,6 +40,8 @@
 extern "C" void nic_note_body(const void* kernel);
 
 namespace {
+
+using namespace nic_tf32;
 
 constexpr int TP = 128;   // pixels per tile = threads per block
 constexpr int LDP = 132;  // row stride of the [unit][pixel] staging tiles
@@ -426,7 +433,7 @@ NIC_UNROLL_H(KPT)
   __syncthreads();
 }
 
-// ---- tensor-core pieces (bf16 inputs, fp32 accumulators) ----------------
+// ---- tensor-core pieces (bf16 or 3xTF32 inputs, fp32 accumulators) ------
 
 constexpr int MT = 256;   // threads of a tensor-core block: 8 warps x 16 pixels
 constexpr int LDB = 72;   // bf16 row stride of the tensor-core tiles: 144 B,
@@ -471,12 +478,14 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
       : "memory");
 }
 
-// The tensor-core layout of kernel3's bf16-dot tail: a warp owns 16
-// pixels of the 128-pixel tile (rows 16 warp + g and + 8, g = lane / 4) and
-// holds a [16][64] activation as the m16n8k16 accumulator of eight n-tiles,
-// v[nt][e]: pixel row g (e < 2) or g + 8 (e >= 2), unit 8 nt + 2 (lane % 4)
-// + (e & 1). Two neighbouring n-tiles of that layout are the A operand of
-// the next product, so z1 -> h1 -> z2 and dz2 -> dh1 stay in registers.
+// The tensor-core layout of kernel3's tail: a warp owns 16 pixels of the
+// 128-pixel tile (rows 16 warp + g and + 8, g = lane / 4) and holds a
+// [16][64] activation as the accumulator of eight n-tiles (m16n8k16 and
+// m16n8k8 lay it out alike), v[nt][e]: pixel row g (e < 2) or g + 8 (e >=
+// 2), unit 8 nt + 2 (lane % 4) + (e & 1). Two neighbouring n-tiles of that
+// layout are the A operand of the next bf16 product, and one n-tile that
+// of the next TF32 product (perm_a, tf32x3.cuh), so z1 -> h1 -> z2 and dz2
+// -> dh1 stay in registers.
 
 // z1 += eps W1 over kernel3's feature noise for the warp's 16 pixels (the
 // accumulator layout above): A is the counter-hash eps, rounded to bf16,
@@ -522,7 +531,45 @@ __device__ __forceinline__ void noise_mma(float (&z1)[8][4],
   }
 }
 
-// shared memory of the tensor-core tail
+// z1 += eps W1 over kernel3's feature noise for the warp's 16 pixels in
+// fp32-dot mode: three TF32 products a k8 slab (tf32x3.cuh). A is the
+// counter-hash eps, unrounded, built in registers and split into hi and lo
+// (logical columns q and q + 4 of slab k0 are features k0 + 2 q and k0 + 2
+// q + 1; zero past nfeat and for invalid rows); B is W1 as stage_b_pairs
+// leaves it, rows of ldw float4s (kGlobal false), or W1 [F][64] fp32 in
+// device memory, split as it is read (kGlobal true)
+template <bool kGlobal>
+__device__ __forceinline__ void noise_tf32(float (&z1)[8][4],
+                                           const float4* sW1, int ldw,
+                                           const float* __restrict__ w1,
+                                           int nfeat, const uint32_t (&ctr)[2],
+                                           const bool (&valid)[2], uint32_t s0,
+                                           uint32_t s1, float scale) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+  auto eps = [&](int r, int j) -> float {
+    return (valid[r] && j < nfeat)
+               ? eps_uniform(ctr[r] + static_cast<uint32_t>(j), s0, s1, scale)
+               : 0.0f;
+  };
+  auto w1g = [&](int k, int n) -> float {
+    return k < nfeat ? __ldg(w1 + static_cast<size_t>(k) * 64 + n) : 0.0f;
+  };
+  for (int k0 = 0; k0 < nfeat; k0 += 8) {
+    const int c = k0 + 2 * q;
+    const float a[4] = {eps(0, c), eps(1, c), eps(0, c + 1), eps(1, c + 1)};
+    uint32_t ah[4], al[4];
+    split4(a, ah, al);
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const int n = 8 * nt + g;
+      mma_3xtf32(z1[nt], ah, al,
+                 kGlobal ? hilo2(w1g(c, n), w1g(c + 1, n))
+                         : sW1[n * ldw + k0 / 2 + q]);
+    }
+  }
+}
+
+// shared memory of the tensor-core tail, bf16 dots
 struct TailMma {
   __nv_bfloat16* sB;          // h2b [64][LDP], for dW3
   float* sD;                  // dz3b, dz3, loss [7][LDP]
@@ -536,67 +583,115 @@ struct TailMma {
   const float* sb3;
 };
 
-// ff_tail in bf16-dot mode on the tensor cores, H = 64, for a block of MT
-// threads and a tile of TP = 128 pixels: from z1 (the accumulator layout
+constexpr int LDF = 72;  // fp32 row stride of the 3xTF32 tail's [pixel][unit]
+                         // tiles: 8 words mod 32, so a fragment's loads
+                         // (rows q, units g) hit 32 distinct banks
+constexpr int RED_W = 64 * 3 + 64 + 4;  // floats of a warp's sums: dW3
+                                        // [64][3], db2 [64], db3 [3], loss
+
+// shared memory of the tensor-core tail, fp32 dots (3xTF32)
+struct TailTf32 {
+  float* sH1;          // h1 [TP][LDF], for dW2
+  float* sDZ;          // dz2 [TP][LDF], for dW2
+  float* sRed;         // the warps' sums [8][RED_W]
+  const float4* sW2;   // W2 as z2's B (stage_b_pairs: rows [64 j][36] of k)
+  const float4* sW2t;  // W2^T as dh1's B (rows [64 k][36] of j)
+  const float* sW3;    // [64][3]
+  const float* sb2;
+  const float* sb3;
+};
+
+// kernel3's per-pixel MLP tail on the tensor cores, H = 64, for a block of
+// MT threads and a tile of TP = 128 pixels: from z1 (the accumulator layout
 // above) to dz1 = dh1 gelu'(z1), left in z1's registers (zero for invalid
 // pixels) and, when dz1_out is not null, written for the valid pixels
-// (rows pix[r] of [N, 64]).
-// z2 = h1b W2 and dh1 = dz2b W2^T are m16n8k16 products with A in
-// registers; dW2 = h1b^T dz2b over the tile is one with both operands
-// staged in shared memory (ldmatrix.trans), added to the warp's slice
-// dw2 (units 16 (warp / 2).., outputs 32 (warp % 2)..) in registers, which
-// the caller writes once. The GELUs, the 64 -> 3 layer, the sigmoid, the
-// loss and dh2 = dz3b W3^T stay on the CUDA cores; the block's partial
-// sums of loss, dW3, db3 (tail_w3_sums) and db2 (per warp by shuffles,
-// then over the warps in order) are set on its first tile and added to
-// after it. Every sum runs in a fixed order. All threads call it (it
-// synchronises); on return sH1, sDZ, sB, sD and sDb2 are free.
-template <int G>
+// (rows pix[r] of [N, 64]). The dot kind is the shared memory's, S:
+// TailMma for bf16 dots (every dot input rounded to bf16, m16n8k16
+// products), TailTf32 for fp32 dots (three m16n8k8 TF32 products a dot,
+// tf32x3.cuh).
+// z2 = h1 W2 and dh1 = dz2 W2^T are products with A in registers; dW2 =
+// h1^T dz2 over the tile is one with both operands staged in shared
+// memory (bf16: ldmatrix.trans; fp32: [pixel][unit] rows of LDF, split as
+// read), added to the warp's slice dw2 (units 16 (warp / 2).., outputs 32
+// (warp % 2)..) in registers, which the caller writes once. The GELUs, the
+// 64 -> 3 layer, the sigmoid, the loss and dh2 = dz3b W3^T stay on the
+// CUDA cores. The block's partial sums of loss, dW3, db3 and db2 are set
+// on its first tile and added to after it: bf16 stages h2b, dz3 and the
+// loss for tail_w3_sums and sums db2 per warp by shuffles; fp32 keeps h2 in
+// registers and sums all of them per warp by shuffles, then over the
+// warps in order. Every sum runs in a fixed order. All threads call it (it
+// synchronises); on return the tail's staging tiles are free.
+template <int G, typename S>
 __device__ __forceinline__ void ff_tail_mma(
     float (&z1)[8][4], const bool (&valid)[2], const size_t (&pix)[2],
-    const TailMma& s, const float* __restrict__ tgt, float* __restrict__ out,
+    const S& s, const float* __restrict__ tgt, float* __restrict__ out,
     float* __restrict__ dz1_out, float* mypart, bool first, float inv_total,
     float (&dw2)[4][4]) {
+  constexpr bool kTf32 = std::is_same<S, TailTf32>::value;
   constexpr int H = 64;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, q = lane & 3;
   const int row[2] = {16 * warp + g, 16 * warp + g + 8};
 
-  // h1b = bf16(gelu(z1)): z2's A operand, and staged for dW2
-  uint32_t ah[4][4];
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
-    const uint32_t lo = pack_bf16(gelu_f<G>(z1[nt][0]), gelu_f<G>(z1[nt][1]));
-    const uint32_t hi = pack_bf16(gelu_f<G>(z1[nt][2]), gelu_f<G>(z1[nt][3]));
-    *reinterpret_cast<uint32_t*>(s.sH1 + row[0] * LDB + 8 * nt + 2 * q) = lo;
-    *reinterpret_cast<uint32_t*>(s.sH1 + row[1] * LDB + 8 * nt + 2 * q) = hi;
-    ah[nt >> 1][(nt & 1) * 2] = lo;
-    ah[nt >> 1][(nt & 1) * 2 + 1] = hi;
-  }
-  // z2 = h1b W2 + b2
+  // h1 = gelu(z1) (bf16: h1b): z2's A operand, and staged for dW2; z2 =
+  // h1 W2 + b2
   float z2[8][4];
+  if constexpr (kTf32) {
+    float h1[8][4];
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
-    z2[nt][0] = z2[nt][1] = z2[nt][2] = z2[nt][3] = 0.0f;
+    for (int nt = 0; nt < 8; ++nt) {
 #pragma unroll
-    for (int kb = 0; kb < 4; ++kb) {
-      const __nv_bfloat16* w = s.sW2t + (8 * nt + g) * LDB + 16 * kb + 2 * q;
-      mma16816(z2[nt], ah[kb], ld_u32(w), ld_u32(w + 8));
+      for (int e = 0; e < 4; ++e) {
+        h1[nt][e] = gelu_f<G>(z1[nt][e]);
+        z2[nt][e] = 0.0f;
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        *reinterpret_cast<float2*>(s.sH1 + row[r] * LDF + 8 * nt + 2 * q) =
+            make_float2(h1[nt][2 * r], h1[nt][2 * r + 1]);
+    }
+    tile_3xtf32(z2, h1, s.sW2, g, q);
+  } else {
+    uint32_t ah[4][4];
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const uint32_t lo =
+          pack_bf16(gelu_f<G>(z1[nt][0]), gelu_f<G>(z1[nt][1]));
+      const uint32_t hi =
+          pack_bf16(gelu_f<G>(z1[nt][2]), gelu_f<G>(z1[nt][3]));
+      *reinterpret_cast<uint32_t*>(s.sH1 + row[0] * LDB + 8 * nt + 2 * q) = lo;
+      *reinterpret_cast<uint32_t*>(s.sH1 + row[1] * LDB + 8 * nt + 2 * q) = hi;
+      ah[nt >> 1][(nt & 1) * 2] = lo;
+      ah[nt >> 1][(nt & 1) * 2 + 1] = hi;
+    }
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      z2[nt][0] = z2[nt][1] = z2[nt][2] = z2[nt][3] = 0.0f;
+#pragma unroll
+      for (int kb = 0; kb < 4; ++kb) {
+        const __nv_bfloat16* w = s.sW2t + (8 * nt + g) * LDB + 16 * kb + 2 * q;
+        mma16816(z2[nt], ah[kb], ld_u32(w), ld_u32(w + 8));
+      }
     }
   }
-  // layer 3 (this thread's 16 units of its two pixels, then the quad's sum)
+  // layer 3 (this thread's 16 units of its two pixels, then the quad's
+  // sum); h2 (fp32) stays in registers for dW3, h2b (bf16) is staged
   float o3[2][3] = {{0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f}};
+  float h2[8][4];
 #pragma unroll
   for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int j = 8 * nt + 2 * q + (e & 1), r = e >> 1;
       z2[nt][e] += s.sb2[j];
-      const float h2 = bf16_round(gelu_f<G>(z2[nt][e]));
-      s.sB[j * LDP + row[r]] = __float2bfloat16_rn(h2);
+      const float h = cd<!kTf32>(gelu_f<G>(z2[nt][e]));
+      if constexpr (kTf32)
+        h2[nt][e] = h;
+      else
+        s.sB[j * LDP + row[r]] = __float2bfloat16_rn(h);
 #pragma unroll
       for (int c = 0; c < 3; ++c)
-        o3[r][c] = fmaf(h2, s.sW3[j * 3 + c], o3[r][c]);
+        o3[r][c] = fmaf(h, s.sW3[j * 3 + c], o3[r][c]);
     }
 #pragma unroll
   for (int r = 0; r < 2; ++r)
@@ -606,7 +701,7 @@ __device__ __forceinline__ void ff_tail_mma(
       o3[r][c] += __shfl_xor_sync(0xffffffffu, o3[r][c], 2);
     }
   // sigmoid, loss and dz3 per pixel (the quad's threads alike)
-  float dz3b[2][3];
+  float dz3b[2][3], lossr[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     float lossv = 0.0f;
@@ -620,16 +715,48 @@ __device__ __forceinline__ void ff_tail_mma(
         lossv = fmaf(diff, diff, lossv);
         dz3 = (2.0f * inv_total) * diff * ov * (1.0f - ov);
       }
-      dz3b[r][c] = bf16_round(dz3);
-      if (q == 0) {
-        s.sD[c * LDP + row[r]] = dz3b[r][c];
-        s.sD[(3 + c) * LDP + row[r]] = dz3;
-      }
+      dz3b[r][c] = cd<!kTf32>(dz3);
+      if constexpr (!kTf32)
+        if (q == 0) {
+          s.sD[c * LDP + row[r]] = dz3b[r][c];
+          s.sD[(3 + c) * LDP + row[r]] = dz3;
+        }
     }
-    if (q == 0) s.sD[6 * LDP + row[r]] = lossv;
+    lossr[r] = lossv;
+    if constexpr (!kTf32)
+      if (q == 0) s.sD[6 * LDP + row[r]] = lossv;
   }
-  // dz2 = (dz3b W3^T) gelu'(z2); db2 over the warp's pixels; dz2b: dh1's
-  // A operand, and staged for dW2
+  // a value summed over the warp's 8 row groups (lanes of one q)
+  auto rows_sum = [](float v) {
+    v += __shfl_xor_sync(0xffffffffu, v, 4);
+    v += __shfl_xor_sync(0xffffffffu, v, 8);
+    v += __shfl_xor_sync(0xffffffffu, v, 16);
+    return v;
+  };
+  // fp32: the warp's sums of dW3 = h2^T dz3, db3 and the loss (over its
+  // 16 pixels: this thread's two, then the 8 row groups)
+  float* red = nullptr;
+  if constexpr (kTf32) {
+    red = s.sRed + warp * RED_W;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          const float v = rows_sum(fmaf(h2[nt][2 + i], dz3b[1][c],
+                                        h2[nt][i] * dz3b[0][c]));
+          if (g == 0) red[(8 * nt + 2 * q + i) * 3 + c] = v;
+        }
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const float v = rows_sum(c < 3 ? dz3b[0][c] + dz3b[1][c]
+                                     : lossr[0] + lossr[1]);
+      if (lane == 0) red[4 * H + c] = v;
+    }
+  }
+  // dz2 = (dz3b W3^T) gelu'(z2) in place of z2; db2 over the warp's pixels;
+  // dz2 (bf16: dz2b, also dh1's A operand) staged for dW2
   uint32_t ad[4][4];
 #pragma unroll
   for (int nt = 0; nt < 8; ++nt) {
@@ -643,29 +770,31 @@ __device__ __forceinline__ void ff_tail_mma(
     }
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      float b = z2[nt][i] + z2[nt][2 + i];
-      b += __shfl_xor_sync(0xffffffffu, b, 4);
-      b += __shfl_xor_sync(0xffffffffu, b, 8);
-      b += __shfl_xor_sync(0xffffffffu, b, 16);
-      if (g == 0) s.sDb2[warp * H + 8 * nt + 2 * q + i] = b;
+      const float b = rows_sum(z2[nt][i] + z2[nt][2 + i]);
+      if (g == 0) {
+        if constexpr (kTf32)
+          red[3 * H + 8 * nt + 2 * q + i] = b;
+        else
+          s.sDb2[warp * H + 8 * nt + 2 * q + i] = b;
+      }
     }
-    const uint32_t lo = pack_bf16(z2[nt][0], z2[nt][1]);
-    const uint32_t hi = pack_bf16(z2[nt][2], z2[nt][3]);
-    *reinterpret_cast<uint32_t*>(s.sDZ + row[0] * LDB + 8 * nt + 2 * q) = lo;
-    *reinterpret_cast<uint32_t*>(s.sDZ + row[1] * LDB + 8 * nt + 2 * q) = hi;
-    ad[nt >> 1][(nt & 1) * 2] = lo;
-    ad[nt >> 1][(nt & 1) * 2 + 1] = hi;
+    if constexpr (kTf32) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        *reinterpret_cast<float2*>(s.sDZ + row[r] * LDF + 8 * nt + 2 * q) =
+            make_float2(z2[nt][2 * r], z2[nt][2 * r + 1]);
+    } else {
+      const uint32_t lo = pack_bf16(z2[nt][0], z2[nt][1]);
+      const uint32_t hi = pack_bf16(z2[nt][2], z2[nt][3]);
+      *reinterpret_cast<uint32_t*>(s.sDZ + row[0] * LDB + 8 * nt + 2 * q) = lo;
+      *reinterpret_cast<uint32_t*>(s.sDZ + row[1] * LDB + 8 * nt + 2 * q) = hi;
+      ad[nt >> 1][(nt & 1) * 2] = lo;
+      ad[nt >> 1][(nt & 1) * 2 + 1] = hi;
+    }
   }
-  // dh1 = dz2b W2^T, dz1 = dh1 gelu'(z1) in place of z1 (and to device
+  // dh1 = dz2 W2^T, dz1 = dh1 gelu'(z1) in place of z1 (and to device
   // memory when asked)
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
-    float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-#pragma unroll
-    for (int kb = 0; kb < 4; ++kb) {
-      const __nv_bfloat16* w = s.sW2 + (8 * nt + g) * LDB + 16 * kb + 2 * q;
-      mma16816(d, ad[kb], ld_u32(w), ld_u32(w + 8));
-    }
+  auto put_dz1 = [&](int nt, const float (&d)[4]) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const float d0 = valid[r] ? d[2 * r] * gelu_d<G>(z1[nt][2 * r]) : 0.0f;
@@ -677,21 +806,66 @@ __device__ __forceinline__ void ff_tail_mma(
         *reinterpret_cast<float2*>(dz1_out + pix[r] * H + 8 * nt + 2 * q) =
             make_float2(d0, d1);
     }
+  };
+  if constexpr (kTf32) {
+    float d[8][4];
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+      d[nt][0] = d[nt][1] = d[nt][2] = d[nt][3] = 0.0f;
+    tile_3xtf32(d, z2, s.sW2t, g, q);
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) put_dz1(nt, d[nt]);
+  } else {
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+      for (int kb = 0; kb < 4; ++kb) {
+        const __nv_bfloat16* w = s.sW2 + (8 * nt + g) * LDB + 16 * kb + 2 * q;
+        mma16816(d, ad[kb], ld_u32(w), ld_u32(w + 8));
+      }
+      put_dz1(nt, d);
+    }
   }
   __syncthreads();
 
-  // the block's sums of loss, dW3, db3 (threads 0..67) and db2 (128..191)
-  tail_w3_sums<H>(s.sB, s.sD, mypart, first, inv_total);
-  if (tid >= 128 && tid < 128 + H) {
-    const int j = tid - 128;
-    float a = 0.0f;
-    for (int w = 0; w < MT / 32; ++w) a += s.sDb2[w * H + j];
-    float* dst = mypart + 4 + 3 * H + j;
-    *dst = first ? a : *dst + a;
+  // the block's sums of loss, dW3, db3 and db2
+  if constexpr (kTf32) {
+    // each over the warps in order: row i of the warps' sums is dW3 (i <
+    // 3 H, at 4 + i of the partial row), db2, db3 or the loss
+    for (int i = tid; i < RED_W; i += MT) {
+      float a = 0.0f;
+      for (int w = 0; w < MT / 32; ++w) a += s.sRed[w * RED_W + i];
+      const int at = i < 4 * H ? 4 + i : i == 4 * H + 3 ? 0 : i - 4 * H + 1;
+      if (at == 0) a *= inv_total;
+      mypart[at] = first ? a : mypart[at] + a;
+    }
+  } else {
+    // loss, dW3, db3 (threads 0..67) and db2 (128..191)
+    tail_w3_sums<H>(s.sB, s.sD, mypart, first, inv_total);
+    if (tid >= 128 && tid < 128 + H) {
+      const int j = tid - 128;
+      float a = 0.0f;
+      for (int w = 0; w < MT / 32; ++w) a += s.sDb2[w * H + j];
+      float* dst = mypart + 4 + 3 * H + j;
+      *dst = first ? a : *dst + a;
+    }
   }
-  // dW2 += h1b^T dz2b over the tile's 128 pixels, the warp's slice
-  {
-    const int mt = warp >> 1, nb = (warp & 1) * 4;
+  // dW2 += h1^T dz2 over the tile's 128 pixels, the warp's slice
+  const int mt = warp >> 1, nb = (warp & 1) * 4;
+  if constexpr (kTf32) {
+#pragma unroll 2
+    for (int ks = 0; ks < TP / 8; ++ks) {
+      const float* h = s.sH1 + (8 * ks + q) * LDF + 16 * mt + g;
+      const float* z = s.sDZ + (8 * ks + q) * LDF + 8 * nb + g;
+      const float a[4] = {h[0], h[8], h[4 * LDF], h[4 * LDF + 8]};
+      uint32_t ah[4], al[4];
+      split4(a, ah, al);
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+        mma_3xtf32(dw2[t], ah, al, hilo2(z[8 * t], z[4 * LDF + 8 * t]));
+    }
+  } else {
     const int i = lane >> 3, rr = lane & 7;
 #pragma unroll
     for (int ks = 0; ks < TP / 16; ++ks) {
@@ -709,6 +883,40 @@ __device__ __forceinline__ void ff_tail_mma(
     }
   }
   __syncthreads();
+}
+
+// the thread's two pixel rows of a tile in the accumulator layout: valid,
+// index (0 past npix) and noise counter base
+__device__ __forceinline__ void tile_rows(int tile, int npix, int fslot,
+                                          uint32_t pixel_base, bool (&valid)[2],
+                                          size_t (&pix)[2],
+                                          uint32_t (&ctr)[2]) {
+  const int warp = threadIdx.x >> 5, gq = (threadIdx.x & 31) >> 2;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int p = tile * TP + 16 * warp + gq + 8 * r;
+    valid[r] = p < npix;
+    pix[r] = valid[r] ? static_cast<size_t>(p) : 0;
+    ctr[r] = (static_cast<uint32_t>(p) + pixel_base) *
+             static_cast<uint32_t>(fslot);
+  }
+}
+
+// the block's dW2 (the warps' slices dw2 of ff_tail_mma), written once
+// into its partial row
+__device__ __forceinline__ void put_dw2(float* mypart, const float (&dw2)[4][4]) {
+  constexpr int H = 64;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gq = lane >> 2, q = lane & 3;
+  float* dW2 = mypart + 4 + 4 * H;
+  const int mt = warp >> 1, nb = (warp & 1) * 4;
+#pragma unroll
+  for (int t = 0; t < 4; ++t)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      *reinterpret_cast<float2*>(dW2 + (16 * mt + gq + 8 * r) * H +
+                                 8 * (nb + t) + 2 * q) =
+          make_float2(dw2[t][2 * r], dw2[t][2 * r + 1]);
 }
 
 // Geometry of the feature noise: npix pixels, nfeat features in slots of

@@ -31,7 +31,7 @@
 // 128-pixel tiles, each block walking a fixed set of tiles. It stages the
 // tile's x rows transposed in shared memory (coalesced reads of the
 // contiguous [128, F] slab), builds z1, runs the forward, the loss and the
-// backward down to dz1 (the body of K11's ff_pixel), and keeps its
+// backward down to dz1 (as K12's ff3_pixel does), and keeps its
 // block's partial sums of loss, dW3, db3, dW2, db2, db1 and dW1 = x^T dz1
 // in its own slot. A runtime flag picks what leaves the kernel (either
 // body):

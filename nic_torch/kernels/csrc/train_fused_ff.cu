@@ -16,13 +16,13 @@
 // train_fused_ff3.cu, and the window kernels with kernel2, train_fused.cu,
 // through train_common.cuh):
 //
-//   A ff_pixel   the per-pixel step over 128-pixel tiles, each block
-//                walking a fixed set of tiles: z1 build, MLP forward, loss,
-//                the backward down to dz1 (written to device memory,
-//                [N, H]), and the block's partial sums of loss, dW3, db3,
-//                dW2, db2. In bf16-dot mode (the flagship's) this is
-//                ff_pixel_mma on the tensor cores; in fp32-dot mode
-//                ff_pixel, one thread per pixel on the CUDA cores;
+//   A ff_pixel_mma / ff_pixel_tf32  the per-pixel step over 128-pixel
+//                tiles on the tensor cores, each block walking a fixed set
+//                of tiles: z1 build, MLP forward, loss, the backward down
+//                to dz1 (written to device memory, [N, H]), and the
+//                block's partial sums of loss, dW3, db3, dW2, db2.
+//                ff_pixel_mma takes bf16 dots (the flagship's mode),
+//                ff_pixel_tf32 fp32 dots as three TF32 products each;
 //   B node_windows + node_corners (train_common.cuh) the node-resolution
 //                cotangents per crop window: P-cell sums of dz1 and C1
 //                interpolation-weighted sums, each pixel read once (a
@@ -40,39 +40,44 @@
 // Every reduction is a fixed-order sum (no atomics): per-block partials
 // are summed afterwards in a fixed order, so two runs are bit-identical.
 //
-// Design of ff_pixel (fp32 dots): weights live in shared memory and every
-// thread of a block reads the same weight at the same time (broadcast).
-// The activations the weight gradients need (gelu(z1), gelu(z2), dz2, dz3)
-// are staged per tile in shared memory, transposed ([unit][pixel], row
-// stride 132 floats) so each thread writes and reads its own column
-// without bank conflicts and the reduction reads four pixels per 16-byte
-// load: dW2 = h1^T dz2 is a 64x64x128 product per tile, each thread
-// owning 32 of its outputs. TF32 would not hold fp32-dot mode's
-// tolerances, so its products stay fp32 FMAs.
-//
-// Design of ff_pixel_mma (bf16 dots): every dot input (h1, h2, the weights,
-// eps, and the cotangents dz3, dz2 on their way into a dot) is already
-// rounded to bf16 as JAX's astype(bf16) does, and every sum is fp32, so
-// bf16 tensor cores with fp32 accumulators (mma.sync m16n8k16) compute the
-// same products; only the order of summation changes. Its four products
-// are tensor-core tiles: eps W1 (A built from the counter hash in
-// registers), z2 = h1 W2 and dh1 = dz2 W2^T (A in registers: a warp's
-// 16-pixel accumulator tile is the next product's A operand), and dW2 =
-// h1^T dz2 over the tile (both operands staged in shared memory and read
-// with ldmatrix.trans, the block's slice accumulated in registers over its
+// Design of the two bodies. They share their layout, their z1 build and
+// their tail (train_common.cuh ff_tail_mma, templated on the dot kind):
+// 256 threads, a warp owning 16 pixels of the tile in the mma accumulator
+// layout, and four products as tensor-core tiles: eps W1 (A built from the
+// counter hash in registers), z2 = h1 W2 and dh1 = dz2 W2^T (A in
+// registers: a warp's 16-pixel accumulator tile is the next product's A
+// operand), and dW2 = h1^T dz2 over the tile (both operands staged in
+// shared memory, the block's slice accumulated in registers over its
 // tiles). The z1 base, the GELUs, the 64 -> 3 layer, the loss and dh2 stay
-// on the CUDA cores (train_common.cuh ff_tail_mma). 256 threads and
-// ~109 KB of shared memory per block, two blocks per SM: 16 warps, where
-// ff_pixel runs 8.
+// on the CUDA cores in fp32.
+//   ff_pixel_mma (bf16 dots): every dot input (h1, h2, the weights, eps,
+// and the cotangents dz3, dz2 on their way into a dot) is already rounded
+// to bf16 as JAX's astype(bf16) does, and every sum is fp32, so bf16
+// m16n8k16 products with fp32 accumulators compute the same products; only
+// the order of summation changes. dW2's operands are staged as bf16 and
+// read with ldmatrix.trans. ~109 KB of shared memory, two blocks per SM.
+//   ff_pixel_tf32 (fp32 dots): one TF32 product (10 mantissa bits) would
+// not hold fp32-dot mode's tolerances, three do (tf32x3.cuh: each operand
+// split into TF32 hi and lo parts, al bh + ah bl + ah bh in m16n8k8
+// products, fp32 accumulators; the dropped al bl is ~2^-22 of a product),
+// as K1-K5 take their fp32 dots. The A operands are split in registers
+// (eps unrounded from the hash, h1 and dz2 from the accumulators), W2, W2^T
+// and W1 are staged once per block as hi/lo float4 B tiles, and dW2's
+// operands as fp32 [pixel][unit] rows of 72 floats (ldmatrix has no 32-bit
+// transpose; that stride keeps the fragment loads free of bank conflicts),
+// split as read. The fp32 tiles take ~206 KB at the flagship: one block
+// of 8 warps per SM, 255 registers a thread, h2 kept in registers and the
+// dW3, db3, db2 and loss sums taken per warp by shuffles.
 //
 // What bounds it: per pixel the three 64x64 products (forward z2, backward
 // dh1, the dW2 reduction) are ~12.3 kFMA, plus ~4.7 kFMA for eps W1 with
 // noise and ~4.7 kFMA for eps^T dz1 in D: ~21 kFMA, i.e. ~22 GFLOP per
 // flagship step (524,288 pixels): ~0.35 ms on the fp32 CUDA cores at 67
-// TFLOP/s, 0.023 ms on the bf16 tensor cores at 989, against ~0.5 GB of
-// device-memory traffic (dz1 written once, read by B, C and D once each:
-// ~0.16 ms at 3.35 TB/s). On the tensor cores the bytes, the GELUs and the
-// hash bound A and D, not the products.
+// TFLOP/s, 0.023 ms on the bf16 tensor cores at 989 and, as three TF32
+// products, 0.13 ms at 495 / 3, against ~0.5 GB of device-memory traffic
+// (dz1 written once, read by B, C and D once each: ~0.16 ms at 3.35 TB/s).
+// In bf16 the bytes, the GELUs and the hash bound A and D, not the
+// products; in 3xTF32 the products' issue and the GELUs share A.
 // Not carried over from the TPU kernel: lane packing of two row blocks
 // with block-diagonal weights, the per-step parameter tiles, the per-crop
 // window staging and the scratch-ref expansions; this kernel indexes the
@@ -115,146 +120,85 @@ struct Geo {
 // ---- A: per-pixel forward + backward, block partials of the MLP grads ---
 //
 // partial row layout (floats): [loss, db3[3], dW3[H][3], db2[H], dW2[H][H]].
-// ff_pixel is fp32-dot mode's (one thread per pixel, CUDA cores);
-// bf16-dot mode runs ff_pixel_mma below.
-template <int H, int G>
-__global__ void __launch_bounds__(TP, 2)
-ff_pixel(const float* __restrict__ pp, const float* __restrict__ c1p,
-         const float* __restrict__ w1, const float* __restrict__ bvec,
-         const float* __restrict__ wpe0, const float* __restrict__ wpe1,
-         const float* __restrict__ w2, const float* __restrict__ b2,
-         const float* __restrict__ w3, const float* __restrict__ b3,
-         const float* __restrict__ tgt, const int* __restrict__ org,
-         float* __restrict__ out, float* __restrict__ dz1,
-         float* __restrict__ part, Geo g) {
-  extern __shared__ float4 smem4[];
-  float* sA = reinterpret_cast<float*>(smem4);  // h1b [H][LDP]
-  float* sB = sA + H * LDP;                     // h2b, then dz2 [H][LDP]
-  float* sD = sB + H * LDP;                     // dz3b, dz3, loss [7][LDP]
-  float* sW2 = sD + 7 * LDP;                    // [H][H] (in, out)
-  float* sW3 = sW2 + H * H;                     // [H][3]
-  float* sb2 = sW3 + H * 3;
-  float* sbv = sb2 + H;
-  float* sb3 = sbv + H;                         // [4]
-  float* sPe0 = sb3 + 4;                        // [8][H]
-  float* sPe1 = sPe0 + 8 * H;                   // [8][H]
-  float* sW1 = sPe1 + 8 * H;                    // [nfeat][H] with noise
+// Two bodies, one per dot kind, on the tensor cores: ff_pixel_mma (bf16
+// dots) and ff_pixel_tf32 (fp32 dots as three TF32 products). 256 threads
+// (8 warps) per block, one 128-pixel tile at a time; a warp owns 16 pixels
+// and each thread two of them (rows g and g + 8 of the warp, g = lane / 4)
+// at 16 of the 64 units, the accumulator layout of train_common.cuh. The
+// thread builds those z1 entries on the CUDA cores (add_z1_base: P cell,
+// bilinear C1, triangular PE, bias), adds eps W1 from noise_mma /
+// noise_tf32 first, and hands z1 to ff_tail_mma. The block's slice of dW2
+// stays in registers over all its tiles and is written once at the end.
 
-  const int tid = threadIdx.x;
-  for (int i = tid; i < H * H; i += TP) sW2[i] = w2[i];
-  for (int i = tid; i < H * 3; i += TP) sW3[i] = w3[i];
-  for (int i = tid; i < H; i += TP) {
-    sb2[i] = b2[i];
-    sbv[i] = bvec[i];
-  }
-  if (tid < 3) sb3[tid] = b3[tid];
-  for (int i = tid; i < 8 * H; i += TP) {
-    const bool in = i < g.npe * H;
-    sPe0[i] = in ? wpe0[i] : 0.0f;
-    sPe1[i] = in ? wpe1[i] : 0.0f;
-  }
-  const bool noise = g.eps_scale != 0.0f;
-  stage_w1<false>(sW1, w1, g.nfeat * H, noise && g.w1_smem);
-  __syncthreads();
-
-  constexpr int PART = 4 + 4 * H + H * H;
-  float* mypart = part + static_cast<size_t>(blockIdx.x) * PART;
+// z1 of the thread's pixel row r (pixel p) += its base, in the accumulator
+// layout, after eps W1 (which the JAX kernel adds last)
+__device__ __forceinline__ void add_z1_base(
+    float (&z1)[8][4], int r, int p, bool noise, const float* __restrict__ pp,
+    const float* __restrict__ c1p, const int* __restrict__ org,
+    const float* sPe0, const float* sPe1, const float* sbv, const Geo& g) {
+  constexpr int H = 64;
+  const int q = threadIdx.x & 3;
   const int nn = g.n * g.n;
-  const int tiles = (g.npix + TP - 1) / TP;
-  bool first = true;
-  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, first = false) {
-    const int pix = tile * TP + tid;
-    const bool valid = pix < g.npix;
-    float z1[H];
-    if (valid) {
-      const int crop = pix / nn, rem = pix % nn;
-      const int y = org[2 * crop] + rem / g.n;
-      const int x = org[2 * crop + 1] + rem % g.n;
-      // eps W1 first (it is added last, as in the JAX kernel)
-NIC_UNROLL_H(H)
-      for (int h = 0; h < H; ++h) z1[h] = 0.0f;
-      if (noise) {
-        const uint32_t ctr0 =
-            (static_cast<uint32_t>(pix) + g.pixel_base) *
-            static_cast<uint32_t>(g.fslot);
-        if (g.w1_smem)
-          noise_rows<H, false, false>(z1, sW1, g.nfeat, ctr0, g.s0, g.s1,
-                                     g.eps_scale);
-        else
-          noise_rows<H, false, true>(z1, w1, g.nfeat, ctr0, g.s0, g.s1,
-                                    g.eps_scale);
-      }
-      const float ty = static_cast<float>(y) * g.inv_f1;
-      const float tx = static_cast<float>(x) * g.inv_f1;
-      float trow[8], tcol[8];
+  const int crop = p / nn, rem = p % nn;
+  const int y = org[2 * crop] + rem / g.n;
+  const int x = org[2 * crop + 1] + rem % g.n;
+  const float ty = static_cast<float>(y) * g.inv_f1;
+  const float tx = static_cast<float>(x) * g.inv_f1;
+  float trow[8], tcol[8];
+#pragma unroll
+  for (int o = 0; o < 8; ++o) {
+    trow[o] = o < g.npe ? tri_pe(ty, o, g.npe) : 0.0f;
+    tcol[o] = o < g.npe ? tri_pe(tx, o, g.npe) : 0.0f;
+  }
+  const float fr = static_cast<float>(y % g.f1) * g.inv_f1;
+  const float fc = static_cast<float>(x % g.f1) * g.inv_f1;
+  const int r1 = y / g.f1, cc1 = x / g.f1;
+  const int r1b = min(r1 + 1, g.c1_rows - 1);
+  const int c1b = min(cc1 + 1, g.c1_cols - 1);
+  const float* prow =
+      pp + (static_cast<size_t>(y / g.f) * g.p_cols + x / g.f) * H;
+  const float* q00 = c1p + (static_cast<size_t>(r1) * g.c1_cols + cc1) * H;
+  const float* q01 = c1p + (static_cast<size_t>(r1) * g.c1_cols + c1b) * H;
+  const float* q10 = c1p + (static_cast<size_t>(r1b) * g.c1_cols + cc1) * H;
+  const float* q11 = c1p + (static_cast<size_t>(r1b) * g.c1_cols + c1b) * H;
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+    const int h0 = 8 * nt + 2 * q;
+    const float2 pv = *reinterpret_cast<const float2*>(prow + h0);
+    const float2 a0 = *reinterpret_cast<const float2*>(q00 + h0);
+    const float2 a1 = *reinterpret_cast<const float2*>(q01 + h0);
+    const float2 b0 = *reinterpret_cast<const float2*>(q10 + h0);
+    const float2 b1 = *reinterpret_cast<const float2*>(q11 + h0);
+    const float pa[2] = {pv.x, pv.y}, v00[2] = {a0.x, a0.y};
+    const float v01[2] = {a1.x, a1.y}, v10[2] = {b0.x, b0.y};
+    const float v11[2] = {b1.x, b1.y};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int h = h0 + i;
+      const float ra = (1.0f - fc) * v00[i] + fc * v01[i];
+      const float rb = (1.0f - fc) * v10[i] + fc * v11[i];
+      const float c1t = (1.0f - fr) * ra + fr * rb;
+      float peu = 0.0f, pec = 0.0f;
 #pragma unroll
       for (int o = 0; o < 8; ++o) {
-        trow[o] = o < g.npe ? tri_pe(ty, o, g.npe) : 0.0f;
-        tcol[o] = o < g.npe ? tri_pe(tx, o, g.npe) : 0.0f;
+        peu = fmaf(trow[o], sPe0[o * H + h], peu);
+        pec = fmaf(tcol[o], sPe1[o * H + h], pec);
       }
-      const float fr = static_cast<float>(y % g.f1) * g.inv_f1;
-      const float fc = static_cast<float>(x % g.f1) * g.inv_f1;
-      const int r1 = y / g.f1, cc1 = x / g.f1;
-      const int r1b = min(r1 + 1, g.c1_rows - 1);
-      const int c1b = min(cc1 + 1, g.c1_cols - 1);
-      const float* prow =
-          pp + (static_cast<size_t>(y / g.f) * g.p_cols + x / g.f) * H;
-      const float* q00 = c1p + (static_cast<size_t>(r1) * g.c1_cols + cc1) * H;
-      const float* q01 = c1p + (static_cast<size_t>(r1) * g.c1_cols + c1b) * H;
-      const float* q10 = c1p + (static_cast<size_t>(r1b) * g.c1_cols + cc1) * H;
-      const float* q11 = c1p + (static_cast<size_t>(r1b) * g.c1_cols + c1b) * H;
-NIC_UNROLL_H(H / 4)
-      for (int h4 = 0; h4 < H / 4; ++h4) {
-        const float4 pv = reinterpret_cast<const float4*>(prow)[h4];
-        const float4 a0 = reinterpret_cast<const float4*>(q00)[h4];
-        const float4 a1 = reinterpret_cast<const float4*>(q01)[h4];
-        const float4 b0 = reinterpret_cast<const float4*>(q10)[h4];
-        const float4 b1 = reinterpret_cast<const float4*>(q11)[h4];
-        const float pa[4] = {pv.x, pv.y, pv.z, pv.w};
-        const float v00[4] = {a0.x, a0.y, a0.z, a0.w};
-        const float v01[4] = {a1.x, a1.y, a1.z, a1.w};
-        const float v10[4] = {b0.x, b0.y, b0.z, b0.w};
-        const float v11[4] = {b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int h = 4 * h4 + q;
-          const float ra = (1.0f - fc) * v00[q] + fc * v01[q];
-          const float rb = (1.0f - fc) * v10[q] + fc * v11[q];
-          const float c1t = (1.0f - fr) * ra + fr * rb;
-          float peu = 0.0f, pec = 0.0f;
-#pragma unroll
-          for (int o = 0; o < 8; ++o) {
-            peu = fmaf(trow[o], sPe0[o * H + h], peu);
-            pec = fmaf(tcol[o], sPe1[o * H + h], pec);
-          }
-          const float base = (((pa[q] + c1t) + peu) + pec) + sbv[h];
-          z1[h] = noise ? base + z1[h] : base;
-        }
-      }
+      const float base = (((pa[i] + c1t) + peu) + pec) + sbv[h];
+      float& z = z1[nt][2 * r + i];
+      z = noise ? base + z : base;
     }
-    ff_tail<H, false, G>(z1, valid, static_cast<size_t>(pix), sW2, sW3, sb2,
-                        sb3, sA, sB, sD, tgt, out, dz1, mypart, first,
-                        g.inv_total);
   }
 }
 
-// ---- A in bf16-dot mode: the same step on the tensor cores ------------
-//
-// 256 threads (8 warps) per block, one 128-pixel tile at a time; a warp owns
-// 16 pixels and each thread two of them (rows g and g + 8 of the warp, g =
-// lane / 4) at 16 of the 64 units, the m16n8k16 accumulator layout of
-// train_common.cuh. The thread builds those z1 entries on the CUDA cores
-// (P cell, bilinear C1, triangular PE, bias), adds eps W1 from noise_mma,
-// and hands z1 to ff_tail_mma. The block's slice of dW2 stays in
-// registers over all its tiles and is written once at the end.
-//
-// Shared memory (bytes): h2b [64][132] bf16 16,896; dz3b, dz3, loss [7][132]
-// 3,696; per-warp db2 [8][64] 2,048; W3, b2, bvec, b3 1,296; PE tables
-// [2][8][64] 4,096; h1b and dz2b [128][72] bf16 36,864; W2^T and W2 [64][72]
-// bf16 18,432: 83,328, plus with noise W1^T [64][pad16(F) + 8] bf16
-// (11,264 at F = 73): 94,592 at the flagship, so two blocks (16 warps) fit
-// on an SM; __launch_bounds__(256, 2) holds a thread to 128 registers.
-// From F = 1153 on, W1 is read from device memory instead.
+// Shared memory of ff_pixel_mma (bytes): h2b [64][132] bf16 16,896; dz3b,
+// dz3, loss [7][132] 3,696; per-warp db2 [8][64] 2,048; W3, b2, bvec, b3
+// 1,296; PE tables [2][8][64] 4,096; h1b and dz2b [128][72] bf16 36,864;
+// W2^T and W2 [64][72] bf16 18,432: 83,328, plus with noise W1^T
+// [64][pad16(F) + 8] bf16 (11,264 at F = 73): 94,592 at the flagship, so
+// two blocks (16 warps) fit on an SM; __launch_bounds__(256, 2) holds a
+// thread to 128 registers. From F = 1153 on, W1 is read from device memory
+// instead.
 constexpr size_t kMmaFixedSmem = 83328;
 
 size_t ff_mma_smem(int nfeat, bool w1_smem) {
@@ -319,8 +263,6 @@ ff_pixel_mma(const float* __restrict__ pp, const float* __restrict__ c1p,
   const TailMma ts{sB, sD, sDb2, sH1, sDZ, sW2t, sW2, sW3, sb2, sb3};
   constexpr int PART = 4 + 4 * H + H * H;
   float* mypart = part + static_cast<size_t>(blockIdx.x) * PART;
-  const int warp = tid >> 5, lane = tid & 31, gq = lane >> 2, q = lane & 3;
-  const int nn = g.n * g.n;
   const int tiles = (g.npix + TP - 1) / TP;
   float dw2[4][4] = {};
   bool first = true;
@@ -328,14 +270,7 @@ ff_pixel_mma(const float* __restrict__ pp, const float* __restrict__ c1p,
     bool valid[2];
     size_t pix[2];
     uint32_t ctr[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int p = tile * TP + 16 * warp + gq + 8 * r;
-      valid[r] = p < g.npix;
-      pix[r] = valid[r] ? static_cast<size_t>(p) : 0;
-      ctr[r] = (static_cast<uint32_t>(p) + g.pixel_base) *
-               static_cast<uint32_t>(g.fslot);
-    }
+    tile_rows(tile, g.npix, g.fslot, g.pixel_base, valid, pix, ctr);
     // eps W1 first (it is added last, as in the JAX kernel)
     float z1[8][4] = {};
     if (noise) {
@@ -347,73 +282,106 @@ ff_pixel_mma(const float* __restrict__ pp, const float* __restrict__ c1p,
                         g.eps_scale);
     }
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      if (!valid[r]) continue;
-      const int crop = static_cast<int>(pix[r]) / nn;
-      const int rem = static_cast<int>(pix[r]) % nn;
-      const int y = org[2 * crop] + rem / g.n;
-      const int x = org[2 * crop + 1] + rem % g.n;
-      const float ty = static_cast<float>(y) * g.inv_f1;
-      const float tx = static_cast<float>(x) * g.inv_f1;
-      float trow[8], tcol[8];
-#pragma unroll
-      for (int o = 0; o < 8; ++o) {
-        trow[o] = o < g.npe ? tri_pe(ty, o, g.npe) : 0.0f;
-        tcol[o] = o < g.npe ? tri_pe(tx, o, g.npe) : 0.0f;
-      }
-      const float fr = static_cast<float>(y % g.f1) * g.inv_f1;
-      const float fc = static_cast<float>(x % g.f1) * g.inv_f1;
-      const int r1 = y / g.f1, cc1 = x / g.f1;
-      const int r1b = min(r1 + 1, g.c1_rows - 1);
-      const int c1b = min(cc1 + 1, g.c1_cols - 1);
-      const float* prow =
-          pp + (static_cast<size_t>(y / g.f) * g.p_cols + x / g.f) * H;
-      const float* q00 = c1p + (static_cast<size_t>(r1) * g.c1_cols + cc1) * H;
-      const float* q01 = c1p + (static_cast<size_t>(r1) * g.c1_cols + c1b) * H;
-      const float* q10 = c1p + (static_cast<size_t>(r1b) * g.c1_cols + cc1) * H;
-      const float* q11 = c1p + (static_cast<size_t>(r1b) * g.c1_cols + c1b) * H;
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        const int h0 = 8 * nt + 2 * q;
-        const float2 pv = *reinterpret_cast<const float2*>(prow + h0);
-        const float2 a0 = *reinterpret_cast<const float2*>(q00 + h0);
-        const float2 a1 = *reinterpret_cast<const float2*>(q01 + h0);
-        const float2 b0 = *reinterpret_cast<const float2*>(q10 + h0);
-        const float2 b1 = *reinterpret_cast<const float2*>(q11 + h0);
-        const float pa[2] = {pv.x, pv.y}, v00[2] = {a0.x, a0.y};
-        const float v01[2] = {a1.x, a1.y}, v10[2] = {b0.x, b0.y};
-        const float v11[2] = {b1.x, b1.y};
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const int h = h0 + i;
-          const float ra = (1.0f - fc) * v00[i] + fc * v01[i];
-          const float rb = (1.0f - fc) * v10[i] + fc * v11[i];
-          const float c1t = (1.0f - fr) * ra + fr * rb;
-          float peu = 0.0f, pec = 0.0f;
-#pragma unroll
-          for (int o = 0; o < 8; ++o) {
-            peu = fmaf(trow[o], sPe0[o * H + h], peu);
-            pec = fmaf(tcol[o], sPe1[o * H + h], pec);
-          }
-          const float base = (((pa[i] + c1t) + peu) + pec) + sbv[h];
-          float& z = z1[nt][2 * r + i];
-          z = noise ? base + z : base;
-        }
-      }
-    }
+    for (int r = 0; r < 2; ++r)
+      if (valid[r])
+        add_z1_base(z1, r, static_cast<int>(pix[r]), noise, pp, c1p, org,
+                    sPe0, sPe1, sbv, g);
     ff_tail_mma<G>(z1, valid, pix, ts, tgt, out, dz1, mypart, first,
                    g.inv_total, dw2);
   }
-  // the block's dW2, written once
-  float* dW2 = mypart + 4 + 4 * H;
-  const int mt = warp >> 1, nb = (warp & 1) * 4;
-#pragma unroll
-  for (int t = 0; t < 4; ++t)
+  put_dw2(mypart, dw2);
+}
+
+// Shared memory of ff_pixel_tf32 (bytes): W2 and W2^T as TF32 hi/lo B
+// tiles [64][36] float4 36,864 each; h1 and dz2 [128][72] fp32 36,864 each;
+// the warps' sums [8][260] 8,320; W3, b2, bvec, b3 1,296; PE tables
+// [2][8][64] 4,096: 161,168, plus with noise W1 as TF32 hi/lo B tiles
+// [64][pad16(F) / 2 + 4] float4 (45,056 at F = 73): 206,224 at the
+// flagship, so one block (8 warps) an SM; __launch_bounds__(256, 1) leaves
+// a thread 255 registers. From F = 129 on, W1 is read from device memory
+// and split as it is read.
+constexpr size_t kTf32FixedSmem = 161168;
+
+size_t ff_tf32_smem(int nfeat, bool w1_smem) {
+  const size_t ldw = static_cast<size_t>(pad16(nfeat) / 2 + 4);
+  return kTf32FixedSmem + (w1_smem ? 64 * ldw * sizeof(float4) : 0);
+}
+
+template <int G>
+__global__ void __launch_bounds__(MT, 1)
+ff_pixel_tf32(const float* __restrict__ pp, const float* __restrict__ c1p,
+              const float* __restrict__ w1, const float* __restrict__ bvec,
+              const float* __restrict__ wpe0, const float* __restrict__ wpe1,
+              const float* __restrict__ w2, const float* __restrict__ b2,
+              const float* __restrict__ w3, const float* __restrict__ b3,
+              const float* __restrict__ tgt, const int* __restrict__ org,
+              float* __restrict__ out, float* __restrict__ dz1,
+              float* __restrict__ part, Geo g) {
+  constexpr int H = 64;
+  extern __shared__ float4 smem4[];
+  float4* sW2 = smem4;                                    // [H][36]
+  float4* sW2t = sW2 + H * 36;                            // [H][36]
+  float* sH1 = reinterpret_cast<float*>(sW2t + H * 36);   // [TP][LDF]
+  float* sDZ = sH1 + TP * LDF;                            // [TP][LDF]
+  float* sRed = sDZ + TP * LDF;                           // [8][RED_W]
+  float* sW3 = sRed + (MT / 32) * RED_W;                  // [H][3]
+  float* sb2 = sW3 + 3 * H;
+  float* sbv = sb2 + H;
+  float* sb3 = sbv + H;                                   // [4]
+  float* sPe0 = sb3 + 4;                                  // [8][H]
+  float* sPe1 = sPe0 + 8 * H;                             // [8][H]
+  float4* sW1 = reinterpret_cast<float4*>(sPe1 + 8 * H);  // [H][ldw] noise
+  const int ldw = pad16(g.nfeat) / 2 + 4;
+
+  const int tid = threadIdx.x;
+  stage_b_pairs(sW2, w2, H, 1, H, H);   // (k, n) = W2[k][n]
+  stage_b_pairs(sW2t, w2, 1, H, H, H);  // (k, n) = W2[n][k]
+  for (int i = tid; i < H * 3; i += MT) sW3[i] = w3[i];
+  for (int i = tid; i < H; i += MT) {
+    sb2[i] = b2[i];
+    sbv[i] = bvec[i];
+  }
+  if (tid < 3) sb3[tid] = b3[tid];
+  for (int i = tid; i < 8 * H; i += MT) {
+    const bool in = i < g.npe * H;
+    sPe0[i] = in ? wpe0[i] : 0.0f;
+    sPe1[i] = in ? wpe1[i] : 0.0f;
+  }
+  const bool noise = g.eps_scale != 0.0f;
+  if (noise && g.w1_smem)
+    stage_b_pairs(sW1, w1, H, 1, pad16(g.nfeat), g.nfeat);
+  __syncthreads();
+
+  const TailTf32 ts{sH1, sDZ, sRed, sW2, sW2t, sW3, sb2, sb3};
+  constexpr int PART = 4 + 4 * H + H * H;
+  float* mypart = part + static_cast<size_t>(blockIdx.x) * PART;
+  const int tiles = (g.npix + TP - 1) / TP;
+  float dw2[4][4] = {};
+  bool first = true;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, first = false) {
+    bool valid[2];
+    size_t pix[2];
+    uint32_t ctr[2];
+    tile_rows(tile, g.npix, g.fslot, g.pixel_base, valid, pix, ctr);
+    // eps W1 first (it is added last, as in the JAX kernel)
+    float z1[8][4] = {};
+    if (noise) {
+      if (g.w1_smem)
+        noise_tf32<false>(z1, sW1, ldw, w1, g.nfeat, ctr, valid, g.s0, g.s1,
+                          g.eps_scale);
+      else
+        noise_tf32<true>(z1, sW1, ldw, w1, g.nfeat, ctr, valid, g.s0, g.s1,
+                         g.eps_scale);
+    }
 #pragma unroll
     for (int r = 0; r < 2; ++r)
-      *reinterpret_cast<float2*>(dW2 + (16 * mt + gq + 8 * r) * H +
-                                 8 * (nb + t) + 2 * q) =
-          make_float2(dw2[t][2 * r], dw2[t][2 * r + 1]);
+      if (valid[r])
+        add_z1_base(z1, r, static_cast<int>(pix[r]), noise, pp, c1p, org,
+                    sPe0, sPe1, sbv, g);
+    ff_tail_mma<G>(z1, valid, pix, ts, tgt, out, dz1, mypart, first,
+                   g.inv_total, dw2);
+  }
+  put_dw2(mypart, dw2);
 }
 
 // ---- C: the PE grads and db1 in one pass over dz1 ----------------------
@@ -571,18 +539,13 @@ struct Args {
   cudaStream_t stream;
 };
 
-// shared memory of ff_pixel: the staging tiles, W2, W3, b2, bvec, b3, the
-// PE tables and, with noise when it fits, W1 (93,056 bytes at H = 64; W1
-// adds 256 F bytes and stays in device memory from F = 545 on)
-template <int H>
-size_t ff_smem(int nfeat, bool w1_smem) {
-  return sizeof(float) * (2 * H * LDP + 7 * LDP + H * H + 3 * H + 2 * H + 4 +
-                          16 * H +
-                          (w1_smem ? static_cast<size_t>(nfeat) * H : 0));
-}
+// the per-pixel bodies, by the id the caller passes (nic_torch/kernels/
+// train_fused_ff.py BODY_IDS, from _widths.kernel_body)
+enum Body { kMma = 1, kTf32 = 2 };
 
-// bf16-dot mode runs the tensor-core kernel, fp32-dot mode ff_pixel
-template <int H, bool BF16, int G>
+// the body of the dot kind: ff_pixel_mma for bf16 dots, ff_pixel_tf32 for
+// fp32 dots
+template <bool BF16, int G>
 cudaError_t launch_pixel(const Args& a) {
   if constexpr (BF16) {
     const size_t smem = ff_mma_smem(a.g.nfeat, a.g.w1_smem);
@@ -598,13 +561,13 @@ cudaError_t launch_pixel(const Args& a) {
     if (e == cudaSuccess) nic_note_body(reinterpret_cast<const void*>(kern));
     return e;
   } else {
-    const size_t smem = ff_smem<H>(a.g.nfeat, a.g.w1_smem);
-    auto kern = ff_pixel<H, G>;
+    const size_t smem = ff_tf32_smem(a.g.nfeat, a.g.w1_smem);
+    auto kern = ff_pixel_tf32<G>;
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (e != cudaSuccess) return e;
-    kern<<<a.nblk_mlp, TP, smem, a.stream>>>(
+    kern<<<a.nblk_mlp, MT, smem, a.stream>>>(
         a.pp, a.c1p, a.w1, a.bvec, a.wpe0, a.wpe1, a.w2, a.b2, a.w3, a.b3,
         a.tgt, a.org, a.out, a.dz1, a.part_mlp, a.g);
     e = cudaGetLastError();
@@ -634,7 +597,7 @@ cudaError_t launch_rest(const Args& a) {
 
 template <int H, bool BF16, int G>
 cudaError_t launch_all(const Args& a) {
-  const cudaError_t e = launch_pixel<H, BF16, G>(a);
+  const cudaError_t e = launch_pixel<BF16, G>(a);
   if (e != cudaSuccess) return e;
   return launch_rest<H, BF16>(a);
 }
@@ -659,12 +622,13 @@ extern "C" int nic_train_fused_ff(
     void* part_eps, int crops,
     int n, int f, int p_rows, int p_cols, int c1_rows, int c1_cols,
     int hidden, int npe, int nfeat, int fslot, int bf16, int gelu_id,
-    int mma, int nbits, int s0, int s1, int pixel_base, int nblk_mlp,
+    int body, int nbits, int s0, int s1, int pixel_base, int nblk_mlp,
     int nblk_eps, void* stream) {
-  // the caller names the body: ff_pixel_mma takes bf16 dots, ff_pixel fp32
+  // the caller names the body: ff_pixel_mma takes bf16 dots, ff_pixel_tf32
+  // fp32 dots; any other pairing is refused
   if (crops <= 0 || n <= 0 || f <= 0 || npe < 0 || npe > 8 || nfeat <= 0 ||
       fslot < nfeat || nblk_mlp <= 0 || (nbits > 0) != (nblk_eps > 0) ||
-      (mma != 0) != (bf16 != 0))
+      body != (bf16 ? kMma : kTf32))
     return static_cast<int>(cudaErrorInvalidValue);
   Geo g;
   g.crops = crops;
@@ -686,7 +650,7 @@ extern "C" int nic_train_fused_ff(
   g.s1 = static_cast<uint32_t>(s1);
   g.pixel_base = static_cast<uint32_t>(pixel_base);
   g.w1_smem = nbits > 0 && (bf16 ? ff_mma_smem(nfeat, true)
-                                  : ff_smem<64>(nfeat, true)) <= kMaxSmem;
+                                  : ff_tf32_smem(nfeat, true)) <= kMaxSmem;
   Args a;
   a.pp = static_cast<const float*>(p_plane);
   a.c1p = static_cast<const float*>(c1_plane);

@@ -17,16 +17,18 @@
 // and the full backward. One entry point, nic_train_fused_ff3, runs on the
 // caller's stream:
 //
-//   A ff3_pixel     one thread per voxel, 128-voxel tiles, each block
-//                   walking a fixed set of tiles: the z1 build, then the
-//                   MLP tail of train_common.cuh (ff_tail, shared with the
-//                   2D kernel3): forward, loss, backward down to dz1
+//   A the per-voxel step over 128-voxel tiles, each block walking a fixed
+//                   set of tiles: the z1 build, then the MLP tail of
+//                   train_common.cuh: forward, loss, backward down to dz1
 //                   (written [N, H]) and the block partials of loss, dW3,
-//                   db3, dW2, db2. In bf16-dot mode at H = 64 this is
-//                   ff3_pixel_mma on the tensor cores (ff_tail_mma, as
-//                   K11's ff_pixel_mma); the caller names the body
-//                   (`mma`, nic_torch/kernels/_widths.py kernel_body) and
-//                   a body that does not take the mode is refused;
+//                   db3, dW2, db2. At H = 64 on the tensor cores
+//                   (ff_tail_mma, as K11's bodies): ff3_pixel_mma for bf16
+//                   dots, ff3_pixel_tf32 for fp32 dots as three TF32
+//                   products each; at H = 128 ff3_pixel, one thread per
+//                   voxel on the CUDA cores (ff_tail). The caller names the
+//                   body (`body`, nic_torch/kernels/_widths.py
+//                   kernel_body) and a body that does not take the mode
+//                   and width is refused;
 //   B node_volumes + node_volume_corners (train_common.cuh, shared with
 //                   the 3D kernel2) the node-resolution cotangents per
 //                   crop: P-cell sums of dz1 at period f per axis, C1
@@ -64,11 +66,14 @@
 // = 262,144 voxels ~16 GFLOP with noise, ~0.24 ms of fp32 CUDA cores at 67
 // TFLOP/s, against ~0.2 GB of traffic (dz1 written once, read by B, C, D).
 // On the bf16 tensor cores (ff3_pixel_mma) the products take ~0.016 ms and
-// the bytes, the z1 build's nine gathers and the GELUs bound A.
+// the bytes, the z1 build's nine gathers and the GELUs bound A; as three
+// TF32 products (ff3_pixel_tf32, at 495 / 3 TFLOP/s) ~0.067 ms of A's
+// 11 GFLOP, beside the same CUDA-core work.
 //
 // Widths: H = 64 and H = 128 are built (a narrower model is zero-padded
-// to the next by the wrapper, nic_torch/kernels/_widths.py; bf16 dots at
-// H = 64 run ff3_pixel_mma, fp32 dots and H = 128 ff3_pixel), and any F.
+// to the next by the wrapper, nic_torch/kernels/_widths.py; at H = 64
+// bf16 dots run ff3_pixel_mma and fp32 dots ff3_pixel_tf32, at H = 128
+// both run ff3_pixel), and any F.
 // At H = 128 the staging tiles and W2 take 206,464 bytes of shared memory,
 // so W1 (F = 127: another 65 KB) does not fit beside them: the noise term
 // reads W1's rows from device memory through L1 instead (ff3_smem picks
@@ -204,25 +209,93 @@ NIC_UNROLL_H(H / 4)
   }
 }
 
-// ---- A in bf16-dot mode at H = 64: the same step on the tensor cores -----
+// ---- A at H = 64 on the tensor cores: ff3_pixel_mma and ff3_pixel_tf32 --
 //
-// The layout of K11's ff_pixel_mma (train_fused_ff.cu): 256 threads (8
-// warps), one 128-voxel tile at a time; a warp owns 16 voxels and each
-// thread two of them (rows g and g + 8 of the warp, g = lane / 4) at 16 of
-// the 64 units, the m16n8k16 accumulator layout of train_common.cuh. The
-// thread builds those z1 entries on the CUDA cores with float2 loads (the P
-// cell; the eight C1 taps, trilinear, a2 then a1 then the slab axis; the
-// three PE rows; ff3_pixel's order of summation), adds eps W1 from
-// noise_mma (W1^T in bf16) and hands z1 to ff_tail_mma, which writes dz1
-// for node_volumes, ff3_pe_band and ff_epsgrad. The block's slice of dW2
-// stays in registers over its tiles and is written once.
-//
-// Shared memory (bytes): h2b [64][132] bf16 16,896; dz3b, dz3, loss
-// [7][132] 3,696; per-warp db2 [8][64] 2,048; W3, b2, b3 1,040; h1b and
-// dz2b [128][72] bf16 36,864; W2^T and W2 [64][72] bf16 18,432: 78,976,
-// plus with noise W1^T [64][pad16(F) + 8] bf16 (17,408 at F = 127): 96,384
-// at the 3D protocol, so two blocks (16 warps) fit on an SM. From F = 1185
-// on, W1 is read from device memory instead.
+// The layout of K11's bodies (train_fused_ff.cu): 256 threads (8 warps),
+// one 128-voxel tile at a time; a warp owns 16 voxels and each thread two
+// of them (rows g and g + 8 of the warp, g = lane / 4) at 16 of the 64
+// units, the accumulator layout of train_common.cuh. The thread builds
+// those z1 entries on the CUDA cores with float2 loads (add_z1_base3),
+// adds eps W1 first (noise_mma, W1^T in bf16, for bf16 dots; noise_tf32,
+// W1 as TF32 hi/lo B tiles, for fp32 dots) and hands z1 to ff_tail_mma,
+// which writes dz1 for node_volumes, ff3_pe_band and ff_epsgrad. The
+// block's slice of dW2 stays in registers over its tiles and is written
+// once.
+
+// z1 of the thread's voxel row r (voxel p) += its base, in the
+// accumulator layout, after eps W1: the P cell; the eight C1 taps,
+// trilinear, a2 then a1 then the slab axis; the three PE rows (ff3_pixel's
+// order of summation)
+__device__ __forceinline__ void add_z1_base3(
+    float (&z1)[8][4], int r, int p, bool noise, const float* __restrict__ pv,
+    const float* __restrict__ c1v, const float* __restrict__ pe,
+    const int* __restrict__ org, const Geo3& g) {
+  constexpr int H = 64;
+  const int q = threadIdx.x & 3;
+  const int n = g.n;
+  const int n3 = n * n * n;
+  const size_t tab = static_cast<size_t>(g.crops) * n * H;  // one PE table
+  const int ps = g.p_side, cs = g.c_side;
+  const int crop = p / n3, rem = p % n3;
+  const int vs = rem / (n * n), va = rem / n % n, vb = rem % n;
+  const int* o = org + 3 * crop;
+  const int S = o[0] + vs, A = o[1] + va, B = o[2] + vb;
+  // C1 taps: nodes S/f1, A/f1, B/f1 and the next ones (clamped; the
+  // clamped tap always has weight 0), in-cell fractions u
+  const float us = static_cast<float>(S % g.f1) * g.inv_f1;
+  const float ua = static_cast<float>(A % g.f1) * g.inv_f1;
+  const float ub = static_cast<float>(B % g.f1) * g.inv_f1;
+  const int s0 = S / g.f1, a0 = A / g.f1, b0 = B / g.f1;
+  const int s1 = min(s0 + 1, cs - 1), a1 = min(a0 + 1, cs - 1);
+  const int b1 = min(b0 + 1, cs - 1);
+  const float* tap[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k)
+    tap[k] = c1v + ((static_cast<size_t>(k & 4 ? s1 : s0) * cs +
+                     (k & 2 ? a1 : a0)) * cs + (k & 1 ? b1 : b0)) * H;
+  const float* prow =
+      pv + ((static_cast<size_t>(S / g.f) * ps + A / g.f) * ps + B / g.f) * H;
+  const float* e0 = pe + (static_cast<size_t>(crop) * n + vs) * H;
+  const float* e1 = pe + tab + (static_cast<size_t>(crop) * n + va) * H;
+  const float* e2 = pe + 2 * tab + (static_cast<size_t>(crop) * n + vb) * H;
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+    const int h0 = 8 * nt + 2 * q;
+    float2 v[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      v[k] = *reinterpret_cast<const float2*>(tap[k] + h0);
+    const float2 p2 = *reinterpret_cast<const float2*>(prow + h0);
+    const float2 f0 = *reinterpret_cast<const float2*>(e0 + h0);
+    const float2 f1 = *reinterpret_cast<const float2*>(e1 + h0);
+    const float2 f2 = *reinterpret_cast<const float2*>(e2 + h0);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      // a2 first, then a1, then the slab axis
+      float ab[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float lo = i ? v[2 * k].y : v[2 * k].x;
+        const float hi = i ? v[2 * k + 1].y : v[2 * k + 1].x;
+        ab[k] = (1.0f - ub) * lo + ub * hi;
+      }
+      const float sa0 = (1.0f - ua) * ab[0] + ua * ab[1];
+      const float sa1 = (1.0f - ua) * ab[2] + ua * ab[3];
+      const float c1t = (1.0f - us) * sa0 + us * sa1;
+      const float base = ((((i ? p2.y : p2.x) + c1t) + (i ? f0.y : f0.x)) +
+                          (i ? f1.y : f1.x)) + (i ? f2.y : f2.x);
+      float& z = z1[nt][2 * r + i];
+      z = noise ? base + z : base;
+    }
+  }
+}
+
+// Shared memory of ff3_pixel_mma (bytes): h2b [64][132] bf16 16,896; dz3b,
+// dz3, loss [7][132] 3,696; per-warp db2 [8][64] 2,048; W3, b2, b3 1,040;
+// h1b and dz2b [128][72] bf16 36,864; W2^T and W2 [64][72] bf16 18,432:
+// 78,976, plus with noise W1^T [64][pad16(F) + 8] bf16 (17,408 at F =
+// 127): 96,384 at the 3D protocol, so two blocks (16 warps) fit on an SM.
+// From F = 1185 on, W1 is read from device memory instead.
 constexpr size_t kMma3FixedSmem = 78976;
 
 size_t ff3_mma_smem(int nfeat, bool w1_smem) {
@@ -275,11 +348,6 @@ ff3_pixel_mma(const float* __restrict__ pv, const float* __restrict__ c1v,
   const TailMma ts{sB, sD, sDb2, sH1, sDZ, sW2t, sW2, sW3, sb2, sb3};
   constexpr int PART = 4 + 4 * H + H * H;
   float* mypart = part + static_cast<size_t>(blockIdx.x) * PART;
-  const int warp = tid >> 5, lane = tid & 31, gq = lane >> 2, q = lane & 3;
-  const int n = g.n;
-  const int n3 = n * n * n;
-  const size_t tab = static_cast<size_t>(g.crops) * n * H;  // one PE table
-  const int ps = g.p_side, cs = g.c_side;
   const int tiles = (g.npix + TP - 1) / TP;
   float dw2[4][4] = {};
   bool first = true;
@@ -287,14 +355,7 @@ ff3_pixel_mma(const float* __restrict__ pv, const float* __restrict__ c1v,
     bool valid[2];
     size_t pix[2];
     uint32_t ctr[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int p = tile * TP + 16 * warp + gq + 8 * r;
-      valid[r] = p < g.npix;
-      pix[r] = valid[r] ? static_cast<size_t>(p) : 0;
-      ctr[r] = (static_cast<uint32_t>(p) + g.pixel_base) *
-               static_cast<uint32_t>(g.fslot);
-    }
+    tile_rows(tile, g.npix, g.fslot, g.pixel_base, valid, pix, ctr);
     // eps W1 first (it is added last, as in the JAX kernel)
     float z1[8][4] = {};
     if (noise) {
@@ -306,76 +367,92 @@ ff3_pixel_mma(const float* __restrict__ pv, const float* __restrict__ c1v,
                         g.eps_scale);
     }
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      if (!valid[r]) continue;
-      const int p = static_cast<int>(pix[r]);
-      const int crop = p / n3, rem = p % n3;
-      const int vs = rem / (n * n), va = rem / n % n, vb = rem % n;
-      const int* o = org + 3 * crop;
-      const int S = o[0] + vs, A = o[1] + va, B = o[2] + vb;
-      // C1 taps: nodes S/f1, A/f1, B/f1 and the next ones (clamped; the
-      // clamped tap always has weight 0), in-cell fractions u
-      const float us = static_cast<float>(S % g.f1) * g.inv_f1;
-      const float ua = static_cast<float>(A % g.f1) * g.inv_f1;
-      const float ub = static_cast<float>(B % g.f1) * g.inv_f1;
-      const int s0 = S / g.f1, a0 = A / g.f1, b0 = B / g.f1;
-      const int s1 = min(s0 + 1, cs - 1), a1 = min(a0 + 1, cs - 1);
-      const int b1 = min(b0 + 1, cs - 1);
-      const float* tap[8];
-#pragma unroll
-      for (int k = 0; k < 8; ++k)
-        tap[k] = c1v + ((static_cast<size_t>(k & 4 ? s1 : s0) * cs +
-                         (k & 2 ? a1 : a0)) * cs + (k & 1 ? b1 : b0)) * H;
-      const float* prow =
-          pv + ((static_cast<size_t>(S / g.f) * ps + A / g.f) * ps + B / g.f) *
-                   H;
-      const float* e0 = pe + (static_cast<size_t>(crop) * n + vs) * H;
-      const float* e1 = pe + tab + (static_cast<size_t>(crop) * n + va) * H;
-      const float* e2 = pe + 2 * tab + (static_cast<size_t>(crop) * n + vb) * H;
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        const int h0 = 8 * nt + 2 * q;
-        float2 v[8];
-#pragma unroll
-        for (int k = 0; k < 8; ++k)
-          v[k] = *reinterpret_cast<const float2*>(tap[k] + h0);
-        const float2 p2 = *reinterpret_cast<const float2*>(prow + h0);
-        const float2 f0 = *reinterpret_cast<const float2*>(e0 + h0);
-        const float2 f1 = *reinterpret_cast<const float2*>(e1 + h0);
-        const float2 f2 = *reinterpret_cast<const float2*>(e2 + h0);
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          // a2 first, then a1, then the slab axis
-          float ab[4];
-#pragma unroll
-          for (int k = 0; k < 4; ++k) {
-            const float lo = i ? v[2 * k].y : v[2 * k].x;
-            const float hi = i ? v[2 * k + 1].y : v[2 * k + 1].x;
-            ab[k] = (1.0f - ub) * lo + ub * hi;
-          }
-          const float sa0 = (1.0f - ua) * ab[0] + ua * ab[1];
-          const float sa1 = (1.0f - ua) * ab[2] + ua * ab[3];
-          const float c1t = (1.0f - us) * sa0 + us * sa1;
-          const float base = ((((i ? p2.y : p2.x) + c1t) + (i ? f0.y : f0.x)) +
-                              (i ? f1.y : f1.x)) + (i ? f2.y : f2.x);
-          float& z = z1[nt][2 * r + i];
-          z = noise ? base + z : base;
-        }
-      }
-    }
+    for (int r = 0; r < 2; ++r)
+      if (valid[r])
+        add_z1_base3(z1, r, static_cast<int>(pix[r]), noise, pv, c1v, pe, org,
+                     g);
     ff_tail_mma<G>(z1, valid, pix, ts, tgt, out, dz1, mypart, first,
                    g.inv_total, dw2);
   }
-  // the block's dW2, written once
-  float* dW2 = mypart + 4 + 4 * H;
-  const int mt = warp >> 1, nb = (warp & 1) * 4;
-#pragma unroll
-  for (int t = 0; t < 4; ++t)
+  put_dw2(mypart, dw2);
+}
+
+// Shared memory of ff3_pixel_tf32 (bytes): W2 and W2^T as TF32 hi/lo B
+// tiles [64][36] float4 36,864 each; h1 and dz2 [128][72] fp32 36,864 each;
+// the warps' sums [8][260] 8,320; W3, b2, b3 1,040: 156,816, plus with
+// noise W1 as TF32 hi/lo B tiles [64][pad16(F) / 2 + 4] float4 (69,632 at
+// F = 127): 226,448 at the 3D protocol, one block (8 warps) an SM. From F
+// = 129 on, W1 is read from device memory and split as it is read.
+constexpr size_t kTf32Fixed3Smem = 156816;
+
+size_t ff3_tf32_smem(int nfeat, bool w1_smem) {
+  const size_t ldw = static_cast<size_t>(pad16(nfeat) / 2 + 4);
+  return kTf32Fixed3Smem + (w1_smem ? 64 * ldw * sizeof(float4) : 0);
+}
+
+template <int G>
+__global__ void __launch_bounds__(MT, 1)
+ff3_pixel_tf32(const float* __restrict__ pv, const float* __restrict__ c1v,
+               const float* __restrict__ w1, const float* __restrict__ pe,
+               const float* __restrict__ w2, const float* __restrict__ b2,
+               const float* __restrict__ w3, const float* __restrict__ b3,
+               const float* __restrict__ tgt, const int* __restrict__ org,
+               float* __restrict__ out, float* __restrict__ dz1,
+               float* __restrict__ part, Geo3 g) {
+  constexpr int H = 64;
+  extern __shared__ float4 smem4[];
+  float4* sW2 = smem4;                                   // [H][36]
+  float4* sW2t = sW2 + H * 36;                           // [H][36]
+  float* sH1 = reinterpret_cast<float*>(sW2t + H * 36);  // [TP][LDF]
+  float* sDZ = sH1 + TP * LDF;                           // [TP][LDF]
+  float* sRed = sDZ + TP * LDF;                          // [8][RED_W]
+  float* sW3 = sRed + (MT / 32) * RED_W;                 // [H][3]
+  float* sb2 = sW3 + 3 * H;
+  float* sb3 = sb2 + H;                                  // [4]
+  float4* sW1 = reinterpret_cast<float4*>(sb3 + 4);      // [H][ldw] noise
+  const int ldw = pad16(g.nfeat) / 2 + 4;
+
+  const int tid = threadIdx.x;
+  stage_b_pairs(sW2, w2, H, 1, H, H);   // (k, n) = W2[k][n]
+  stage_b_pairs(sW2t, w2, 1, H, H, H);  // (k, n) = W2[n][k]
+  for (int i = tid; i < H * 3; i += MT) sW3[i] = w3[i];
+  for (int i = tid; i < H; i += MT) sb2[i] = b2[i];
+  if (tid < 3) sb3[tid] = b3[tid];
+  const bool noise = g.eps_scale != 0.0f;
+  if (noise && g.w1_smem)
+    stage_b_pairs(sW1, w1, H, 1, pad16(g.nfeat), g.nfeat);
+  __syncthreads();
+
+  const TailTf32 ts{sH1, sDZ, sRed, sW2, sW2t, sW3, sb2, sb3};
+  constexpr int PART = 4 + 4 * H + H * H;
+  float* mypart = part + static_cast<size_t>(blockIdx.x) * PART;
+  const int tiles = (g.npix + TP - 1) / TP;
+  float dw2[4][4] = {};
+  bool first = true;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, first = false) {
+    bool valid[2];
+    size_t pix[2];
+    uint32_t ctr[2];
+    tile_rows(tile, g.npix, g.fslot, g.pixel_base, valid, pix, ctr);
+    // eps W1 first (it is added last, as in the JAX kernel)
+    float z1[8][4] = {};
+    if (noise) {
+      if (g.w1_smem)
+        noise_tf32<false>(z1, sW1, ldw, w1, g.nfeat, ctr, valid, g.s0, g.s1,
+                          g.eps_scale);
+      else
+        noise_tf32<true>(z1, sW1, ldw, w1, g.nfeat, ctr, valid, g.s0, g.s1,
+                         g.eps_scale);
+    }
 #pragma unroll
     for (int r = 0; r < 2; ++r)
-      *reinterpret_cast<float2*>(dW2 + (16 * mt + gq + 8 * r) * H +
-                                 8 * (nb + t) + 2 * q) =
-          make_float2(dw2[t][2 * r], dw2[t][2 * r + 1]);
+      if (valid[r])
+        add_z1_base3(z1, r, static_cast<int>(pix[r]), noise, pv, c1v, pe, org,
+                     g);
+    ff_tail_mma<G>(z1, valid, pix, ts, tgt, out, dz1, mypart, first,
+                   g.inv_total, dw2);
+  }
+  put_dw2(mypart, dw2);
 }
 
 // ---- C: the PE grads and db1 in one pass over dz1 ---------------------
@@ -545,31 +622,35 @@ struct Args3 {
   const int* org;
   float *out, *dz1, *part_mlp, *win_p, *win_c1, *corners, *part_pe,
       *pe_grads, *part_eps;
-  int nblk_mlp, nblk_eps, mma;
+  int nblk_mlp, nblk_eps, body;
   VolGeo vol;
   Pe3Geo pg;
   Geo3 g;
   cudaStream_t stream;
 };
 
-// shared memory of ff3_pixel: the staging tiles, W2, W3, b2, b3 and, with
-// noise when it fits, W1 (2 x [H][132] + [7][132] + H^2 + 4H + 4 floats:
-// 88,704 bytes at H = 64, 206,464 at H = 128; W1 adds 4 F H bytes, so it
-// stays in device memory from F = 141 on at H = 64 and F = 51 at H = 128)
+// shared memory of ff3_pixel (built at H = 128): the staging tiles, W2,
+// W3, b2, b3 and, with noise when it fits, W1 (2 x [H][132] + [7][132] +
+// H^2 + 4H + 4 floats: 206,464 bytes; W1 adds 4 F H bytes, so it stays in
+// device memory from F = 51 on)
 template <int H>
 size_t ff3_smem(int nfeat, bool w1_smem) {
   return sizeof(float) * (2 * H * LDP + 7 * LDP + H * H + 3 * H + H + 4 +
                           (w1_smem ? static_cast<size_t>(nfeat) * H : 0));
 }
 
-// the per-voxel body the caller names (a.mma): ff3_pixel_mma for bf16 dots
-// at H = 64, ff3_pixel for fp32 dots and for H = 128; any other pairing
-// is refused
+// the per-voxel bodies, by the id the caller passes (nic_torch/kernels/
+// train_fused_ff3.py BODY_IDS, from _widths.kernel_body)
+enum Body { kCudaCore = 0, kMma = 1, kTf32 = 2 };
+
+// the per-voxel body the caller names (a.body): ff3_pixel_mma for bf16 dots
+// and ff3_pixel_tf32 for fp32 dots at H = 64, ff3_pixel at H = 128; any
+// other pairing is refused
 template <int H, bool BF16, int G>
 cudaError_t launch_pixel(const Args3& a) {
   cudaError_t e;
   if constexpr (H == 64 && BF16) {
-    if (!a.mma) return cudaErrorInvalidValue;
+    if (a.body != kMma) return cudaErrorInvalidValue;
     const size_t smem = ff3_mma_smem(a.g.nfeat, a.g.w1_smem);
     auto kern = ff3_pixel_mma<G>;
     e = cudaFuncSetAttribute(kern,
@@ -581,8 +662,21 @@ cudaError_t launch_pixel(const Args3& a) {
         a.out, a.dz1, a.part_mlp, a.g);
     e = cudaGetLastError();
     if (e == cudaSuccess) nic_note_body(reinterpret_cast<const void*>(kern));
+  } else if constexpr (H == 64) {
+    if (a.body != kTf32) return cudaErrorInvalidValue;
+    const size_t smem = ff3_tf32_smem(a.g.nfeat, a.g.w1_smem);
+    auto kern = ff3_pixel_tf32<G>;
+    e = cudaFuncSetAttribute(kern,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+    kern<<<a.nblk_mlp, MT, smem, a.stream>>>(
+        a.pv, a.c1v, a.w1, a.pe, a.w2, a.b2, a.w3, a.b3, a.tgt, a.org,
+        a.out, a.dz1, a.part_mlp, a.g);
+    e = cudaGetLastError();
+    if (e == cudaSuccess) nic_note_body(reinterpret_cast<const void*>(kern));
   } else {
-    if (a.mma) return cudaErrorInvalidValue;
+    if (a.body != kCudaCore) return cudaErrorInvalidValue;
     const size_t smem = ff3_smem<H>(a.g.nfeat, a.g.w1_smem);
     auto kern = ff3_pixel<H, BF16, G>;
     e = cudaFuncSetAttribute(kern,
@@ -649,7 +743,7 @@ extern "C" int nic_train_fused_ff3(
     void* dz1, void* part_mlp, void* win_p, void* win_c1, void* win_corners,
     void* part_pe, void* pe_grads, void* part_eps, int crops, int n, int f,
     int p_side, int c_side, int hidden, int npe, int nfeat, int fslot,
-    int bf16, int gelu_id, int mma, int nbits, int s0, int s1,
+    int bf16, int gelu_id, int body, int nbits, int s0, int s1,
     int pixel_base, int nblk_mlp, int nblk_eps, void* stream) {
   if (crops <= 0 || n <= 0 || f <= 0 || p_side <= 0 || c_side <= 0 ||
       npe < 0 || npe > 8 || nfeat <= 0 || fslot < nfeat || nblk_mlp <= 0 ||
@@ -671,9 +765,9 @@ extern "C" int nic_train_fused_ff3(
   g.s0 = static_cast<uint32_t>(s0);
   g.s1 = static_cast<uint32_t>(s1);
   g.pixel_base = static_cast<uint32_t>(pixel_base);
-  g.w1_smem = nbits > 0 && (mma ? ff3_mma_smem(nfeat, true)
-                                 : hidden == 64 ? ff3_smem<64>(nfeat, true)
-                                                : ff3_smem<128>(nfeat, true)) <=
+  g.w1_smem = nbits > 0 && (body == kMma    ? ff3_mma_smem(nfeat, true)
+                            : body == kTf32 ? ff3_tf32_smem(nfeat, true)
+                                            : ff3_smem<128>(nfeat, true)) <=
                                kMaxSmem;
   Args3 a;
   a.pv = static_cast<const float*>(p_vol);
@@ -698,7 +792,7 @@ extern "C" int nic_train_fused_ff3(
   a.part_eps = static_cast<float*>(part_eps);
   a.nblk_mlp = nblk_mlp;
   a.nblk_eps = nblk_eps;
-  a.mma = mma;
+  a.body = body;
   a.vol = vol_geo(crops, n, f);
   a.pg = pe3_geo(crops, n, npe);
   a.g = g;

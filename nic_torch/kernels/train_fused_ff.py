@@ -58,6 +58,10 @@ _M32 = 0xFFFFFFFF
 # rows of a crop's band in the PE-gradient pass (csrc/train_fused_ff.cu
 # PE_ROWS): a block's share, whose partials the wrapper's scratch holds
 PE_ROWS = 8
+# the id nic_train_fused_ff takes for each per-pixel body
+# (csrc/train_fused_ff.cu enum Body): bf16 dots on ff_pixel_mma, fp32 dots
+# on ff_pixel_tf32
+BODY_IDS = {"ff_pixel_mma": 1, "ff_pixel_tf32": 2}
 
 
 # ---- counter-hash feature noise (bit-exact with the JAX package) ---------
@@ -514,7 +518,7 @@ def fused_train_ff_kernel(p_plane, c1_plane, w1, b1, w2, b2, w3, b3, tgt,
             part_pe.data_ptr(), pe_out.data_ptr(), part_eps.data_ptr(),
             crops, n, f, p_c.shape[0], p_c.shape[1], c1_c.shape[0],
             c1_c.shape[1], hidden, npe, nfeat, _pad8(nfeat),
-            int(cd is not None), GELU_IDS[gelu], int(body.endswith("_mma")),
+            int(cd is not None), GELU_IDS[gelu], BODY_IDS[body],
             0 if nbits is None else int(nbits), s0, s1, pixel_base,
             nblk_mlp, nblk_eps, stream)
     if rc != 0:

@@ -57,6 +57,11 @@ __all__ = ["fused_train_ff3", "fused_train_ff3_kernel",
            "fused_train_ff3_plain", "fused_train_ff3_padded", "ff3_geometry",
            "fold_volumes", "pe_tables", "pe_grads3", "pe_grads3_plain"]
 
+# the id nic_train_fused_ff3 takes for each per-voxel body
+# (csrc/train_fused_ff3.cu enum Body): ff3_pixel at H = 128, and at H = 64
+# ff3_pixel_mma for bf16 dots and ff3_pixel_tf32 for fp32 dots
+BODY_IDS = {"ff3_pixel": 0, "ff3_pixel_mma": 1, "ff3_pixel_tf32": 2}
+
 
 def ff3_geometry(*, crops: int, n: int, rowsb: int, f: int, hidden: int,
                  pe_channels: int, oc: int = 3, nfeat: int = 0) -> bool:
@@ -440,7 +445,7 @@ def fused_train_ff3_kernel(p_vol, c1_vol, w1, b1, w2, b2, w3, b3, tgt,
             win_c1.data_ptr(), corners.data_ptr(), part_pe.data_ptr(),
             pe_grads.data_ptr(), part_eps.data_ptr(), crops, n, f,
             p_c.shape[0], c1_c.shape[0], hidden, npe, nfeat, _pad8(nfeat),
-            int(cd is not None), GELU_IDS[gelu], int(body.endswith("_mma")),
+            int(cd is not None), GELU_IDS[gelu], BODY_IDS[body],
             0 if nbits is None else int(nbits), s0, s1, pixel_base,
             nblk_mlp, nblk_eps, stream)
     if rc != 0:

@@ -12,11 +12,15 @@ by the same code. On a machine with one NVIDIA GPU it prints:
 
 - K11 (``fused_train_ff_kernel``) at the flagship shape (8 crops of 256²,
   f=4, C=12, H=64, PE 6, random pyramid and MLP from torch.Generator seed
-  11) in bf16·poly with noise and fp32·erf without; K7
+  11) in bf16·poly with noise, fp32·erf without and with noise and
+  fp32·poly with noise (the fp32 cells run ``ff_pixel_tf32`` where the
+  checkout has it, else ``ff_pixel``); K7
   (``fused_mlp_loss_ng_kernel``) at 8×256² on the sinusoidal gather and
   K6 (``fused_mlp_loss_kernel``) at 8×32² (step 2) and 8×256², bf16·poly
   and fp32·erf (seeds 7 and 6); K12 (``fused_train_ff3_kernel``) at 8
-  crops of 32³ (f=4, method 3, seed 12) in bf16·poly with noise and K9
+  crops of 32³ (f=4, method 3, seed 12) in bf16·poly, fp32·erf and
+  fp32·poly with noise (``ff3_pixel_tf32`` where the checkout has it,
+  else ``ff3_pixel``) and K9
   (``fused_mlp_loss_ng3_kernel``) on the 3D gather of 8×32³ (seed 9) in
   bf16·poly, the misty protocol's LOD 0; K7 at 8×256² past the flagship's
   width, H = 128 and 256 (bf16·poly on the sinusoidal gather of a random
@@ -31,10 +35,13 @@ by the same code. On a machine with one NVIDIA GPU it prints:
   (so host time and device time separate, and the per-pixel body, e.g.
   ``mlp_pixel`` or ``mlp_pixel_mma``, and the back half, e.g.
   ``node_windows``, ``ff_pe_band``, ``ff_pe_sum``, ``ff_epsgrad`` and in
-  3D ``node_volumes``, ``node_volume_corners``, show on their own);
+  3D ``node_volumes``, ``node_volume_corners``, show on their own), and
+  a SHA-256 digest of the call's outputs: two checkouts whose kernels
+  compute the same bits print the same digest;
 - the train step (``chip_smoke.step_timing``) of TRAIN_FORWARD=kernel3
   and gather at the flagship configuration, kernel2 on path B
-  (TF_USE_TRI_PE=0), and kernel3 and kernel2 on the 3D misty m3 protocol.
+  (TF_USE_TRI_PE=0), and kernel3 and kernel2 on the 3D misty m3 protocol;
+  kernel3 again in fp32-dot mode (MLP_NUM_DTYPE=32), 2D and 3D.
 
 PARTS (comma-separated, default all of them) picks what is timed: k11,
 k7, k6, k12, k9, k7wide, k12c, steps.
@@ -43,6 +50,7 @@ Compare two checkouts only inside one call, in turns (parent, change,
 change, parent): step times differ by up to 2x between machines.
 """
 
+import hashlib
 import importlib.util
 import os
 import sys
@@ -70,19 +78,29 @@ def short(name: str) -> str:
     return name.split("(")[0][:40]
 
 
+def digest(res) -> str:
+    """The first 16 hex digits of the SHA-256 of a call's tensor outputs."""
+    h = hashlib.sha256()
+    for t in res if isinstance(res, (tuple, list)) else (res,):
+        if t is not None:
+            h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
 def report(tag: str, fn) -> None:
     ms = chip_smoke.cuda_ms(fn, reps=50)
     total, per = chip_smoke.device_ms(fn)
     top = sorted(per.items(), key=lambda kv: -kv[1])
     print(f"AB {sys.argv[1]}: {tag}: {ms:.4f} ms (device {total:.4f} ms: "
-          + "; ".join(f"{short(name)} {t:.4f}" for name, t in top) + ")",
-          flush=True)
+          + "; ".join(f"{short(name)} {t:.4f}" for name, t in top)
+          + f"); digest {digest(fn())}", flush=True)
 
 
 def time_k11() -> None:
     inputs = chip_smoke._k11_inputs(torch.Generator().manual_seed(11),
                                     "cuda", 256, 4)
-    for cd, gelu, nbits in (("bf16", "poly", 8), ("fp32", "erf", None)):
+    for cd, gelu, nbits in (("bf16", "poly", 8), ("fp32", "erf", None),
+                            ("fp32", "erf", 8), ("fp32", "poly", 8)):
         args, kw = chip_smoke._k11_call(inputs, 256, 4, cd, gelu, nbits)
         report(f"K11 8×256² {cd}·{gelu} noise={nbits}",
                lambda: train_fused_ff.fused_train_ff_kernel(*args, **kw))
@@ -116,13 +134,15 @@ def time_k6() -> None:
 def time_k12() -> None:
     fp, weights, tgt, origins, seed = chip_smoke._inputs3(
         torch.Generator().manual_seed(12), "cuda", 32, 4, False)
-    vols = train_fused_ff3.fold_volumes(fp[0], fp[1], weights[0], False,
-                                        torch.bfloat16)
-    kw = dict(n=32, f=4, npe=6, lodf=0.0, sparse_g0=False, use_tri_pe=True,
-              cd=torch.bfloat16, gelu="poly", nbits=8)
-    report("K12 8×32³ m3 bf16·poly noise=8",
-           lambda: train_fused_ff3.fused_train_ff3_kernel(
-               *vols, *weights, tgt, origins, seed, **kw))
+    for cd, gelu in ((torch.bfloat16, "poly"), (None, "erf"),
+                     (None, "poly")):
+        vols = train_fused_ff3.fold_volumes(fp[0], fp[1], weights[0], False,
+                                            cd)
+        kw = dict(n=32, f=4, npe=6, lodf=0.0, sparse_g0=False,
+                  use_tri_pe=True, cd=cd, gelu=gelu, nbits=8)
+        report(f"K12 8×32³ m3 {'bf16' if cd else 'fp32'}·{gelu} noise=8",
+               lambda: train_fused_ff3.fused_train_ff3_kernel(
+                   *vols, *weights, tgt, origins, seed, **kw))
 
 
 def time_k9() -> None:
@@ -174,7 +194,11 @@ def time_steps() -> None:
             ("gather", chip_smoke.TRAIN_ARGS, None),
             ("kernel2", chip_smoke.PATH_B, None),
             ("kernel3", chip_smoke.MISTY, "3D m3 8×32³"),
-            ("kernel2", chip_smoke.MISTY, "3D m3 8×32³")):
+            ("kernel2", chip_smoke.MISTY, "3D m3 8×32³"),
+            ("kernel3", chip_smoke.TRAIN_ARGS + chip_smoke.FP32_DOTS,
+             "flagship fp32 dots"),
+            ("kernel3", chip_smoke.MISTY + chip_smoke.FP32_DOTS,
+             "3D m3 8×32³ fp32 dots")):
         _, line = chip_smoke.step_timing(engine, args, "cuda", label)
         print(f"AB {sys.argv[1]}: {line}", flush=True)
 

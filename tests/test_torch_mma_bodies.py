@@ -4,15 +4,20 @@ shapes the tensor-core bodies mask.
 The body table (``nic_torch/kernels/_widths.py`` ``kernel_body``) is pure
 Python: for every train family (K11 ``train_ff``; K12 ``train_ff3``; K6,
 K7 and K9 ``train_mlp``), every hidden width 1..128 its kernels take and
-both dot types, bf16 dots at H ≤ 64 pick the tensor-core body (``*_mma``)
-and fp32 dots the CUDA-core body; at 64 < H ≤ 128 bf16 dots pick
+both dot types, bf16 dots at H ≤ 64 pick the bf16 tensor-core body
+(``*_mma``); fp32 dots at H ≤ 64 pick K11's and K12's 3xTF32 tensor-core
+bodies (``ff_pixel_tf32``, ``ff3_pixel_tf32``) and ``train_mlp``'s
+CUDA-core body; at 64 < H ≤ 128 bf16 dots pick
 ``train_mlp``'s wide tensor-core body (``mlp_pixel_mma_wide``) and K12's
 CUDA-core body; past 128 ``train_mlp`` runs ``mlp_pixel_mma_wide`` for
 bf16 dots up to its widest (256) and ``mlp_pixel_wide`` for fp32 dots
 and past that, up to its widest width; every body the table names is a
 ``__global__`` kernel of the family's ``.cu`` sources, built for the
 blocks per SM that the wrappers launch, and the id ``train_fused.py``
-passes for it is the entry point's enum value. The decode body table
+(``train_fused_ff.py``, ``train_fused_ff3.py``) passes for it is the
+entry point's enum value; the 3xTF32 bodies' fixed shared memory is the
+sum of their layout and, with W1 at the flagship's F, fits one block an
+SM and not two. The decode body table
 (``decode_body``, by plane mode) likewise: K1/K5 (``decode_v2``) run
 ``decode_v2_mma`` at every width from 17 to the widest in every plane
 mode and their CUDA-core body at H ≤ 16; K3 and K4 their tensor-core
@@ -49,6 +54,7 @@ from nic.kernels import train_fused_ff3 as jff3
 from nic_torch.grids.sample import decoder_input
 from nic_torch.kernels import _widths
 from nic_torch.kernels import train_fused as ttf
+from nic_torch.kernels import train_fused_ff as tff
 from nic_torch.kernels import train_fused_ff3 as tff3
 
 CSRC = Path(ttf.__file__).resolve().parent / "csrc"
@@ -66,6 +72,8 @@ TENSOR_CORE_DECODES = {
     "decode_v1": ("decode_fused_v1_kernel", "decode_v1_mma",
                   "decode_v1_wide"),
     "decode_v3": ("mlp_tail_kernel", "mlp_tail_mma", "mlp_tail_wide")}
+# the families whose fp32 dots run a 3xTF32 tensor-core body at H = 64
+TF32_FAMILIES = ("train_ff", "train_ff3")
 MODES = {"fp32-erf": (None, "erf"), "bf16-poly": ("bf16", "poly")}
 TOL = {None: dict(loss=1e-6, out=1e-5, grad=1e-5),
        "bf16": dict(loss=1e-4, out=1e-3, grad=1e-2)}
@@ -80,15 +88,19 @@ C, PE, H = 2, 2, 16
 def test_body_table_picks_tensor_cores_for_bf16_by_width(family, bf16):
     """bf16 dots run a tensor-core body at H ≤ 64 (``*_mma``) and, for
     ``train_mlp``, from 65 up to WIDEST_MMA (``mlp_pixel_mma_wide``); fp32
-    dots, K11's and K12's bf16 dots past 64 and train_mlp's past
-    WIDEST_MMA a CUDA-core body, ``mlp_pixel_wide`` past the built
-    widths."""
+    dots run K11's and K12's 3xTF32 tensor-core body at H ≤ 64
+    (``*_tf32``); train_mlp's fp32 dots, K12's dots past 64 and
+    train_mlp's bf16 dots past WIDEST_MMA a CUDA-core body,
+    ``mlp_pixel_wide`` past the built widths."""
     top = max(_widths.KERNEL_WIDTHS[family])
     mma_top = _widths.WIDEST_MMA.get(family, 64)
     for hidden in range(1, top + 1):
         body = _widths.kernel_body(family, hidden, bf16)
         assert body in _widths.KERNEL_BODIES[family].values()
         assert body.endswith("_mma") == (bf16 and hidden <= 64), \
+            (family, hidden, bf16, body)
+        assert body.endswith("_tf32") == (
+            not bf16 and hidden <= 64 and family in TF32_FAMILIES), \
             (family, hidden, bf16, body)
         assert (body == "mlp_pixel_mma_wide") == (
             bf16 and 64 < hidden <= mma_top), (family, hidden, bf16, body)
@@ -121,6 +133,36 @@ def test_wide_tensor_core_body_fits_to_its_widest():
     assert "14 * WR" in text and "constexpr int WR = 64;" in text
 
 
+# the 3xTF32 bodies' fixed shared memory (bytes) and its pieces: W2 and
+# W2^T as hi/lo B tiles [64][36] float4, h1 and dz2 [128][72] fp32, the
+# warps' sums [8][260], W3 [64][3], b2, (K11: bvec,) b3 [4] and (K11) the
+# PE tables [2][8][64]; then W1 as hi/lo B tiles [64][pad16(F) / 2 + 4]
+# float4 where it fits
+TF32_SMEM = {
+    "train_ff": ("train_fused_ff.cu", "kTf32FixedSmem", 73,
+                 2 * 64 * 36 * 16 + 2 * 128 * 72 * 4 + 8 * 260 * 4
+                 + 4 * (3 * 64 + 64 + 64 + 4 + 2 * 8 * 64)),
+    "train_ff3": ("train_fused_ff3.cu", "kTf32Fixed3Smem", 127,
+                  2 * 64 * 36 * 16 + 2 * 128 * 72 * 4 + 8 * 260 * 4
+                  + 4 * (3 * 64 + 64 + 4))}
+
+
+@pytest.mark.parametrize("family", sorted(TF32_SMEM))
+def test_tf32_body_fits_one_block_an_sm(family):
+    """The source's fixed shared memory of the 3xTF32 body is its layout's
+    sum, 16-byte aligned for the W1 tiles after it; with W1 staged at the
+    flagship's F it fits the 227 KB a block may hold but two blocks do not
+    fit an SM, as BODY_BLOCKS_PER_SM (1) says."""
+    src, name, nfeat, fixed = TF32_SMEM[family]
+    text = (CSRC / src).read_text()
+    assert int(re.search(rf"{name} = (\d+);", text)[1]) == fixed
+    assert fixed % 16 == 0
+    total = fixed + 64 * (-(-nfeat // 16) * 16 // 2 + 4) * 16
+    assert total <= 232448 < 2 * total
+    body = _widths.KERNEL_BODIES[family][(64, False)]
+    assert _widths.BODY_BLOCKS_PER_SM[body] == 1
+
+
 def test_train_body_ids_match_the_sources_enum():
     """The id ``train_fused.py`` passes for each train_mlp body is the
     enum value train_fused.cu's dispatch takes for it."""
@@ -134,6 +176,24 @@ def test_train_body_ids_match_the_sources_enum():
                                     .values()) == set(names)
     for body, i in ttf.BODY_IDS.items():
         assert int(enum[names[body]]) == i, (body, enum)
+
+
+@pytest.mark.parametrize("family", TF32_FAMILIES)
+def test_kernel3_body_ids_match_the_sources_enum(family):
+    """The id ``train_fused_ff.py`` (K11) and ``train_fused_ff3.py`` (K12)
+    pass for each body of their table is the entry point's enum value:
+    kMma for ``*_mma``, kTf32 for ``*_tf32``, kCudaCore for K12's
+    ``ff3_pixel``."""
+    module = {"train_ff": tff, "train_ff3": tff3}[family]
+    assert set(module.BODY_IDS) == set(_widths.KERNEL_BODIES[family]
+                                       .values())
+    text = (CSRC / SOURCES[family][0]).read_text()
+    enum = dict(re.findall(r"(k\w+) = (\d+)",
+                           re.search(r"enum Body \{([^}]*)\}", text)[1]))
+    for body, i in module.BODY_IDS.items():
+        name = ("kMma" if body.endswith("_mma") else
+                "kTf32" if body.endswith("_tf32") else "kCudaCore")
+        assert int(enum[name]) == i, (family, body, enum)
 
 
 @pytest.mark.parametrize("mode", _widths.PLANE_MODES)
